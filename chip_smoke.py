@@ -1,0 +1,494 @@
+"""On-card smoke run of the PyTorch/CUDA port (herro_tpu_torch).
+
+    python3 chip_smoke.py            # all phases, one card
+
+Drives the port's main path on an NVIDIA card and checks it, in phases that
+each print one JSON line:
+
+1. ``env``     — the card (nvidia-smi name and power limit), torch and CUDA
+   versions, the kernel build time, whether native featgen loaded;
+2. ``kernels`` — every hand-written kernel (K1-K5) at the main-path shapes
+   (B=32, L=9216, the R10 widths) against its plain PyTorch version on the
+   same inputs, with the tolerance stated, and timed with CUDA events beside
+   the plain version, a PyTorch library call and the card's bound;
+3. ``golden``  — the port's bf16 forward of the flagship checkpoint on
+   ``tests/golden/logits_r10.npz`` against the JAX logits frozen there;
+4. ``e2e``     — ``run_correction`` with ``CorrectionRunner(device="cuda")``
+   on a simulated demo-size dataset, with every kernel's launch count over
+   that run; ``trace`` — the same run under torch.profiler (device busy
+   share, device time by kernel); ``cli`` — the CLI with ``--read-alns`` when
+   zstandard is present.
+
+Any failed phase exits nonzero. The last lines are the card line of
+nvidia-smi, the per-kernel JSON summary and ``{"ok": true, "device": ...}``.
+Imports nothing of JAX or herro_tpu.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CKPT = os.path.join(ROOT, "resources", "model_r10_sim")
+GOLDEN = os.path.join(ROOT, "tests", "golden", "logits_r10.npz")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+
+B, L = 32, 9216  # CLI default batch at the R10 bucket (pipeline/batching.py)
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak_ops
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(torch, got, ref, keep=None, residual=None, exact=False):
+    """Kernel outputs against the plain version's: (max abs error, its
+    tolerance, the residual-free part's excess error, its tolerance).
+
+    bf16 outputs may differ by 4 ulps at the largest magnitude (bf16 keeps 8
+    bits; the two sides sum in other orders, and K2 keeps P in bf16 in an
+    online softmax). Where the output is ``residual + part``, the
+    residual's magnitude would hide an error in the part, so the parts are
+    held apart too: besides the one final bf16 rounding of the sum (an ulp of
+    the output), they may differ by 2^-6 of the part's own largest magnitude.
+    ``keep`` masks the rows to compare; integer outputs (``exact``) must be
+    equal."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = scale = 0.0
+    part_err = part_scale = None
+    for a, r in zip(got, ref):
+        if keep is not None:
+            a, r = a[keep], r[keep]
+        a, r = a.float(), r.float()
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError("non-finite kernel output")
+        diff = (a - r).abs()
+        err = max(err, float(diff.max()))
+        scale = max(scale, float(r.abs().max()))
+        if residual is not None:
+            x = (residual[keep] if keep is not None else residual).float()
+            mag = torch.maximum(a.abs(), r.abs()).clamp_min(2.0 ** -100)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            part_err = float((diff - ulp).max())
+            part_scale = float((r - x).abs().max())
+    tol = 0.0 if exact else scale * 2.0 ** -6
+    part_tol = None if part_scale is None else part_scale * 2.0 ** -6
+    return err, tol, part_err, part_tol
+
+
+def phase_kernels(torch, results: dict) -> None:
+    """K1-K5 at the main-path shapes against their plain versions."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from herro_tpu_torch.constants import N_ROWS, QUAL_OFFSET, QUAL_SCALE, TOKEN_PAD, VOCAB_SIZE
+    from herro_tpu_torch.ops import consensus, fused
+
+    dev = torch.device("cuda")
+    d, H, D, f, R, V, w = 512, 4, 128, 1024, N_ROWS, VOCAB_SIZE, 512
+    T = B * L
+    rng = np.random.default_rng(1234)
+    g = torch.Generator(device=dev).manual_seed(1234)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    # realistic pileups: a length per window below L, pad suffix, n_alns rows
+    lengths_np = rng.integers(int(0.7 * L), L + 1, size=B).astype(np.int32)
+    n_alns_np = rng.integers(2, R, size=B).astype(np.int32)
+    tok = rng.integers(0, 11, size=(B, R, L), dtype=np.uint8)
+    tok[:, 0] = rng.integers(0, 5, size=(B, L), dtype=np.uint8)
+    for b in range(B):
+        tok[b, n_alns_np[b] + 1 :] = TOKEN_PAD
+        tok[b, :, lengths_np[b] :] = TOKEN_PAD
+    quals_u8 = rng.integers(33, 127, size=(B, R, L), dtype=np.uint8)
+    tokens = torch.from_numpy(tok).to(dev)
+    quals = QUAL_SCALE * torch.from_numpy(quals_u8).to(dev).float() - QUAL_OFFSET
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    n_alns = torch.from_numpy(n_alns_np).to(dev)
+
+    fan = R * (V + 1)
+    # biases large enough that a kernel which drops one leaves its tolerance
+    bias_std = 0.25
+    w_embT, w_qT = randn(d, R * V, std=fan ** -0.5), randn(d, R, std=fan ** -0.5)
+    wc = fused.col_proj_table(w_embT, w_qT)
+    cb = randn(d, std=bias_std, dtype=torch.float32)
+    x = randn(B, L, d)
+    ln_s = 1.0 + randn(d, std=0.1, dtype=torch.float32)
+    ln_b = randn(d, std=0.1, dtype=torch.float32)
+    w_qkv, b_qkv = randn(d, 3 * H * D, std=d ** -0.5), randn(3 * H * D, std=bias_std)
+    wo, bo = randn(H, D, d, std=(H * D) ** -0.5), randn(d, std=bias_std)
+    w1, b1 = randn(d, f, std=d ** -0.5), randn(f, std=bias_std)
+    w2, b2 = randn(f, d, std=f ** -0.5), randn(d, std=bias_std)
+    q, k, v = fused._ln_qkv_rope_cuda(x, ln_s, ln_b, w_qkv, b_qkv, H)
+    torch.cuda.synchronize()
+
+    # band pairs this data needs: every query row against keys j < length
+    # with |i - j| <= w
+    i = np.arange(L)
+    pairs = sum(
+        int((np.minimum(i + w, lb - 1) - np.maximum(i - w, 0) + 1).clip(0).sum())
+        for lb in lengths_np
+    )
+    x_bytes = T * d * 2
+    kv_bytes = 3 * B * H * L * D * 2
+    # the banded QK^T as one torch.matmul: 64-row query blocks against their
+    # 64 + 2w key spans (a strided view of the zero-padded keys)
+    kpad = F.pad(k, (0, 0, w, w))
+    k_spans = kpad.unfold(2, 64 + 2 * w, 64)  # [B, H, L/64, D, 64+2w]
+    q_blocks = q.view(B, H, L // 64, 64, D)
+    emb_idx = (tokens.long() + torch.arange(R, device=dev)[None, :, None] * V)
+    emb_idx = emb_idx.permute(0, 2, 1).reshape(T, R)
+    emb_table = w_embT.t().contiguous()
+    # K4's work: a multiply-add over d for each nonzero of the one-hot|qual
+    # rows (one per in-vocab token, one per nonzero bf16 qual) on bf16
+    # operands; the one-hot's zeros and the padding are no work of the function
+    embed_nnz = int((tokens < V).sum()) + int((quals.to(bf) != 0).sum())
+
+    cases = {
+        "entry_embed": dict(
+            replaces="herro_tpu/ops/fused.py:89",
+            kernel=lambda: fused._entry_embed_cuda(tokens, quals, wc, cb, bf),
+            plain=lambda: fused._entry_embed_plain(tokens, quals, wc, cb, bf),
+            library=("F.embedding_bag(mode=sum) of the token rows, no qual term",
+                     lambda: F.embedding_bag(emb_idx, emb_table, mode="sum")),
+            bound=bound(B * R * L * 5 + x_bytes + wc.numel() * 2 + d * 4,
+                        2 * d * embed_nnz, PEAK_BF16),
+        ),
+        "ln_qkv_rope": dict(
+            replaces="herro_tpu/ops/fused.py:572",
+            kernel=lambda: fused._ln_qkv_rope_cuda(x, ln_s, ln_b, w_qkv, b_qkv, H),
+            plain=lambda: fused._ln_qkv_rope_plain(x, ln_s, ln_b, w_qkv, b_qkv, H),
+            library=("torch.matmul LN(x)[T,d] @ W_qkv[d,3HD] bf16, the dominant product",
+                     lambda: torch.matmul(x.view(T, d), w_qkv)),
+            bound=bound(x_bytes + kv_bytes + d * 3 * H * D * 2,
+                        2 * T * d * 3 * H * D, PEAK_BF16),
+        ),
+        "flash_outproj": dict(
+            replaces="herro_tpu/ops/fused.py:993",
+            kernel=lambda: fused._flash_outproj_cuda(q, k, v, x, wo, bo, lengths, w),
+            plain=lambda: fused._flash_outproj_plain(q, k, v, x, wo, bo, lengths, w),
+            library=("torch.matmul banded QK^T (64-row blocks x 1088-key spans) bf16, "
+                     "the dominant product",
+                     lambda: torch.matmul(q_blocks, k_spans)),
+            bound=bound(kv_bytes + 2 * x_bytes + H * D * d * 2,
+                        4 * H * D * pairs + 2 * T * H * D * d, PEAK_BF16),
+            rows=lengths_np,
+            residual=x,
+        ),
+        "ln_ffn": dict(
+            replaces="herro_tpu/ops/fused.py:286",
+            kernel=lambda: fused._ln_ffn_cuda(x, ln_s, ln_b, w1, b1, w2, b2),
+            plain=lambda: fused._ln_ffn_plain(x, ln_s, ln_b, w1, b1, w2, b2),
+            library=("torch.matmul LN(x)[T,d] @ W1[d,f] bf16, half the FLOPs",
+                     lambda: torch.matmul(x.view(T, d), w1)),
+            bound=bound(2 * x_bytes + 2 * d * f * 2, 4 * T * d * f, PEAK_BF16),
+            residual=x,
+        ),
+        "count_decisions": dict(
+            replaces="herro_tpu/ops/fused.py:212",
+            kernel=lambda: consensus._count_decisions_cuda(tokens, n_alns),
+            plain=lambda: consensus._count_decisions_plain(tokens, n_alns),
+            library=("none: no PyTorch call computes the counting rule", None),
+            bound=bound(B * R * L + B * L + 4 * B, 0, PEAK_F32),
+            exact=True,
+        ),
+    }
+    report = []
+    for name, c in cases.items():
+        got, ref = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        keep = None
+        if "rows" in c:  # rows at or past the length are never read
+            keep = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+        err, tol, part_err, part_tol = compare(
+            torch, got, ref, keep, c.get("residual"), c.get("exact", False)
+        )
+        ok = err <= tol and (part_err is None or part_err <= part_tol)
+        iters = 20
+        ms = time_ms(torch, c["kernel"], iters)
+        plain_ms = time_ms(torch, c["plain"], 3, warmup=1)
+        lib_label, lib_fn = c["library"]
+        lib_ms = time_ms(torch, lib_fn, iters) if lib_fn is not None else None
+        bound_ms, bound_by = c["bound"]
+        entry = dict(
+            name=name, route="cuda", source=f"herro_tpu_torch/csrc/{name}.cu",
+            replaces=c["replaces"], max_abs_err=err, tol=tol,
+            part_err=part_err, part_tol=part_tol, ok=ok, ms=ms,
+            plain_ms=plain_ms, library=lib_label, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        report.append(entry)
+        emit("kernels", **entry)
+    bad = [
+        f"{e['name']} (max {e['max_abs_err']} vs {e['tol']}, residual-free part "
+        f"{e['part_err']} vs {e['part_tol']})"
+        for e in report if not e["ok"]
+    ]
+    if bad:
+        raise RuntimeError("kernels disagree with their plain versions: " + ", ".join(bad))
+    results["kernels"] = report
+    del q, k, v, kpad, k_spans, q_blocks
+    torch.cuda.empty_cache()
+
+
+def phase_golden(torch) -> None:
+    import numpy as np
+
+    from herro_tpu_torch.constants import N_ROWS, QUAL_OFFSET, QUAL_SCALE
+    from herro_tpu_torch.models.checkpoint import load_model
+    from herro_tpu_torch.models.model import CorrectionModel
+    from herro_tpu_torch.pipeline.batching import unpack_tokens_torch
+
+    fx = np.load(GOLDEN)
+    cfg, sd = load_model(CKPT)
+    model = CorrectionModel(cfg)
+    model.load_state_dict(sd)
+    model = model.cuda().eval()
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        tok = unpack_tokens_torch(torch.from_numpy(fx["tokens_packed"]).to(dev), N_ROWS)
+        quals = QUAL_SCALE * torch.from_numpy(fx["quals"]).to(dev).float() - QUAL_OFFSET
+        info, logits = model(
+            tok, quals, torch.from_numpy(fx["support_idx"]).to(dev),
+            torch.from_numpy(fx["support_mask"]).to(dev),
+        )
+    info, logits = info.cpu().numpy(), logits.cpu().numpy()
+    mask = fx["support_mask"]
+    d_log = float(np.abs(logits - fx["logits"])[mask].max())
+    d_info = float(np.abs(info - fx["info"])[mask].max())
+    agree = float((logits.argmax(-1) == fx["logits"].argmax(-1))[mask].mean())
+    finite = bool(np.isfinite(logits).all() and np.isfinite(info).all())
+    emit("golden", max_dlogit=d_log, max_dinfo=d_info, argmax_agreement=agree,
+         n_supported=int(mask.sum()), finite=finite)
+    if not finite or agree < 0.995:
+        raise RuntimeError(f"golden: argmax agreement {agree} < 0.995 or non-finite")
+
+
+def _kmer_validity(seq: bytes, truth_kmers: set, k: int = 15) -> float:
+    n = len(seq) - k + 1
+    if n <= 0:
+        return 0.0
+    return sum(seq[i : i + k] in truth_kmers for i in range(0, n, 7)) / len(range(0, n, 7))
+
+
+def phase_e2e(torch, tmp: str) -> dict:
+    import numpy as np
+
+    from herro_tpu_torch.io.fastx import load_reads
+    from herro_tpu_torch.models.checkpoint import load_model
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.overlaps.paf import parse_paf
+    from herro_tpu_torch.pipeline.engine import StageTimers, run_correction
+    from herro_tpu_torch.pipeline.infer import CorrectionRunner
+    from herro_tpu_torch.training.simulate import paf_rows, simulate, true_sequence
+
+    window = 4096
+    t0 = time.perf_counter()
+    ds = simulate(
+        genome_len=150_000, n_reads=160, read_len=(3 * window, 8 * window),
+        sub_rate=0.02, ins_rate=0.02, del_rate=0.02, het_rate=0.005, seed=777,
+    )
+    fastq = os.path.join(tmp, "reads.fastq")
+    ds.write_fastq(fastq)
+    reads = load_reads(fastq, min_length=window)
+    rows = paf_rows(ds, min_overlap=window)
+    grouped = parse_paf(rows, reads.name_to_id)
+    setup_s = time.perf_counter() - t0
+
+    cfg, params = load_model(CKPT)
+    runner = CorrectionRunner(cfg, params, device="cuda")
+    n_windows = 0
+    count_lock = threading.Lock()  # the engine finalizes on two threads
+    finalize = runner.finalize
+
+    def counting_finalize(inflight):
+        nonlocal n_windows
+        res = finalize(inflight)
+        with count_lock:
+            n_windows += len(res)
+        return res
+
+    runner.finalize = counting_finalize
+    out = os.path.join(tmp, "corrected.fasta")
+    timers = StageTimers()
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    t0 = time.perf_counter()
+    n = run_correction(
+        reads, iter(grouped.items()), runner, out, window, 32, timers=timers
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts.snapshot()
+
+    # quality: corrected reads carry more error-free 15-mers than raw reads
+    by_name = {r.name: r for r in ds.reads}
+    gains = []
+    name = None
+    with open(out, "rb") as fh:
+        for line in fh:
+            if line.startswith(b">"):
+                name = line[1:].split()[0].split(b":")[0]
+                continue
+            seq = line.strip()
+            sim = by_name[name]
+            truth = true_sequence(ds, sim)
+            kmers = {truth[i : i + 15] for i in range(len(truth) - 14)}
+            raw = reads.seq(reads.name_to_id[name]).tobytes()
+            gains.append(_kmer_validity(seq, kmers) - _kmer_validity(raw, kmers))
+    median_gain = float(np.median(gains)) if gains else 0.0
+    res = dict(
+        reads_written=n, windows=n_windows, wall_s=wall,
+        windows_per_s=n_windows / wall, setup_s=setup_s, batches=timers.n_batches,
+        featgen_s=timers.featgen_s, kmer_validity_gain_median=median_gain,
+        launches=launches,
+    )
+    emit("e2e", **res)
+    missing = [k for k, c in launches.items() if c == 0]
+    if n == 0 or missing or median_gain <= 0:
+        raise RuntimeError(
+            f"e2e: reads {n}, kernels never launched {missing}, median 15-mer "
+            f"validity gain {median_gain}"
+        )
+    return dict(res, ds=ds, rows=rows, reads=reads, grouped=grouped, runner=runner)
+
+
+def phase_trace(torch, tmp: str, e2e: dict) -> None:
+    """The e2e run again under torch.profiler: the device's busy share of
+    the wall time and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from herro_tpu_torch.pipeline.engine import run_correction
+
+    out = os.path.join(tmp, "traced.fasta")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_correction(e2e["reads"], iter(e2e["grouped"].items()), e2e["runner"], out,
+                       4096, 32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = {}
+    for ev in prof.key_averages():  # device-side events only: CPU ops repeat them
+        us = ev.self_device_time_total
+        if str(ev.device_type).endswith("CUDA") and us > 0:
+            dev[ev.key] = dev.get(ev.key, 0) + us
+    busy_s = sum(dev.values()) / 1e6
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    emit("trace", wall_s=wall, device_s=busy_s,
+         device_busy_share=busy_s / wall if busy_s else None,
+         device_ms_by_name={k[:80]: v / 1e3 for k, v in top})
+
+
+def phase_cli(torch, tmp: str, ds, rows) -> None:
+    """The CLI with --read-alns over alignment batches of 24 targets."""
+    if importlib.util.find_spec("zstandard") is None:
+        emit("cli", skipped="zstandard is not installed")
+        return
+    from herro_tpu_torch import cli
+    from herro_tpu_torch.overlaps.batches import BatchWriter
+
+    targets = sorted({r.split(b"\t")[5] for r in rows})[:24]
+    keep = set(targets)
+    aln_dir = os.path.join(tmp, "alns")
+    with BatchWriter(aln_dir, 0, targets) as bw:
+        for r in rows:
+            if r.split(b"\t")[5] in keep:
+                bw.write(r if r.endswith(b"\n") else r + b"\n")
+    out = os.path.join(tmp, "cli.fasta")
+    t0 = time.perf_counter()
+    cli.main(["inference", "--read-alns", aln_dir, "-m", CKPT, "-w", "4096",
+              "-b", "32", os.path.join(tmp, "reads.fastq"), out])
+    n = sum(1 for line in open(out, "rb") if line.startswith(b">"))
+    emit("cli", records=n, wall_s=time.perf_counter() - t0)
+    if n == 0:
+        raise RuntimeError("cli: no corrected records")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from herro_tpu_torch import native
+    from herro_tpu_torch.ops import cuda as kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    build_s = kernels.build_all()
+    emit("env", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), kernels_built=True,
+         build_s=build_s, build_and_load_s=time.perf_counter() - t0,
+         native_featgen=native.available())
+
+    results: dict = {}
+    phase_kernels(torch, results)
+    phase_golden(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        e2e = phase_e2e(torch, tmp)
+        phase_trace(torch, tmp, e2e)
+        phase_cli(torch, tmp, e2e["ds"], e2e["rows"])
+
+    summary = []
+    for k in results["kernels"]:
+        summary.append({
+            key: k[key] for key in (
+                "name", "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+            )
+        } | {"launches": e2e["launches"][k["name"]]})
+    print(smi)
+    print(json.dumps({"kernels": summary}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

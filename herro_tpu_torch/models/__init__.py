@@ -1,0 +1,21 @@
+from .model import (
+    CONFIGS,
+    CorrectionModel,
+    ModelConfig,
+    R9_CONFIG,
+    R10_CONFIG,
+    TINY_CONFIG,
+)
+from .checkpoint import load_model, load_or_init, params_from_jax
+
+__all__ = [
+    "CONFIGS",
+    "CorrectionModel",
+    "ModelConfig",
+    "R9_CONFIG",
+    "R10_CONFIG",
+    "TINY_CONFIG",
+    "load_model",
+    "load_or_init",
+    "params_from_jax",
+]

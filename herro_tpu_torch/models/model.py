@@ -1,0 +1,232 @@
+"""Correction transformer, PyTorch.
+
+The same network as ``herro_tpu/models/model.py``, with the same parameter
+tree: inputs are the window pileup ``bases`` (token ids 0-11, row-major
+[B, R, L]) and normalised ``quals`` ([-1, 1]); outputs are a 5-way
+{A,C,G,T,*} classification plus a scalar info logit at every supported
+pileup column ([B, S, 5] / [B, S]; ``support_idx`` [B, S] with a validity
+``support_mask``).
+
+Each column's 31 (base, qual) pairs are embedded and fused into d_model (the
+``entry_embed`` op: a one-hot contraction over row x vocab plus a qual
+contraction over rows); a pre-norm rotary transformer encoder with a banded
+attention mixes along the column axis; heads classify the gathered supported
+columns. Parameters are float32; the stack computes in ``cfg.dtype``
+(bfloat16 on the card) through the ops of ``ops/fused.py``, whose CUDA
+kernels run on the card and whose plain versions run on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..constants import N_ROWS, TOKEN_PAD, VOCAB_SIZE
+from ..ops.fused import attention_block, col_proj_table, entry_embed, ln_ffn
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    d_model: int = 256
+    n_layers: int = 8
+    n_heads: int = 2
+    d_ff: int = 1024
+    base_embed_dim: int = 16
+    # Attention span along the pileup column axis; None = full attention.
+    local_window: int | None = None
+    # Kept for checkpoint-config compatibility with herro_tpu.
+    attn_impl: str = "auto"
+    dtype: str = "bfloat16"
+    remat: bool = True
+    # int8 inference belongs to a later slice of the port.
+    int8: bool = False
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+TINY_CONFIG = ModelConfig(
+    d_model=32, n_layers=2, n_heads=2, d_ff=64, base_embed_dim=4, dtype="float32"
+)
+# Flagship R10.4.1 configuration: d512 x 3 layers, 4 heads of 128, band +-512.
+R10_CONFIG = ModelConfig(
+    d_model=512, n_layers=3, n_heads=4, d_ff=1024, local_window=512
+)
+R10_WIDE_CONFIG = R10_CONFIG
+R10_DEEP_CONFIG = ModelConfig(local_window=512)
+R9_CONFIG = ModelConfig(d_ff=1536, local_window=512)
+
+CONFIGS = {
+    "tiny": TINY_CONFIG,
+    "r10": R10_CONFIG,
+    "r9": R9_CONFIG,
+    "r10w": R10_WIDE_CONFIG,
+    "r10deep": R10_DEEP_CONFIG,
+}
+
+
+def _param(shape, generator, fan_in: int | None):
+    """A float32 parameter: truncated-normal(1/sqrt(fan_in)) when fan_in is
+    given (lecun-normal, as flax's Dense init), else zeros."""
+    t = torch.zeros(shape, dtype=torch.float32)
+    if fan_in is not None:
+        std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+        nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+    return nn.Parameter(t)
+
+
+class Dense(nn.Module):
+    """``{kernel [in, out], bias [out]}`` as flax's Dense stores them."""
+
+    def __init__(self, d_in: int, d_out: int, generator=None):
+        super().__init__()
+        self.kernel = _param((d_in, d_out), generator, d_in)
+        self.bias = _param((d_out,), generator, None)
+
+
+class LayerNormParams(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+
+class Attention(nn.Module):
+    """qkv [d, 3*H*D] in the (3, H, D) c-major flattening (q of head i is
+    column block i, k is H+i, v is 2H+i) and out [H, D, d]."""
+
+    def __init__(self, cfg: ModelConfig, generator=None):
+        super().__init__()
+        h, dh, d = cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.d_model
+        self.qkv_kernel = _param((d, 3 * h * dh), generator, d)
+        self.qkv_bias = _param((3 * h * dh,), generator, None)
+        self.out_kernel = _param((h, dh, d), generator, h * dh)
+        self.out_bias = _param((d,), generator, None)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block: the fused attention block (LN + qkv +
+    rope, banded attention + out projection + residual), then the fused
+    LN + FFN + residual."""
+
+    def __init__(self, cfg: ModelConfig, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = LayerNormParams(cfg.d_model)
+        self.attn = Attention(cfg, generator)
+        self.ln2 = LayerNormParams(cfg.d_model)
+        self.ff1 = Dense(cfg.d_model, cfg.d_ff, generator)
+        self.ff2 = Dense(cfg.d_ff, cfg.d_model, generator)
+
+    def compute_weights(self) -> dict:
+        """The matmul weights and biases in the compute dtype, as the ops
+        take them (LayerNorm parameters stay float32)."""
+        dt = self.cfg.compute_dtype
+        a = self.attn
+        return dict(
+            w_qkv=a.qkv_kernel.to(dt), b_qkv=a.qkv_bias.to(dt),
+            wo=a.out_kernel.to(dt), bo=a.out_bias.to(dt),
+            w1=self.ff1.kernel.to(dt), b1=self.ff1.bias.to(dt),
+            w2=self.ff2.kernel.to(dt), b2=self.ff2.bias.to(dt),
+        )
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, w: dict) -> torch.Tensor:
+        """``w`` is this block's ``compute_weights()``."""
+        cfg = self.cfg
+        x = attention_block(
+            x, self.ln1.scale, self.ln1.bias, w["w_qkv"], w["b_qkv"], w["wo"],
+            w["bo"], lengths, cfg.n_heads, cfg.local_window,
+        )
+        return ln_ffn(
+            x, self.ln2.scale, self.ln2.bias, w["w1"], w["b1"], w["w2"], w["b2"]
+        )
+
+
+def flax_layernorm(x, scale, bias, dtype, eps: float = 1e-6):
+    """flax.linen.LayerNorm(dtype=dtype): float32 statistics with the fast
+    variance, y = (x - mu) * (rsqrt(var + eps) * scale) + bias, cast to
+    dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    mul = torch.rsqrt(var + eps) * scale.float()
+    return ((xf - mu) * mul + bias.float()).to(dtype)
+
+
+class CorrectionModel(nn.Module):
+    """bases [B,R,L] uint8 (vocab 0-11), quals [B,R,L] f32 in [-1,1],
+    support_idx [B,S] int, support_mask [B,S] bool
+    -> (info_logits [B,S], bases_logits [B,S,5])."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        R, V, d = N_ROWS, VOCAB_SIZE, cfg.d_model
+        fan_in = R * (V + 1)  # col_proj is a dense over concat_r(onehot_r, qual_r)
+        self.col_proj = nn.Module()
+        self.col_proj.w_embT = _param((d, R * V), generator, fan_in)
+        self.col_proj.w_qT = _param((d, R), generator, fan_in)
+        self.col_proj.bias = _param((d,), generator, None)
+        self.blocks = nn.ModuleList(Block(cfg, generator) for _ in range(cfg.n_layers))
+        self.ln_f = LayerNormParams(d)
+        self.bases_head = Dense(d, 5, generator)
+        self.info_head = Dense(d, 1, generator)
+        self._weights = None  # (key, parameters' storages, weights)
+
+    def _build_weights(self) -> dict:
+        cp = self.col_proj
+        dt = self.cfg.compute_dtype
+        return dict(
+            wc=col_proj_table(cp.w_embT.to(dt), cp.w_qT.to(dt)),
+            blocks=[block.compute_weights() for block in self.blocks],
+        )
+
+    def compute_weights(self) -> dict:
+        """The ops' weights in the compute dtype and the col_proj table,
+        built once per parameter state instead of on every batch. With
+        gradients on they are built afresh, so gradients reach the
+        parameters. The cache holds the parameters' storages, so no address
+        in its key is reused while it stands; an in-place update bumps a
+        version and rebuilds."""
+        if torch.is_grad_enabled():
+            return self._build_weights()
+        params = [p.detach() for p in self.parameters()]
+        key = (
+            self.cfg.compute_dtype, torch.is_inference_mode_enabled(),
+            tuple((p.data_ptr(), p._version) for p in params),
+        )
+        if self._weights is None or self._weights[0] != key:
+            self._weights = (key, params, self._build_weights())
+        return self._weights[2]
+
+    def forward(self, bases, quals, support_idx, support_mask):
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        B, R, L = bases.shape
+        if R != N_ROWS:
+            raise ValueError(f"expected {N_ROWS} pileup rows, got {R}")
+        w = self.compute_weights()
+        x = entry_embed(bases, quals.float(), w["wc"], self.col_proj.bias, dt)  # [B, L, d]
+
+        # Padding is always a suffix, so a per-example length suffices.
+        lengths = (bases[:, 0, :] != TOKEN_PAD).sum(dim=1, dtype=torch.int32)
+        for block, bw in zip(self.blocks, w["blocks"]):
+            x = block(x, lengths, bw)
+
+        # Gather supported columns first: the final LayerNorm is per-token,
+        # so it commutes with the gather (herro_tpu/models/model.py:269-275).
+        idx = support_idx.long()[..., None].expand(-1, -1, x.shape[-1])
+        g = torch.gather(x, 1, idx)
+        g = flax_layernorm(g, self.ln_f.scale, self.ln_f.bias, dt).float()
+
+        bases_logits = g @ self.bases_head.kernel + self.bases_head.bias
+        info_logits = (g @ self.info_head.kernel + self.info_head.bias)[..., 0]
+
+        neg = torch.full((), -1e9, dtype=torch.float32, device=g.device)
+        bases_logits = torch.where(support_mask[..., None], bases_logits, neg)
+        info_logits = torch.where(support_mask, info_logits, neg)
+        return info_logits, bases_logits

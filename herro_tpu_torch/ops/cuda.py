@@ -1,0 +1,167 @@
+"""Build, load and count the hand-written Hopper kernels (``csrc/*.cu``).
+
+Each CUDA source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a``
+into its own shared library with a plain C interface, loaded with ctypes. The
+first kernel call builds every source at once, one ``nvcc`` per source, all
+started together, into ``herro_tpu_torch/csrc/build/`` (listed in
+``.gitignore``); a library is named by the hash of its sources and flags, so
+an edited source never loads a stale build. Nothing here runs at import: the
+CPU-only tests import this module freely.
+
+Every C entry point launches on the stream it is handed (the caller passes
+``torch.cuda.current_stream()``), allocates nothing, and returns
+``cudaGetLastError()``; :func:`call` raises when that is not 0.
+:data:`launch_counts` counts launches per kernel, one per successful call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+
+# kernel name -> (C function, argtypes); one source csrc/<name>.cu each
+KERNELS = {
+    "entry_embed": ("herro_entry_embed", [_P] * 5 + [_I] * 6 + [_P]),
+    "ln_qkv_rope": ("herro_ln_qkv_rope", [_P] * 10 + [_I] * 4 + [_P]),
+    "flash_outproj": (
+        "herro_flash_outproj", [_P] * 8 + [_I] * 5 + [_F, _P],
+    ),
+    "ln_ffn": ("herro_ln_ffn", [_P] * 8 + [_L, _I, _I, _P]),
+    "count_decisions": ("herro_count_decisions", [_P] * 3 + [_I] * 3 + [_P]),
+}
+
+
+class LaunchCounts:
+    """Per-kernel launch counters, safe to bump from several threads (the
+    engine dispatches from two uploader threads)."""
+
+    def __init__(self, names):
+        self._lock = threading.Lock()
+        self._n = {name: 0 for name in names}
+
+    def bump(self, name: str) -> None:
+        with self._lock:
+            self._n[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self._n:
+                self._n[name] = 0
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._n)
+
+
+launch_counts = LaunchCounts(KERNELS)
+
+
+class _Libraries:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._fns: dict[str, ctypes._CFuncPtr] | None = None
+        self.build_seconds: float | None = None
+
+    def fn(self, name: str):
+        with self._lock:
+            if self._fns is None:
+                self._fns = self._build_and_load()
+        return self._fns[name]
+
+    def _build_and_load(self):
+        t0 = time.perf_counter()
+        nvcc = _nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        common = _read(os.path.join(CSRC, "common.cuh"))
+        targets, procs = {}, []
+        for name in KERNELS:
+            src = os.path.join(CSRC, f"{name}.cu")
+            tag = hashlib.sha256(
+                _read(src) + common + " ".join(NVCC_FLAGS).encode()
+            ).hexdigest()[:12]
+            so = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
+            targets[name] = so
+            if not os.path.exists(so):
+                tmp = f"{so}.{os.getpid()}.tmp"
+                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+                procs.append((name, so, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                )))
+        failed = []
+        for name, so, tmp, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{err.decode(errors='replace')}")
+                continue
+            os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        fns = {}
+        for name, (cname, argtypes) in KERNELS.items():
+            f = getattr(ctypes.CDLL(targets[name]), cname)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            fns[name] = f
+        self.build_seconds = time.perf_counter() - t0
+        return fns
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "build from source at first use")
+
+
+_libs = _Libraries()
+
+
+def build_all() -> float:
+    """Build (if needed) and load every kernel library; returns the seconds
+    the first build-and-load took."""
+    _libs.fn("count_decisions")
+    return _libs.build_seconds
+
+
+def call(name: str, *args) -> None:
+    """Launch kernel ``name`` through its C entry point and count it; raise
+    if the launch was refused."""
+    err = _libs.fn(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    launch_counts.bump(name)
+
+
+def stream_of(t) -> int:
+    """The raw handle of the current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)

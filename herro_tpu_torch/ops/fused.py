@@ -1,0 +1,318 @@
+"""The correction transformer's fused ops: CUDA kernels and their plain versions.
+
+Each op mirrors one function of ``herro_tpu/ops/fused.py`` at the same
+layouts, and comes as a pair:
+
+* a hand-written Hopper kernel (``csrc/*.cu``), reached through its wrapper
+  ``_<op>_cuda``, which checks devices, dtypes, shapes and contiguity and
+  raises on anything the kernel does not take;
+* a plain PyTorch version ``_<op>_plain``, which computes the same function
+  with the same roundings (bf16 operands, float32 accumulation, bf16 results
+  where the TPU kernel rounds).
+
+The public op launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors, and does nothing else: there is no fallback.
+
+* ``entry_embed`` (K4) — tokens + quals -> [B, L, d] stream;
+* ``ln_qkv_rope`` (K1) — LN + qkv projection + rope -> per-head q, k, v;
+* ``flash_outproj`` (K2) — banded attention + out projection + residual;
+* ``ln_ffn`` (K3) — LN + FFN + residual.
+
+Positions for the rope are the absolute column index: padding is a suffix.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from ..constants import VOCAB_SIZE
+from . import cuda as _cuda
+from .attention import chunked_attention
+
+HEAD_DIM = 128  # the head dim the CUDA kernels take (every shipped checkpoint)
+
+_rope_cache: dict = {}
+_rope_lock = threading.Lock()
+
+
+def layernorm(x, scale, bias, eps: float = 1e-6):
+    """LayerNorm with float32 statistics and the fast variance mean(x^2) -
+    mu^2 clamped at 0 (``herro_tpu/ops/fused.py:layernorm``), in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def rope_tables(L: int, D: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin [L, D/2] float32 at absolute positions 0..L-1 with
+    freq_i = exp(-ln(10000) * i / (D/2)) (``_rope_tables_full``)."""
+    half = D // 2
+    pos = torch.arange(L, dtype=torch.float32, device=device)[:, None]
+    freq = torch.exp(
+        -math.log(10000.0)
+        * torch.arange(half, dtype=torch.float32, device=device)[None, :]
+        / half
+    )
+    ang = pos * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rope_tables_cached(L: int, D: int, device):
+    """The kernel's rope tables, built once per (L, D, device): the bucket
+    ladder holds a few lengths. The build is waited for, so a later launch
+    on any stream reads finished tables."""
+    key = (L, D, device)
+    with _rope_lock:
+        if key not in _rope_cache:
+            _rope_cache[key] = rope_tables(L, D, device)
+            torch.cuda.current_stream(device).synchronize()
+        return _rope_cache[key]
+
+
+def _require_cuda_operands(**tensors) -> torch.device:
+    dev = None
+    for name, t in tensors.items():
+        _cuda.check(t.is_cuda, f"{name} is on {t.device}, not on the card")
+        _cuda.check(t.is_contiguous(), f"{name} is not contiguous")
+        _cuda.check(t.data_ptr() % 32 == 0, f"{name} is not 32-byte aligned")
+        dev = dev or t.device
+        _cuda.check(t.device == dev, f"{name} is on {t.device}, not {dev}")
+    return dev
+
+
+def _require_dtype(dtype, **tensors) -> None:
+    for name, t in tensors.items():
+        _cuda.check(t.dtype == dtype, f"{name} is {t.dtype}, the kernel takes {dtype}")
+
+
+# ---------------------------------------------------------------------------
+# K4 entry_embed: tokens u8 [B, R, L] + quals f32 [B, R, L] -> x [B, L, d]
+# ---------------------------------------------------------------------------
+
+
+def col_proj_table(w_embT, w_qT):
+    """The col_proj table [kp, d] the entry op takes: row r*(V+1)+v is
+    w_embT[:, r*V+v], row r*(V+1)+V is w_qT[:, r] (flax's col_proj kernel
+    layout), then zero rows up to kp, the next multiple of 32 (the CUDA
+    kernel's k step). Built once per weight state, not per batch."""
+    d, R = w_qT.shape
+    V = w_embT.shape[1] // R
+    kp = -(-R * (V + 1) // 32) * 32
+    wc = torch.zeros(kp, d, dtype=w_embT.dtype, device=w_embT.device)
+    tab = wc[: R * (V + 1)].view(R, V + 1, d)
+    tab[:, :V] = w_embT.t().reshape(R, V, d)
+    tab[:, V] = w_qT.t()
+    return wc
+
+
+def _entry_embed_plain(bases, quals, wc, cb, out_dtype):
+    B, R, L = bases.shape
+    V, d = VOCAB_SIZE, wc.shape[1]
+    tab = wc[: R * (V + 1)].float().view(R, V + 1, d)
+    # the one-hot contraction is a gather-sum of R table rows; a token
+    # outside the vocab selects the appended zero row, as its one-hot is 0
+    table = torch.cat(
+        [tab[:, :V].reshape(R * V, d), torch.zeros(1, d, device=wc.device)], dim=0
+    )
+    x = torch.zeros(B, L, d, dtype=torch.float32, device=bases.device)
+    for r in range(R):
+        t = bases[:, r, :].long()
+        x += table[torch.where(t < V, r * V + t, R * V)]
+    q = quals.to(out_dtype).float()  # quals meet the weights as bf16
+    x = x + torch.einsum("brl,rd->bld", q, tab[:, V])
+    return (x + cb.float()).to(out_dtype)
+
+
+def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
+    B, R, L = bases.shape
+    kp, d = wc.shape
+    V = VOCAB_SIZE
+    _cuda.check(out_dtype == torch.bfloat16, f"entry_embed kernel emits bf16, not {out_dtype}")
+    _cuda.check(kp % 32 == 0 and kp >= R * (V + 1),
+                f"col_proj table has {kp} rows: the kernel takes R*(V+1) padded to 32")
+    _cuda.check(quals.shape == bases.shape and cb.shape == (d,), "input shapes")
+    _cuda.check(d % 128 == 0, f"d_model {d} is not a multiple of 128")
+    _require_dtype(torch.uint8, bases=bases)
+    _require_dtype(torch.float32, quals=quals, cb=cb)
+    _require_dtype(torch.bfloat16, wc=wc)
+    dev = _require_cuda_operands(bases=bases, quals=quals, wc=wc, cb=cb)
+    out = torch.empty(B, L, d, dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "entry_embed", bases.data_ptr(), quals.data_ptr(), wc.data_ptr(),
+            cb.data_ptr(), out.data_ptr(), B, R, L, d, V, kp, _cuda.stream_of(out),
+        )
+    return out
+
+
+def entry_embed(bases, quals, wc, cb, out_dtype):
+    """Column embedding: tokens u8 [B, R, L] + quals f32 [B, R, L] ->
+    x [B, L, d]. wc [kp, d] is ``col_proj_table(w_embT, w_qT)``: the
+    one-hot rows and the qual row of each pileup row; cb [d] the bias."""
+    if bases.is_cuda:
+        return _entry_embed_cuda(bases, quals, wc, cb, out_dtype)
+    return _entry_embed_plain(bases, quals, wc, cb, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# K1 ln_qkv_rope: x [B, L, d] -> q, k, v [B, H, L, D]
+# ---------------------------------------------------------------------------
+
+
+def _ln_qkv_rope_plain(x, scale, bias, w, b, n_heads: int):
+    B, L, d = x.shape
+    H = n_heads
+    D = w.shape[1] // (3 * H)
+    y = layernorm(x, scale, bias).reshape(-1, d)
+    # bf16 operands, float32 accumulation, one rounding after the bias
+    qkv = (y.float() @ w.float() + b.float()).to(x.dtype).reshape(B, L, 3, H, D)
+    cos, sin = rope_tables(L, D, x.device)
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+
+    def rot(t):  # [B, L, H, D], rotate-half in float32
+        tf = t.float()
+        x1, x2 = tf[..., : D // 2], tf[..., D // 2 :]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(t.dtype)
+
+    q = rot(qkv[:, :, 0]).permute(0, 2, 1, 3).contiguous()
+    k = rot(qkv[:, :, 1]).permute(0, 2, 1, 3).contiguous()
+    v = qkv[:, :, 2].permute(0, 2, 1, 3).contiguous()
+    return q, k, v
+
+
+def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int):
+    B, L, d = x.shape
+    H = n_heads
+    D = w.shape[1] // (3 * H)
+    _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
+    _cuda.check(d % 64 == 0, f"d_model {d} is not a multiple of 64")
+    _cuda.check(w.shape == (d, 3 * H * D) and b.shape == (3 * H * D,), "qkv shapes")
+    _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
+    _require_dtype(torch.bfloat16, x=x, w=w, b=b)
+    _require_dtype(torch.float32, scale=scale, bias=bias)
+    dev = _require_cuda_operands(x=x, scale=scale, bias=bias, w=w, b=b)
+    cos, sin = _rope_tables_cached(L, D, dev)
+    q, k, v = (
+        torch.empty(B, H, L, D, dtype=torch.bfloat16, device=dev) for _ in range(3)
+    )
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_qkv_rope", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w.data_ptr(), b.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H,
+            _cuda.stream_of(x),
+        )
+    return q, k, v
+
+
+def ln_qkv_rope(x, scale, bias, w, b, n_heads: int):
+    """LN + qkv projection + rotary: x [B, L, d] -> (q, k, v) [B, H, L, D].
+    w [d, 3*H*D] is the (3, H, D) c-major flattening: q of head i is column
+    block i, k is H+i, v is 2H+i."""
+    if x.is_cuda:
+        return _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads)
+    return _ln_qkv_rope_plain(x, scale, bias, w, b, n_heads)
+
+
+# ---------------------------------------------------------------------------
+# K2 flash_outproj: y = x + concat_h(attn_h) @ Wo + bo
+# ---------------------------------------------------------------------------
+
+
+def _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window):
+    attn = chunked_attention(q, k, v, lengths, local_window)  # [B, H, L, D]
+    out = torch.einsum("bhld,hdo->blo", attn.float(), wo.float())
+    return (x.float() + out + bo.float()).to(x.dtype)
+
+
+def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
+    if local_window is None:
+        raise NotImplementedError(
+            "full (unbanded) attention needs the port of herro_tpu/ops/fused.py:"
+            "_flash_outproj_kernel, which is not ported yet"
+        )
+    B, H, L, D = q.shape
+    d = x.shape[-1]
+    _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
+    _cuda.check(d % 128 == 0, f"d_model {d} is not a multiple of 128")
+    _cuda.check(k.shape == q.shape and v.shape == q.shape, "q/k/v shapes")
+    _cuda.check(x.shape == (B, L, d) and wo.shape == (H, D, d) and bo.shape == (d,),
+                "x/wo/bo shapes")
+    _cuda.check(lengths.shape == (B,), "lengths shape")
+    _require_dtype(torch.bfloat16, q=q, k=k, v=v, x=x, wo=wo, bo=bo)
+    _require_dtype(torch.int32, lengths=lengths)
+    dev = _require_cuda_operands(q=q, k=k, v=v, x=x, wo=wo, bo=bo, lengths=lengths)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "flash_outproj", q.data_ptr(), k.data_ptr(), v.data_ptr(), x.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            B, H, L, d, int(local_window), 1.0 / math.sqrt(D), _cuda.stream_of(x),
+        )
+    return out
+
+
+def flash_outproj(q, k, v, x, wo, bo, lengths, local_window):
+    """Attention + out projection + residual: y = x + concat_h(attn_h) @ Wo
+    + bo, with wo passed as [H, D, d_model] and the band |iq - ik| <=
+    local_window (None: every key below the length)."""
+    if x.is_cuda:
+        return _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window)
+    return _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window)
+
+
+# ---------------------------------------------------------------------------
+# K3 ln_ffn: y = x + gelu_tanh(LN(x) @ w1 + b1) @ w2 + b2
+# ---------------------------------------------------------------------------
+
+
+def _ln_ffn_plain(x, scale, bias, w1, b1, w2, b2):
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    y = layernorm(xf, scale, bias)
+    h = (y.float() @ w1.float() + b1.float()).to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    o = h.float() @ w2.float() + b2.float()
+    return (xf.float() + o).to(x.dtype).reshape(x.shape)
+
+
+def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
+    d = x.shape[-1]
+    f = w1.shape[1]
+    _cuda.check(d % 128 == 0 and f % 128 == 0, f"d={d}, f={f}: not multiples of 128")
+    _cuda.check(w1.shape == (d, f) and b1.shape == (f,), "ff1 shapes")
+    _cuda.check(w2.shape == (f, d) and b2.shape == (d,), "ff2 shapes")
+    _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
+    _require_dtype(torch.bfloat16, x=x, w1=w1, b1=b1, w2=w2, b2=b2)
+    _require_dtype(torch.float32, scale=scale, bias=bias)
+    dev = _require_cuda_operands(
+        x=x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2
+    )
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_ffn", x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            x.numel() // d, d, f, _cuda.stream_of(x),
+        )
+    return out
+
+
+def ln_ffn(x, scale, bias, w1, b1, w2, b2):
+    """Pre-norm FFN block with residual: x + FF2(gelu_tanh(FF1(LN(x))))."""
+    if x.is_cuda:
+        return _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2)
+    return _ln_ffn_plain(x, scale, bias, w1, b1, w2, b2)
+
+
+def attention_block(x, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,
+                    local_window):
+    """Pre-norm attention block: x + MHA(rope(LN(x) Wqkv)) Wo + bo."""
+    q, k, v = ln_qkv_rope(x, ln_s, ln_b, w_qkv, b_qkv, n_heads)
+    return flash_outproj(q, k, v, x, wo, bo, lengths, local_window)

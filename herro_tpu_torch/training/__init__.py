@@ -1,0 +1,1 @@
+from .simulate import SimDataset, SimRead, paf_rows, read_truth_arrays, simulate, true_sequence

@@ -1,0 +1,336 @@
+"""The port's kernels (K1-K5) held against herro_tpu.
+
+Each CUDA kernel's plain PyTorch version (what the port runs on the CPU) is
+compared, on the same numpy inputs, with
+
+* the JAX package's jnp twin of the Pallas kernel, and
+* the Pallas kernel itself in interpret mode,
+
+at small shapes (d 64, H 2, D 32, L 256) in float32. The ``gpu`` tests hold
+each CUDA kernel against its plain version on the card at the kernels' own
+widths (D = 128) in bf16, and skip without a card.
+
+Tolerances, float32: both sides sum up to a few hundred products in
+different orders and use different exp/cos/tanh implementations, a few f32
+ulps on values of order 1-10, so 1e-4 absolute (2e-4 after the out
+projection's extra contraction). The counting rule is integer logic: exact.
+
+JAX is imported inside the fixture that needs it, so the ``gpu`` tests also
+run where only PyTorch is installed (``pytest --noconftest -m gpu``).
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from herro_tpu_torch.ops import consensus, fused
+
+B, L, d, H, D, F_FF, R, V = 2, 256, 64, 2, 32, 128, 31, 12
+ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """herro_tpu's jnp twins and Pallas kernels, and the interpret mode."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from herro_tpu.ops import consensus as jcons
+    from herro_tpu.ops import fused as jfused
+
+    return SimpleNamespace(jnp=jnp, pltpu=pltpu, cons=jcons, fused=jfused)
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _pileup(seed, B=B, L=L):
+    """Tokens [B, R, L] (pad suffix, pad rows past n_alns), f32 quals,
+    lengths and n_alns, as the batcher lays them out."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([L, L - 70][:B], dtype=np.int32)
+    n_alns = rng.integers(1, R, size=B).astype(np.int32)
+    tok = rng.integers(0, 11, size=(B, R, L)).astype(np.uint8)
+    tok[:, 0] = rng.integers(0, 5, size=(B, L))
+    for b in range(B):
+        tok[b, n_alns[b] + 1 :] = 11
+        tok[b, :, lengths[b] :] = 11
+    quals = rng.uniform(-1, 1, size=(B, R, L)).astype(np.float32)
+    return tok, quals, lengths, n_alns
+
+
+def _embed_weights(seed, d=d):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.normal(0, 0.2, size=(d, R * V)).astype(np.float32),
+        rng.normal(0, 0.2, size=(d, R)).astype(np.float32),
+        rng.normal(0, 0.1, size=(d,)).astype(np.float32),
+    )
+
+
+def _ln_params(rng, d=d):
+    return (
+        (1 + rng.normal(0, 0.1, size=(d,))).astype(np.float32),
+        rng.normal(0, 0.1, size=(d,)).astype(np.float32),
+    )
+
+
+def _qkv_inputs(seed, d=d, H=H, D=D, L=L):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, L, d)).astype(np.float32)
+    s, b = _ln_params(rng, d)
+    w = rng.normal(0, d ** -0.5, size=(d, 3 * H * D)).astype(np.float32)
+    bias = rng.normal(0, 0.1, size=(3 * H * D,)).astype(np.float32)
+    return x, s, b, w, bias
+
+
+def _attn_inputs(seed, d=d, H=H, D=D):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(B, H, L, D)).astype(np.float32) for _ in range(3))
+    x = rng.normal(size=(B, L, d)).astype(np.float32)
+    wo = rng.normal(0, 0.1, size=(H, D, d)).astype(np.float32)
+    bo = rng.normal(0, 0.1, size=(d,)).astype(np.float32)
+    lengths = np.array([L, L - 70], dtype=np.int32)
+    return q, k, v, x, wo, bo, lengths
+
+
+def _ffn_inputs(seed, d=d, f=F_FF, rows=B * L):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    s, b = _ln_params(rng, d)
+    w1 = rng.normal(0, d ** -0.5, size=(d, f)).astype(np.float32)
+    b1 = rng.normal(0, 0.1, size=(f,)).astype(np.float32)
+    w2 = rng.normal(0, f ** -0.5, size=(f, d)).astype(np.float32)
+    b2 = rng.normal(0, 0.1, size=(d,)).astype(np.float32)
+    return x, s, b, w1, b1, w2, b2
+
+
+def _close_valid_rows(got, ref, lengths, atol):
+    # rows at or past a window's length are never read downstream, and an
+    # all-masked band averages different key sets in each formulation
+    for b in range(got.shape[0]):
+        np.testing.assert_allclose(got[b, : lengths[b]], ref[b, : lengths[b]], atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the jnp twins
+# ---------------------------------------------------------------------------
+
+
+def test_entry_embed_plain_matches_jnp_twin(ref):
+    tok, quals, _, _ = _pileup(0)
+    w_embT, w_qT, cb = _embed_weights(1)
+    want = ref.fused._entry_embed_jnp(
+        ref.jnp.asarray(tok), ref.jnp.asarray(quals), ref.jnp.asarray(w_embT),
+        ref.jnp.asarray(w_qT), ref.jnp.asarray(cb), ref.jnp.float32,
+    )
+    wc = fused.col_proj_table(_t(w_embT), _t(w_qT))
+    got = fused.entry_embed(_t(tok), _t(quals), wc, _t(cb), torch.float32)
+    assert got.shape == (B, L, d)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
+
+
+def test_ln_qkv_rope_plain_matches_jnp_twin(ref):
+    x, s, b, w, bias = _qkv_inputs(2)
+    want = ref.fused._ln_qkv_rope_jnp(*map(ref.jnp.asarray, (x, s, b, w, bias)), H)
+    got = fused.ln_qkv_rope(*map(_t, (x, s, b, w, bias)), H)
+    for g, r in zip(got, want):
+        assert g.shape == (B, H, L, D)
+        np.testing.assert_allclose(g.numpy(), _np(r), atol=ATOL)
+
+
+@pytest.mark.parametrize("local_window", [64, 96, None])
+def test_flash_outproj_plain_matches_jnp_twin(local_window, ref):
+    q, k, v, x, wo, bo, lengths = _attn_inputs(3)
+    want = ref.fused._flash_outproj_jnp(
+        *map(ref.jnp.asarray, (q, k, v, x, wo, bo, lengths)), local_window
+    )
+    got = fused.flash_outproj(*map(_t, (q, k, v, x, wo, bo, lengths)), local_window)
+    _close_valid_rows(got.numpy(), _np(want), lengths, 2 * ATOL)
+
+
+def test_ln_ffn_plain_matches_jnp_twin(ref):
+    args = _ffn_inputs(4)
+    want = ref.fused._ln_ffn_jnp(*map(ref.jnp.asarray, args))
+    got = fused.ln_ffn(*map(_t, args))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
+
+
+def test_count_decisions_plain_matches_jnp_twin(ref):
+    tok, _, _, n_alns = _pileup(5)
+    want = ref.cons.count_decisions_jnp(ref.jnp.asarray(tok), ref.jnp.asarray(n_alns))
+    got = consensus.count_decisions(_t(tok), _t(n_alns))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+def test_layernorm_matches_jax(ref):
+    rng = np.random.default_rng(6)
+    x = (3 + 2 * rng.normal(size=(64, d))).astype(np.float32)
+    s, b = _ln_params(rng)
+    want = ref.fused.layernorm(*map(ref.jnp.asarray, (x, s, b)))
+    got = fused.layernorm(*map(_t, (x, s, b)))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+
+def test_entry_embed_plain_matches_pallas_interpret(ref):
+    tok, quals, _, _ = _pileup(10)
+    w_embT, w_qT, cb = _embed_weights(11)
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.fused._entry_embed_pallas(
+            ref.jnp.asarray(tok), ref.jnp.asarray(quals), ref.jnp.asarray(w_embT),
+            ref.jnp.asarray(w_qT), ref.jnp.asarray(cb), ref.jnp.float32, blk_l=128,
+        )
+    wc = fused.col_proj_table(_t(w_embT), _t(w_qT))
+    got = fused.entry_embed(_t(tok), _t(quals), wc, _t(cb), torch.float32)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
+
+
+def test_ln_qkv_rope_plain_matches_pallas_interpret(ref):
+    x, s, b, w, bias = _qkv_inputs(12)
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.fused._ln_qkv_rope_pallas(
+            *map(ref.jnp.asarray, (x, s, b, w, bias)), H, blk_t=64, rope_tbl=True
+        )
+    got = fused.ln_qkv_rope(*map(_t, (x, s, b, w, bias)), H)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _np(r), atol=ATOL)
+
+
+@pytest.mark.parametrize("local_window", [64, 128])
+def test_flash_outproj_plain_matches_pallas_interpret(local_window, ref):
+    """The rotation-slot banded kernel (the production choice) at blk 64:
+    n_side 1 and 2, with edge query blocks and a suffix length."""
+    q, k, v, x, wo, bo, lengths = _attn_inputs(13)
+    want = ref.fused._banded_flash_outproj_rot_pallas(
+        *map(ref.jnp.asarray, (q, k, v, x, wo, bo, lengths)), local_window,
+        blk=64, interpret=True,
+    )
+    got = fused.flash_outproj(*map(_t, (q, k, v, x, wo, bo, lengths)), local_window)
+    _close_valid_rows(got.numpy(), _np(want), lengths, 2 * ATOL)
+
+
+def test_ln_ffn_plain_matches_pallas_interpret(ref):
+    args = _ffn_inputs(14)
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.fused._ln_ffn_pallas(*map(ref.jnp.asarray, args), blk_t=128)
+    got = fused.ln_ffn(*map(_t, args))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
+
+
+def test_count_decisions_plain_matches_pallas_interpret(ref):
+    tok, _, _, n_alns = _pileup(15)
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.fused.count_decisions_pallas(
+            ref.jnp.asarray(tok), ref.jnp.asarray(n_alns), blk_l=128
+        )
+    got = consensus.count_decisions(_t(tok), _t(n_alns))
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against their plain versions, on the card
+# ---------------------------------------------------------------------------
+
+# d 256 / H 2 / D 128 as r10deep and r9; a length that fills whole blocks and
+# one that leaves a ragged tail block in every kernel
+GPU_D, GPU_H = 256, 2
+GPU_LENGTHS = [1024, 1000]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build with nvcc for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bf16_close(got, ref, rows=None):
+    """bf16 outputs: within 4 ulps of the largest magnitude (the two sides
+    differ in f32 summation order before the one bf16 rounding)."""
+    got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    tol = np.abs(ref).max() * 2.0 ** -6
+    if rows is None:
+        np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+    else:
+        _close_valid_rows(got, ref, rows, tol)
+
+
+def _cuda(x, dev, dtype=None):
+    t = _t(x).to(dev)
+    return t.to(dtype) if dtype is not None else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gl", GPU_LENGTHS)
+def test_entry_embed_kernel_matches_plain_on_card(gl):
+    dev = _card()
+    tok, quals, _, _ = _pileup(20, L=gl)
+    w_embT, w_qT, cb = _embed_weights(21, d=GPU_D)
+    wc = fused.col_proj_table(_cuda(w_embT, dev, torch.bfloat16),
+                              _cuda(w_qT, dev, torch.bfloat16))
+    args = (_cuda(tok, dev), _cuda(quals, dev), wc, _cuda(cb, dev), torch.bfloat16)
+    _bf16_close(fused._entry_embed_cuda(*args), fused._entry_embed_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gl", GPU_LENGTHS)
+def test_ln_qkv_rope_kernel_matches_plain_on_card(gl):
+    dev = _card()
+    x, s, b, w, bias = _qkv_inputs(22, d=GPU_D, H=GPU_H, D=128, L=gl)
+    bf = torch.bfloat16
+    args = (_cuda(x, dev, bf), _cuda(s, dev), _cuda(b, dev), _cuda(w, dev, bf),
+            _cuda(bias, dev, bf), GPU_H)
+    for g, r in zip(fused._ln_qkv_rope_cuda(*args), fused._ln_qkv_rope_plain(*args)):
+        _bf16_close(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gl", GPU_LENGTHS)
+def test_flash_outproj_kernel_matches_plain_on_card(gl):
+    dev = _card()
+    rng = np.random.default_rng(23)
+    bf = torch.bfloat16
+    q, k, v = (_cuda(rng.normal(size=(B, GPU_H, gl, 128)), dev, bf) for _ in range(3))
+    x = _cuda(rng.normal(size=(B, gl, GPU_D)), dev, bf)
+    wo = _cuda(rng.normal(0, 0.05, size=(GPU_H, 128, GPU_D)), dev, bf)
+    bo = _cuda(rng.normal(0, 0.1, size=(GPU_D,)), dev, bf)
+    lengths = np.array([gl, gl - 300], dtype=np.int32)
+    args = (q, k, v, x, wo, bo, _cuda(lengths, dev), 128)
+    _bf16_close(fused._flash_outproj_cuda(*args), fused._flash_outproj_plain(*args),
+                rows=lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gl,f", [(1024, 512), (1000, 512), (1000, 1536)])
+def test_ln_ffn_kernel_matches_plain_on_card(gl, f):
+    """d_ff 512 keeps 64-row blocks, 1536 (r9) needs the 32-row blocks."""
+    dev = _card()
+    x, s, b, w1, b1, w2, b2 = _ffn_inputs(24, d=GPU_D, f=f, rows=B * gl)
+    bf = torch.bfloat16
+    args = (_cuda(x, dev, bf), _cuda(s, dev), _cuda(b, dev), _cuda(w1, dev, bf),
+            _cuda(b1, dev, bf), _cuda(w2, dev, bf), _cuda(b2, dev, bf))
+    _bf16_close(fused._ln_ffn_cuda(*args), fused._ln_ffn_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gl", GPU_LENGTHS)
+def test_count_decisions_kernel_matches_plain_on_card(gl):
+    dev = _card()
+    tok, _, _, n_alns = _pileup(25, L=gl)
+    t, n = _cuda(tok, dev), _cuda(n_alns, dev)
+    assert torch.equal(
+        consensus._count_decisions_cuda(t, n), consensus._count_decisions_plain(t, n)
+    )
