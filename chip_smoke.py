@@ -7,17 +7,28 @@ each print one JSON line:
 
 1. ``env``     — the card (nvidia-smi name and power limit), torch and CUDA
    versions, the kernel build time, whether native featgen loaded;
-2. ``kernels`` — every hand-written kernel (K1-K5) at the main-path shapes
+2. ``kernels`` — every hand-written kernel (K1-K7) at the main-path shapes
    (B=32, L=9216, the R10 widths) against its plain PyTorch version on the
    same inputs, with the tolerance stated, and timed with CUDA events beside
-   the plain version, a PyTorch library call and the card's bound;
+   the plain version, a PyTorch library call and the card's bound. The
+   attention kernel runs under all three masks: band 512 (K2), full
+   attention with mixed lengths, one of them 0 (K7), and the general band
+   at 384 and at 40 (K6);
 3. ``golden``  — the port's bf16 forward of the flagship checkpoint on
    ``tests/golden/logits_r10.npz`` against the JAX logits frozen there;
 4. ``e2e``     — ``run_correction`` with ``CorrectionRunner(device="cuda")``
    on a simulated demo-size dataset, with every kernel's launch count over
    that run; ``trace`` — the same run under torch.profiler (device busy
    share, device time by kernel); ``cli`` — the CLI with ``--read-alns`` when
-   zstandard is present.
+   zstandard is present;
+5. ``eval``    — the ``eval`` subcommand at the demo size for the flagship
+   weights under ``local_window`` 512, none and 384 (each must launch its own
+   attention kernel and no other) and for ``model_r9_sim`` at a smaller size;
+6. ``procpool`` — ``inference`` in a subprocess, serial and with
+   ``--feat-gen-procs N`` (the pool forks before the card is opened, which
+   this process cannot do any more), alignments from a stub ``minimap2`` that
+   replays the simulated PAF; ``features`` — the ``features`` subcommand the
+   same way, loaded back through ``load_window_features``.
 
 Any failed phase exits nonzero. The last lines are the card line of
 nvidia-smi, the per-kernel JSON summary and ``{"ok": true, "device": ...}``.
@@ -26,9 +37,15 @@ Imports nothing of JAX or herro_tpu.
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import importlib.util
+import io
 import json
 import os
+import re
+import shutil
+import stat
 import subprocess
 import sys
 import tempfile
@@ -115,7 +132,7 @@ def compare(torch, got, ref, keep=None, residual=None, exact=False):
 
 
 def phase_kernels(torch, results: dict) -> None:
-    """K1-K5 at the main-path shapes against their plain versions."""
+    """K1-K7 at the main-path shapes against their plain versions."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -165,10 +182,52 @@ def phase_kernels(torch, results: dict) -> None:
     # band pairs this data needs: every query row against keys j < length
     # with |i - j| <= w
     i = np.arange(L)
-    pairs = sum(
-        int((np.minimum(i + w, lb - 1) - np.maximum(i - w, 0) + 1).clip(0).sum())
-        for lb in lengths_np
-    )
+
+    def band_pairs(band: int) -> int:
+        return sum(
+            int((np.minimum(i + band, lb - 1) - np.maximum(i - band, 0) + 1).clip(0).sum())
+            for lb in lengths_np
+        )
+
+    pairs = band_pairs(w)
+    # full attention: mixed lengths, one window empty; the function needs
+    # the pairs below each length (rows past it are padding nobody reads)
+    lengths_full_np = lengths_np.copy()
+    lengths_full_np[::4] = rng.integers(L // 4, L // 2, size=len(lengths_full_np[::4]))
+    lengths_full_np[3] = 0
+    lengths_full = torch.from_numpy(lengths_full_np).to(dev)
+    pairs_full = int((lengths_full_np.astype(np.int64) ** 2).sum())
+    k_pos = torch.arange(L, device=dev)
+
+    def sdpa_bias(lens, band):
+        """The mask as the additive bias F.scaled_dot_product_attention takes,
+        [B, 1, L, L] bf16: 0 where key j < length (and |i - j| <= band)."""
+        ok = (k_pos[None, :] < lens[:, None])[:, None, None, :]
+        if band is not None:
+            ok = ok & ((k_pos[:, None] - k_pos[None, :]).abs() <= band)[None, None]
+        bias = torch.zeros(B, 1, L, L, dtype=bf, device=dev)
+        return bias.masked_fill_(~ok, float("-inf"))
+
+    def sdpa(bias):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        # the fused backend only: the math backend would hold [B, H, L, L]
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    def attention_case(name, replaces, lens, lens_np, band, n_pairs, label):
+        return dict(
+            name=name, replaces=replaces,
+            kernel=lambda: fused._flash_outproj_cuda(q, k, v, x, wo, bo, lens, band),
+            plain=lambda: fused._flash_outproj_plain(q, k, v, x, wo, bo, lens, band),
+            library=(f"F.scaled_dot_product_attention (memory-efficient backend) with "
+                     f"{label} as an additive mask: attention only, no out projection",
+                     sdpa, lambda: sdpa_bias(lens, band)),
+            bound=bound(kv_bytes + 2 * x_bytes + H * D * d * 2,
+                        4 * H * D * n_pairs + 2 * T * H * D * d, PEAK_BF16),
+            rows=lens_np, residual=x,
+        )
+
     x_bytes = T * d * 2
     kv_bytes = 3 * B * H * L * D * 2
     # the banded QK^T as one torch.matmul: 64-row query blocks against their
@@ -232,14 +291,32 @@ def phase_kernels(torch, results: dict) -> None:
             bound=bound(B * R * L + B * L + 4 * B, 0, PEAK_F32),
             exact=True,
         ),
+        "flash_outproj_full": attention_case(
+            "flash_outproj_full", "herro_tpu/ops/fused.py:821", lengths_full,
+            lengths_full_np, None, pairs_full, "the length mask",
+        ),
+        "flash_outproj_band": attention_case(
+            "flash_outproj_band", "herro_tpu/ops/fused.py:902", lengths, lengths_np,
+            384, band_pairs(384), "the band 384 and the length mask",
+        ),
+        # the same kernel below one key tile; reported under its own case name
+        "flash_outproj_band[w=40]": attention_case(
+            "flash_outproj_band", "herro_tpu/ops/fused.py:902", lengths, lengths_np,
+            40, band_pairs(40), "the band 40 and the length mask",
+        ),
     }
     report = []
-    for name, c in cases.items():
+    for case, c in cases.items():
+        name = c.get("name", case)
         got, ref = c["kernel"](), c["plain"]()
         torch.cuda.synchronize()
         keep = None
         if "rows" in c:  # rows at or past the length are never read
-            keep = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+            rows = torch.from_numpy(c["rows"]).to(dev)
+            keep = torch.arange(L, device=dev)[None, :] < rows[:, None]
+            # the padding rows are compared nowhere, but must be finite
+            if not bool(torch.isfinite(got.float()).all()):
+                raise RuntimeError(f"{case}: non-finite values in padding rows")
         err, tol, part_err, part_tol = compare(
             torch, got, ref, keep, c.get("residual"), c.get("exact", False)
         )
@@ -247,11 +324,20 @@ def phase_kernels(torch, results: dict) -> None:
         iters = 20
         ms = time_ms(torch, c["kernel"], iters)
         plain_ms = time_ms(torch, c["plain"], 3, warmup=1)
-        lib_label, lib_fn = c["library"]
-        lib_ms = time_ms(torch, lib_fn, iters) if lib_fn is not None else None
+        del got, ref
+        lib_label, lib_fn, *lib_setup = c["library"]
+        lib_ms = None
+        if lib_setup:  # a library call with an operand of its own to build
+            operand = lib_setup[0]()
+            lib_ms = time_ms(torch, lambda: lib_fn(operand), 5)
+            del operand
+            torch.cuda.empty_cache()
+        elif lib_fn is not None:
+            lib_ms = time_ms(torch, lib_fn, iters)
         bound_ms, bound_by = c["bound"]
         entry = dict(
-            name=name, route="cuda", source=f"herro_tpu_torch/csrc/{name}.cu",
+            name=name, case=case, route="cuda",
+            source=f"herro_tpu_torch/csrc/{name}.cu",
             replaces=c["replaces"], max_abs_err=err, tol=tol,
             part_err=part_err, part_tol=part_tol, ok=ok, ms=ms,
             plain_ms=plain_ms, library=lib_label, library_ms=lib_ms,
@@ -260,7 +346,7 @@ def phase_kernels(torch, results: dict) -> None:
         report.append(entry)
         emit("kernels", **entry)
     bad = [
-        f"{e['name']} (max {e['max_abs_err']} vs {e['tol']}, residual-free part "
+        f"{e['case']} (max {e['max_abs_err']} vs {e['tol']}, residual-free part "
         f"{e['part_err']} vs {e['part_tol']})"
         for e in report if not e["ok"]
     ]
@@ -384,13 +470,16 @@ def phase_e2e(torch, tmp: str) -> dict:
         launches=launches,
     )
     emit("e2e", **res)
-    missing = [k for k, c in launches.items() if c == 0]
+    # K6 and K7 are other checkpoints' kernels: the eval phase drives them
+    off_path = ("flash_outproj_full", "flash_outproj_band")
+    missing = [k for k, c in launches.items() if c == 0 and k not in off_path]
     if n == 0 or missing or median_gain <= 0:
         raise RuntimeError(
             f"e2e: reads {n}, kernels never launched {missing}, median 15-mer "
             f"validity gain {median_gain}"
         )
-    return dict(res, ds=ds, rows=rows, reads=reads, grouped=grouped, runner=runner)
+    return dict(res, ds=ds, rows=rows, reads=reads, grouped=grouped, runner=runner,
+                fastq=fastq, fasta=out, windows_produced=timers.n_windows)
 
 
 def phase_trace(torch, tmp: str, e2e: dict) -> None:
@@ -445,6 +534,242 @@ def phase_cli(torch, tmp: str, ds, rows) -> None:
         raise RuntimeError("cli: no corrected records")
 
 
+EVAL_ARGS = ["--with-baseline", "-w", "4096", "-b", "32", "--sub-rate", "0.02",
+             "--indel-rate", "0.04", "--het-rate", "0.005", "--seed", "777"]
+ATTENTION_KERNELS = ("flash_outproj", "flash_outproj_full", "flash_outproj_band")
+
+
+def phase_eval(torch, tmp: str) -> dict:
+    """The ``eval`` subcommand for the flagship weights under three attention
+    masks, and for the r9 checkpoint at a smaller size. Returns the launch
+    counts of each run."""
+    from herro_tpu_torch import cli
+    from herro_tpu_torch.models.model import ModelConfig
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.ops.fused import flash_kernel_name
+
+    with open(os.path.join(CKPT, "config.json")) as fh:
+        base_cfg = json.load(fh)
+    runs = []
+    for tag, window in (("w512", 512), ("full", None), ("w384", 384)):
+        ckpt = os.path.join(tmp, f"ckpt_{tag}")
+        os.makedirs(ckpt)
+        shutil.copy(os.path.join(CKPT, "params.msgpack"), ckpt)
+        with open(os.path.join(ckpt, "config.json"), "w") as fh:
+            json.dump(dict(base_cfg, local_window=window), fh)
+        runs.append((f"model_r10_sim[local_window={window}]", ckpt,
+                     ["--genome-len", "150000", "--n-reads", "160"]))
+    r9 = os.path.join(ROOT, "resources", "model_r9_sim")
+    runs.append(("model_r9_sim", r9, ["--genome-len", "60000", "--n-reads", "60"]))
+
+    launches_by_run = {}
+    for label, ckpt, size in runs:
+        with open(os.path.join(ckpt, "config.json")) as fh:
+            cfg = ModelConfig(**json.load(fh))
+        expected = flash_kernel_name(cfg.local_window)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.launch_counts.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["eval", ckpt, *EVAL_ARGS, *size])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts.snapshot()
+        res = json.loads(buf.getvalue())
+        base = res["counting_baseline"]
+        emit("eval", model=label, attention_kernel=expected, wall_s=wall,
+             n_reads=res["n_reads"], raw_identity=res["raw_identity"],
+             corrected_identity=res["corrected_identity"], raw_q=res["raw_q"],
+             corrected_q=res["corrected_q"], corrected_infix_q=res["corrected_infix_q"],
+             counting_infix_q=base["corrected_infix_q"],
+             model_gain_db=res["model_gain_db"], launches=launches)
+        batches = launches["entry_embed"]
+        others = [k for k in ATTENTION_KERNELS if k != expected and launches[k]]
+        if (batches == 0 or launches[expected] != cfg.n_layers * batches or others
+                or launches["ln_qkv_rope"] != launches[expected]):
+            raise RuntimeError(
+                f"eval {label}: expected {cfg.n_layers} x {batches} launches of "
+                f"{expected} and none of the other attention kernels, got {launches}"
+            )
+        if res["n_reads"] == 0 or not res["corrected_identity"] > res["raw_identity"]:
+            raise RuntimeError(
+                f"eval {label}: corrected identity {res['corrected_identity']} is not "
+                f"above raw identity {res['raw_identity']}"
+            )
+        launches_by_run[label] = launches
+    return launches_by_run
+
+
+STUB_MM2 = """#!{python}
+import os, sys
+# a stand-in for minimap2: replays the simulated PAF rows whose target is in
+# the FASTA batch on stdin (at most STUB_MAX_TARGETS of them when set)
+names = [l[1:].split()[0] for l in sys.stdin.buffer.read().split(b"\\n") if l[:1] == b">"]
+limit = int(os.environ.get("STUB_MAX_TARGETS", "0"))
+targets = set(sorted(names)[:limit] if limit else names)
+with open({paf!r}, "rb") as fh:
+    for row in fh:
+        if row.split(b"\\t")[5] in targets:
+            sys.stdout.buffer.write(row)
+"""
+
+
+def _stub_minimap2(tmp: str, rows) -> dict:
+    """An environment whose PATH holds the stub aligner; neither minimap2
+    nor zstandard is needed to drive the CLI then."""
+    bin_dir = os.path.join(tmp, "bin")
+    os.makedirs(bin_dir)
+    paf = os.path.join(tmp, "all.paf")
+    with open(paf, "wb") as fh:
+        for r in rows:
+            fh.write(r if r.endswith(b"\n") else r + b"\n")
+    exe = os.path.join(bin_dir, "minimap2")
+    with open(exe, "w") as fh:
+        fh.write(STUB_MM2.format(python=sys.executable, paf=paf))
+    os.chmod(exe, os.stat(exe).st_mode | stat.S_IEXEC)
+    return dict(os.environ, PATH=bin_dir + os.pathsep + os.environ["PATH"],
+                PYTHONPATH=ROOT)
+
+
+def _fasta_records(path: str) -> list[bytes]:
+    with open(path, "rb") as fh:
+        lines = fh.read().split(b"\n")
+    return sorted(b"\n".join(lines[i : i + 2]) for i in range(0, len(lines) - 1, 2))
+
+
+SUMMARY_RE = re.compile(
+    r"Corrected (\d+) reads in ([\d.]+)s \(featgen ([\d.]+)s, device ([\d.]+)s, "
+    r"alignments ([\d.]+)s-([\d.]+)s \((\d+) batches, (\d+) windows\)\)"
+)
+POOL_RE = re.compile(r"featgen pool: (\d+) of (\d+) workers ran")
+
+
+def _device_busy_s(profile_dir: str) -> tuple[float, float]:
+    """(summed device time of kernels and copies, seconds from the first
+    device event's start to the last one's end) of a torch.profiler trace."""
+    traces = glob.glob(os.path.join(profile_dir, "*.json"))
+    if len(traces) != 1:
+        raise RuntimeError(f"expected one trace in {profile_dir}, found {traces}")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not dev:
+        raise RuntimeError(f"no device event in {traces[0]}")
+    span = max(e["ts"] + e["dur"] for e in dev) - min(e["ts"] for e in dev)
+    return sum(e["dur"] for e in dev) / 1e6, span / 1e6
+
+
+def _run_inference_cli(env, tmp, tag, fastq, extra) -> dict:
+    out = os.path.join(tmp, f"cli_{tag}.fasta")
+    cmd = [sys.executable, "-m", "herro_tpu_torch.cli", "inference", "-m", CKPT, "-w",
+           "4096", "-b", "32", *extra, fastq, out]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"procpool: {' '.join(cmd)} failed:\n{res.stderr[-4000:]}")
+    m = SUMMARY_RE.search(res.stderr)
+    if m is None:
+        raise RuntimeError(f"procpool: no run summary in:\n{res.stderr[-2000:]}")
+    n, wall, featgen, device_wait, first_alns, last_alns, batches, windows = m.groups()
+    pool = POOL_RE.search(res.stderr)
+    return dict(
+        fasta=out, reads_written=int(n), run_s=float(wall), featgen_s=float(featgen),
+        device_wait_s=float(device_wait), batches=int(batches), windows=int(windows),
+        # when the aligner and the PAF parser gave the first and the last
+        # read's alignments, in seconds into the run
+        first_alns_s=float(first_alns), last_alns_s=float(last_alns),
+        windows_per_s=int(windows) / float(wall), process_s=time.perf_counter() - t0,
+        workers_ran=int(pool.group(1)) if pool else 0,
+    )
+
+
+def phase_procpool(tmp: str, e2e: dict) -> int:
+    """``inference`` through the CLI in subprocesses: serial featgen against
+    ``--feat-gen-procs N``, each once plain (for the times) and once with
+    ``--profile-dir`` (for the device's busy share). Returns N."""
+    from herro_tpu_torch.pipeline.procpool import can_fork
+
+    cores = os.cpu_count() or 1
+    n_procs = min(8, cores - 1)
+    if not can_fork() or n_procs < 2:
+        raise RuntimeError(f"procpool: fork {can_fork()}, {cores} cores: no pool to run")
+    env = _stub_minimap2(tmp, e2e["rows"])
+    want = _fasta_records(e2e["fasta"])
+    report = {}
+    for tag, extra in (("serial", []), ("pool", ["--feat-gen-procs", str(n_procs)])):
+        plain = _run_inference_cli(env, tmp, tag, e2e["fastq"], extra)
+        prof_dir = os.path.join(tmp, f"prof_{tag}")
+        traced = _run_inference_cli(env, tmp, tag + "_traced", e2e["fastq"],
+                                    [*extra, "--profile-dir", prof_dir])
+        device_s, span_s = _device_busy_s(prof_dir)
+        for run in (plain, traced):
+            got = _fasta_records(run["fasta"])
+            if got != want or run["windows"] != e2e["windows_produced"]:
+                raise RuntimeError(
+                    f"procpool {tag}: {len(got)} records, {run['windows']} windows; the "
+                    f"in-process serial run wrote {len(want)} records from "
+                    f"{e2e['windows_produced']} windows, or their bytes differ"
+                )
+        same_order = open(plain["fasta"], "rb").read() == open(e2e["fasta"], "rb").read()
+        report[tag] = dict(
+            {k: plain[k] for k in ("run_s", "windows", "windows_per_s", "featgen_s",
+                                   "device_wait_s", "first_alns_s", "last_alns_s",
+                                   "batches", "process_s", "workers_ran")},
+            traced_run_s=traced["run_s"], traced_device_s=device_s,
+            device_busy_share=device_s / traced["run_s"],
+            # from the first batch on the card to the last: leaves out what a
+            # short run spends before it (the aligner, CUDA start-up)
+            traced_device_span_s=span_s, device_busy_share_in_span=device_s / span_s,
+            records_identical=True, file_bytes_identical=same_order,
+        )
+    emit("procpool", cores=cores, n_procs=n_procs, **report)
+    if report["pool"]["workers_ran"] < n_procs:
+        raise RuntimeError(
+            f"procpool: {report['pool']['workers_ran']} of {n_procs} workers ran"
+        )
+    return n_procs
+
+
+def phase_features(tmp: str, e2e: dict, n_procs: int, n_targets: int = 16) -> None:
+    """The ``features`` subcommand with the pool on the first targets of the
+    e2e reads; every window loads back to what direct extraction gives."""
+    import numpy as np
+
+    from herro_tpu_torch.features.extract import extract_read_features
+    from herro_tpu_torch.features.npy import load_window_features
+
+    env = _stub_minimap2(os.path.join(tmp, "features_stub"), e2e["rows"])
+    env["STUB_MAX_TARGETS"] = str(n_targets)
+    out = os.path.join(tmp, "features")
+    cmd = [sys.executable, "-m", "herro_tpu_torch.cli", "features", "-w", "4096",
+           "--feat-gen-procs", str(n_procs), e2e["fastq"], out]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"features: {' '.join(cmd)} failed:\n{res.stderr[-4000:]}")
+    wall = time.perf_counter() - t0
+    reads, grouped = e2e["reads"], e2e["grouped"]
+    targets = sorted(reads.ids[rid] for rid in grouped)[:n_targets]
+    n_windows = 0
+    for name in targets:
+        rid = reads.name_to_id[name]
+        for wf in extract_read_features(rid, reads, grouped[rid], 4096):
+            bases, quals, sup = load_window_features(os.path.join(out, name.decode()),
+                                                     wf.wid)
+            if not (np.array_equal(bases, wf.bases) and np.array_equal(quals, wf.quals)
+                    and np.array_equal(sup, wf.supported)):
+                raise RuntimeError(f"features: window {wf.wid} of {name!r} differs")
+            n_windows += 1
+    n_dirs = len(os.listdir(out))
+    emit("features", reads=n_dirs, windows=n_windows, n_procs=n_procs, process_s=wall)
+    if n_windows == 0 or n_dirs != len(targets):
+        raise RuntimeError(f"features: {n_dirs} read directories, {n_windows} windows")
+
+
 def main() -> int:
     import torch
 
@@ -472,15 +797,31 @@ def main() -> int:
         e2e = phase_e2e(torch, tmp)
         phase_trace(torch, tmp, e2e)
         phase_cli(torch, tmp, e2e["ds"], e2e["rows"])
+        evals = phase_eval(torch, tmp)
+        n_procs = phase_procpool(tmp, e2e)
+        phase_features(tmp, e2e, n_procs)
 
+    # launches: K1-K5 and K2 from the inference run; K7 and K6 from the eval
+    # run whose checkpoint takes them (each counted from 0 over its own run)
+    launches = dict(e2e["launches"])
+    launches["flash_outproj_full"] = \
+        evals["model_r10_sim[local_window=None]"]["flash_outproj_full"]
+    launches["flash_outproj_band"] = \
+        evals["model_r10_sim[local_window=384]"]["flash_outproj_band"]
+    keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     summary = []
     for k in results["kernels"]:
-        summary.append({
-            key: k[key] for key in (
-                "name", "route", "source", "replaces", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms",
+        if k["case"] != k["name"]:  # a second shape of a kernel listed already
+            main_entry = next(e for e in summary if e["name"] == k["name"])
+            main_entry.setdefault("other_cases", []).append(
+                {key: k[key] for key in ("case", *keys[4:])}
             )
-        } | {"launches": e2e["launches"][k["name"]]})
+            continue
+        summary.append({key: k[key] for key in keys} | {"launches": launches[k["name"]]})
+    missing = [e["name"] for e in summary if not e["launches"]]
+    if missing or len(summary) != len(launches):
+        raise RuntimeError(f"kernels never launched on their path: {missing}")
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

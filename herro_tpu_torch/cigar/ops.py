@@ -81,6 +81,9 @@ def _coalesce(codes: np.ndarray, lens: np.ndarray) -> tuple[np.ndarray, np.ndarr
     return codes[new_run], out_lens.astype(np.int32)
 
 
+_MAX_RUN = 2**31 - 1  # run lengths are int32
+
+
 def parse_cigar(cigar: bytes) -> Cigar:
     from .. import native
 
@@ -103,6 +106,8 @@ def parse_cigar(cigar: bytes) -> Cigar:
     has_eqx = False
     for i, (l, op) in enumerate(ops):
         codes[i] = _CODE_OF[op]
+        if int(l) > _MAX_RUN:  # the native parser rejects such a run too
+            raise ValueError(f"Invalid CIGAR: {cigar[:60]!r}")
         lens[i] = int(l)
         has_eqx |= op in (b"=", b"X")
     if has_eqx:

@@ -1,13 +1,18 @@
 """Command-line interface of the PyTorch/CUDA port.
 
+    python -m herro_tpu_torch.cli features  [--read-alns D | --write-alns D] \\
+        [-w W] [-t N] [--feat-gen-procs N] READS OUTPUT_DIR
     python -m herro_tpu_torch.cli inference [--read-alns D | --write-alns D] \\
-        [-w W] [-t N] -m MODEL [-b B] [-c CLUSTER] [--device cuda|cpu] \\
-        READS OUTPUT
+        [-w W] [-t N] [--feat-gen-procs N] -m MODEL [-b B] [-c CLUSTER] \\
+        [--device cuda|cpu] READS OUTPUT
+    python -m herro_tpu_torch.cli eval MODEL [--mode model|counting|oracle] \\
+        [--with-baseline] [--device cuda|cpu] ...
 
-The ``inference`` subcommand of ``herro_tpu`` on one device, with its flags.
-It runs on the card unless ``--device cpu`` is given. The reference's
-multi-device, multi-host, int8 and featgen-process flags are accepted but
-raise until the port carries them.
+The ``features``, ``inference`` and ``eval`` subcommands of ``herro_tpu`` on
+one device, with their flags. ``inference`` and ``eval`` run on the card
+unless ``--device cpu`` is given; ``features`` runs on the host alone. The
+reference's multi-device, multi-host and int8 flags are accepted but raise
+until the port carries them.
 """
 
 from __future__ import annotations
@@ -19,29 +24,38 @@ import time
 from .constants import DEFAULT_WINDOW_SIZE
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="herro-tpu-torch")
-    sub = ap.add_subparsers(dest="command", required=True)
-
-    pi = sub.add_parser("inference", help="error-correct reads")
-    g = pi.add_mutually_exclusive_group()
+def _add_common(p: argparse.ArgumentParser) -> None:
+    g = p.add_mutually_exclusive_group()
     g.add_argument("--read-alns", help="folder with *.oec.zst alignment batches to read")
     g.add_argument(
         "--write-alns", help="folder where *.oec.zst alignment batches will be saved"
     )
-    pi.add_argument(
+    p.add_argument(
         "-w", "--window-size", type=int, default=DEFAULT_WINDOW_SIZE,
         help="target chunking window size (default 4096)",
     )
-    pi.add_argument(
+    p.add_argument(
         "-t", "--feat-gen-threads", type=int, default=1,
         help="feature generation threads (default 1)",
     )
-    pi.add_argument(
+    p.add_argument(
         "--feat-gen-procs", type=int, default=0,
-        help="feature generation worker processes (not ported yet: > 1 raises)",
+        help="feature generation worker *processes* (GIL-free; read arenas "
+        "shared zero-copy via fork). Overrides -t for featgen when > 1",
     )
-    pi.add_argument("reads", help="fastq reads, optionally gzipped (file or dir)")
+    p.add_argument("reads", help="fastq reads, optionally gzipped (file or dir)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="herro-tpu-torch")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    pf = sub.add_parser("features", help="generate training features")
+    _add_common(pf)
+    pf.add_argument("output", help="folder where features will be stored")
+
+    pi = sub.add_parser("inference", help="error-correct reads")
+    _add_common(pi)
     pi.add_argument(
         "-m", "--model", required=True,
         help="model checkpoint dir, or a named config (tiny/r10/r9/r10w/r10deep)",
@@ -91,6 +105,56 @@ def build_parser() -> argparse.ArgumentParser:
         "--process-id", type=int, default=0, help="multi-host (not ported yet)"
     )
     pi.add_argument("output", help="corrected reads FASTA path")
+
+    pe = sub.add_parser(
+        "eval", help="score correction quality on held-out simulated data"
+    )
+    pe.add_argument("model", help="checkpoint dir or named config")
+    pe.add_argument("-w", "--window-size", type=int, default=DEFAULT_WINDOW_SIZE)
+    pe.add_argument("-b", "--batch-size", type=int, default=16)
+    pe.add_argument("--genome-len", type=int, default=120_000)
+    pe.add_argument("--n-reads", type=int, default=120)
+    pe.add_argument("--sub-rate", type=float, default=0.02)
+    pe.add_argument("--indel-rate", type=float, default=0.04)
+    pe.add_argument("--het-rate", type=float, default=0.005)
+    pe.add_argument("--seed", type=int, default=12345)
+    pe.add_argument(
+        "--profile", choices=["systematic"], default=None,
+        help="named simulator stress profile: 'systematic' adds "
+        "locus-correlated confident miscalls (half strand-biased), "
+        "adapter-chimera junction reads, and coverage dropouts "
+        "(training/eval.py SIM_PROFILES)",
+    )
+    pe.add_argument(
+        "--counting-only", action="store_true",
+        help="diagnostic: decode with the counting rule only (model disabled "
+        "at supported columns)",
+    )
+    pe.add_argument(
+        "--mode", choices=["model", "counting", "oracle"], default=None,
+        help="decode mode: model (default), counting (the floor), or oracle "
+        "(truth at supported columns — the ceiling of any model)",
+    )
+    pe.add_argument(
+        "--with-baseline", action="store_true",
+        help="also decode the identical features with the counting rule and "
+        "report the matched-seed model_gain_db",
+    )
+    pe.add_argument(
+        "--int8", action=argparse.BooleanOptionalAction, default=None,
+        help="int8 layer-stack matmuls (not ported yet)",
+    )
+    pe.add_argument(
+        "--shuffle-quals", action="store_true",
+        help="ablation control: permute each read's quality string (seeded) "
+        "before correction — the matched-seed gap vs a normal run is the "
+        "quality channel's contribution",
+    )
+    pe.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on: cuda (default, the current card), "
+        "cuda:N, or cpu",
+    )
     return ap
 
 
@@ -108,24 +172,101 @@ def _check_ported(args) -> None:
         raise SystemExit("multi-host flags are not ported yet")
     if args.int8:
         raise SystemExit("--int8: int8 inference is not ported yet")
+
+
+def _load(args, core=None, neighbour=None):
+    from .io.fastx import load_reads
+
+    t0 = time.time()
+    reads = load_reads(args.reads, args.window_size, core, neighbour)
+    print(f"Parsed {len(reads)} reads in {time.time() - t0:.1f}s.", file=sys.stderr)
+    return reads
+
+
+def cmd_features(args) -> None:
+    from .features.extract import extract_read_features
+    from .features.npy import write_window_features
+    from .overlaps.paf import ParseStats
+    from .pipeline.engine import AlnMode, _parallel_featgen, alignment_stream
+
+    reads = _load(args)
+    mode = AlnMode(read_path=args.read_alns, write_path=args.write_alns)
+    stats = ParseStats()
+    source = alignment_stream(
+        reads, args.reads, mode, args.feat_gen_threads, stats=stats
+    )
+
+    # Count reads at the (rid, alns) source level so the summary is
+    # identical across the serial / threaded / process paths (zero-window
+    # reads included everywhere).
+    n_reads = 0
+
+    def counted(src):
+        nonlocal n_reads
+        for item in src:
+            n_reads += 1
+            yield item
+
+    source = counted(source)
+
+    def handle(wf) -> None:
+        write_window_features(args.output, reads, [wf])
+
+    # Parallel featgen (reference: -t threads, src/lib.rs:84-104): worker
+    # processes fork-share the read arenas; the npy writes stay on this
+    # thread. Otherwise GIL-sharing threads, or serial.
     if args.feat_gen_procs > 1:
-        raise SystemExit("--feat-gen-procs > 1: the featgen process pool is not "
-                         "ported yet; use -t for threads")
+        from .pipeline.procpool import parallel_featgen_procs
+
+        parallel_featgen_procs(
+            reads, source, args.window_size, args.feat_gen_procs, handle,
+            tensorized=False,
+        )
+    elif args.feat_gen_threads > 1:
+        _parallel_featgen(
+            reads, source, args.window_size, args.feat_gen_threads, handle,
+            tensorized=False,
+        )
+    else:
+        for rid, alns in source:
+            feats = extract_read_features(rid, reads, alns, args.window_size)
+            write_window_features(args.output, reads, feats)
+    print(f"Generated features for {n_reads} reads.", file=sys.stderr)
+    if stats.n_skipped:
+        print(f"[herro-tpu-torch] PAF ingest: {stats.summary()}", file=sys.stderr)
 
 
 def cmd_inference(args) -> None:
-    from .io.fastx import load_reads, read_cluster
+    from .io.fastx import read_cluster
+
+    _check_ported(args)
+    core, neighbour = read_cluster(args.cluster)
+    reads = _load(args, core, neighbour)
+
+    # Fork the featgen worker pool BEFORE the first CUDA call of the process:
+    # a child forked after CUDA is initialised inherits a CUDA context it
+    # cannot use. The arenas are inherited zero-copy; everything below (model
+    # load, the runner and its stream) happens only in the parent.
+    featgen_pool = None
+    if args.feat_gen_procs > 1:
+        from .pipeline.procpool import FeatgenPool
+
+        featgen_pool = FeatgenPool(reads, args.window_size, args.feat_gen_procs)
+    try:
+        _run_inference(args, reads, core, featgen_pool)
+    finally:
+        # Always tear the pool down: leaked worker queues wedge interpreter
+        # shutdown on their feeder-thread join (see procpool.close).
+        if featgen_pool is not None:
+            featgen_pool.close(terminate=sys.exc_info()[0] is not None)
+
+
+def _run_inference(args, reads, core, featgen_pool) -> None:
     from .models.checkpoint import load_or_init
     from .overlaps.paf import ParseStats
     from .pipeline.engine import AlnMode, StageTimers, alignment_stream, run_correction
     from .pipeline.infer import CorrectionRunner
     from .pipeline.progress import Progress
-
-    _check_ported(args)
-    core, neighbour = read_cluster(args.cluster)
-    t0 = time.time()
-    reads = load_reads(args.reads, args.window_size, core, neighbour)
-    print(f"Parsed {len(reads)} reads in {time.time() - t0:.1f}s.", file=sys.stderr)
 
     cfg, params = load_or_init(args.model)
     runner = CorrectionRunner(cfg, params, int8=args.int8, device=args.device)
@@ -175,22 +316,66 @@ def cmd_inference(args) -> None:
             resume=args.resume,
             timers=timers,
             pipeline_depth=args.pipeline_depth,
+            featgen_pool=featgen_pool,
         )
     finally:
         if profiler is not None:
             profiler.stop()
     progress.finish()
     print(
-        f"Corrected {n} reads in {time.time() - t0:.1f}s ({timers.summary()}).",
+        f"Corrected {n} reads in {time.time() - t0:.3f}s ({timers.summary()}).",
         file=sys.stderr,
     )
+    if featgen_pool is not None:
+        counts = sorted(featgen_pool.reads_by_worker.values())
+        print(
+            f"[herro-tpu-torch] featgen pool: {len(counts)} of "
+            f"{featgen_pool.n_procs} workers ran"
+            + (f" ({counts[0]}-{counts[-1]} reads each)" if counts else ""),
+            file=sys.stderr,
+        )
     if paf_stats.n_skipped:
         print(f"[herro-tpu-torch] PAF ingest: {paf_stats.summary()}", file=sys.stderr)
 
 
+def cmd_eval(args) -> None:
+    import json
+
+    from .models.checkpoint import load_or_init
+    from .training.eval import SIM_PROFILES, evaluate
+
+    cfg, params = load_or_init(args.model)
+    res = evaluate(
+        cfg,
+        params,
+        window_size=args.window_size,
+        genome_len=args.genome_len,
+        n_reads=args.n_reads,
+        sub_rate=args.sub_rate,
+        ins_rate=args.indel_rate / 2,
+        del_rate=args.indel_rate / 2,
+        het_rate=args.het_rate,
+        seed=args.seed,
+        batch_size=args.batch_size,
+        counting_only=args.counting_only,
+        mode=args.mode,
+        with_baseline=args.with_baseline,
+        int8=args.int8,
+        shuffle_quals=args.shuffle_quals,
+        sim_extra=SIM_PROFILES[args.profile] if args.profile else None,
+        device=args.device,
+    )
+    print(json.dumps(res.as_dict(), indent=1))
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    cmd_inference(args)
+    if args.command == "features":
+        cmd_features(args)
+    elif args.command == "eval":
+        cmd_eval(args)
+    else:
+        cmd_inference(args)
 
 
 if __name__ == "__main__":

@@ -1,243 +1,20 @@
-// K2: banded flash attention + out projection + residual, all heads in a block.
+// K2: banded flash attention + out projection + residual, for a band that is
+// a multiple of 256 (every shipped checkpoint: 512).
 //
 // Replaces herro_tpu/ops/fused.py:_banded_flash_outproj_rot_kernel (via
 // _banded_flash_outproj_rot_pallas).
-// For every query row i of batch b and head h: softmax over the keys j with
-// |i - j| <= window and j < length of scale * q_i . k_j (masked scores are
-// -1e30), then P.V with P rounded to bf16, divided by the row sum clamped at
-// 1e-30 and rounded to bf16; then out = bf16((x + bo) + sum_h attn_h @ Wo_h).
 // Bound on the H100: operations (4*H*D per in-band query-key pair plus the
 // out projection 2*B*L*H*D*d, ~7e11 at B=32, L=9216) over the bf16
-// tensor-core rate. Design (flash-attention-2 form): a block owns 128 query
-// rows of one batch element, 8 warps of 16 rows, and loops over the heads.
-// A warp keeps its Q fragments, scores, probabilities and output accumulator
-// in registers (mma.sync m16n8k16, operands from shared memory by ldmatrix),
-// runs the online softmax there with quad shuffles, and turns the score
-// fragments into P fragments without leaving registers. The key tiles of 64
-// that meet the block's band stream through a double buffer filled by
-// cp.async, so the next tile's copy overlaps this tile's math; a warp skips
-// the tiles that lie outside its own rows' band. Each head's bf16 result
-// lands in a [128, H*D] shared tile (Q of the head is staged in the same
-// columns first), which feeds the out projection against Wo [H*D, d] (the
-// same mma.sync path, Wo chunks staged by cp.async); the residual is added to
-// the accumulator fragments in registers. The TPU kernel's
-// rotation slots are a VMEM-reuse schedule with no counterpart here.
-#include "common.cuh"
-
-namespace herro {
-
-constexpr int kD = 128;        // head dim
-constexpr int kBQ = 128;       // query rows per block (8 warps x 16)
-constexpr int kBK = 64;        // keys per tile
-constexpr int kLdKV = kD + 8;  // K/V tile row stride (bf16): conflict-free ldmatrix
-constexpr size_t kTileBytes = (size_t)kBK * kLdKV * 2;
-constexpr size_t kKvBytes = 4 * kTileBytes;  // 2 stages x (K, V)
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-inline size_t flash_smem(int hd) { return kKvBytes + align128((size_t)kBQ * (hd + 8) * 2); }
-
-// rows [row0, row0 + rows) of a [L, D] head slab into a shared tile of row
-// stride ld, asynchronously; rows past L are zero-filled
-__device__ inline void load_rows_async(const bf16* __restrict__ src, int row0, int rows,
-                                       int L, bf16* dst, int ld) {
-  for (int e = threadIdx.x; e < rows * (kD / 8); e += blockDim.x) {
-    const int r = e >> 4, c = (e & 15) * 8;
-    const int row = row0 + r;
-    const bool ok = row < L;
-    cp_async16(dst + r * ld + c, src + (size_t)(ok ? row : 0) * kD + c, ok);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_outproj_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ x,
-                     const bf16* __restrict__ wo,  // [H*D, d]
-                     const bf16* __restrict__ bo, const int* __restrict__ lengths,
-                     bf16* __restrict__ out, int H, int L, int d, int window,
-                     float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int hd = H * kD, lda = hd + 8;
-  bf16* kv = reinterpret_cast<bf16*>(smem);  // [stage][K, V][kBK][kLdKV]
-  bf16* attn = reinterpret_cast<bf16*>(smem + kKvBytes);
-  auto k_tile = [&](int s) { return kv + (size_t)(2 * s) * kBK * kLdKV; };
-  auto v_tile = [&](int s) { return kv + (size_t)(2 * s + 1) * kBK * kLdKV; };
-
-  const int b = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int len = min(lengths[b], L);
-  const int r0 = q0 + warp * 16;  // this warp's first query row
-  // keys that can meet the block's band: [kt0, k_hi) in tiles of kBK
-  const int k_lo = max(0, q0 - window);
-  const int k_hi = min(len, q0 + kBQ + window);
-  const int kt0 = (k_lo / kBK) * kBK;
-  const int n_tiles = k_hi > kt0 ? (k_hi - kt0 + kBK - 1) / kBK : 0;
-  const float sl2 = scale * kLog2e;  // scores in log2 units: exp2 below
-
-  for (int h = 0; h < H; ++h) {
-    const size_t slab = ((size_t)b * H + h) * L * kD;
-    // Q of this head lands in the head's own attn columns, free until its
-    // result is written there (each warp reads and writes only its rows)
-    bf16* qs = attn + h * kD;
-    load_rows_async(q + slab, q0, kBQ, L, qs, lda);
-    cp_async_commit();
-    if (n_tiles > 0) {
-      load_rows_async(k + slab, kt0, kBK, L, k_tile(0), kLdKV);
-      load_rows_async(v + slab, kt0, kBK, L, v_tile(0), kLdKV);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    uint32_t qf[kD / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * lda + kk * 16 + (lane >> 4) * 8);
-
-    float o[kD / 8][4];
-    zero(o);
-    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
-    const int iq0 = r0 + g, iq1 = r0 + g + 8;
-
-    for (int it = 0; it < n_tiles; ++it) {
-      const int kt = kt0 + it * kBK;
-      if (it + 1 < n_tiles) {
-        load_rows_async(k + slab, kt + kBK, kBK, L, k_tile((it + 1) & 1), kLdKV);
-        load_rows_async(v + slab, kt + kBK, kBK, L, v_tile((it + 1) & 1), kLdKV);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const bf16* Ks = k_tile(it & 1);
-      const bf16* Vs = v_tile(it & 1);
-      const bool live = r0 < L && kt + kBK - 1 >= r0 - window && kt <= r0 + 15 + window;
-      if (live) {
-        float s[kBK / 8][4];
-        zero(s);
-#pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk)
-#pragma unroll
-          for (int nn = 0; nn < kBK / 8; nn += 2) {
-            uint32_t bk[4];
-            ldsm_x4(bk, Ks + (nn * 8 + (lane & 7) + ((lane >> 4) << 3)) * kLdKV + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-            mma16816(s[nn], qf[kk], bk[0], bk[1]);
-            mma16816(s[nn + 1], qf[kk], bk[2], bk[3]);
-          }
-
-        float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-        for (int nn = 0; nn < kBK / 8; ++nn)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int ik = kt + nn * 8 + 2 * t + e;
-            s[nn][e] = (ik < len && abs(iq0 - ik) <= window) ? s[nn][e] * sl2 : kNegInf;
-            s[nn][2 + e] =
-                (ik < len && abs(iq1 - ik) <= window) ? s[nn][2 + e] * sl2 : kNegInf;
-            mx0 = fmaxf(mx0, s[nn][e]);
-            mx1 = fmaxf(mx1, s[nn][2 + e]);
-          }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-        }
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-        m0 = mn0;
-        m1 = mn1;
-        l0 *= a0;
-        l1 *= a1;
-#pragma unroll
-        for (int j = 0; j < kD / 8; ++j) {
-          o[j][0] *= a0;
-          o[j][1] *= a0;
-          o[j][2] *= a1;
-          o[j][3] *= a1;
-        }
-        // P in bf16 as the A operand of P.V: score tiles 2kk, 2kk+1 are the
-        // low and high key halves of k-step kk
-        uint32_t pf[kBK / 16][4];
-#pragma unroll
-        for (int nn = 0; nn < kBK / 8; ++nn) {
-          const float p0 = exp2f(s[nn][0] - mn0), p1 = exp2f(s[nn][1] - mn0);
-          const float p2 = exp2f(s[nn][2] - mn1), p3 = exp2f(s[nn][3] - mn1);
-          l0 += p0 + p1;
-          l1 += p2 + p3;
-          pf[nn >> 1][(nn & 1) * 2] = pack_bf16(p0, p1);
-          pf[nn >> 1][(nn & 1) * 2 + 1] = pack_bf16(p2, p3);
-        }
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-          for (int nn = 0; nn < kD / 8; nn += 2) {
-            uint32_t bv[4];
-            ldsm_x4_trans(bv, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdKV +
-                                  nn * 8 + (lane >> 4) * 8);
-            mma16816(o[nn], pf[kk], bv[0], bv[1]);
-            mma16816(o[nn + 1], pf[kk], bv[2], bv[3]);
-          }
-      }
-      __syncthreads();  // every warp is done with this stage before its refill
-    }
-    cp_async_wait<0>();
-
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    bf16* row0 = attn + (warp * 16 + g) * lda + h * kD + 2 * t;
-    bf16* row1 = row0 + 8 * lda;
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      *reinterpret_cast<bf162*>(row0 + j * 8) =
-          __floats2bfloat162_rn(o[j][0] / d0, o[j][1] / d0);
-      *reinterpret_cast<bf162*>(row1 + j * 8) =
-          __floats2bfloat162_rn(o[j][2] / d1, o[j][3] / d1);
-    }
-  }
-  __syncthreads();
-
-  // out = (x + bo) + attn @ Wo, in 128-column passes: each warp its 16 rows,
-  // the K/V buffers (free now) staging Wo
-  for (int n0 = 0; n0 < d; n0 += kChunkN) {
-    float acc[kChunkN / 8][4];
-    zero(acc);
-    block_gemm<kChunkN / 8>(acc, attn, lda, warp * 16, wo, d, n0, hd, kv, 0);
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int row = q0 + warp * 16 + g + 8 * rr;
-      if (row >= L) continue;
-#pragma unroll
-      for (int nn = 0; nn < kChunkN / 8; ++nn) {
-        const int c = n0 + nn * 8 + 2 * t;
-        const size_t o = ((size_t)b * L + row) * d + c;
-        const float2 xr = __bfloat1622float2(*reinterpret_cast<const bf162*>(x + o));
-        const float2 br = __bfloat1622float2(*reinterpret_cast<const bf162*>(bo + c));
-        *reinterpret_cast<bf162*>(out + o) = __floats2bfloat162_rn(
-            (xr.x + br.x) + acc[nn][2 * rr], (xr.y + br.y) + acc[nn][2 * rr + 1]);
-      }
-    }
-  }
-}
-
-}  // namespace herro
+// tensor-core rate. The device code is the kMaskBand instantiation of
+// flash_outproj.cuh, which describes the design. The TPU kernel's rotation
+// slots are a VMEM-reuse schedule with no counterpart here.
+#include "flash_outproj.cuh"
 
 extern "C" int herro_flash_outproj(const void* q, const void* k, const void* v,
                                    const void* x, const void* wo, const void* bo,
                                    const int* lengths, void* out, int B, int H, int L,
                                    int d, int window, float scale, void* stream) {
-  using namespace herro;
-  if (d % 128) return (int)cudaErrorInvalidValue;
-  const size_t smem = flash_smem(H * kD);
-  int err = set_smem((const void*)flash_outproj_kernel, smem);
-  if (err) return err;
-  dim3 grid((L + kBQ - 1) / kBQ, B);
-  flash_outproj_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)x, (const bf16*)wo,
-      (const bf16*)bo, lengths, (bf16*)out, H, L, d, window, scale);
-  return (int)cudaGetLastError();
+  if (window % 256) return (int)cudaErrorInvalidValue;
+  return herro::flash_outproj_launch<herro::kMaskBand>(q, k, v, x, wo, bo, lengths, out, B,
+                                                       H, L, d, window, scale, stream);
 }

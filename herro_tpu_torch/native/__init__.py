@@ -1,9 +1,10 @@
 """ctypes bindings for the native host kernels.
 
 The library builds on first import (g++, ~1s) and is cached next to the
-source; set ``HERRO_TPU_NATIVE=0`` to force the pure-numpy fallbacks. Every
-binding has an identical-semantics numpy twin in cigar/ and features/ — parity
-is enforced by tests/test_native.py.
+source (several processes may import at once: see ``_build``); set
+``HERRO_TPU_NATIVE=0`` to force the pure-numpy fallbacks. Every binding has
+an identical-semantics numpy twin in cigar/ and features/ — parity is
+enforced by tests/test_native.py.
 """
 
 from __future__ import annotations
@@ -22,15 +23,38 @@ _SRC_PATH = os.path.join(_DIR, "haec_native.cpp")
 _lib = None
 
 
+def _stale() -> bool:
+    return not os.path.exists(_LIB_PATH) or os.path.getmtime(
+        _LIB_PATH
+    ) < os.path.getmtime(_SRC_PATH)
+
+
 def _build() -> bool:
+    """Build the library so that concurrent importers never see a partial
+    file: one process builds at a time (an exclusive lock on a lock file beside
+    the source), compiling to a temporary name in the same directory and
+    renaming it into place. An importer that waited for the lock finds the
+    finished library and builds nothing."""
+    import fcntl
+
+    tmp = f"libherro_native.{os.getpid()}.tmp.so"
     try:
-        subprocess.run(
-            ["make", "-C", _DIR],
-            check=True,
-            capture_output=True,
-        )
+        with open(_LIB_PATH + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not _stale():
+                return True
+            try:
+                subprocess.run(
+                    ["make", "-C", _DIR, f"TARGET={tmp}"],
+                    check=True,
+                    capture_output=True,
+                )
+                os.replace(os.path.join(_DIR, tmp), _LIB_PATH)
+            finally:
+                if os.path.exists(os.path.join(_DIR, tmp)):
+                    os.unlink(os.path.join(_DIR, tmp))
         return True
-    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+    except (subprocess.CalledProcessError, OSError) as e:
         print(f"[herro-tpu] native build failed ({e}); using numpy fallbacks",
               file=sys.stderr)
         return False
@@ -40,11 +64,8 @@ def _load():
     global _lib
     if os.environ.get("HERRO_TPU_NATIVE", "1") == "0":
         return None
-    if not os.path.exists(_LIB_PATH) or os.path.getmtime(
-        _LIB_PATH
-    ) < os.path.getmtime(_SRC_PATH):
-        if not _build():
-            return None
+    if _stale() and not _build():
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError as e:
@@ -102,9 +123,6 @@ _lib = _load()
 
 def available() -> bool:
     return _lib is not None
-
-
-
 
 
 def decode_2bit(words: np.ndarray, start: int, end: int, rc: bool) -> np.ndarray:

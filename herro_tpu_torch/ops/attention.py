@@ -2,9 +2,9 @@
 
 A port of ``herro_tpu/ops/attention.py:chunked_attention``: blocked over
 query rows, each block scoring only the static key span its band can reach
-(O(L * window) instead of O(L^2)). It is the plain version of the CUDA
-flash/out-projection kernel (K2, ``csrc/flash_outproj.cu``) and the path the
-model takes on the CPU.
+(O(L * window) instead of O(L^2)). It is the plain version of the three CUDA
+flash/out-projection kernels (K2, K6 and K7, ``csrc/flash_outproj*.cu``) and
+the path the model takes on the CPU.
 
 q/k/v are [B, H, L, D]; ``lengths`` [B] counts the valid (prefix) columns of
 each example — padding is always a suffix of the pileup column axis.

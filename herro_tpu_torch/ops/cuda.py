@@ -4,9 +4,10 @@ Each CUDA source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into its own shared library with a plain C interface, loaded with ctypes. The
 first kernel call builds every source at once, one ``nvcc`` per source, all
 started together, into ``herro_tpu_torch/csrc/build/`` (listed in
-``.gitignore``); a library is named by the hash of its sources and flags, so
-an edited source never loads a stale build. Nothing here runs at import: the
-CPU-only tests import this module freely.
+``.gitignore``); a library is named by the hash of its source, every shared
+header (``*.cuh``) and the flags, so an edited source never loads a stale
+build. Nothing here runs at import: the CPU-only tests import this module
+freely.
 
 Every C entry point launches on the stream it is handed (the caller passes
 ``torch.cuda.current_stream()``), allocates nothing, and returns
@@ -41,6 +42,12 @@ KERNELS = {
     "ln_qkv_rope": ("herro_ln_qkv_rope", [_P] * 10 + [_I] * 4 + [_P]),
     "flash_outproj": (
         "herro_flash_outproj", [_P] * 8 + [_I] * 5 + [_F, _P],
+    ),
+    "flash_outproj_band": (
+        "herro_flash_outproj_band", [_P] * 8 + [_I] * 5 + [_F, _P],
+    ),
+    "flash_outproj_full": (
+        "herro_flash_outproj_full", [_P] * 8 + [_I] * 4 + [_F, _P],
     ),
     "ln_ffn": ("herro_ln_ffn", [_P] * 8 + [_L, _I, _I, _P]),
     "count_decisions": ("herro_count_decisions", [_P] * 3 + [_I] * 3 + [_P]),
@@ -88,7 +95,11 @@ class _Libraries:
         t0 = time.perf_counter()
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        common = _read(os.path.join(CSRC, "common.cuh"))
+        # every header counts towards every library's name
+        common = b"".join(
+            _read(os.path.join(CSRC, h))
+            for h in sorted(os.listdir(CSRC)) if h.endswith(".cuh")
+        )
         targets, procs = {}, []
         for name in KERNELS:
             src = os.path.join(CSRC, f"{name}.cu")

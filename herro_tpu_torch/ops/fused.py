@@ -15,7 +15,8 @@ version for CPU tensors, and does nothing else: there is no fallback.
 
 * ``entry_embed`` (K4) — tokens + quals -> [B, L, d] stream;
 * ``ln_qkv_rope`` (K1) — LN + qkv projection + rope -> per-head q, k, v;
-* ``flash_outproj`` (K2) — banded attention + out projection + residual;
+* ``flash_outproj`` (K2, K6, K7) — attention over an aligned band, any
+  band, or every key, + out projection + residual;
 * ``ln_ffn`` (K3) — LN + FFN + residual.
 
 Positions for the rope are the absolute column index: padding is a suffix.
@@ -221,24 +222,38 @@ def ln_qkv_rope(x, scale, bias, w, b, n_heads: int):
 
 
 # ---------------------------------------------------------------------------
-# K2 flash_outproj: y = x + concat_h(attn_h) @ Wo + bo
+# K2, K6, K7 flash_outproj: y = x + concat_h(attn_h) @ Wo + bo
 # ---------------------------------------------------------------------------
 
 
 def _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window):
+    """The plain version of all three attention kernels: ``chunked_attention``
+    masks |iq - ik| <= local_window for any band and nothing but the length
+    for ``local_window=None``, so one function serves K2, K6 and K7."""
     attn = chunked_attention(q, k, v, lengths, local_window)  # [B, H, L, D]
     out = torch.einsum("bhld,hdo->blo", attn.float(), wo.float())
     return (x.float() + out + bo.float()).to(x.dtype)
 
 
-def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
+def flash_kernel_name(local_window) -> str:
+    """The attention kernel a band takes on the card: none ->
+    ``flash_outproj_full`` (K7); a multiple of 256 -> ``flash_outproj`` (K2);
+    any other band -> ``flash_outproj_band`` (K6). The choice
+    ``herro_tpu/ops/fused.py:_flash_outproj_pallas`` makes, on the argument
+    alone."""
     if local_window is None:
-        raise NotImplementedError(
-            "full (unbanded) attention needs the port of herro_tpu/ops/fused.py:"
-            "_flash_outproj_kernel, which is not ported yet"
-        )
+        return "flash_outproj_full"
+    if local_window % 256 == 0:
+        return "flash_outproj"
+    return "flash_outproj_band"
+
+
+def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
     B, H, L, D = q.shape
     d = x.shape[-1]
+    name = flash_kernel_name(local_window)
+    _cuda.check(local_window is None or local_window >= 0,
+                f"local_window {local_window} is negative")
     _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
     _cuda.check(d % 128 == 0, f"d_model {d} is not a multiple of 128")
     _cuda.check(k.shape == q.shape and v.shape == q.shape, "q/k/v shapes")
@@ -249,11 +264,13 @@ def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
     _require_dtype(torch.int32, lengths=lengths)
     dev = _require_cuda_operands(q=q, k=k, v=v, x=x, wo=wo, bo=bo, lengths=lengths)
     out = torch.empty_like(x)
+    # the full kernel has no band and takes no window
+    band = () if local_window is None else (int(local_window),)
     with torch.cuda.device(dev):
         _cuda.call(
-            "flash_outproj", q.data_ptr(), k.data_ptr(), v.data_ptr(), x.data_ptr(),
+            name, q.data_ptr(), k.data_ptr(), v.data_ptr(), x.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, L, d, int(local_window), 1.0 / math.sqrt(D), _cuda.stream_of(x),
+            B, H, L, d, *band, 1.0 / math.sqrt(D), _cuda.stream_of(x),
         )
     return out
 
@@ -261,7 +278,8 @@ def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
 def flash_outproj(q, k, v, x, wo, bo, lengths, local_window):
     """Attention + out projection + residual: y = x + concat_h(attn_h) @ Wo
     + bo, with wo passed as [H, D, d_model] and the band |iq - ik| <=
-    local_window (None: every key below the length)."""
+    local_window (None: every key below the length). Rows at or past a
+    batch element's length are padding: finite, and read by no later stage."""
     if x.is_cuda:
         return _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window)
     return _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window)

@@ -187,11 +187,20 @@ class StageTimers:
     featgen_s: float = 0.0
     device_s: float = 0.0
     n_batches: int = 0
+    n_windows: int = 0  # every window featgen produced, model or counting-only
+    # seconds into the last run at which the alignment source gave its first
+    # and its last (target, alignments) item: before the first, the run waits
+    # for the aligner and the PAF parser, not for featgen or the device
+    first_alns_s: float | None = None
+    last_alns_s: float | None = None
 
     def summary(self) -> str:
+        alns = ""
+        if self.first_alns_s is not None and self.last_alns_s is not None:
+            alns = f", alignments {self.first_alns_s:.3f}s-{self.last_alns_s:.3f}s"
         return (
-            f"featgen {self.featgen_s:.1f}s, device {self.device_s:.1f}s "
-            f"({self.n_batches} batches)"
+            f"featgen {self.featgen_s:.3f}s, device {self.device_s:.3f}s{alns} "
+            f"({self.n_batches} batches, {self.n_windows} windows)"
         )
 
 
@@ -225,7 +234,7 @@ def run_correction(
     the model's contribution without a second featgen pass.
 
     ``featgen_pool`` is an already-forked :class:`~.procpool.FeatgenPool`
-    (preferred over ``feat_procs``: the CLI forks it before JAX initialises).
+    (preferred over ``feat_procs``: the CLI forks it before the first CUDA call).
     """
     import time as _time
 
@@ -339,6 +348,7 @@ def run_correction(
         acc.add(res)
 
     def handle_window(wt) -> None:
+        timers.n_windows += 1
         if wt.n_supported == 0:
             # No model columns: pure counting decode, host side
             # (src/inference.rs:241-250 — such windows never reach the model).
@@ -381,9 +391,18 @@ def run_correction(
         for res in results:
             add_result(res)
 
-    source = (
-        (rid, alns) for rid, alns in aln_source if rid not in skip
-    )
+    t_run = _time.perf_counter()
+    timers.first_alns_s = timers.last_alns_s = None
+
+    def timed_source():
+        for rid, alns in aln_source:
+            timers.last_alns_s = _time.perf_counter() - t_run
+            if timers.first_alns_s is None:
+                timers.first_alns_s = timers.last_alns_s
+            if rid not in skip:
+                yield rid, alns
+
+    source = timed_source()
     try:
         if featgen_pool is not None:
             featgen_pool.run(source, handle_window, timers=timers)

@@ -169,7 +169,7 @@ def test_cli_read_alns_on_cpu(dataset):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--tp", "2"], ["--devices", "2"], ["--int8"], ["--feat-gen-procs", "2"],
+    [["--tp", "2"], ["--devices", "2"], ["--int8"], ["--coordinator", "host:1"],
      ["--num-processes", "2"]],
 )
 def test_cli_unported_flags_raise(flags, tmp_path):
@@ -201,6 +201,12 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "herro_tpu_torch.cli" in names and "herro_tpu_torch.ops.fused" in names
+    for new in ("utils.edist", "utils.align", "training.labels", "training.eval",
+                "features.npy", "pipeline.procpool"):
+        assert f"herro_tpu_torch.{new}" in names
+    demo = open(os.path.join(ROOT, "demo", "run_demo_torch.py")).read()
+    for mod in ("jax", "flax", "herro_tpu.", "herro_tpu import"):
+        assert f"import {mod}" not in demo and f"from {mod}" not in demo
 
 
 def test_chip_smoke_imports_no_jax():
