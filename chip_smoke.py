@@ -7,13 +7,17 @@ each print one JSON line:
 
 1. ``env``     — the card (nvidia-smi name and power limit), torch and CUDA
    versions, the kernel build time, whether native featgen loaded;
-2. ``kernels`` — every hand-written kernel (K1-K7) at the main-path shapes
+2. ``kernels`` — every hand-written kernel (K1-K11) at the main-path shapes
    (B=32, L=9216, the R10 widths) against its plain PyTorch version on the
    same inputs, with the tolerance stated, and timed with CUDA events beside
    the plain version, a PyTorch library call and the card's bound. The
    attention kernel runs under all three masks: band 512 (K2), full
    attention with mixed lengths, one of them 0 (K7), and the general band
-   at 384 and at 40 (K6);
+   at 384 and at 40 (K6). The split-rope kernel (K8) is also held against
+   the table-fed one (K1); the int8 kernels (K10, K11) also report the share
+   of output elements that differ from the plain version at all; the
+   standalone flash attention (K9) runs under band 512 and under no band
+   with mixed lengths, one of them 0 (which must come out 0);
 3. ``golden``  — the port's bf16 forward of the flagship checkpoint on
    ``tests/golden/logits_r10.npz`` against the JAX logits frozen there;
 4. ``e2e``     — ``run_correction`` with ``CorrectionRunner(device="cuda")``
@@ -21,14 +25,24 @@ each print one JSON line:
    that run; ``trace`` — the same run under torch.profiler (device busy
    share, device time by kernel); ``cli`` — the CLI with ``--read-alns`` when
    zstandard is present;
-5. ``eval``    — the ``eval`` subcommand at the demo size for the flagship
-   weights under ``local_window`` 512, none and 384 (each must launch its own
-   attention kernel and no other) and for ``model_r9_sim`` at a smaller size;
+5. ``eval``    — the ``eval`` subcommand for the flagship weights under
+   ``local_window`` 512 at the demo size, and under none and 384 on 60 reads
+   (each must launch its own attention kernel and no other), and for
+   ``model_r9_sim`` on 60 reads;
 6. ``procpool`` — ``inference`` in a subprocess, serial and with
    ``--feat-gen-procs N`` (the pool forks before the card is opened, which
    this process cannot do any more), alignments from a stub ``minimap2`` that
    replays the simulated PAF; ``features`` — the ``features`` subcommand the
-   same way, loaded back through ``load_window_features``.
+   same way, loaded back through ``load_window_features``;
+7. ``int8``    — the golden forward, the e2e run through
+   ``CorrectionRunner(int8=True)`` and ``eval --int8`` (flagship weights at the
+   demo size, ``model_r9_sim`` on 60 reads): every run must launch n_layers x
+   batches of ``ln_qkv_rope_q``, ``ln_ffn_q`` and ``flash_outproj`` and none of
+   ``ln_qkv_rope`` and ``ln_ffn``; ``rope_split`` — the golden and the e2e run
+   under ``HERRO_TPU_ROPE=split`` (``ln_qkv_rope_split`` launched, the table
+   kernel not); ``attention`` — ``attention(impl="auto")`` on CUDA tensors at
+   L=9216 (must launch ``flash_attention``) and its gradient at a small size
+   against autograd through ``naive_attention``.
 
 Any failed phase exits nonzero. The last lines are the card line of
 nvidia-smi, the per-kernel JSON summary and ``{"ok": true, "device": ...}``.
@@ -59,6 +73,7 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "logits_r10.npz")
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 
 B, L = 32, 9216  # CLI default batch at the R10 bucket (pipeline/batching.py)
@@ -132,12 +147,12 @@ def compare(torch, got, ref, keep=None, residual=None, exact=False):
 
 
 def phase_kernels(torch, results: dict) -> None:
-    """K1-K7 at the main-path shapes against their plain versions."""
+    """K1-K11 at the main-path shapes against their plain versions."""
     import numpy as np
     import torch.nn.functional as F
 
     from herro_tpu_torch.constants import N_ROWS, QUAL_OFFSET, QUAL_SCALE, TOKEN_PAD, VOCAB_SIZE
-    from herro_tpu_torch.ops import consensus, fused
+    from herro_tpu_torch.ops import attention, consensus, fused
 
     dev = torch.device("cuda")
     d, H, D, f, R, V, w = 512, 4, 128, 1024, N_ROWS, VOCAB_SIZE, 512
@@ -176,8 +191,21 @@ def phase_kernels(torch, results: dict) -> None:
     wo, bo = randn(H, D, d, std=(H * D) ** -0.5), randn(d, std=bias_std)
     w1, b1 = randn(d, f, std=d ** -0.5), randn(f, std=bias_std)
     w2, b2 = randn(f, d, std=f ** -0.5), randn(d, std=bias_std)
-    q, k, v = fused._ln_qkv_rope_cuda(x, ln_s, ln_b, w_qkv, b_qkv, H)
+    q, k, v = fused._ln_qkv_rope_cuda(x, ln_s, ln_b, w_qkv, b_qkv, H, kernel="ln_qkv_rope")
     torch.cuda.synchronize()
+    # int8 operands as the model builds them: qkv quantized from the weight in
+    # the compute dtype, the FFN weights from float32, FFN biases float32
+    N = 3 * H * D
+    wq_i8, sq = fused.quantize_weight(w_qkv)
+    w1_i8, s1 = fused.quantize_weight(w1.float())
+    w2_i8, s2 = fused.quantize_weight(w2.float())
+    wq_i8, w1_i8, w2_i8 = (fused.k_major(t) for t in (wq_i8, w1_i8, w2_i8))
+    b1_f, b2_f = b1.float(), b2.float()
+
+    def ln_rows_i8():
+        """LN(x) quantized per row, the left operand of torch._int_mm."""
+        y = fused.layernorm(x, ln_s, ln_b).float().view(T, d)
+        return fused._quant_rows(y)[0]
 
     # band pairs this data needs: every query row against keys j < length
     # with |i - j| <= w
@@ -226,6 +254,19 @@ def phase_kernels(torch, results: dict) -> None:
             bound=bound(kv_bytes + 2 * x_bytes + H * D * d * 2,
                         4 * H * D * n_pairs + 2 * T * H * D * d, PEAK_BF16),
             rows=lens_np, residual=x,
+        )
+
+    def flash_attention_case(lens, lens_np, band, n_pairs, label):
+        """K9: the same function as SDPA with the mask, on the valid rows."""
+        return dict(
+            name="flash_attention", replaces="herro_tpu/ops/attention.py:36",
+            kernel=lambda: attention._flash_attention_cuda(q, k, v, lens, band),
+            plain=lambda: attention._flash_attention_plain(q, k, v, lens, band),
+            library=(f"F.scaled_dot_product_attention (memory-efficient backend) with "
+                     f"{label} as an additive mask: the same function",
+                     sdpa, lambda: sdpa_bias(lens, band)),
+            bound=bound(kv_bytes * 4 // 3, 4 * H * D * n_pairs, PEAK_BF16),
+            rows=lens_np,
         )
 
     x_bytes = T * d * 2
@@ -304,6 +345,45 @@ def phase_kernels(torch, results: dict) -> None:
             "flash_outproj_band", "herro_tpu/ops/fused.py:902", lengths, lengths_np,
             40, band_pairs(40), "the band 40 and the length mask",
         ),
+        "ln_qkv_rope_split": dict(
+            replaces="herro_tpu/ops/fused.py:541",
+            kernel=lambda: fused._ln_qkv_rope_cuda(
+                x, ln_s, ln_b, w_qkv, b_qkv, H, kernel="ln_qkv_rope_split"),
+            plain=lambda: fused._ln_qkv_rope_plain(x, ln_s, ln_b, w_qkv, b_qkv, H),
+            library=("torch.matmul LN(x)[T,d] @ W_qkv[d,3HD] bf16, the dominant product",
+                     lambda: torch.matmul(x.view(T, d), w_qkv)),
+            bound=bound(x_bytes + kv_bytes + d * N * 2, 2 * T * d * N, PEAK_BF16),
+            # the same function as K1 with the tables built in the kernel
+            twin=lambda: fused._ln_qkv_rope_cuda(
+                x, ln_s, ln_b, w_qkv, b_qkv, H, kernel="ln_qkv_rope"),
+        ),
+        "ln_qkv_rope_q": dict(
+            replaces="herro_tpu/ops/fused.py:718",
+            kernel=lambda: fused._ln_qkv_rope_q_cuda(x, ln_s, ln_b, wq_i8, sq, b_qkv, H),
+            plain=lambda: fused._ln_qkv_rope_q_plain(x, ln_s, ln_b, wq_i8, sq, b_qkv, H),
+            library=("torch._int_mm quant(LN(x))[T,d] @ W_qkv[d,3HD] int8 -> int32, the "
+                     "dominant product only (partial: no LN, quantization, scales, rope)",
+                     lambda y_i8: torch._int_mm(y_i8, wq_i8), ln_rows_i8),
+            bound=bound(x_bytes + kv_bytes + d * N + N * 6, 2 * T * d * N, PEAK_INT8),
+            share_differing=True,
+        ),
+        "ln_ffn_q": dict(
+            replaces="herro_tpu/ops/fused.py:420",
+            kernel=lambda: fused._ln_ffn_q_cuda(
+                x, ln_s, ln_b, w1_i8, s1, b1_f, w2_i8, s2, b2_f),
+            plain=lambda: fused._ln_ffn_q_plain(
+                x, ln_s, ln_b, w1_i8, s1, b1_f, w2_i8, s2, b2_f),
+            library=("torch._int_mm quant(LN(x))[T,d] @ W1[d,f] int8 -> int32, half the "
+                     "operations (partial: no LN, quantization, gelu, second product)",
+                     lambda y_i8: torch._int_mm(y_i8, w1_i8), ln_rows_i8),
+            bound=bound(2 * x_bytes + 2 * d * f + (d + f) * 8, 4 * T * d * f, PEAK_INT8),
+            residual=x, share_differing=True,
+        ),
+        "flash_attention": flash_attention_case(
+            lengths, lengths_np, w, pairs, "the band 512 and the length mask"),
+        # no band, mixed lengths, one of them 0 (that example must come out 0)
+        "flash_attention[full]": flash_attention_case(
+            lengths_full, lengths_full_np, None, pairs_full, "the length mask"),
     }
     report = []
     for case, c in cases.items():
@@ -314,6 +394,11 @@ def phase_kernels(torch, results: dict) -> None:
         if "rows" in c:  # rows at or past the length are never read
             rows = torch.from_numpy(c["rows"]).to(dev)
             keep = torch.arange(L, device=dev)[None, :] < rows[:, None]
+            if got.dim() == 4:  # [B, H, L, D]: the same rows of every head
+                keep = keep[:, None, :].expand(B, H, L)
+                empty = rows == 0  # K9 walks no key there and leaves 0
+                if bool(empty.any()) and bool(got[empty].any()):
+                    raise RuntimeError(f"{case}: a length-0 example is not all 0")
             # the padding rows are compared nowhere, but must be finite
             if not bool(torch.isfinite(got.float()).all()):
                 raise RuntimeError(f"{case}: non-finite values in padding rows")
@@ -321,6 +406,16 @@ def phase_kernels(torch, results: dict) -> None:
             torch, got, ref, keep, c.get("residual"), c.get("exact", False)
         )
         ok = err <= tol and (part_err is None or part_err <= part_tol)
+        extra = {}
+        if c.get("share_differing"):  # the int32 product is exact: LN and gelu differ
+            pairs_ = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+            differ = [float((a != r).float().mean()) for a, r in pairs_]
+            extra["share_differing"] = max(differ)
+        if "twin" in c:  # K8 against K1: 0 or 1 bf16 ulp expected
+            gap = max(float((a.float() - t.float()).abs().max())
+                      for a, t in zip(got, c["twin"]()))
+            extra["max_abs_err_vs_table_kernel"] = gap
+            ok = ok and gap <= tol
         iters = 20
         ms = time_ms(torch, c["kernel"], iters)
         plain_ms = time_ms(torch, c["plain"], 3, warmup=1)
@@ -341,7 +436,7 @@ def phase_kernels(torch, results: dict) -> None:
             replaces=c["replaces"], max_abs_err=err, tol=tol,
             part_err=part_err, part_tol=part_tol, ok=ok, ms=ms,
             plain_ms=plain_ms, library=lib_label, library_ms=lib_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, **extra,
         )
         report.append(entry)
         emit("kernels", **entry)
@@ -357,7 +452,11 @@ def phase_kernels(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_golden(torch) -> None:
+def phase_golden(torch, phase: str = "golden", int8: bool = False, min_agree=0.995):
+    """The flagship checkpoint's forward on the golden batch against the JAX
+    logits frozen there; returns the port's logits."""
+    import dataclasses
+
     import numpy as np
 
     from herro_tpu_torch.constants import N_ROWS, QUAL_OFFSET, QUAL_SCALE
@@ -367,7 +466,7 @@ def phase_golden(torch) -> None:
 
     fx = np.load(GOLDEN)
     cfg, sd = load_model(CKPT)
-    model = CorrectionModel(cfg)
+    model = CorrectionModel(dataclasses.replace(cfg, int8=int8))
     model.load_state_dict(sd)
     model = model.cuda().eval()
     dev = torch.device("cuda")
@@ -384,10 +483,12 @@ def phase_golden(torch) -> None:
     d_info = float(np.abs(info - fx["info"])[mask].max())
     agree = float((logits.argmax(-1) == fx["logits"].argmax(-1))[mask].mean())
     finite = bool(np.isfinite(logits).all() and np.isfinite(info).all())
-    emit("golden", max_dlogit=d_log, max_dinfo=d_info, argmax_agreement=agree,
+    emit(phase, run="golden", max_dlogit=d_log, max_dinfo=d_info, argmax_agreement=agree,
          n_supported=int(mask.sum()), finite=finite)
-    if not finite or agree < 0.995:
-        raise RuntimeError(f"golden: argmax agreement {agree} < 0.995 or non-finite")
+    if not finite or agree < min_agree:
+        raise RuntimeError(
+            f"{phase}: golden argmax agreement {agree} < {min_agree} or non-finite")
+    return logits[mask]
 
 
 def _kmer_validity(seq: bytes, truth_kmers: set, k: int = 15) -> float:
@@ -397,16 +498,77 @@ def _kmer_validity(seq: bytes, truth_kmers: set, k: int = 15) -> float:
     return sum(seq[i : i + k] in truth_kmers for i in range(0, n, 7)) / len(range(0, n, 7))
 
 
-def phase_e2e(torch, tmp: str) -> dict:
+# the kernels the flagship inference run launches; the others are driven by
+# the eval, int8, rope_split and attention phases
+E2E_KERNELS = ("entry_embed", "ln_qkv_rope", "flash_outproj", "ln_ffn", "count_decisions")
+
+
+def _counted_run(torch, reads, grouped, runner, out: str) -> dict:
+    """One ``run_correction`` at window 4096, batch 32, with the windows it
+    finalized, its wall time and every kernel's launches counted from 0."""
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.pipeline.engine import StageTimers, run_correction
+
+    n_windows = 0
+    count_lock = threading.Lock()  # the engine finalizes on two threads
+    finalize = runner.finalize
+
+    def counting_finalize(inflight):
+        nonlocal n_windows
+        res = finalize(inflight)
+        with count_lock:
+            n_windows += len(res)
+        return res
+
+    runner.finalize = counting_finalize
+    timers = StageTimers()
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    t0 = time.perf_counter()
+    try:
+        n = run_correction(reads, iter(grouped.items()), runner, out, 4096, 32,
+                           timers=timers)
+    finally:
+        runner.finalize = finalize
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(
+        reads_written=n, windows=n_windows, wall_s=wall, windows_per_s=n_windows / wall,
+        batches=timers.n_batches, featgen_s=timers.featgen_s,
+        windows_produced=timers.n_windows, launches=kernels.launch_counts.snapshot(),
+    )
+
+
+def _median_kmer_gain(ds, reads, fasta: str) -> float:
+    """Quality: how many more error-free 15-mers the corrected reads carry
+    than the raw reads (median over reads of the difference in shares)."""
     import numpy as np
 
+    from herro_tpu_torch.training.simulate import true_sequence
+
+    by_name = {r.name: r for r in ds.reads}
+    gains = []
+    name = None
+    with open(fasta, "rb") as fh:
+        for line in fh:
+            if line.startswith(b">"):
+                name = line[1:].split()[0].split(b":")[0]
+                continue
+            seq = line.strip()
+            sim = by_name[name]
+            truth = true_sequence(ds, sim)
+            kmers = {truth[i : i + 15] for i in range(len(truth) - 14)}
+            raw = reads.seq(reads.name_to_id[name]).tobytes()
+            gains.append(_kmer_validity(seq, kmers) - _kmer_validity(raw, kmers))
+    return float(np.median(gains)) if gains else 0.0
+
+
+def phase_e2e(torch, tmp: str) -> dict:
     from herro_tpu_torch.io.fastx import load_reads
     from herro_tpu_torch.models.checkpoint import load_model
-    from herro_tpu_torch.ops import cuda as kernels
     from herro_tpu_torch.overlaps.paf import parse_paf
-    from herro_tpu_torch.pipeline.engine import StageTimers, run_correction
     from herro_tpu_torch.pipeline.infer import CorrectionRunner
-    from herro_tpu_torch.training.simulate import paf_rows, simulate, true_sequence
+    from herro_tpu_torch.training.simulate import paf_rows, simulate
 
     window = 4096
     t0 = time.perf_counter()
@@ -423,68 +585,26 @@ def phase_e2e(torch, tmp: str) -> dict:
 
     cfg, params = load_model(CKPT)
     runner = CorrectionRunner(cfg, params, device="cuda")
-    n_windows = 0
-    count_lock = threading.Lock()  # the engine finalizes on two threads
-    finalize = runner.finalize
-
-    def counting_finalize(inflight):
-        nonlocal n_windows
-        res = finalize(inflight)
-        with count_lock:
-            n_windows += len(res)
-        return res
-
-    runner.finalize = counting_finalize
     out = os.path.join(tmp, "corrected.fasta")
-    timers = StageTimers()
-    torch.cuda.synchronize()
-    kernels.launch_counts.reset()
-    t0 = time.perf_counter()
-    n = run_correction(
-        reads, iter(grouped.items()), runner, out, window, 32, timers=timers
-    )
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts.snapshot()
-
-    # quality: corrected reads carry more error-free 15-mers than raw reads
-    by_name = {r.name: r for r in ds.reads}
-    gains = []
-    name = None
-    with open(out, "rb") as fh:
-        for line in fh:
-            if line.startswith(b">"):
-                name = line[1:].split()[0].split(b":")[0]
-                continue
-            seq = line.strip()
-            sim = by_name[name]
-            truth = true_sequence(ds, sim)
-            kmers = {truth[i : i + 15] for i in range(len(truth) - 14)}
-            raw = reads.seq(reads.name_to_id[name]).tobytes()
-            gains.append(_kmer_validity(seq, kmers) - _kmer_validity(raw, kmers))
-    median_gain = float(np.median(gains)) if gains else 0.0
-    res = dict(
-        reads_written=n, windows=n_windows, wall_s=wall,
-        windows_per_s=n_windows / wall, setup_s=setup_s, batches=timers.n_batches,
-        featgen_s=timers.featgen_s, kmer_validity_gain_median=median_gain,
-        launches=launches,
-    )
+    res = _counted_run(torch, reads, grouped, runner, out)
+    res["setup_s"] = setup_s
+    res["kmer_validity_gain_median"] = median_gain = _median_kmer_gain(ds, reads, out)
+    n, launches = res["reads_written"], res["launches"]
     emit("e2e", **res)
-    # K6 and K7 are other checkpoints' kernels: the eval phase drives them
-    off_path = ("flash_outproj_full", "flash_outproj_band")
-    missing = [k for k, c in launches.items() if c == 0 and k not in off_path]
+    missing = [k for k in E2E_KERNELS if launches[k] == 0]
     if n == 0 or missing or median_gain <= 0:
         raise RuntimeError(
             f"e2e: reads {n}, kernels never launched {missing}, median 15-mer "
             f"validity gain {median_gain}"
         )
     return dict(res, ds=ds, rows=rows, reads=reads, grouped=grouped, runner=runner,
-                fastq=fastq, fasta=out, windows_produced=timers.n_windows)
+                fastq=fastq, fasta=out)
 
 
-def phase_trace(torch, tmp: str, e2e: dict) -> None:
-    """The e2e run again under torch.profiler: the device's busy share of
-    the wall time and the device time by kernel."""
+def phase_trace(torch, tmp: str, e2e: dict, runner=None, **labels) -> None:
+    """The e2e run again under torch.profiler (with ``runner``, else the e2e
+    phase's): the device's busy share of the wall time and the device time
+    by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from herro_tpu_torch.pipeline.engine import run_correction
@@ -493,8 +613,8 @@ def phase_trace(torch, tmp: str, e2e: dict) -> None:
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run_correction(e2e["reads"], iter(e2e["grouped"].items()), e2e["runner"], out,
-                       4096, 32)
+        run_correction(e2e["reads"], iter(e2e["grouped"].items()),
+                       runner or e2e["runner"], out, 4096, 32)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = {}
@@ -504,7 +624,7 @@ def phase_trace(torch, tmp: str, e2e: dict) -> None:
             dev[ev.key] = dev.get(ev.key, 0) + us
     busy_s = sum(dev.values()) / 1e6
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
-    emit("trace", wall_s=wall, device_s=busy_s,
+    emit("trace", **labels, wall_s=wall, device_s=busy_s,
          device_busy_share=busy_s / wall if busy_s else None,
          device_ms_by_name={k[:80]: v / 1e3 for k, v in top})
 
@@ -536,18 +656,16 @@ def phase_cli(torch, tmp: str, ds, rows) -> None:
 
 EVAL_ARGS = ["--with-baseline", "-w", "4096", "-b", "32", "--sub-rate", "0.02",
              "--indel-rate", "0.04", "--het-rate", "0.005", "--seed", "777"]
+DEMO_SIZE = ["--genome-len", "150000", "--n-reads", "160"]
+SMALL_SIZE = ["--genome-len", "60000", "--n-reads", "60"]
 ATTENTION_KERNELS = ("flash_outproj", "flash_outproj_full", "flash_outproj_band")
 
 
 def phase_eval(torch, tmp: str) -> dict:
     """The ``eval`` subcommand for the flagship weights under three attention
-    masks, and for the r9 checkpoint at a smaller size. Returns the launch
-    counts of each run."""
-    from herro_tpu_torch import cli
-    from herro_tpu_torch.models.model import ModelConfig
-    from herro_tpu_torch.ops import cuda as kernels
-    from herro_tpu_torch.ops.fused import flash_kernel_name
-
+    masks (the band the checkpoint ships with at the demo size, the other two
+    on 60 reads to keep the run short), and for the r9 checkpoint on 60 reads.
+    Returns each run's result document with its launches."""
     with open(os.path.join(CKPT, "config.json")) as fh:
         base_cfg = json.load(fh)
     runs = []
@@ -558,47 +676,204 @@ def phase_eval(torch, tmp: str) -> dict:
         with open(os.path.join(ckpt, "config.json"), "w") as fh:
             json.dump(dict(base_cfg, local_window=window), fh)
         runs.append((f"model_r10_sim[local_window={window}]", ckpt,
-                     ["--genome-len", "150000", "--n-reads", "160"]))
-    r9 = os.path.join(ROOT, "resources", "model_r9_sim")
-    runs.append(("model_r9_sim", r9, ["--genome-len", "60000", "--n-reads", "60"]))
+                     DEMO_SIZE if window == 512 else SMALL_SIZE))
+    runs.append(R9_EVAL)
 
-    launches_by_run = {}
+    by_run = {}
     for label, ckpt, size in runs:
-        with open(os.path.join(ckpt, "config.json")) as fh:
-            cfg = ModelConfig(**json.load(fh))
-        expected = flash_kernel_name(cfg.local_window)
-        buf = io.StringIO()
-        torch.cuda.synchronize()
-        kernels.launch_counts.reset()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            cli.main(["eval", ckpt, *EVAL_ARGS, *size])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = kernels.launch_counts.snapshot()
-        res = json.loads(buf.getvalue())
-        base = res["counting_baseline"]
-        emit("eval", model=label, attention_kernel=expected, wall_s=wall,
-             n_reads=res["n_reads"], raw_identity=res["raw_identity"],
-             corrected_identity=res["corrected_identity"], raw_q=res["raw_q"],
-             corrected_q=res["corrected_q"], corrected_infix_q=res["corrected_infix_q"],
-             counting_infix_q=base["corrected_infix_q"],
-             model_gain_db=res["model_gain_db"], launches=launches)
-        batches = launches["entry_embed"]
-        others = [k for k in ATTENTION_KERNELS if k != expected and launches[k]]
-        if (batches == 0 or launches[expected] != cfg.n_layers * batches or others
-                or launches["ln_qkv_rope"] != launches[expected]):
-            raise RuntimeError(
-                f"eval {label}: expected {cfg.n_layers} x {batches} launches of "
-                f"{expected} and none of the other attention kernels, got {launches}"
-            )
-        if res["n_reads"] == 0 or not res["corrected_identity"] > res["raw_identity"]:
-            raise RuntimeError(
-                f"eval {label}: corrected identity {res['corrected_identity']} is not "
-                f"above raw identity {res['raw_identity']}"
-            )
-        launches_by_run[label] = launches
-    return launches_by_run
+        by_run[label] = _run_eval(torch, "eval", label, ckpt, size)
+    return by_run
+
+
+# the kernels of a transformer block: table-fed bf16, or int8
+BLOCK_KERNELS = {False: ("ln_qkv_rope", "ln_ffn"), True: ("ln_qkv_rope_q", "ln_ffn_q")}
+R9_EVAL = ("model_r9_sim", os.path.join(ROOT, "resources", "model_r9_sim"), SMALL_SIZE)
+
+
+def _check_block_launches(what: str, launches: dict, n_layers: int, attention: str,
+                          int8: bool) -> None:
+    """Every batch ran ``n_layers`` of its own qkv, attention and FFN kernel
+    and none of the other route's."""
+    want = n_layers * launches["entry_embed"]
+    on = (*BLOCK_KERNELS[int8], attention)
+    off = (*BLOCK_KERNELS[not int8], *(k for k in ATTENTION_KERNELS if k != attention))
+    if want == 0 or any(launches[k] != want for k in on) or any(launches[k] for k in off):
+        raise RuntimeError(
+            f"{what}: expected {want} launches of each of {on} and none of {off}, "
+            f"got {launches}"
+        )
+
+
+def _run_eval(torch, phase: str, label: str, ckpt: str, size, int8: bool = False) -> dict:
+    """One ``eval`` through the CLI; checks its launches and that it corrects.
+    Returns the result document with the run's launches."""
+    from herro_tpu_torch import cli
+    from herro_tpu_torch.models.model import ModelConfig
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.ops.fused import flash_kernel_name
+
+    with open(os.path.join(ckpt, "config.json")) as fh:
+        cfg = ModelConfig(**json.load(fh))
+    expected = flash_kernel_name(cfg.local_window)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["eval", ckpt, *EVAL_ARGS, *size, *(["--int8"] if int8 else [])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts.snapshot()
+    res = json.loads(buf.getvalue())
+    base = res["counting_baseline"]
+    emit(phase, model=label, int8=int8, attention_kernel=expected, wall_s=wall,
+         n_reads=res["n_reads"], raw_identity=res["raw_identity"],
+         corrected_identity=res["corrected_identity"], raw_q=res["raw_q"],
+         corrected_q=res["corrected_q"], corrected_infix_q=res["corrected_infix_q"],
+         counting_infix_q=base["corrected_infix_q"],
+         model_gain_db=res["model_gain_db"], launches=launches)
+    _check_block_launches(f"{phase} {label}", launches, cfg.n_layers, expected, int8)
+    if res["n_reads"] == 0 or not res["corrected_identity"] > res["raw_identity"]:
+        raise RuntimeError(
+            f"{phase} {label}: corrected identity {res['corrected_identity']} is not "
+            f"above raw identity {res['raw_identity']}"
+        )
+    return dict(res, launches=launches)
+
+
+def _share_identical(fasta: str, other: str) -> float:
+    """The share of ``fasta``'s records that ``other`` holds byte for byte."""
+    mine, theirs = _fasta_records(fasta), set(_fasta_records(other))
+    return sum(r in theirs for r in mine) / max(len(mine), 1)
+
+
+def phase_int8(torch, tmp: str, e2e: dict, evals: dict, bf16_logits) -> dict:
+    """int8 through the normal entry points: the golden forward, the e2e run
+    with ``CorrectionRunner(int8=True)``, ``eval --int8``. Returns the e2e
+    run's launches."""
+    import numpy as np
+
+    from herro_tpu_torch.models.checkpoint import load_model
+    from herro_tpu_torch.pipeline.infer import CorrectionRunner
+
+    # the reference's own bar for the int8 forward (tests/test_model.py)
+    logits = phase_golden(torch, "int8", int8=True, min_agree=0.95)
+    emit("int8", run="golden vs the bf16 forward",
+         max_dlogit=float(np.abs(logits - bf16_logits).max()),
+         argmax_agreement=float((logits.argmax(-1) == bf16_logits.argmax(-1)).mean()))
+
+    cfg, params = load_model(CKPT)
+    runner = CorrectionRunner(cfg, params, int8=True, device="cuda")
+    out = os.path.join(tmp, "corrected_int8.fasta")
+    res = _counted_run(torch, e2e["reads"], e2e["grouped"], runner, out)
+    gain = _median_kmer_gain(e2e["ds"], e2e["reads"], out)
+    emit("int8", run="e2e", **res, kmer_validity_gain_median=gain,
+         bf16_windows_per_s=e2e["windows_per_s"],
+         bf16_kmer_validity_gain_median=e2e["kmer_validity_gain_median"],
+         records_identical_to_bf16=_share_identical(out, e2e["fasta"]))
+    _check_block_launches("int8 e2e", res["launches"], cfg.n_layers, "flash_outproj", True)
+    if res["reads_written"] != e2e["reads_written"] or gain <= 0:
+        raise RuntimeError(
+            f"int8 e2e: {res['reads_written']} reads, median 15-mer validity gain {gain}"
+        )
+    phase_trace(torch, tmp, e2e, runner, run="int8 e2e")
+
+    label = "model_r10_sim[local_window=512]"
+    ev = _run_eval(torch, "int8", label, os.path.join(tmp, "ckpt_w512"), DEMO_SIZE,
+                   int8=True)
+    emit("int8", run="eval vs bf16", corrected_identity=ev["corrected_identity"],
+         bf16_corrected_identity=evals[label]["corrected_identity"],
+         model_gain_db=ev["model_gain_db"], bf16_model_gain_db=evals[label]["model_gain_db"])
+    r9 = _run_eval(torch, "int8", *R9_EVAL, int8=True)
+    emit("int8", run="eval vs bf16", model=R9_EVAL[0],
+         corrected_identity=r9["corrected_identity"],
+         bf16_corrected_identity=evals[R9_EVAL[0]]["corrected_identity"])
+    return res["launches"]
+
+
+def phase_rope_split(torch, tmp: str, e2e: dict) -> dict:
+    """The golden and the e2e run with ``HERRO_TPU_ROPE=split``: the op reads
+    the variable at every call, so it is set around these runs and restored.
+    Returns the e2e run's launches."""
+    before = os.environ.get("HERRO_TPU_ROPE")
+    os.environ["HERRO_TPU_ROPE"] = "split"
+    try:
+        phase_golden(torch, "rope_split", min_agree=1.0)
+        out = os.path.join(tmp, "corrected_split.fasta")
+        res = _counted_run(torch, e2e["reads"], e2e["grouped"], e2e["runner"], out)
+    finally:
+        if before is None:
+            del os.environ["HERRO_TPU_ROPE"]
+        else:
+            os.environ["HERRO_TPU_ROPE"] = before
+    launches = res["launches"]
+    emit("rope_split", run="e2e", **res,
+         records_identical_to_table_route=_share_identical(out, e2e["fasta"]))
+    want = e2e["runner"].cfg.n_layers * launches["entry_embed"]
+    if (want == 0 or launches["ln_qkv_rope_split"] != want or launches["ln_qkv_rope"]
+            or res["reads_written"] != e2e["reads_written"]):
+        raise RuntimeError(
+            f"rope_split: expected {want} launches of ln_qkv_rope_split and none of "
+            f"ln_qkv_rope, got {launches}; {res['reads_written']} reads"
+        )
+    return launches
+
+
+def phase_attention(torch) -> dict:
+    """``attention(impl="auto")`` on CUDA tensors at B=32, L=9216 must take the
+    flash kernel; at a small size its gradient (kernel forward, chunked
+    recompute backward) against autograd through ``naive_attention``. Returns
+    the launches of the L=9216 call."""
+    from herro_tpu_torch.ops import attention as attn
+    from herro_tpu_torch.ops import cuda as kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(99)
+    bf = torch.bfloat16
+
+    def qkv(b, h, l):
+        return [torch.randn(b, h, l, 128, generator=g, device=dev).to(bf) for _ in range(3)]
+
+    q, k, v = qkv(B, 4, L)
+    lengths = torch.randint(int(0.7 * L), L + 1, (B,), generator=g, device=dev).int()
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    t0 = time.perf_counter()
+    out = attn.attention(q, k, v, lengths, 512, impl="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts.snapshot()
+    finite = bool(torch.isfinite(out.float()).all())
+    # one window against the plain version (the kernels phase held all of them)
+    ref = attn._flash_attention_plain(q[:1], k[:1], v[:1], lengths[:1], 512)
+    n = int(lengths[0])
+    err = float((out[:1, :, :n].float() - ref[:, :, :n].float()).abs().max())
+    tol = float(ref[:, :, :n].float().abs().max()) * 2.0 ** -6
+    del q, k, v, out, ref
+
+    # gradient of sum(out^2) over the valid rows, bf16 inputs: the two sides
+    # may differ by 4 bf16 ulps of the largest gradient
+    ls = torch.tensor([256, 200], dtype=torch.int32, device=dev)
+    row_ok = (torch.arange(256, device=dev)[None, :] < ls[:, None])[:, None, :, None]
+    base = qkv(2, 2, 256)
+    grads = {}
+    for impl in ("flash", "naive"):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        o = attn.attention(*leaves, ls, 40, impl=impl)
+        (torch.where(row_ok, o.float(), torch.zeros((), device=dev)) ** 2).sum().backward()
+        grads[impl] = [t.grad.float() for t in leaves]
+    g_err = max(float((a - b).abs().max()) for a, b in zip(grads["flash"], grads["naive"]))
+    g_tol = max(float(b.abs().max()) for b in grads["naive"]) * 2.0 ** -6
+    emit("attention", shape=[B, 4, L, 128], local_window=512, impl="auto", wall_s=wall,
+         launches={k_: c for k_, c in launches.items() if c}, finite=finite,
+         max_abs_err=err, tol=tol, grad_max_abs_err=g_err, grad_tol=g_tol)
+    if (launches["flash_attention"] != 1 or sum(launches.values()) != 1 or not finite
+            or err > tol or g_err > g_tol):
+        raise RuntimeError(
+            f"attention: launches {launches}, finite {finite}, error {err} vs {tol}, "
+            f"gradient error {g_err} vs {g_tol}"
+        )
+    return launches
 
 
 STUB_MM2 = """#!{python}
@@ -792,7 +1067,7 @@ def main() -> int:
 
     results: dict = {}
     phase_kernels(torch, results)
-    phase_golden(torch)
+    bf16_logits = phase_golden(torch)
     with tempfile.TemporaryDirectory() as tmp:
         e2e = phase_e2e(torch, tmp)
         phase_trace(torch, tmp, e2e)
@@ -800,14 +1075,23 @@ def main() -> int:
         evals = phase_eval(torch, tmp)
         n_procs = phase_procpool(tmp, e2e)
         phase_features(tmp, e2e, n_procs)
+        int8_launches = phase_int8(torch, tmp, e2e, evals, bf16_logits)
+        split_launches = phase_rope_split(torch, tmp, e2e)
+    attention_launches = phase_attention(torch)
 
-    # launches: K1-K5 and K2 from the inference run; K7 and K6 from the eval
-    # run whose checkpoint takes them (each counted from 0 over its own run)
-    launches = dict(e2e["launches"])
+    # launches, each counted from 0 over the run that drives the kernel: K1-K5
+    # from the inference run; K7 and K6 from the eval run whose checkpoint
+    # takes them; K10 and K11 from the int8 inference run; K8 from the run
+    # under HERRO_TPU_ROPE=split; K9 from attention()
+    launches = {k: e2e["launches"][k] for k in E2E_KERNELS}
     launches["flash_outproj_full"] = \
-        evals["model_r10_sim[local_window=None]"]["flash_outproj_full"]
+        evals["model_r10_sim[local_window=None]"]["launches"]["flash_outproj_full"]
     launches["flash_outproj_band"] = \
-        evals["model_r10_sim[local_window=384]"]["flash_outproj_band"]
+        evals["model_r10_sim[local_window=384]"]["launches"]["flash_outproj_band"]
+    launches["ln_qkv_rope_q"] = int8_launches["ln_qkv_rope_q"]
+    launches["ln_ffn_q"] = int8_launches["ln_ffn_q"]
+    launches["ln_qkv_rope_split"] = split_launches["ln_qkv_rope_split"]
+    launches["flash_attention"] = attention_launches["flash_attention"]
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     summary = []
@@ -820,7 +1104,7 @@ def main() -> int:
             continue
         summary.append({key: k[key] for key in keys} | {"launches": launches[k["name"]]})
     missing = [e["name"] for e in summary if not e["launches"]]
-    if missing or len(summary) != len(launches):
+    if missing or len(summary) != len(launches) or len(summary) != len(kernels.KERNELS):
         raise RuntimeError(f"kernels never launched on their path: {missing}")
     print(smi)
     print(json.dumps({"kernels": summary}))

@@ -10,9 +10,10 @@
 
 The ``features``, ``inference`` and ``eval`` subcommands of ``herro_tpu`` on
 one device, with their flags. ``inference`` and ``eval`` run on the card
-unless ``--device cpu`` is given; ``features`` runs on the host alone. The
-reference's multi-device, multi-host and int8 flags are accepted but raise
-until the port carries them.
+unless ``--device cpu`` is given; ``features`` runs on the host alone.
+``--int8`` / ``--no-int8`` override the checkpoint's ``config.json``. The
+reference's multi-device and multi-host flags are accepted but raise until
+the port carries them.
 """
 
 from __future__ import annotations
@@ -78,7 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pi.add_argument(
         "--int8", action=argparse.BooleanOptionalAction, default=None,
-        help="int8 layer-stack matmuls (not ported yet)",
+        help="quantize the qkv and FFN matmuls of the layer stack to int8 "
+        "(per-row activations, per-channel weights); default follows the "
+        "checkpoint's config",
     )
     pi.add_argument(
         "--resume", action="store_true",
@@ -142,7 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pe.add_argument(
         "--int8", action=argparse.BooleanOptionalAction, default=None,
-        help="int8 layer-stack matmuls (not ported yet)",
+        help="quantize the qkv and FFN matmuls of the layer stack to int8; "
+        "default follows the checkpoint's config",
     )
     pe.add_argument(
         "--shuffle-quals", action="store_true",
@@ -170,8 +174,6 @@ def _check_ported(args) -> None:
         raise SystemExit("--tp: tensor parallelism is not ported yet")
     if args.coordinator or args.num_processes or args.process_id:
         raise SystemExit("multi-host flags are not ported yet")
-    if args.int8:
-        raise SystemExit("--int8: int8 inference is not ported yet")
 
 
 def _load(args, core=None, neighbour=None):

@@ -13,7 +13,8 @@ contraction over rows); a pre-norm rotary transformer encoder with a banded
 attention mixes along the column axis; heads classify the gathered supported
 columns. Parameters are float32; the stack computes in ``cfg.dtype``
 (bfloat16 on the card) through the ops of ``ops/fused.py``, whose CUDA
-kernels run on the card and whose plain versions run on the CPU.
+kernels run on the card and whose plain versions run on the CPU. With
+``cfg.int8`` the qkv projection and the FFN run their int8 variants.
 """
 
 from __future__ import annotations
@@ -25,7 +26,16 @@ import torch
 from torch import nn
 
 from ..constants import N_ROWS, TOKEN_PAD, VOCAB_SIZE
-from ..ops.fused import attention_block, col_proj_table, entry_embed, ln_ffn
+from ..ops.fused import (
+    attention_block,
+    attention_block_q,
+    col_proj_table,
+    entry_embed,
+    k_major,
+    ln_ffn,
+    ln_ffn_q,
+    quantize_weight,
+)
 
 
 @dataclass(frozen=True)
@@ -41,7 +51,10 @@ class ModelConfig:
     attn_impl: str = "auto"
     dtype: str = "bfloat16"
     remat: bool = True
-    # int8 inference belongs to a later slice of the port.
+    # Inference-time int8: dynamic per-row activation and per-channel weight
+    # quantization of the qkv projection and the two FFN products. Weights
+    # stay float32 in the checkpoint and are quantized when the ops' weights
+    # are built. Entry, attention, out projection and heads keep their types.
     int8: bool = False
 
     @property
@@ -123,20 +136,38 @@ class Block(nn.Module):
         self.ff2 = Dense(cfg.d_ff, cfg.d_model, generator)
 
     def compute_weights(self) -> dict:
-        """The matmul weights and biases in the compute dtype, as the ops
-        take them (LayerNorm parameters stay float32)."""
+        """The matmul weights and biases as the ops take them: in the compute
+        dtype, or under ``cfg.int8`` quantized (LayerNorm parameters stay
+        float32). As the reference, int8 quantizes the qkv kernel after its
+        cast to the compute dtype and the FFN kernels from the float32
+        parameters, and hands the FFN biases over in float32."""
         dt = self.cfg.compute_dtype
         a = self.attn
-        return dict(
-            w_qkv=a.qkv_kernel.to(dt), b_qkv=a.qkv_bias.to(dt),
-            wo=a.out_kernel.to(dt), bo=a.out_bias.to(dt),
-            w1=self.ff1.kernel.to(dt), b1=self.ff1.bias.to(dt),
-            w2=self.ff2.kernel.to(dt), b2=self.ff2.bias.to(dt),
-        )
+        w = dict(b_qkv=a.qkv_bias.to(dt), wo=a.out_kernel.to(dt), bo=a.out_bias.to(dt))
+        if not self.cfg.int8:
+            return dict(
+                w, w_qkv=a.qkv_kernel.to(dt),
+                w1=self.ff1.kernel.to(dt), b1=self.ff1.bias.to(dt),
+                w2=self.ff2.kernel.to(dt), b2=self.ff2.bias.to(dt),
+            )
+        for name, kernel in (("qkv", a.qkv_kernel.to(dt)), ("1", self.ff1.kernel),
+                             ("2", self.ff2.kernel)):
+            w_i8, s = quantize_weight(kernel.detach())
+            w[f"w{name}_i8"], w[f"s{name}"] = k_major(w_i8), s
+        return dict(w, b1=self.ff1.bias.detach(), b2=self.ff2.bias.detach())
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, w: dict) -> torch.Tensor:
         """``w`` is this block's ``compute_weights()``."""
         cfg = self.cfg
+        if cfg.int8:
+            x = attention_block_q(
+                x, self.ln1.scale, self.ln1.bias, w["wqkv_i8"], w["sqkv"], w["b_qkv"],
+                w["wo"], w["bo"], lengths, cfg.n_heads, cfg.local_window,
+            )
+            return ln_ffn_q(
+                x, self.ln2.scale, self.ln2.bias, w["w1_i8"], w["s1"], w["b1"],
+                w["w2_i8"], w["s2"], w["b2"],
+            )
         x = attention_block(
             x, self.ln1.scale, self.ln1.bias, w["w_qkv"], w["b_qkv"], w["wo"],
             w["bo"], lengths, cfg.n_heads, cfg.local_window,

@@ -1,13 +1,25 @@
-"""Banded attention, plain PyTorch.
+"""Attention for the correction transformer: one interface, three routes.
 
-A port of ``herro_tpu/ops/attention.py:chunked_attention``: blocked over
-query rows, each block scoring only the static key span its band can reach
-(O(L * window) instead of O(L^2)). It is the plain version of the three CUDA
-flash/out-projection kernels (K2, K6 and K7, ``csrc/flash_outproj*.cu``) and
-the path the model takes on the CPU.
+A port of ``herro_tpu/ops/attention.py``:
+
+* ``flash`` — the hand-written Hopper kernel (K9, ``csrc/flash_attention.cu``)
+  for CUDA tensors: online-softmax tiling, so the [L, L] score matrix never
+  exists in device memory; a suffix length mask and an optional band. For CPU
+  tensors its plain PyTorch version runs. The forward is the kernel, the
+  backward recomputes through ``chunked`` (the reference has no backward
+  kernel either);
+* ``chunked`` — plain PyTorch, blocked over query rows, each block scoring
+  only the static key span its band can reach (O(L * window) instead of
+  O(L^2)); differentiable. It is also the plain version of the three fused
+  flash/out-projection kernels (K2, K6 and K7, ``csrc/flash_outproj*.cu``) and
+  the path the model takes on the CPU;
+* ``naive`` — the reference einsum over the whole [L, L] matrix, for tests.
 
 q/k/v are [B, H, L, D]; ``lengths`` [B] counts the valid (prefix) columns of
-each example — padding is always a suffix of the pileup column axis.
+each example — padding is always a suffix of the pileup column axis. Query
+rows with no key to attend are padding: every route leaves them finite, and
+no two routes agree on them (``flash`` gives 0 for an example of length 0,
+``chunked`` and ``naive`` the mean of v).
 """
 
 from __future__ import annotations
@@ -15,9 +27,42 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from . import cuda as _cuda
 
 NEG_INF = -1e30
 BLK_Q = 512  # query rows per block: bounds the [B, H, blk, span] score tensor
+FLASH_HEAD_DIM = 128  # the head dim the flash kernel takes
+
+
+def _query_blocks(L: int, local_window: int | None):
+    """(first query row, rows, first key, keys) of each query block: the keys
+    a block's band can reach, or all of them."""
+    blk_q = min(BLK_Q, L)
+    if L % blk_q:
+        blk_q = L  # irregular length: single chunk
+    span = L if local_window is None else min(L, blk_q + 2 * local_window)
+    for i in range(L // blk_q):
+        k0 = 0
+        if local_window is not None:
+            k0 = min(max(i * blk_q - local_window, 0), L - span)
+        yield i * blk_q, blk_q, k0, span
+
+
+def _block_scores(q, k, lengths, local_window, q0, blk_q, k0, span):
+    """Scaled float32 scores [B, H, blk_q, span] of one query block and the
+    mask of the keys it may attend (ik < length, inside the band)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qb = q[:, :, q0 : q0 + blk_q].float() * scale
+    s = torch.einsum("bhqd,bhkd->bhqk", qb, k[:, :, k0 : k0 + span].float())
+    k_pos = torch.arange(k0, k0 + span, device=q.device)
+    mask = (k_pos[None, :] < lengths[:, None])[:, None, None, :]
+    if local_window is not None:
+        q_pos = torch.arange(q0, q0 + blk_q, device=q.device)
+        band = (q_pos[:, None] - k_pos[None, :]).abs() <= local_window
+        mask = mask & band[None, None]
+    return s, mask
 
 
 def chunked_attention(
@@ -28,30 +73,125 @@ def chunked_attention(
     local_window: int | None = None,
 ) -> torch.Tensor:
     """Softmax attention over keys with |iq - ik| <= local_window (all keys
-    when None) and ik < length, in float32; returns q's dtype."""
-    B, H, L, D = q.shape
-    blk_q = min(BLK_Q, L)
-    if L % blk_q:
-        blk_q = L  # irregular length: single chunk
-    scale = 1.0 / math.sqrt(D)
-    span = L if local_window is None else min(L, blk_q + 2 * local_window)
+    when None) and ik < length, in float32; returns q's dtype. Under autograd
+    each block is rematerialised in the backward pass, so the probabilities of
+    one block at a time are alive, not of all of them."""
     lengths = lengths.to(q.device)
-    outs = []
-    for i in range(L // blk_q):
-        k0 = 0
-        if local_window is not None:
-            k0 = min(max(i * blk_q - local_window, 0), L - span)
-        kb = k[:, :, k0 : k0 + span].float()
-        vb = v[:, :, k0 : k0 + span].float()
-        qb = q[:, :, i * blk_q : (i + 1) * blk_q].float() * scale
-        s = torch.einsum("bhqd,bhkd->bhqk", qb, kb)
-        k_pos = torch.arange(k0, k0 + span, device=q.device)
-        mask = (k_pos[None, :] < lengths[:, None])[:, None, None, :]
-        if local_window is not None:
-            q_pos = torch.arange(i * blk_q, (i + 1) * blk_q, device=q.device)
-            band = (q_pos[:, None] - k_pos[None, :]).abs() <= local_window
-            mask = mask & band[None, None]
+
+    def block(q, k, v, q0, blk_q, k0, span):
+        s, mask = _block_scores(q, k, lengths, local_window, q0, blk_q, k0, span)
         s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bhqk,bhkd->bhqd", p, vb).to(q.dtype))
+        vb = v[:, :, k0 : k0 + span].float()
+        return torch.einsum("bhqk,bhkd->bhqd", p, vb).to(q.dtype)
+
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    outs = []
+    for bounds in _query_blocks(q.shape[2], local_window):
+        if remat:
+            outs.append(checkpoint(block, q, k, v, *bounds, use_reentrant=False))
+        else:
+            outs.append(block(q, k, v, *bounds))
     return torch.cat(outs, dim=2)
+
+
+def naive_attention(q, k, v, lengths, local_window=None):
+    """The whole [L, L] score matrix at once (``naive_attention`` of the
+    reference): for tests at small L."""
+    L = q.shape[2]
+    lengths = lengths.to(q.device)
+    s, mask = _block_scores(q, k, lengths, local_window, 0, L, 0, L)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K9 flash_attention: the kernel, its plain version, its autograd wrapper
+# ---------------------------------------------------------------------------
+
+
+def _flash_attention_plain(q, k, v, lengths, local_window=None):
+    """The plain version of the flash kernel: p = exp(s - max) with masked
+    keys at 0, P rounded to v's dtype for P.V, the sum divided by the row sum
+    clamped at 1e-30. A row with no key to attend therefore comes out 0 (the
+    kernel: every row of a length-0 example)."""
+    lengths = lengths.to(q.device)
+    outs = []
+    for q0, blk_q, k0, span in _query_blocks(q.shape[2], local_window):
+        s, mask = _block_scores(q, k, lengths, local_window, q0, blk_q, k0, span)
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        vb = v[:, :, k0 : k0 + span]
+        acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vb.float())
+        outs.append((acc / l).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def _flash_attention_cuda(q, k, v, lengths, local_window=None):
+    _cuda.check(q.dim() == 4, f"q has {q.dim()} dimensions, the kernel takes [B, H, L, D]")
+    B, H, L, D = q.shape
+    _cuda.check(D == FLASH_HEAD_DIM, f"head dim {D}: the kernel takes {FLASH_HEAD_DIM}")
+    _cuda.check(local_window is None or local_window >= 0,
+                f"local_window {local_window} is negative")
+    _cuda.check(k.shape == q.shape and v.shape == q.shape, "q/k/v shapes")
+    _cuda.check(lengths.shape == (B,), "lengths shape")
+    _cuda.require_dtype(torch.bfloat16, q=q, k=k, v=v)
+    _cuda.require_dtype(torch.int32, lengths=lengths)
+    dev = _cuda.require_operands(q=q, k=k, v=v, lengths=lengths)
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, H, L,
+            -1 if local_window is None else int(local_window), 1.0 / math.sqrt(D),
+            _cuda.stream_of(q),
+        )
+    return out
+
+
+def flash_attention(q, k, v, lengths, local_window=None):
+    """Flash attention, forward only: the kernel for CUDA tensors (it raises
+    on what it does not take), its plain version for CPU tensors."""
+    if q.is_cuda:
+        return _flash_attention_cuda(q, k, v, lengths, local_window)
+    return _flash_attention_plain(q, k, v, lengths, local_window)
+
+
+class _FlashWithVjp(torch.autograd.Function):
+    """Flash forward, chunked-recompute backward (``_flash_with_vjp`` of the
+    reference)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, local_window):
+        ctx.save_for_backward(q, k, v, lengths)
+        ctx.local_window = local_window
+        return flash_attention(q, k, v, lengths, local_window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, lengths = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = chunked_attention(*qkv, lengths, ctx.local_window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def attention(q, k, v, lengths, local_window=None, impl: str = "auto"):
+    """[B, H, L, D] attention with the suffix-padding mask; impl in
+    auto/flash/chunked/naive. ``auto`` is ``flash`` for CUDA tensors and
+    ``chunked`` for CPU tensors, decided on the device alone: on the card
+    the kernel runs or its wrapper raises (it takes bf16 at head dim 128), and
+    plain PyTorch runs there only when ``chunked`` or ``naive`` is asked for
+    by name."""
+    if impl == "auto":
+        impl = "flash" if q.is_cuda else "chunked"
+    if impl == "flash":
+        return _FlashWithVjp.apply(q, k, v, lengths, local_window)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, lengths, local_window)
+    if impl == "naive":
+        return naive_attention(q, k, v, lengths, local_window)
+    raise ValueError(f"impl {impl!r}: expected auto, flash, chunked or naive")

@@ -51,6 +51,10 @@ KERNELS = {
     ),
     "ln_ffn": ("herro_ln_ffn", [_P] * 8 + [_L, _I, _I, _P]),
     "count_decisions": ("herro_count_decisions", [_P] * 3 + [_I] * 3 + [_P]),
+    "ln_qkv_rope_split": ("herro_ln_qkv_rope_split", [_P] * 8 + [_I] * 4 + [_P]),
+    "ln_qkv_rope_q": ("herro_ln_qkv_rope_q", [_P] * 9 + [_I] * 4 + [_P]),
+    "ln_ffn_q": ("herro_ln_ffn_q", [_P] * 10 + [_L, _I, _I, _P]),
+    "flash_attention": ("herro_flash_attention", [_P] * 5 + [_I] * 4 + [_F, _P]),
 }
 
 
@@ -176,3 +180,21 @@ def stream_of(t) -> int:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def require_operands(**tensors):
+    """Every tensor lies on one card, contiguous and 32-byte aligned, as the
+    kernels read them; returns the device."""
+    dev = None
+    for name, t in tensors.items():
+        check(t.is_cuda, f"{name} is on {t.device}, not on the card")
+        check(t.is_contiguous(), f"{name} is not contiguous")
+        check(t.data_ptr() % 32 == 0, f"{name} is not 32-byte aligned")
+        dev = dev or t.device
+        check(t.device == dev, f"{name} is on {t.device}, not {dev}")
+    return dev
+
+
+def require_dtype(dtype, **tensors) -> None:
+    for name, t in tensors.items():
+        check(t.dtype == dtype, f"{name} is {t.dtype}, the kernel takes {dtype}")

@@ -14,10 +14,16 @@ The public op launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors, and does nothing else: there is no fallback.
 
 * ``entry_embed`` (K4) — tokens + quals -> [B, L, d] stream;
-* ``ln_qkv_rope`` (K1) — LN + qkv projection + rope -> per-head q, k, v;
+* ``ln_qkv_rope`` (K1, K8) — LN + qkv projection + rope -> per-head q, k, v,
+  the rope tables handed to the kernel (K1) or built inside it (K8, chosen by
+  ``HERRO_TPU_ROPE=split`` as in the reference);
 * ``flash_outproj`` (K2, K6, K7) — attention over an aligned band, any
   band, or every key, + out projection + residual;
-* ``ln_ffn`` (K3) — LN + FFN + residual.
+* ``ln_ffn`` (K3) — LN + FFN + residual;
+* ``ln_qkv_rope_q`` (K10), ``ln_ffn_q`` (K11) — the int8 variants of K1 and
+  K3: activations quantized per row, weights per output column
+  (``quantize_weight``), int8 x int8 -> int32 products, float32
+  dequantization. Inference only.
 
 Positions for the rope are the absolute column index: padding is a suffix.
 """
@@ -25,6 +31,7 @@ Positions for the rope are the absolute column index: padding is a suffix.
 from __future__ import annotations
 
 import math
+import os
 import threading
 
 import torch
@@ -76,22 +83,6 @@ def _rope_tables_cached(L: int, D: int, device):
         return _rope_cache[key]
 
 
-def _require_cuda_operands(**tensors) -> torch.device:
-    dev = None
-    for name, t in tensors.items():
-        _cuda.check(t.is_cuda, f"{name} is on {t.device}, not on the card")
-        _cuda.check(t.is_contiguous(), f"{name} is not contiguous")
-        _cuda.check(t.data_ptr() % 32 == 0, f"{name} is not 32-byte aligned")
-        dev = dev or t.device
-        _cuda.check(t.device == dev, f"{name} is on {t.device}, not {dev}")
-    return dev
-
-
-def _require_dtype(dtype, **tensors) -> None:
-    for name, t in tensors.items():
-        _cuda.check(t.dtype == dtype, f"{name} is {t.dtype}, the kernel takes {dtype}")
-
-
 # ---------------------------------------------------------------------------
 # K4 entry_embed: tokens u8 [B, R, L] + quals f32 [B, R, L] -> x [B, L, d]
 # ---------------------------------------------------------------------------
@@ -139,10 +130,10 @@ def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
                 f"col_proj table has {kp} rows: the kernel takes R*(V+1) padded to 32")
     _cuda.check(quals.shape == bases.shape and cb.shape == (d,), "input shapes")
     _cuda.check(d % 128 == 0, f"d_model {d} is not a multiple of 128")
-    _require_dtype(torch.uint8, bases=bases)
-    _require_dtype(torch.float32, quals=quals, cb=cb)
-    _require_dtype(torch.bfloat16, wc=wc)
-    dev = _require_cuda_operands(bases=bases, quals=quals, wc=wc, cb=cb)
+    _cuda.require_dtype(torch.uint8, bases=bases)
+    _cuda.require_dtype(torch.float32, quals=quals, cb=cb)
+    _cuda.require_dtype(torch.bfloat16, wc=wc)
+    dev = _cuda.require_operands(bases=bases, quals=quals, wc=wc, cb=cb)
     out = torch.empty(B, L, d, dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         _cuda.call(
@@ -173,7 +164,14 @@ def _ln_qkv_rope_plain(x, scale, bias, w, b, n_heads: int):
     y = layernorm(x, scale, bias).reshape(-1, d)
     # bf16 operands, float32 accumulation, one rounding after the bias
     qkv = (y.float() @ w.float() + b.float()).to(x.dtype).reshape(B, L, 3, H, D)
-    cos, sin = rope_tables(L, D, x.device)
+    return _rope_split_heads(qkv)
+
+
+def _rope_split_heads(qkv):
+    """qkv [B, L, 3, H, D] -> q, k roped at the absolute column index and v,
+    each [B, H, L, D]."""
+    _, L, _, _, D = qkv.shape
+    cos, sin = rope_tables(L, D, qkv.device)
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]
 
     def rot(t):  # [B, L, H, D], rotate-half in float32
@@ -187,7 +185,19 @@ def _ln_qkv_rope_plain(x, scale, bias, w, b, n_heads: int):
     return q, k, v
 
 
-def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int):
+def rope_kernel_name() -> str:
+    """The kernel ``ln_qkv_rope`` takes on the card: ``ln_qkv_rope`` (K1, rope
+    tables as inputs) unless ``HERRO_TPU_ROPE`` is set to anything but ``tbl``,
+    then ``ln_qkv_rope_split`` (K8, tables built in the kernel). Read at every
+    call, where ``herro_tpu/ops/fused.py:_ln_qkv_rope_pallas`` reads it."""
+    if os.environ.get("HERRO_TPU_ROPE", "tbl") == "tbl":
+        return "ln_qkv_rope"
+    return "ln_qkv_rope_split"
+
+
+def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = None):
+    """``kernel`` names K1 or K8; None takes ``rope_kernel_name()``."""
+    kernel = kernel or rope_kernel_name()
     B, L, d = x.shape
     H = n_heads
     D = w.shape[1] // (3 * H)
@@ -195,20 +205,21 @@ def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int):
     _cuda.check(d % 64 == 0, f"d_model {d} is not a multiple of 64")
     _cuda.check(w.shape == (d, 3 * H * D) and b.shape == (3 * H * D,), "qkv shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
-    _require_dtype(torch.bfloat16, x=x, w=w, b=b)
-    _require_dtype(torch.float32, scale=scale, bias=bias)
-    dev = _require_cuda_operands(x=x, scale=scale, bias=bias, w=w, b=b)
-    cos, sin = _rope_tables_cached(L, D, dev)
+    _cuda.require_dtype(torch.bfloat16, x=x, w=w, b=b)
+    _cuda.require_dtype(torch.float32, scale=scale, bias=bias)
+    dev = _cuda.require_operands(x=x, scale=scale, bias=bias, w=w, b=b)
     q, k, v = (
         torch.empty(B, H, L, D, dtype=torch.bfloat16, device=dev) for _ in range(3)
     )
+    head = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr())
+    tail = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H, _cuda.stream_of(x))
     with torch.cuda.device(dev):
-        _cuda.call(
-            "ln_qkv_rope", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            w.data_ptr(), b.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H,
-            _cuda.stream_of(x),
-        )
+        if kernel == "ln_qkv_rope":
+            cos, sin = _rope_tables_cached(L, D, dev)
+            _cuda.call(kernel, *head, cos.data_ptr(), sin.data_ptr(), *tail)
+        else:
+            _cuda.check(kernel == "ln_qkv_rope_split", f"no rope kernel {kernel!r}")
+            _cuda.call(kernel, *head, *tail)
     return q, k, v
 
 
@@ -260,9 +271,9 @@ def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
     _cuda.check(x.shape == (B, L, d) and wo.shape == (H, D, d) and bo.shape == (d,),
                 "x/wo/bo shapes")
     _cuda.check(lengths.shape == (B,), "lengths shape")
-    _require_dtype(torch.bfloat16, q=q, k=k, v=v, x=x, wo=wo, bo=bo)
-    _require_dtype(torch.int32, lengths=lengths)
-    dev = _require_cuda_operands(q=q, k=k, v=v, x=x, wo=wo, bo=bo, lengths=lengths)
+    _cuda.require_dtype(torch.bfloat16, q=q, k=k, v=v, x=x, wo=wo, bo=bo)
+    _cuda.require_dtype(torch.int32, lengths=lengths)
+    dev = _cuda.require_operands(q=q, k=k, v=v, x=x, wo=wo, bo=bo, lengths=lengths)
     out = torch.empty_like(x)
     # the full kernel has no band and takes no window
     band = () if local_window is None else (int(local_window),)
@@ -307,9 +318,9 @@ def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
     _cuda.check(w1.shape == (d, f) and b1.shape == (f,), "ff1 shapes")
     _cuda.check(w2.shape == (f, d) and b2.shape == (d,), "ff2 shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
-    _require_dtype(torch.bfloat16, x=x, w1=w1, b1=b1, w2=w2, b2=b2)
-    _require_dtype(torch.float32, scale=scale, bias=bias)
-    dev = _require_cuda_operands(
+    _cuda.require_dtype(torch.bfloat16, x=x, w1=w1, b1=b1, w2=w2, b2=b2)
+    _cuda.require_dtype(torch.float32, scale=scale, bias=bias)
+    dev = _cuda.require_operands(
         x=x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2
     )
     out = torch.empty_like(x)
@@ -327,6 +338,158 @@ def ln_ffn(x, scale, bias, w1, b1, w2, b2):
     if x.is_cuda:
         return _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2)
     return _ln_ffn_plain(x, scale, bias, w1, b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# int8: per-row activations, per-column weights, int8 x int8 -> int32
+# ---------------------------------------------------------------------------
+
+
+def quantize_weight(w):
+    """Per-output-channel symmetric int8: w [d, f] -> (w_i8 [d, f], s [f])."""
+    wf = w.float()
+    s = (wf.abs().amax(dim=0) / 127.0).clamp_min(1e-12)
+    w_i8 = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return w_i8, s
+
+
+def k_major(w_i8):
+    """The same [in, out] int8 weight stored k-major (its transpose [out, in]
+    is contiguous), as the CUDA kernels take it: their int8 tensor-core
+    product wants operand B contiguous along k. Done once per weight
+    state, not per call."""
+    return w_i8.t().contiguous().t()
+
+
+def _quant_rows(y):
+    """Per-row symmetric int8 of f32 y [T, d] -> (y_i8, s_row [T, 1]): a true
+    division, round half to even, clipped to +-127."""
+    s = (y.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    y_i8 = torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
+    return y_i8, s
+
+
+def _int8_mm(y_i8, s_row, w_i8, s_col):
+    """(int8, int8) -> f32: exact integer accumulation, then (acc * s_row) *
+    s_col. On the CPU the product runs in int32; on the card torch.matmul has
+    no integer product, so it runs in float64, which holds every sum exactly
+    (|acc| <= 127 * 127 * K < 2^53), and rounds to float32 once, as the
+    int32 -> float32 conversion does."""
+    if y_i8.is_cuda:
+        acc = (y_i8.double() @ w_i8.double()).float()
+    else:
+        acc = (y_i8.int() @ w_i8.int()).float()
+    return acc * s_row * s_col
+
+
+def _require_k_major(**weights) -> dict:
+    """The int8 weights as the contiguous [out, in] tensors the kernels read,
+    for ``require_operands``."""
+    for name, w in weights.items():
+        _cuda.check(w.dim() == 2 and w.t().is_contiguous(),
+                    f"{name} is not k-major: pass k_major({name})")
+    _cuda.require_dtype(torch.int8, **weights)
+    return {name: w.t() for name, w in weights.items()}
+
+
+def _ln_qkv_rope_q_plain(x, scale, bias, w_i8, s_col, b, n_heads: int):
+    B, L, d = x.shape
+    H = n_heads
+    D = w_i8.shape[1] // (3 * H)
+    y = layernorm(x, scale, bias).float().reshape(-1, d)  # rounded to x's dtype first
+    y_i8, s_row = _quant_rows(y)
+    qkv = (_int8_mm(y_i8, s_row, w_i8, s_col) + b.float()).to(x.dtype)
+    return _rope_split_heads(qkv.reshape(B, L, 3, H, D))
+
+
+def _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads: int):
+    B, L, d = x.shape
+    H = n_heads
+    D = w_i8.shape[1] // (3 * H)
+    N = 3 * H * D
+    _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
+    _cuda.check(d % 64 == 0, f"d_model {d} is not a multiple of 64")
+    _cuda.check(w_i8.shape == (d, N) and s_col.shape == (N,) and b.shape == (N,),
+                "qkv shapes")
+    _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
+    _cuda.require_dtype(torch.bfloat16, x=x, b=b)
+    _cuda.require_dtype(torch.float32, scale=scale, bias=bias, s_col=s_col)
+    dev = _cuda.require_operands(x=x, scale=scale, bias=bias, s_col=s_col, b=b,
+                                 **_require_k_major(w_i8=w_i8))
+    q, k, v = (
+        torch.empty(B, H, L, D, dtype=torch.bfloat16, device=dev) for _ in range(3)
+    )
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_qkv_rope_q", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w_i8.data_ptr(), s_col.data_ptr(), b.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), B, L, d, H, _cuda.stream_of(x),
+        )
+    return q, k, v
+
+
+def ln_qkv_rope_q(x, scale, bias, w_i8, s_col, b, n_heads: int):
+    """int8 LN + qkv projection + rotary: x [B, L, d] -> (q, k, v)
+    [B, H, L, D], with (w_i8 [d, 3*H*D], s_col) from ``quantize_weight``. On
+    the card w_i8 must be ``k_major``. Inference only."""
+    if x.is_cuda:
+        return _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads)
+    return _ln_qkv_rope_q_plain(x, scale, bias, w_i8, s_col, b, n_heads)
+
+
+def _ln_ffn_q_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    y = layernorm(xf, scale, bias).float()
+    y_i8, s_row = _quant_rows(y)
+    h = (_int8_mm(y_i8, s_row, w1_i8, s1) + b1.float()).to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype).float()
+    h_i8, hs_row = _quant_rows(h)  # over the whole d_ff row
+    o = _int8_mm(h_i8, hs_row, w2_i8, s2) + b2.float()
+    return (xf.float() + o).to(x.dtype).reshape(x.shape)
+
+
+def _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
+    d = x.shape[-1]
+    f = w1_i8.shape[1]
+    _cuda.check(d % 128 == 0 and f % 128 == 0, f"d={d}, f={f}: not multiples of 128")
+    _cuda.check(w1_i8.shape == (d, f) and s1.shape == (f,) and b1.shape == (f,),
+                "ff1 shapes")
+    _cuda.check(w2_i8.shape == (f, d) and s2.shape == (d,) and b2.shape == (d,),
+                "ff2 shapes")
+    _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
+    _cuda.require_dtype(torch.bfloat16, x=x)
+    _cuda.require_dtype(torch.float32, scale=scale, bias=bias, s1=s1, b1=b1, s2=s2, b2=b2)
+    dev = _cuda.require_operands(x=x, scale=scale, bias=bias, s1=s1, b1=b1, s2=s2, b2=b2,
+                                 **_require_k_major(w1_i8=w1_i8, w2_i8=w2_i8))
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_ffn_q", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_i8.data_ptr(),
+            s2.data_ptr(), b2.data_ptr(), out.data_ptr(), x.numel() // d, d, f,
+            _cuda.stream_of(x),
+        )
+    return out
+
+
+def ln_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
+    """int8 pre-norm FFN block with residual; b1, b2 float32. On the card the
+    weights must be ``k_major``. Inference only."""
+    if x.is_cuda:
+        return _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
+    return _ln_ffn_q_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
+
+
+def attention_block_q(x, ln_s, ln_b, w_i8, s_col, b_qkv, wo, bo, lengths, n_heads,
+                      local_window):
+    """int8 attention block (inference only): the qkv projection runs int8;
+    attention itself and the out projection stay in the compute dtype. Takes
+    the qkv weight already quantized (``quantize_weight`` of the weight in the
+    compute dtype, which the reference does inside the call; the model does
+    it once per parameter state)."""
+    q, k, v = ln_qkv_rope_q(x, ln_s, ln_b, w_i8, s_col, b_qkv, n_heads)
+    return flash_outproj(q, k, v, x, wo, bo, lengths, local_window)
 
 
 def attention_block(x, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,

@@ -20,6 +20,7 @@ pinned buffers stay referenced by its ``InFlight`` until its event completes.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -115,11 +116,8 @@ class CorrectionRunner:
         int8: bool | None = None,
         device: str | torch.device | None = None,
     ):
-        if int8 if int8 is not None else cfg.int8:
-            raise NotImplementedError(
-                "int8 inference is not ported yet (herro_tpu/ops/fused.py "
-                "_ln_qkv_rope_q_kernel and _ln_ffn_q_kernel)"
-            )
+        if int8 is not None and int8 != cfg.int8:
+            cfg = dataclasses.replace(cfg, int8=int8)  # overrides the checkpoint's
         self.cfg = cfg
         self.device = resolve_device(device)
         self.collect_info = collect_info

@@ -1,4 +1,5 @@
-"""The port's attention + out-projection op under all three masks.
+"""The port's attention ops: ``flash_outproj`` under all three masks, and
+the standalone ``attention()`` with its flash, chunked and naive routes.
 
 ``flash_outproj`` takes ``local_window`` None (full attention, K7), a
 multiple of 256 (K2) or any other band (K6). One plain PyTorch version serves
@@ -25,7 +26,15 @@ below the length averages other V rows in each formulation, and K7 leaves a
 length-0 element at x + bo. No later stage reads them; they are compared
 nowhere and only required to be finite.
 
-The ``gpu`` tests hold the two CUDA kernels against the plain version on the
+``attention(q, k, v, lengths, local_window, impl)`` (a port of
+``herro_tpu/ops/attention.py``) is held against the JAX functions of the same
+names and against the Pallas ``flash_attention`` in interpret mode, forward
+(2e-4 absolute in float32, as above) and gradients (1e-3 absolute, the
+reference's own bound in tests/test_attention.py: the backward sums over L
+keys). The flash route's plain version gives 0 for a row with no key to
+attend, as the kernel does for an example of length 0.
+
+The ``gpu`` tests hold the CUDA kernels against the plain versions on the
 card at the kernels' own widths (D = 128, bf16) and skip without a card.
 """
 
@@ -35,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from herro_tpu_torch.ops import attention as tattn
 from herro_tpu_torch.ops import cuda as kernels
 from herro_tpu_torch.ops import fused
 
@@ -49,9 +59,12 @@ def ref():
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
 
+    import jax
+
+    from herro_tpu.ops import attention as jattn
     from herro_tpu.ops import fused as jfused
 
-    return SimpleNamespace(jnp=jnp, pltpu=pltpu, fused=jfused)
+    return SimpleNamespace(jax=jax, jnp=jnp, pltpu=pltpu, fused=jfused, attn=jattn)
 
 
 def _t(x, dtype=None):
@@ -261,3 +274,248 @@ def test_band_kernel_matches_plain_on_card(local_window):
     """Below one key tile (1, 40), across tiles (100, 384), wider than the
     sequence (5000)."""
     _on_card(local_window, (GPU_L, GPU_L - 300), "flash_outproj_band")
+
+
+# ---------------------------------------------------------------------------
+# attention(): the flash, chunked and naive routes against herro_tpu's
+# ---------------------------------------------------------------------------
+
+
+def _qkv(seed, lengths=(L, L - 70), L=L, H=H, D=D):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(len(lengths), H, L, D)).astype(np.float32) for _ in range(3))
+    return q, k, v, np.asarray(lengths, dtype=np.int32)
+
+
+def _valid_rows_close(got, want, lengths, atol):
+    """[B, H, L, D] outputs on the query rows below each length."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.isfinite(got).all()
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(got[b, :, :n], want[b, :, :n], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("local_window", [None, 32])
+def test_naive_attention_matches_jax(local_window, ref):
+    args = _qkv(40)
+    want = ref.attn.naive_attention(*map(ref.jnp.asarray, args), local_window)
+    got = tattn.naive_attention(*map(_t, args), local_window)
+    assert got.shape == (B, H, L, D)
+    _valid_rows_close(got.numpy(), want, args[-1], ATOL)
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash", "chunked", "naive"])
+@pytest.mark.parametrize("local_window", [None, 32, 100])
+def test_attention_impl_matches_jax(impl, local_window, ref):
+    """Every route of the port against the reference's chunked and naive
+    routes (on the CPU the reference's auto is chunked, the port's too, and
+    the port's flash is the kernel's plain version)."""
+    args = _qkv(41)
+    got = tattn.attention(*map(_t, args), local_window, impl=impl).numpy()
+    for jimpl in ("chunked", "naive"):
+        want = ref.attn.attention(*map(ref.jnp.asarray, args), local_window, impl=jimpl)
+        _valid_rows_close(got, want, args[-1], ATOL)
+
+
+@pytest.mark.parametrize("impl", ["flash", "chunked", "naive"])
+@pytest.mark.parametrize("local_window", [None, 32])
+def test_attention_impl_matches_flash_pallas_interpret(impl, local_window, ref):
+    args = _qkv(42)
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.attn.flash_attention(
+            *map(ref.jnp.asarray, args), local_window, blk_q=BLK, blk_k=BLK
+        )
+    got = tattn.attention(*map(_t, args), local_window, impl=impl).numpy()
+    _valid_rows_close(got, want, args[-1], ATOL)
+
+
+def test_flash_plain_bf16_matches_flash_pallas_interpret(ref):
+    """bf16: P is rounded to bf16 before P.V on both sides, the output once."""
+    args = _qkv(43)
+    bf = ref.jnp.bfloat16
+    jargs = [ref.jnp.asarray(a, bf) for a in args[:3]] + [ref.jnp.asarray(args[3])]
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.attn.flash_attention(*jargs, 32, blk_q=BLK, blk_k=BLK)
+    want = np.asarray(want.astype(ref.jnp.float32))
+    got = tattn.flash_attention(*(_t(a, torch.bfloat16) for a in args), 32)
+    assert got.dtype == torch.bfloat16
+    _valid_rows_close(got.float().numpy(), want, args[-1], _bf16_tol(want))
+
+
+@pytest.mark.parametrize("local_window", [None, 32])
+def test_flash_plain_length_zero_gives_zeros(local_window, ref):
+    """An example of length 0 walks no key block: the kernel and its plain
+    version give 0 there, where naive and chunked give the mean of v. The
+    Pallas kernel in interpret mode gives 0 too."""
+    args = _qkv(44, lengths=(0, 90))
+    got = tattn.flash_attention(*map(_t, args), local_window)
+    assert not got[0].any() and got[1].any()
+    assert tattn.naive_attention(*map(_t, args), local_window)[0].any()
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.attn.flash_attention(
+            *map(ref.jnp.asarray, args), local_window, blk_q=BLK, blk_k=BLK
+        )
+    assert not np.asarray(want)[0].any()
+    _valid_rows_close(got.numpy(), want, args[-1], ATOL)
+
+
+def _port_grads(args, local_window, impl, row_ok):
+    q, k, v = (_t(a).requires_grad_(True) for a in args[:3])
+    out = tattn.attention(q, k, v, _t(args[3]), local_window, impl=impl)
+    (torch.where(_t(row_ok), out, torch.zeros(())) ** 2).sum().backward()
+    return [t.grad.numpy() for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("impl", ["flash", "chunked", "naive"])
+@pytest.mark.parametrize("local_window", [None, 32])
+def test_attention_gradients_match_jax(impl, local_window, ref):
+    """dq, dk, dv of sum(out^2) over the valid query rows: the flash route
+    (forward the kernel's plain version, backward recomputed through
+    chunked) and the two differentiable routes against jax.grad through the
+    reference's naive attention."""
+    args = _qkv(45)
+    lengths = args[3]
+    row_ok = (np.arange(L)[None, :] < lengths[:, None])[:, None, :, None]
+
+    def loss(q, k, v):
+        out = ref.attn.naive_attention(q, k, v, ref.jnp.asarray(lengths), local_window)
+        return ref.jnp.sum(ref.jnp.where(row_ok, out, 0.0) ** 2)
+
+    want = ref.jax.grad(loss, argnums=(0, 1, 2))(*map(ref.jnp.asarray, args[:3]))
+    for g, w in zip(_port_grads(args, local_window, impl, row_ok), want):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-3, rtol=0)
+
+
+def test_flash_route_backward_matches_jax_custom_vjp(ref):
+    """The reference's own pairing: flash forward (interpret mode), chunked
+    recompute backward (``_flash_with_vjp``)."""
+    args = _qkv(46)
+    lengths = args[3]
+    row_ok = (np.arange(L)[None, :] < lengths[:, None])[:, None, :, None]
+
+    def loss(q, k, v):
+        out = ref.attn._flash_with_vjp(q, k, v, ref.jnp.asarray(lengths), 32)
+        return ref.jnp.sum(ref.jnp.where(row_ok, out, 0.0) ** 2)
+
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.jax.grad(loss, argnums=(0, 1, 2))(*map(ref.jnp.asarray, args[:3]))
+    for g, w in zip(_port_grads(args, 32, "flash", row_ok), want):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-3, rtol=0)
+
+
+def test_chunked_attention_rematerialises_under_autograd():
+    """Blocks are checkpointed only when a gradient is wanted; the values are
+    the same either way."""
+    args = [_t(a) for a in _qkv(47, L=1024, lengths=(1024, 900))]
+    plain = tattn.chunked_attention(*args, 32)
+    q = args[0].clone().requires_grad_(True)
+    out = tattn.chunked_attention(q, *args[1:], 32)
+    assert out.requires_grad and torch.equal(out.detach(), plain)
+    out.sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_attention_rejects_unknown_impl():
+    args = [_t(a) for a in _qkv(48, L=64, lengths=(64,))]
+    with pytest.raises(ValueError, match="impl"):
+        tattn.attention(*args, impl="pallas")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: what the dispatch reads."""
+
+    is_cuda = property(lambda self: True)
+
+
+@pytest.mark.parametrize(
+    "dtype,D,message",
+    [(torch.float32, 128, "bfloat16"), (torch.float16, 128, "bfloat16"),
+     (torch.bfloat16, 32, "head dim"), (torch.bfloat16, 128, "not on the card")],
+)
+def test_attention_auto_never_gives_way_to_plain_on_the_card(dtype, D, message):
+    """``auto`` on tensors that say they are CUDA tensors goes to the kernel's
+    wrapper, which raises on what the kernel does not take (and here, for the
+    shape it takes, on the lengths that are plainly on the CPU); it never
+    runs ``chunked`` there and launches nothing."""
+    q, k, v, lengths = (_t(a, dtype) for a in _qkv(53, L=64, lengths=(64, 50), D=D))
+    q, k, v = (t.as_subclass(_OnCard) for t in (q, k, v))
+    before = kernels.launch_counts.snapshot()
+    with pytest.raises(ValueError, match=message):
+        tattn.attention(q, k, v, lengths.int(), 32, impl="auto")
+    assert kernels.launch_counts.snapshot() == before
+    assert tattn.attention(q, k, v, lengths.int(), 32, impl="chunked").shape == q.shape
+
+
+def test_flash_cuda_wrapper_never_runs_on_cpu_tensors():
+    args = [_t(a, torch.bfloat16) for a in _qkv(49, D=128)]
+    before = kernels.launch_counts.snapshot()
+    with pytest.raises(ValueError, match="not on the card"):
+        tattn._flash_attention_cuda(*args, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn._flash_attention_cuda(*(_t(a, torch.bfloat16) for a in _qkv(49)), 32)
+    assert kernels.launch_counts.snapshot() == before
+
+
+# ---------------------------------------------------------------------------
+# the flash attention kernel (K9) on the card
+# ---------------------------------------------------------------------------
+
+
+def _flash_on_card(local_window, lengths):
+    dev = _card()
+    args = _qkv(50, lengths=lengths, L=GPU_L, H=GPU_H, D=128)
+    targs = [_t(a, torch.bfloat16).to(dev) for a in args]
+    before = kernels.launch_counts.snapshot()
+    got = tattn.attention(*targs, local_window)  # auto: the kernel
+    torch.cuda.synchronize()
+    after = kernels.launch_counts.snapshot()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == \
+        {"flash_attention": 1}
+    want = tattn._flash_attention_plain(*targs, local_window).float().cpu().numpy()
+    _valid_rows_close(got.float().cpu().numpy(), want, args[-1], _bf16_tol(want))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("local_window", [None, 0, 1, 40, 100, 512, 5000])
+def test_flash_attention_kernel_matches_plain_on_card(local_window):
+    _flash_on_card(local_window, (GPU_L, GPU_L - 300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("local_window", [None, 40])
+def test_flash_attention_kernel_length_zero_gives_zeros_on_card(local_window):
+    got = _flash_on_card(local_window, (0, 77))
+    assert not got[0].any()
+
+
+@pytest.mark.gpu
+def test_flash_attention_gradient_on_card():
+    """Forward the kernel, backward the chunked recompute, against autograd
+    through naive attention (bf16 inputs: 4 bf16 ulps of the largest
+    gradient)."""
+    dev = _card()
+    args = _qkv(51, lengths=(256, 200), L=256, H=GPU_H, D=128)
+    lengths = _t(args[3]).to(dev)
+    row_ok = (torch.arange(256, device=dev)[None, :] < lengths[:, None])[:, None, :, None]
+    grads = {}
+    for impl in ("flash", "naive"):
+        q, k, v = (_t(a, torch.bfloat16).to(dev).requires_grad_(True) for a in args[:3])
+        out = tattn.attention(q, k, v, lengths, 40, impl=impl)
+        (torch.where(row_ok, out.float(), torch.zeros((), device=dev)) ** 2).sum().backward()
+        grads[impl] = [t.grad.float().cpu().numpy() for t in (q, k, v)]
+    for g, w in zip(grads["flash"], grads["naive"]):
+        np.testing.assert_allclose(g, w, atol=np.abs(w).max() * 2.0 ** -6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_attention_flash_raises_on_what_the_kernel_does_not_take():
+    dev = _card()
+    args = [_t(a).to(dev) for a in _qkv(52, L=64, lengths=(64, 64), D=128)]  # float32
+    with pytest.raises(ValueError, match="bfloat16"):
+        tattn.attention(*args, impl="flash")
+    before = kernels.launch_counts.snapshot()
+    with pytest.raises(ValueError, match="bfloat16"):
+        tattn.attention(*args, impl="auto")  # on the card auto is the kernel
+    out = tattn.attention(*args, impl="chunked")  # plain only when asked by name
+    assert out.dtype == torch.float32 and kernels.launch_counts.snapshot() == before

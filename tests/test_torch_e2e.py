@@ -172,9 +172,31 @@ def test_cli_read_alns_on_cpu(dataset):
     [["--tp", "2"], ["--devices", "2"], ["--int8"], ["--coordinator", "host:1"],
      ["--num-processes", "2"]],
 )
-def test_cli_unported_flags_raise(flags, tmp_path):
+def test_cli_unported_flags_raise(flags, tmp_path, dataset):
+    """The multi-device and multi-host flags raise; ``--int8`` is ported and
+    must not: it parses on ``inference`` and ``eval``, passes ``_check_ported``,
+    and corrects through the CLI on the CPU."""
     from herro_tpu_torch import cli
 
+    if flags == ["--int8"]:
+        parser = cli.build_parser()
+        for sub, rest in (("inference", ["-m", "tiny", "r.fastq", "o.fasta"]),
+                          ("eval", ["tiny"])):
+            assert parser.parse_args([sub, *rest]).int8 is None  # follows the config
+            assert parser.parse_args([sub, *rest, "--int8"]).int8 is True
+            assert parser.parse_args([sub, *rest, "--no-int8"]).int8 is False
+        _, fastq, rows = dataset
+        from herro_tpu_torch.overlaps.batches import BatchWriter
+
+        aln_dir = str(tmp_path / "alns")
+        with BatchWriter(aln_dir, 0, sorted({r.split(b"\t")[5] for r in rows})) as bw:
+            for r in rows:
+                bw.write(r)
+        out = tmp_path / "int8.fasta"
+        cli.main(["inference", "--device", "cpu", "--read-alns", aln_dir, "-m", "tiny",
+                  "--int8", "-w", str(WINDOW), "-b", "4", fastq, str(out)])
+        assert out.read_bytes().count(b">") > 0
+        return
     with pytest.raises(SystemExit, match="not ported yet|only one device"):
         cli.main(["inference", "--device", "cpu", "-m", "tiny", *flags,
                   str(tmp_path / "r.fastq"), str(tmp_path / "o.fasta")])
@@ -202,7 +224,7 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert "herro_tpu_torch.cli" in names and "herro_tpu_torch.ops.fused" in names
     for new in ("utils.edist", "utils.align", "training.labels", "training.eval",
-                "features.npy", "pipeline.procpool"):
+                "features.npy", "pipeline.procpool", "ops.attention", "ops.cuda"):
         assert f"herro_tpu_torch.{new}" in names
     demo = open(os.path.join(ROOT, "demo", "run_demo_torch.py")).read()
     for mod in ("jax", "flax", "herro_tpu.", "herro_tpu import"):

@@ -108,9 +108,13 @@ def test_evaluate_profile_and_sim_profiles_equal(models):
 
 
 def test_evaluate_int8_raises(models):
-    _, _, cfg, params = models
-    with pytest.raises(NotImplementedError, match="int8"):
-        teval.evaluate(cfg, params, device="cpu", int8=True, **SIM)
+    """``int8=True`` no longer raises: the port's int8 evaluation equals
+    herro_tpu's in float32, and is not the float evaluation relabelled (the
+    int8 runner's weights are quantized)."""
+    got, want = _both(models, int8=True, with_baseline=True)
+    assert got.mode == want.mode == "model" and want.n_reads > 0
+    _assert_same(got.as_dict(), want.as_dict())
+    assert got.model_gain_db == pytest.approx(want.model_gain_db, abs=1e-9)
 
 
 def test_evaluate_without_card_raises(models):

@@ -1,0 +1,82 @@
+"""First look at the port's CUDA kernels on a card, before the full smoke run.
+
+    python3 tools/micro_kernels_torch.py                 # registers, then one pass
+    python3 tools/micro_kernels_torch.py --spread 3      # three passes, for the spread
+    python3 tools/micro_kernels_torch.py --spread 0      # registers only
+
+Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
+prints each kernel's registers and spills, then runs ``chip_smoke.py``'s
+``kernels`` phase (every kernel against its plain version at B=32, L=9216,
+with its tolerance; times by CUDA events) ``--spread`` times in one process
+and prints every kernel's time per pass. It is the short first call after a
+kernel changes: what the compiler refuses, or a kernel that is wrong, shows
+here in about a minute and fails the command. Shapes the smoke run does not
+take (the r9 widths, ragged lengths) are held by the ``gpu`` tests.
+
+Needs a CUDA card and nvcc; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def print_registers(kernels) -> None:
+    nvcc = kernels._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in kernels.KERNELS:
+            src = os.path.join(kernels.CSRC, f"{name}.cu")
+            res = subprocess.run(
+                [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                 os.path.join(tmp, f"{name}.so"), src],
+                capture_output=True, text=True,
+            )
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr[-4000:]}")
+            lines = [l.strip() for l in res.stderr.splitlines()
+                     if "registers" in l or "spill" in l]
+            print(name, " | ".join(lines), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--spread", type=int, default=1,
+                    help="passes of chip_smoke.py's kernels phase (0: registers only)")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("micro_kernels_torch: no CUDA device available", file=sys.stderr)
+        return 2
+    from herro_tpu_torch.ops import cuda as kernels
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    print_registers(kernels)
+    if not args.spread:
+        return 0
+    import chip_smoke
+
+    print(f"build and load: {kernels.build_all():.1f} s", flush=True)
+    for i in range(args.spread):
+        results: dict = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            chip_smoke.phase_kernels(torch, results)
+        print(i, {k["case"]: round(k["ms"], 3) for k in results["kernels"]}, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
