@@ -10,7 +10,9 @@ each print one JSON line:
 2. ``kernels`` — every hand-written kernel (K1-K11) at the main-path shapes
    (B=32, L=9216, the R10 widths) against its plain PyTorch version on the
    same inputs, with the tolerance stated, and timed with CUDA events beside
-   the plain version, a PyTorch library call and the card's bound. The
+   the plain version, a PyTorch library call and the card's bound (and the
+   bound's share of the time); K2 and K3 also at L=5120, the bucket most
+   windows of the demo-size run take. The
    attention kernel runs under all three masks: band 512 (K2), full
    attention with mixed lengths, one of them 0 (K7), and the general band
    at 384 and at 40 (K6). The split-rope kernel (K8) is also held against
@@ -211,10 +213,11 @@ def phase_kernels(torch, results: dict) -> None:
     # with |i - j| <= w
     i = np.arange(L)
 
-    def band_pairs(band: int) -> int:
+    def band_pairs(band: int, lens=lengths_np, n_rows: int = L) -> int:
+        rows = i[:n_rows]
         return sum(
-            int((np.minimum(i + band, lb - 1) - np.maximum(i - band, 0) + 1).clip(0).sum())
-            for lb in lengths_np
+            int((np.minimum(rows + band, lb - 1) - np.maximum(rows - band, 0) + 1).clip(0).sum())
+            for lb in lens
         )
 
     pairs = band_pairs(w)
@@ -225,6 +228,15 @@ def phase_kernels(torch, results: dict) -> None:
     lengths_full_np[3] = 0
     lengths_full = torch.from_numpy(lengths_full_np).to(dev)
     pairs_full = int((lengths_full_np.astype(np.int64) ** 2).sum())
+    # K2 and K3 also at L=5120, the bucket most windows of the demo-size run
+    # take: the first L5 columns of the same inputs, lengths drawn as above
+    L5 = 5120
+    T5 = B * L5
+    lengths5_np = rng.integers(int(0.7 * L5), L5 + 1, size=B).astype(np.int32)
+    lengths5 = torch.from_numpy(lengths5_np).to(dev)
+    x5 = x[:, :L5].contiguous()
+    q5, k5, v5 = (t[:, :, :L5].contiguous() for t in (q, k, v))
+    pairs5 = band_pairs(w, lengths5_np, L5)
     k_pos = torch.arange(L, device=dev)
 
     def sdpa_bias(lens, band):
@@ -276,6 +288,8 @@ def phase_kernels(torch, results: dict) -> None:
     kpad = F.pad(k, (0, 0, w, w))
     k_spans = kpad.unfold(2, 64 + 2 * w, 64)  # [B, H, L/64, D, 64+2w]
     q_blocks = q.view(B, H, L // 64, 64, D)
+    k5_spans = F.pad(k5, (0, 0, w, w)).unfold(2, 64 + 2 * w, 64)
+    q5_blocks = q5.view(B, H, L5 // 64, 64, D)
     emb_idx = (tokens.long() + torch.arange(R, device=dev)[None, :, None] * V)
     emb_idx = emb_idx.permute(0, 2, 1).reshape(T, R)
     emb_table = w_embT.t().contiguous()
@@ -323,6 +337,27 @@ def phase_kernels(torch, results: dict) -> None:
                      lambda: torch.matmul(x.view(T, d), w1)),
             bound=bound(2 * x_bytes + 2 * d * f * 2, 4 * T * d * f, PEAK_BF16),
             residual=x,
+        ),
+        "flash_outproj[L=5120]": dict(
+            name="flash_outproj", replaces="herro_tpu/ops/fused.py:993",
+            kernel=lambda: fused._flash_outproj_cuda(q5, k5, v5, x5, wo, bo, lengths5, w),
+            plain=lambda: fused._flash_outproj_plain(q5, k5, v5, x5, wo, bo, lengths5, w),
+            library=("torch.matmul banded QK^T (64-row blocks x 1088-key spans) bf16, "
+                     "the dominant product",
+                     lambda: torch.matmul(q5_blocks, k5_spans)),
+            bound=bound(kv_bytes * L5 // L + 2 * T5 * d * 2 + H * D * d * 2,
+                        4 * H * D * pairs5 + 2 * T5 * H * D * d, PEAK_BF16),
+            rows=lengths5_np,
+            residual=x5,
+        ),
+        "ln_ffn[L=5120]": dict(
+            name="ln_ffn", replaces="herro_tpu/ops/fused.py:286",
+            kernel=lambda: fused._ln_ffn_cuda(x5, ln_s, ln_b, w1, b1, w2, b2),
+            plain=lambda: fused._ln_ffn_plain(x5, ln_s, ln_b, w1, b1, w2, b2),
+            library=("torch.matmul LN(x)[T,d] @ W1[d,f] bf16, half the FLOPs",
+                     lambda: torch.matmul(x5.view(T5, d), w1)),
+            bound=bound(2 * T5 * d * 2 + 2 * d * f * 2, 4 * T5 * d * f, PEAK_BF16),
+            residual=x5,
         ),
         "count_decisions": dict(
             replaces="herro_tpu/ops/fused.py:212",
@@ -393,9 +428,10 @@ def phase_kernels(torch, results: dict) -> None:
         keep = None
         if "rows" in c:  # rows at or past the length are never read
             rows = torch.from_numpy(c["rows"]).to(dev)
-            keep = torch.arange(L, device=dev)[None, :] < rows[:, None]
+            n_rows = got.shape[1] if got.dim() == 3 else got.shape[2]
+            keep = torch.arange(n_rows, device=dev)[None, :] < rows[:, None]
             if got.dim() == 4:  # [B, H, L, D]: the same rows of every head
-                keep = keep[:, None, :].expand(B, H, L)
+                keep = keep[:, None, :].expand(B, H, n_rows)
                 empty = rows == 0  # K9 walks no key there and leaves 0
                 if bool(empty.any()) and bool(got[empty].any()):
                     raise RuntimeError(f"{case}: a length-0 example is not all 0")
@@ -436,7 +472,7 @@ def phase_kernels(torch, results: dict) -> None:
             replaces=c["replaces"], max_abs_err=err, tol=tol,
             part_err=part_err, part_tol=part_tol, ok=ok, ms=ms,
             plain_ms=plain_ms, library=lib_label, library_ms=lib_ms,
-            bound_ms=bound_ms, bound_by=bound_by, **extra,
+            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms, **extra,
         )
         report.append(entry)
         emit("kernels", **entry)
@@ -448,7 +484,7 @@ def phase_kernels(torch, results: dict) -> None:
     if bad:
         raise RuntimeError("kernels disagree with their plain versions: " + ", ".join(bad))
     results["kernels"] = report
-    del q, k, v, kpad, k_spans, q_blocks
+    del q, k, v, kpad, k_spans, q_blocks, q5, k5, v5, x5, k5_spans, q5_blocks
     torch.cuda.empty_cache()
 
 
@@ -1093,7 +1129,7 @@ def main() -> int:
     launches["ln_qkv_rope_split"] = split_launches["ln_qkv_rope_split"]
     launches["flash_attention"] = attention_launches["flash_attention"]
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "bound_share", "library_ms")
     summary = []
     for k in results["kernels"]:
         if k["case"] != k["name"]:  # a second shape of a kernel listed already

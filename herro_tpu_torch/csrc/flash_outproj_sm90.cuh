@@ -1,0 +1,401 @@
+// K2's device code for Hopper (sm_90a): banded attention + out projection +
+// residual, all heads in a block, fed by TMA and run on wgmma.
+//
+// The function is flash_outproj.cuh's under kMaskBand, to the rounding:
+// for every query row i of batch b and head h, softmax over the keys j <
+// length with |i - j| <= window of scale * q_i . k_j (scores in log2 units,
+// -1e30 where masked), P rounded to bf16 for P.V, the row sum clamped at
+// 1e-30 and the division rounded to bf16; then out = bf16((x + bo) +
+// sum_h attn_h @ Wo_h), the heads summed in float32. Rows past the length
+// are padding: finite, read by no later stage.
+//
+// Bound on the H100: operations (4*H*D per in-band query-key pair plus the
+// out projection 2*B*L*H*D*d, ~7e11 at B=32, L=9216, band 512) over the
+// bf16 tensor-core rate.
+//
+// Design (the FlashAttention-3 form, the out projection kept fused):
+// - A persistent grid; a block takes tiles of 128 query rows of one batch
+//   element, all heads, in the order (batch, query block), so the blocks in
+//   flight at once share K/V in L2.
+// - A producer warp loads by TMA (3-D tensor maps over [B*H, L, D], so rows
+//   past L arrive as zeros): every head's Q into that head's columns of the
+//   block's attn tile [128, H*D] (128-byte swizzled, free until the head's
+//   result is written over it), then per head the band's 128-key K and V
+//   tiles, then Wo in [64, 256] tiles, all through one ring of three 32 KB
+//   stages with full/empty mbarriers.
+// - Two consumer warpgroups own 64 query rows each. S = Q.K^T by wgmma from
+//   shared memory (64x128 fp32, 64 registers); the mask only on the band's
+//   edge tiles and the tile at the length, the online softmax in registers;
+//   P stays in registers as the A operand of P.V (wgmma with A from
+//   registers, V MN-major); O is 64x128 fp32, 64 registers. A warpgroup
+//   skips the products of a tile its rows cannot reach but still releases it.
+//   Each warpgroup runs S, softmax and P.V of a tile in turn; the two
+//   overlap each other only as they drift. Taking turns on the tensor cores
+//   through named barriers, and issuing S(it + 1) before the softmax of
+//   S(it), both measured slower on the H100 (the second spills at 232-240
+//   registers), so what the tensor cores still wait on is the softmax.
+// - After each head O is normalised and stored in bf16 to the head's attn
+//   columns; after the last head the out projection runs by wgmma against
+//   the streamed Wo tiles in passes of 256 output columns (128 registers),
+//   and the epilogue adds bo and the residual.
+// - setmaxnreg gives the consumers 232 registers and the producer 40 (the
+//   block's 384 x 168 at launch, redistributed).
+// Shapes: D 128, (H, d) = (4, 512) or (2, 256), any L, lengths 0..L.
+#pragma once
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace herro {
+namespace fo90 {
+
+using namespace sm90;
+
+constexpr int kD = 128;                // head dim
+constexpr int kBQ = 128;               // query rows per tile, 64 per consumer warpgroup
+constexpr int kBK = 128;               // keys per K/V tile
+constexpr int kStageBytes = 32768;     // a K or V tile, or a [64, 256] Wo tile
+constexpr int kStages = 3;
+constexpr int kHalf = 16384;           // one [128][64] box of K, V or Q
+constexpr int kWoRows = 64;            // Wo rows per stage: four [64][64] boxes
+constexpr int kWoBox = kWoRows * 128;
+constexpr int kThreadsFo = 384;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int H>
+constexpr size_t smem_bytes() {
+  return 1024 + kStages * kStageBytes + (size_t)H * 2 * kHalf + (2 * kStages + 2) * 8;
+}
+
+struct Band {
+  int len, kt0, n_kt;
+};
+
+// the key tiles a query block walks: those that meet its band below the length
+__device__ inline Band band_of(const int* lengths, int b, int q0, int L, int window) {
+  Band r;
+  r.len = min(lengths[b], L);
+  const int k_lo = max(0, q0 - window);
+  const int k_hi = min(r.len, q0 + kBQ + window);
+  r.kt0 = (k_lo / kBK) * kBK;
+  r.n_kt = k_hi > r.kt0 ? (k_hi - r.kt0 + kBK - 1) / kBK : 0;
+  return r;
+}
+
+template <int H, int DM>
+__global__ void __launch_bounds__(kThreadsFo, 1)
+flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap wo_map,
+                          const bf16* __restrict__ x, const bf16* __restrict__ bo,
+                          const int* __restrict__ lengths, bf16* __restrict__ out, int B, int L,
+                          int window, float scale) {
+  constexpr int kPasses = DM / 256;        // out-projection passes of 256 columns
+  constexpr int kWoStages = H * kD / kWoRows;  // Wo stages per pass
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem;
+  unsigned char* attn = ring + kStages * kStageBytes;  // H*D/64 blocks of [128][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(attn + H * 2 * kHalf);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+  uint64_t* attn_free = q_full + 1;
+
+  const int n_qb = (L + kBQ - 1) / kBQ;
+  const int n_tiles = B * n_qb;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(attn_free, 2);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---------------- producer ----------------
+    reg_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    prefetch_map(&q_map);
+    prefetch_map(&k_map);
+    prefetch_map(&v_map);
+    prefetch_map(&wo_map);
+    int slot = 0;
+    uint32_t phase = 0, free_phase = 0;
+    auto acquire = [&]() {
+      mbar_wait(&empty[slot], phase ^ 1);
+      mbar_expect_tx(&full[slot], kStageBytes);
+      return ring + slot * kStageBytes;
+    };
+    auto advance = [&]() {
+      if (++slot == kStages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    };
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int b = tile / n_qb, q0 = (tile % n_qb) * kBQ;
+      const Band band = band_of(lengths, b, q0, L, window);
+      // Q of every head, once the last tile's out projection has read attn
+      mbar_wait(attn_free, free_phase ^ 1);
+      free_phase ^= 1;
+      mbar_expect_tx(q_full, H * 2 * kHalf);
+      for (int h = 0; h < H; ++h)
+        for (int c = 0; c < 2; ++c)
+          tma_load_3d(attn + (2 * h + c) * kHalf, &q_map, q_full, c * 64, q0, b * H + h);
+      for (int h = 0; h < H; ++h) {
+        for (int it = 0; it < band.n_kt; ++it) {
+          const int kt = band.kt0 + it * kBK;
+          for (int kv = 0; kv < 2; ++kv) {  // K, then V
+            const CUtensorMap* map = kv ? &v_map : &k_map;
+            unsigned char* dst = acquire();
+            for (int c = 0; c < 2; ++c)
+              tma_load_3d(dst + c * kHalf, map, &full[slot], c * 64, kt, b * H + h);
+            advance();
+          }
+        }
+      }
+      for (int p = 0; p < kPasses; ++p) {
+        for (int s = 0; s < kWoStages; ++s) {
+          unsigned char* dst = acquire();
+          for (int c = 0; c < 4; ++c)
+            tma_load_2d(dst + c * kWoBox, &wo_map, &full[slot], p * 256 + c * 64,
+                        s * kWoRows);
+          advance();
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  reg_alloc<232>();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const float sl2 = scale * kLog2e;  // scores in log2 units: exp2 below
+  int slot = 0, held = -1;
+  uint32_t phase = 0, q_phase = 0;
+  auto release = [&](int s) {
+    if (t == 0) mbar_arrive(&empty[s]);
+  };
+  auto next_slot = [&]() {
+    if (++slot == kStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  };
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = tile / n_qb, q0 = (tile % n_qb) * kBQ;
+    const Band band = band_of(lengths, b, q0, L, window);
+    const int r0 = q0 + wg * 64;                       // this warpgroup's first row
+    const int row_a = r0 + warp * 16 + g, row_b = row_a + 8;  // this thread's rows
+    const int arow = wg * 64 + warp * 16 + g;          // row_a within the tile
+    mbar_wait(q_full, q_phase);
+    q_phase ^= 1;
+
+#pragma unroll 1
+    for (int h = 0; h < H; ++h) {
+      float o[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+      const unsigned char* qh = attn + 2 * h * kHalf + wg * 64 * 128;
+
+#pragma unroll 1
+      for (int it = 0; it < band.n_kt; ++it) {
+        const int kt = band.kt0 + it * kBK;
+        const bool live = r0 < L && kt + kBK - 1 >= r0 - window && kt <= r0 + 63 + window;
+        // zeroed, not only overwritten by the first product, so that no
+        // value is carried in registers from the last tile
+        float s[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) s[i] = 0.f;
+        mbar_wait(&full[slot], phase);  // K
+        if (live) {
+          const unsigned char* ks = ring + slot * kStageBytes;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kD / 16; ++kk) {
+            const int off = (kk >> 2) * kHalf + (kk & 3) * 32;
+            wgmma_ss_n128<0>(s, wgmma_desc(qh + off, 16, 1024), wgmma_desc(ks + off, 16, 1024),
+                             kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operand(s);
+        }
+        release(slot);
+        next_slot();
+
+        uint32_t p[kBK / 16][4];
+        if (live) {
+          // every score tested only on the band's edge tiles and at the length
+          const bool edge = !(kt >= r0 + 63 - window && kt + kBK - 1 <= r0 + window) ||
+                            kt + kBK > band.len;
+          float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+          for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int ik = kt + 8 * j + 2 * q + e;
+              float& sa = s[4 * j + e];
+              float& sb = s[4 * j + 2 + e];
+              if (edge) {
+                sa = (ik < band.len && abs(row_a - ik) <= window) ? sa * sl2 : kNegInf;
+                sb = (ik < band.len && abs(row_b - ik) <= window) ? sb * sl2 : kNegInf;
+              } else {
+                sa *= sl2;
+                sb *= sl2;
+              }
+              mx_a = fmaxf(mx_a, sa);
+              mx_b = fmaxf(mx_b, sb);
+            }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+            mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+          }
+          const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+          const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+          m_a = mn_a;
+          m_b = mn_b;
+          l_a *= al_a;
+          l_b *= al_b;
+#pragma unroll
+          for (int j = 0; j < kD / 8; ++j) {
+            o[4 * j] *= al_a;
+            o[4 * j + 1] *= al_a;
+            o[4 * j + 2] *= al_b;
+            o[4 * j + 3] *= al_b;
+          }
+          // P in bf16 as the A operand of P.V: score columns 8j.. are k-step
+          // j / 2, its low (j even) or high key half
+#pragma unroll
+          for (int j = 0; j < kBK / 8; ++j) {
+            const float p0 = exp2f(s[4 * j] - mn_a), p1 = exp2f(s[4 * j + 1] - mn_a);
+            const float p2 = exp2f(s[4 * j + 2] - mn_b), p3 = exp2f(s[4 * j + 3] - mn_b);
+            l_a += p0 + p1;
+            l_b += p2 + p3;
+            p[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+            p[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+          }
+        }
+
+        mbar_wait(&full[slot], phase);  // V
+        if (live) {
+          const unsigned char* vs = ring + slot * kStageBytes;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBK / 16; ++kk)
+            wgmma_rs_n128<1>(o, p[kk], wgmma_desc(vs + kk * 16 * 128, kHalf, 1024), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operand(o);
+        }
+        release(slot);
+        next_slot();
+      }
+
+      // O / l in bf16 over this head's Q, in this warpgroup's rows
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      }
+      const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        unsigned char* blk = attn + (2 * h + (j >> 3)) * kHalf + 4 * q;
+        *reinterpret_cast<bf162*>(blk + swizzle128(arow, j & 7)) =
+            __floats2bfloat162_rn(o[4 * j] / d_a, o[4 * j + 1] / d_a);
+        *reinterpret_cast<bf162*>(blk + swizzle128(arow + 8, j & 7)) =
+            __floats2bfloat162_rn(o[4 * j + 2] / d_b, o[4 * j + 3] / d_b);
+      }
+    }
+    fence_proxy_async();  // attn, written by these threads, is read by wgmma next
+
+    // out = (x + bo) + attn @ Wo in passes of 256 columns; a stage is
+    // released one committed group behind
+#pragma unroll 1
+    for (int pass = 0; pass < kPasses; ++pass) {
+      float acc[128];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int s = 0; s < kWoStages; ++s) {
+        mbar_wait(&full[slot], phase);
+        const unsigned char* ws = ring + slot * kStageBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWoRows / 16; ++kk) {
+          const uint64_t da = wgmma_desc(attn + s * kHalf + wg * 64 * 128 + kk * 32, 16, 1024);
+          const uint64_t db = wgmma_desc(ws + kk * 16 * 128, kWoBox, 1024);
+          wgmma_ss_n256<1>(acc, da, db, s > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (held >= 0) release(held);
+        held = slot;
+        next_slot();
+      }
+      wgmma_wait<0>();
+      release(held);
+      held = -1;
+      fence_operand(acc);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int c = pass * 256 + 8 * j + 2 * q;
+        const float2 br = __bfloat1622float2(*reinterpret_cast<const bf162*>(bo + c));
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = half ? row_b : row_a;
+          if (row >= L) continue;
+          const size_t o_ = ((size_t)b * L + row) * DM + c;
+          const float2 xr = __bfloat1622float2(*reinterpret_cast<const bf162*>(x + o_));
+          *reinterpret_cast<bf162*>(out + o_) =
+              __floats2bfloat162_rn((xr.x + br.x) + acc[4 * j + 2 * half],
+                                    (xr.y + br.y) + acc[4 * j + 2 * half + 1]);
+        }
+      }
+    }
+    if (t == 0) mbar_arrive(attn_free);  // this warpgroup is done reading attn
+  }
+}
+
+// Launch on `stream`; returns 0 or a CUDA error. A band wider than L masks
+// nothing more than L does, so it is clamped there.
+template <int H, int DM>
+inline int launch(const void* q, const void* k, const void* v, const void* x, const void* wo,
+                  const void* bo, const int* lengths, void* out, int B, int L, int window,
+                  float scale, cudaStream_t stream) {
+  window = window < L ? window : L;
+  CUtensorMap qm, km, vm, wm;
+  const uint64_t dims[3] = {kD, (uint64_t)L, (uint64_t)B * H};
+  const uint64_t strides[2] = {kD * 2, (uint64_t)L * kD * 2};
+  const uint32_t box[2] = {64, kBQ};
+  const uint64_t wdims[2] = {DM, H * kD}, wstrides[1] = {DM * 2};
+  const uint32_t wbox[2] = {64, kWoRows};
+  int err = make_map_bf16(&qm, q, 3, dims, strides, box);
+  if (!err) err = make_map_bf16(&km, k, 3, dims, strides, box);
+  if (!err) err = make_map_bf16(&vm, v, 3, dims, strides, box);
+  if (!err) err = make_map_bf16(&wm, wo, 2, wdims, wstrides, wbox);
+  if (err) return err;
+  auto kernel = flash_outproj_sm90_kernel<H, DM>;
+  const size_t smem = smem_bytes<H>();
+  err = set_smem((const void*)kernel, smem);
+  if (err) return err;
+  const int n_tiles = B * ((L + kBQ - 1) / kBQ);
+  const int sms = sm_count();
+  const int grid = n_tiles < sms ? n_tiles : sms;
+  kernel<<<grid, kThreadsFo, smem, stream>>>(qm, km, vm, wm, (const bf16*)x, (const bf16*)bo,
+                                             lengths, (bf16*)out, B, L, window, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fo90
+}  // namespace herro

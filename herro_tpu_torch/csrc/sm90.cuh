@@ -1,0 +1,372 @@
+// Hopper (sm_90a) building blocks shared by the TMA/wgmma kernels of the port
+// (K3 ln_ffn.cu, K2 flash_outproj_sm90.cuh): mbarriers, TMA tensor loads and
+// their host-side tensor maps, wgmma descriptors and instructions, register
+// reallocation, named and cluster barriers.
+//
+// Conventions every kernel here follows:
+// - Operand tiles in shared memory use the 128-byte swizzle: a tile is cut
+//   into blocks of [rows][64] bf16 (128 bytes a row), each block 1024-byte
+//   aligned, and the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+//   TMA writes this layout itself (CU_TENSOR_MAP_SWIZZLE_128B); a thread that
+//   writes such a tile computes it with swizzle128().
+// - K-major operands (A always, B when it is stored [N, K]): a block holds 64
+//   k-values of its rows; SBO = 1024 (8 rows), a k-step of 16 adds 32 bytes.
+//   MN-major B (stored [K, N], N contiguous: the weights, V): a block holds
+//   64 n-values of its k-rows; LBO = the bytes from one 64-column block to the
+//   next, SBO = 1024, a k-step of 16 adds 16 rows = 2048 bytes.
+// - Ring stages are handed over with a full and an empty mbarrier each: the
+//   producer waits "empty" with its phase flipped, so its first pass is free.
+//
+// Host code takes cuTensorMapEncodeTiled from the driver through
+// cudaGetDriverEntryPoint, so the libraries link against the runtime alone.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace herro {
+namespace sm90 {
+
+// ---------------------------------------------------------------------------
+// shared-memory addresses, swizzle, barriers
+// ---------------------------------------------------------------------------
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// byte offset of the 16-byte chunk `chunk` (0..7) of row `row` in a
+// 128-byte-swizzled block of 128-byte rows
+__device__ inline uint32_t swizzle128(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+__device__ inline void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// make the initialised barriers visible to the async proxy and the cluster
+__device__ inline void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once and expect `bytes` of TMA traffic in this phase
+__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive on the barrier at the same shared-memory offset in block `cta` of
+// this block's cluster
+__device__ inline void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// wait until the barrier's phase with parity `parity` has completed
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// a barrier among `count` threads (a multiple of 32) of the block
+__device__ inline void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// generic-proxy writes to shared memory become visible to wgmma and TMA
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ inline uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ inline uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ inline uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster
+__device__ inline void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA: tensor tiles from device memory into shared memory
+// ---------------------------------------------------------------------------
+
+// box at coordinates (c0 innermost, c1) of `map` into dst; completes on bar
+__device__ inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                   int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the same box into dst and bar of every block of the cluster in `mask`
+__device__ inline void tma_load_2d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+__device__ inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                   int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ inline void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)map) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma: warpgroup products, operands in 128-byte-swizzled shared memory
+// ---------------------------------------------------------------------------
+
+// shared-memory matrix descriptor (128-byte swizzle); lbo and sbo in bytes
+__device__ inline uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+__device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of an accumulator across the
+// asynchronous product that writes it
+template <int R>
+__device__ inline void fence_operand(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Accumulator layout of m64nNk16 (f32), thread t of the warpgroup: warp
+// w = t / 32 owns rows 16w..16w+15; with g = lane / 4, q = lane % 4, register
+// 4j + e (e < 2) is row 16w + g, column 8j + 2q + e, and 4j + 2 + e is row
+// 16w + g + 8, the same column. An A operand in registers (m64k16) takes the
+// mma.sync m16n8k16 fragment of the warp's 16 rows. TransB = 1: B is MN-major.
+
+// m64n64k16, A and B from shared memory
+template <int TransB>
+__device__ inline void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31},"
+      " %32, %33, p, 1, 1, 0, %35;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// m64n128k16, A and B from shared memory
+template <int TransB>
+__device__ inline void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, %67;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// m64n256k16, A and B from shared memory
+template <int TransB>
+__device__ inline void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, %131;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// m64n128k16, A from registers (four bf16 pairs a thread), B from shared memory
+template <int TransB>
+__device__ inline void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// ---------------------------------------------------------------------------
+// registers between the warpgroups of a warp-specialised block
+// ---------------------------------------------------------------------------
+
+template <int N>
+__device__ inline void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ inline void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+}  // namespace sm90
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A row-major bf16 tensor of `rank` (2 or 3) dimensions, dims[0] innermost
+// and contiguous, strides[i] the byte stride of dimension i + 1; boxes of
+// box[0] x box[1] (x 1) elements, box[0] * 2 <= 128 bytes, 128-byte swizzle,
+// zeros read past every edge. Returns 0 or a CUDA error code.
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                         const uint64_t* strides, const uint32_t* box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  cuuint64_t gdim[3], gstride[2];
+  cuuint32_t bdim[3], estride[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = dims[i];
+    bdim[i] = i < 2 ? box[i] : 1;
+  }
+  for (int i = 0; i + 1 < rank; ++i) gstride[i] = strides[i];
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                        const_cast<void*>(base), gdim, gstride, bdim, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+}  // namespace herro

@@ -316,7 +316,7 @@ def test_flash_outproj_kernel_matches_plain_on_card(gl):
 @pytest.mark.gpu
 @pytest.mark.parametrize("gl,f", [(1024, 512), (1000, 512), (1000, 1536)])
 def test_ln_ffn_kernel_matches_plain_on_card(gl, f):
-    """d_ff 512 keeps 64-row blocks, 1536 (r9) needs the 32-row blocks."""
+    """d_ff 512 (four hidden chunks) and 1536 (r9, twelve), at d 256."""
     dev = _card()
     x, s, b, w1, b1, w2, b2 = _ffn_inputs(24, d=GPU_D, f=f, rows=B * gl)
     bf = torch.bfloat16
@@ -334,3 +334,58 @@ def test_count_decisions_kernel_matches_plain_on_card(gl):
     assert torch.equal(
         consensus._count_decisions_cuda(t, n), consensus._count_decisions_plain(t, n)
     )
+
+
+# K2 and K3 at every width a shipped checkpoint takes: (H, d) 2/256 (r9,
+# r10deep) and 4/512 (r10); (d, f) 512/1024, 256/1024 and 256/1536
+K2_WIDTHS = [(2, 256), (4, 512)]
+K3_WIDTHS = [(512, 1024), (256, 1024), (256, 1536)]
+
+
+def _launches(name):
+    from herro_tpu_torch.ops import cuda as kernels
+
+    return kernels.launch_counts.snapshot()[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,width", K2_WIDTHS)
+@pytest.mark.parametrize("band", [256, 512])
+def test_flash_outproj_k2_kernel_matches_plain_on_card(heads, width, band):
+    """A band that is a multiple of 256 takes K2; lengths L, L - 300, one
+    below the band, one not a multiple of 64, and 0."""
+    dev = _card()
+    assert fused.flash_kernel_name(band) == "flash_outproj"
+    gl = 1024
+    rng = np.random.default_rng(26)
+    bf = torch.bfloat16
+    lengths = np.array([gl, gl - 300, band - 1, 937, 0], dtype=np.int32)
+    nb = len(lengths)
+    q, k, v = (_cuda(rng.normal(size=(nb, heads, gl, 128)), dev, bf) for _ in range(3))
+    x = _cuda(rng.normal(size=(nb, gl, width)), dev, bf)
+    wo = _cuda(rng.normal(0, (heads * 128) ** -0.5, size=(heads, 128, width)), dev, bf)
+    bo = _cuda(rng.normal(0, 0.25, size=(width,)), dev, bf)
+    args = (q, k, v, x, wo, bo, _cuda(lengths, dev), band)
+    before = _launches("flash_outproj")
+    got = fused._flash_outproj_cuda(*args)
+    torch.cuda.synchronize()
+    assert _launches("flash_outproj") == before + 1
+    assert bool(torch.isfinite(got.float()).all())  # padding rows too
+    _bf16_close(got, fused._flash_outproj_plain(*args), rows=lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,f", K3_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 37, 32 * 1000, 32 * 1024])
+def test_ln_ffn_k3_widths_match_plain_on_card(d_model, f, rows):
+    """Ragged row tiles, fewer tiles than SMs, and many tiles per SM."""
+    dev = _card()
+    x, s, b, w1, b1, w2, b2 = _ffn_inputs(27, d=d_model, f=f, rows=rows)
+    bf = torch.bfloat16
+    args = (_cuda(x, dev, bf), _cuda(s, dev), _cuda(b, dev), _cuda(w1, dev, bf),
+            _cuda(b1, dev, bf), _cuda(w2, dev, bf), _cuda(b2, dev, bf))
+    before = _launches("ln_ffn")
+    got = fused._ln_ffn_cuda(*args)
+    torch.cuda.synchronize()
+    assert _launches("ln_ffn") == before + 1
+    _bf16_close(got, fused._ln_ffn_plain(*args))
