@@ -157,6 +157,39 @@ __device__ inline void prefetch_map(const CUtensorMap* map) {
 }
 
 // ---------------------------------------------------------------------------
+// TMA: tensor tiles from shared memory into device memory
+// ---------------------------------------------------------------------------
+
+// src (a box of `map`, in its swizzled layout) to coordinates (c0 innermost,
+// c1, c2); elements past the tensor's edges are not written. The copy joins
+// the issuing thread's open bulk group.
+__device__ inline void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                    int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          (uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// close the issuing thread's open bulk group
+__device__ inline void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ inline void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ inline void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // wgmma: warpgroup products, operands in 128-byte-swizzled shared memory
 // ---------------------------------------------------------------------------
 
@@ -360,6 +393,36 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int rank, const uin
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Launch a persistent kernel in clusters of C blocks of `threads` with `smem`
+// bytes of dynamic shared memory: as many clusters as fit on the card at
+// once, and no more than there are groups of C of its n_tiles tiles. The
+// kernel's shared-memory limit must already be set. Returns 0 or a CUDA error.
+template <typename... KArgs, typename... Args>
+inline int launch_clusters(void (*kernel)(KArgs...), int C, int threads, size_t smem,
+                           long n_tiles, cudaStream_t stream, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  cfg.gridDim = dim3(C);
+  int err = (int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err) return err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const long groups = (n_tiles + C - 1) / C;
+  cfg.gridDim = dim3((unsigned)(C * (groups < clusters ? groups : clusters)));
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<Args&&>(args)...);
+  if (err) return err;
+  return (int)cudaGetLastError();
 }
 
 inline int sm_count() {

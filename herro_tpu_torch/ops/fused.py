@@ -88,16 +88,24 @@ def _rope_tables_cached(L: int, D: int, device):
 # ---------------------------------------------------------------------------
 
 
+COL_SLOT = 16  # k rows per pileup row in the col_proj table: V one-hot, the qual, zeros
+
+
 def col_proj_table(w_embT, w_qT):
-    """The col_proj table [kp, d] the entry op takes: row r*(V+1)+v is
-    w_embT[:, r*V+v], row r*(V+1)+V is w_qT[:, r] (flax's col_proj kernel
-    layout), then zero rows up to kp, the next multiple of 32 (the CUDA
-    kernel's k step). Built once per weight state, not per batch."""
+    """The col_proj table [kp, d] the entry op takes: pileup row r owns the
+    COL_SLOT rows from 16r, row 16r+v is w_embT[:, r*V+v], row 16r+V is
+    w_qT[:, r] (flax's col_proj kernel, one slot per pileup row), the rest
+    zero, then zero rows up to kp, the next multiple of 64 (512 at R = 31:
+    whole 64-row k-stages of the CUDA kernel, and one (row, pileup row) pair
+    of its one-hot tile is 32 aligned bytes). Built once per weight state,
+    not per batch."""
     d, R = w_qT.shape
     V = w_embT.shape[1] // R
-    kp = -(-R * (V + 1) // 32) * 32
+    if V + 1 > COL_SLOT:
+        raise ValueError(f"vocab {V} and the qual do not fit a slot of {COL_SLOT}")
+    kp = -(-R * COL_SLOT // 64) * 64
     wc = torch.zeros(kp, d, dtype=w_embT.dtype, device=w_embT.device)
-    tab = wc[: R * (V + 1)].view(R, V + 1, d)
+    tab = wc[: R * COL_SLOT].view(R, COL_SLOT, d)
     tab[:, :V] = w_embT.t().reshape(R, V, d)
     tab[:, V] = w_qT.t()
     return wc
@@ -106,7 +114,7 @@ def col_proj_table(w_embT, w_qT):
 def _entry_embed_plain(bases, quals, wc, cb, out_dtype):
     B, R, L = bases.shape
     V, d = VOCAB_SIZE, wc.shape[1]
-    tab = wc[: R * (V + 1)].float().view(R, V + 1, d)
+    tab = wc[: R * COL_SLOT].float().view(R, COL_SLOT, d)
     # the one-hot contraction is a gather-sum of R table rows; a token
     # outside the vocab selects the appended zero row, as its one-hot is 0
     table = torch.cat(
@@ -126,10 +134,11 @@ def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
     kp, d = wc.shape
     V = VOCAB_SIZE
     _cuda.check(out_dtype == torch.bfloat16, f"entry_embed kernel emits bf16, not {out_dtype}")
-    _cuda.check(kp % 32 == 0 and kp >= R * (V + 1),
-                f"col_proj table has {kp} rows: the kernel takes R*(V+1) padded to 32")
+    _cuda.check(kp == 512 and R * COL_SLOT <= kp,
+                f"col_proj table has {kp} rows for {R} pileup rows: the kernel takes "
+                f"col_proj_table's 512 (R 29-32)")
     _cuda.check(quals.shape == bases.shape and cb.shape == (d,), "input shapes")
-    _cuda.check(d % 128 == 0, f"d_model {d} is not a multiple of 128")
+    _cuda.check(d in (256, 512), f"d_model {d}: the kernel takes 256 or 512")
     _cuda.require_dtype(torch.uint8, bases=bases)
     _cuda.require_dtype(torch.float32, quals=quals, cb=cb)
     _cuda.require_dtype(torch.bfloat16, wc=wc)
@@ -202,7 +211,10 @@ def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = N
     H = n_heads
     D = w.shape[1] // (3 * H)
     _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
-    _cuda.check(d % 64 == 0, f"d_model {d} is not a multiple of 64")
+    if kernel == "ln_qkv_rope":
+        _cuda.check(d in (256, 512), f"d_model {d}: the kernel takes 256 or 512")
+    else:
+        _cuda.check(d % 64 == 0, f"d_model {d} is not a multiple of 64")
     _cuda.check(w.shape == (d, 3 * H * D) and b.shape == (3 * H * D,), "qkv shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
     _cuda.require_dtype(torch.bfloat16, x=x, w=w, b=b)

@@ -180,6 +180,47 @@ def test_layernorm_matches_jax(ref):
     np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
 
 
+# R10's own widths (d 512, R 31, V 12, H 4 x D 128): the col_proj table's
+# slot layout, which the CUDA kernel's one-hot tile shares, and K1's plain
+# path, whose weight the kernel reads as it is stored
+R10_D, R10_H = 512, 4
+
+
+def test_col_proj_table_slot_layout():
+    """Pileup row r owns rows 16r..16r+15: its V one-hot rows, its qual row,
+    zeros; zero rows up to 512."""
+    w_embT, w_qT, _ = _embed_weights(30, d=R10_D)
+    wc = fused.col_proj_table(_t(w_embT), _t(w_qT)).numpy()
+    assert wc.shape == (512, R10_D)
+    for r in range(R):
+        np.testing.assert_array_equal(wc[16 * r : 16 * r + V], w_embT[:, r * V : (r + 1) * V].T)
+        np.testing.assert_array_equal(wc[16 * r + V], w_qT[:, r])
+        assert not wc[16 * r + V + 1 : 16 * (r + 1)].any()
+    assert not wc[16 * R :].any()
+
+
+def test_entry_embed_plain_matches_jnp_twin_at_r10_width(ref):
+    tok, quals, _, _ = _pileup(31)
+    w_embT, w_qT, cb = _embed_weights(32, d=R10_D)
+    want = ref.fused._entry_embed_jnp(
+        ref.jnp.asarray(tok), ref.jnp.asarray(quals), ref.jnp.asarray(w_embT),
+        ref.jnp.asarray(w_qT), ref.jnp.asarray(cb), ref.jnp.float32,
+    )
+    wc = fused.col_proj_table(_t(w_embT), _t(w_qT))
+    got = fused.entry_embed(_t(tok), _t(quals), wc, _t(cb), torch.float32)
+    assert got.shape == (B, L, R10_D)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
+
+
+def test_ln_qkv_rope_plain_matches_jnp_twin_at_r10_width(ref):
+    x, s, b, w, bias = _qkv_inputs(33, d=R10_D, H=R10_H, D=128, L=128)
+    want = ref.fused._ln_qkv_rope_jnp(*map(ref.jnp.asarray, (x, s, b, w, bias)), R10_H)
+    got = fused.ln_qkv_rope(*map(_t, (x, s, b, w, bias)), R10_H)
+    for g, r in zip(got, want):
+        assert g.shape == (B, R10_H, 128, 128)
+        np.testing.assert_allclose(g.numpy(), _np(r), atol=ATOL)
+
+
 # ---------------------------------------------------------------------------
 # plain versions against the Pallas kernels in interpret mode
 # ---------------------------------------------------------------------------
@@ -389,3 +430,49 @@ def test_ln_ffn_k3_widths_match_plain_on_card(d_model, f, rows):
     torch.cuda.synchronize()
     assert _launches("ln_ffn") == before + 1
     _bf16_close(got, fused._ln_ffn_plain(*args))
+
+
+# K1 and K4 at every width a shipped checkpoint takes: (H, d) 2/256 and
+# 4/512; rows B * L of 1 x 1, 1 x 37 (a ragged tile, fewer tiles than SMs),
+# 32 x 1000 (L not a multiple of the tile) and 32 x 1024 (many tiles per SM)
+K1_WIDTHS = [(2, 256), (4, 512)]
+ROW_SHAPES = [(1, 1), (1, 37), (32, 1000), (32, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,width", K1_WIDTHS)
+@pytest.mark.parametrize("nb,gl", ROW_SHAPES)
+def test_ln_qkv_rope_k1_widths_match_plain_on_card(heads, width, nb, gl):
+    dev = _card()
+    rng = np.random.default_rng(28)
+    bf = torch.bfloat16
+    x = _cuda(rng.normal(size=(nb, gl, width)), dev, bf)
+    s, b = (_cuda(p, dev) for p in _ln_params(rng, width))
+    w = _cuda(rng.normal(0, width ** -0.5, size=(width, 3 * heads * 128)), dev, bf)
+    bias = _cuda(rng.normal(0, 0.25, size=(3 * heads * 128,)), dev, bf)
+    args = (x, s, b, w, bias, heads)
+    before = _launches("ln_qkv_rope")
+    got = fused._ln_qkv_rope_cuda(*args, kernel="ln_qkv_rope")
+    torch.cuda.synchronize()
+    assert _launches("ln_qkv_rope") == before + 1
+    for g, r in zip(got, fused._ln_qkv_rope_plain(*args)):
+        _bf16_close(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [256, 512])
+@pytest.mark.parametrize("nb,gl", ROW_SHAPES)
+def test_entry_embed_k4_widths_match_plain_on_card(width, nb, gl):
+    dev = _card()
+    rng = np.random.default_rng(29)
+    tok = rng.integers(0, 14, size=(nb, R, gl)).astype(np.uint8)  # 12, 13: outside the vocab
+    quals = rng.uniform(-1, 1, size=(nb, R, gl)).astype(np.float32)
+    w_embT, w_qT, cb = _embed_weights(29, d=width)
+    wc = fused.col_proj_table(_cuda(w_embT, dev, torch.bfloat16),
+                              _cuda(w_qT, dev, torch.bfloat16))
+    args = (_cuda(tok, dev), _cuda(quals, dev), wc, _cuda(cb, dev), torch.bfloat16)
+    before = _launches("entry_embed")
+    got = fused._entry_embed_cuda(*args)
+    torch.cuda.synchronize()
+    assert _launches("entry_embed") == before + 1
+    _bf16_close(got, fused._entry_embed_plain(*args))

@@ -32,6 +32,7 @@ from herro_tpu.models.model import init_params
 from herro_tpu.pipeline.batching import unpack_tokens_np
 from herro_tpu_torch.models.checkpoint import load_model, params_from_jax, read_msgpack_tree
 from herro_tpu_torch.models.model import CONFIGS, CorrectionModel, ModelConfig
+from herro_tpu_torch.ops.fused import COL_SLOT
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R10_CKPT = os.path.join(ROOT, "resources", "model_r10_sim")
@@ -157,12 +158,16 @@ def test_compute_weights_built_once_per_parameter_state():
     with torch.inference_mode():
         w = model.compute_weights()
         assert model.compute_weights() is w
-        assert w["wc"].dtype == torch.bfloat16 and w["wc"].shape[0] % 32 == 0
+        # one slot of COL_SLOT rows per pileup row: 12 one-hot rows, the
+        # qual row, zeros; zero rows up to a multiple of 64
+        slot = COL_SLOT
+        assert w["wc"].dtype == torch.bfloat16 and w["wc"].shape[0] % 64 == 0
         cp = model.col_proj
-        tab = w["wc"][: N_ROWS * 13].view(N_ROWS, 13, -1)
+        tab = w["wc"][: N_ROWS * slot].view(N_ROWS, slot, -1)
         assert torch.equal(tab[4, 7], cp.w_embT[:, 4 * 12 + 7].to(torch.bfloat16))
         assert torch.equal(tab[4, 12], cp.w_qT[:, 4].to(torch.bfloat16))
-        assert not w["wc"][N_ROWS * 13 :].any()
+        assert not tab[:, 13:].any()
+        assert not w["wc"][N_ROWS * slot :].any()
     sd = {k: v + 1 for k, v in model.state_dict().items()}
     model.load_state_dict(sd)
     with torch.inference_mode():

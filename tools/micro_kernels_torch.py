@@ -5,7 +5,8 @@
     python3 tools/micro_kernels_torch.py --spread 0      # registers only
 
 Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
-prints each kernel's registers and spills, then runs ``chip_smoke.py``'s
+prints each kernel's registers, spills and ptxas's performance advisories
+(C75xx, such as serialised ``wgmma``), then runs ``chip_smoke.py``'s
 ``kernels`` phase (every kernel against its plain version at B=32, L=9216,
 with its tolerance; times by CUDA events) ``--spread`` times in one process
 and prints every kernel's time per pass. It is the short first call after a
@@ -42,8 +43,10 @@ def print_registers(kernels) -> None:
             )
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr[-4000:]}")
+            # registers, spills, and ptxas's performance advisories (C75xx:
+            # e.g. wgmma serialised, or waits it had to inject)
             lines = [l.strip() for l in res.stderr.splitlines()
-                     if "registers" in l or "spill" in l]
+                     if "registers" in l or "spill" in l or "(C75" in l]
             print(name, " | ".join(lines), flush=True)
 
 
