@@ -10,21 +10,43 @@
 // Bound on the H100: operations (4*D per query-key pair the mask lets
 // through) over the bf16 tensor-core rate; under a narrow band the bytes of
 // q, k, v and the output.
-// Design: the tile loop of flash_outproj.cuh (flash-attention-2 form: a block
-// owns 128 query rows, 8 warps of 16; scores, probabilities and the output
-// accumulator stay in registers on mma.sync m16n8k16; key tiles of 64 stream
-// through a cp.async double buffer; a warp skips tiles outside its rows'
-// band) with another epilogue: there is no out projection to fuse, so heads
-// need not share a block. The grid is (query blocks, H, B), shared memory
-// holds one head's Q tile and the K/V stages (104 KB), and a warp parks its
-// bf16 result in its own rows of the Q tile to leave in 16-byte stores. The
-// loop is written out here instead of being cut out of flash_outproj.cuh:
-// the three kernels that header serves were tuned as they stand (an earlier
-// restructuring of its loop cost the banded kernel 3% in registers), so the
-// header is left alone and only its constants and tile loader are shared.
-#include "flash_outproj.cuh"
+// Design: the flash-attention-2 form on mma.sync (a block owns 128 query
+// rows, 8 warps of 16; scores, probabilities and the output accumulator stay
+// in registers on mma.sync m16n8k16 with ldmatrix operands; key tiles of 64
+// stream through a cp.async double buffer whose rows have a padded stride,
+// kLdKV, for conflict-free ldmatrix; a warp skips tiles outside its rows'
+// band). There is no out
+// projection to fuse, so heads need not share a block. The grid is (query
+// blocks, H, B), shared memory holds one head's Q tile and the K/V stages
+// (104 KB), and a warp parks its bf16 result in its own rows of the Q tile
+// to leave in 16-byte stores. It is the port's last attention kernel on this
+// form: K2, K6 and K7 run on TMA and wgmma (flash_outproj_sm90.cuh).
+#include "common.cuh"
 
 namespace herro {
+
+enum : int { kMaskBand = 0, kMaskFull = 1 };
+
+constexpr int kD = 128;        // head dim
+constexpr int kBQ = 128;       // query rows per block (8 warps x 16)
+constexpr int kBK = 64;        // keys per tile
+constexpr int kLdKV = kD + 8;  // K/V tile row stride (bf16): conflict-free ldmatrix
+constexpr size_t kTileBytes = (size_t)kBK * kLdKV * 2;
+constexpr size_t kKvBytes = 4 * kTileBytes;  // 2 stages x (K, V)
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// rows [row0, row0 + rows) of a [L, D] head slab into a shared tile of row
+// stride ld, asynchronously; rows past L are zero-filled
+__device__ inline void load_rows_async(const bf16* __restrict__ src, int row0, int rows,
+                                       int L, bf16* dst, int ld) {
+  for (int e = threadIdx.x; e < rows * (kD / 8); e += blockDim.x) {
+    const int r = e >> 4, c = (e & 15) * 8;
+    const int row = row0 + r;
+    const bool ok = row < L;
+    cp_async16(dst + r * ld + c, src + (size_t)(ok ? row : 0) * kD + c, ok);
+  }
+}
 
 constexpr size_t kFlashAttnSmem = kKvBytes + (size_t)kBQ * kLdKV * 2;
 

@@ -3,12 +3,12 @@
 //
 // Replaces herro_tpu/ops/fused.py:_banded_flash_outproj_rot_kernel (via
 // _banded_flash_outproj_rot_pallas).
-// Bound on the H100: operations (4*H*D per in-band query-key pair plus the
-// out projection 2*B*L*H*D*d, ~7e11 at B=32, L=9216) over the bf16
-// tensor-core rate. The device code is flash_outproj_sm90.cuh (TMA ring, one
-// producer warp, two wgmma consumer warpgroups), which describes the design.
-// The TPU kernel's rotation slots are a VMEM-reuse schedule with no
-// counterpart here.
+// Bound on the H100: operations (4*H*D per in-band query-key pair below the
+// length plus the out projection, 2*H*D*d per row below the length; ~6.6e11
+// at B=32, L=9216) over the bf16 tensor-core rate. The device code is flash_outproj_sm90.cuh under
+// kMaskBand (TMA ring, one producer warp, two wgmma consumer warpgroups),
+// which describes the design; K6 runs the same instantiation. The TPU
+// kernel's rotation slots are a VMEM-reuse schedule with no counterpart here.
 #include "flash_outproj_sm90.cuh"
 
 extern "C" int herro_flash_outproj(const void* q, const void* k, const void* v,
@@ -16,11 +16,7 @@ extern "C" int herro_flash_outproj(const void* q, const void* k, const void* v,
                                    const int* lengths, void* out, int B, int H, int L,
                                    int d, int window, float scale, void* stream) {
   using namespace herro::fo90;
-  if (window < 0 || window % 256 || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (H == 4 && d == 512)
-    return launch<4, 512>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
-  if (H == 2 && d == 256)
-    return launch<2, 256>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (window < 0 || window % 256) return (int)cudaErrorInvalidValue;
+  return launch_widths<kMaskBand>(q, k, v, x, wo, bo, lengths, out, B, H, L, d, window,
+                                  scale, stream);
 }

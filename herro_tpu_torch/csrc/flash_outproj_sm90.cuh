@@ -1,39 +1,66 @@
-// K2's device code for Hopper (sm_90a): banded attention + out projection +
-// residual, all heads in a block, fed by TMA and run on wgmma.
+// The device code of the port's three attention kernels for Hopper (sm_90a):
+// attention + out projection + residual, all heads in a block, fed by TMA and
+// run on wgmma, as a template over the mask.
 //
-// The function is flash_outproj.cuh's under kMaskBand, to the rounding:
-// for every query row i of batch b and head h, softmax over the keys j <
-// length with |i - j| <= window of scale * q_i . k_j (scores in log2 units,
-// -1e30 where masked), P rounded to bf16 for P.V, the row sum clamped at
-// 1e-30 and the division rounded to bf16; then out = bf16((x + bo) +
-// sum_h attn_h @ Wo_h), the heads summed in float32. Rows past the length
-// are padding: finite, read by no later stage.
+//   flash_outproj.cu       K2  band |i - j| <= w, w a multiple of 256
+//   flash_outproj_band.cu  K6  band with any w >= 1
+//   flash_outproj_full.cu  K7  no band: every key below the length
 //
-// Bound on the H100: operations (4*H*D per in-band query-key pair plus the
-// out projection 2*B*L*H*D*d, ~7e11 at B=32, L=9216, band 512) over the
-// bf16 tensor-core rate.
+// For every query row i of batch b and head h: softmax over the keys j <
+// length (and |i - j| <= window under kMaskBand) of scale * q_i . k_j (scores
+// in log2 units, -1e30 where masked), P rounded to bf16 for P.V, the row sum
+// clamped at 1e-30 and the division rounded to bf16; then out = bf16((x +
+// bo) + sum_h attn_h @ Wo_h), the heads summed in float32 (the TPU kernels K6
+// and K7 round after each head; one rounding at the end is the closer
+// answer). Rows past the length are padding: finite, read by no later stage.
+//
+// Bound on the H100: operations (4*H*D per query-key pair the mask lets
+// through, query and key below the length, plus the out projection, 2*H*D*d
+// per query row below the length) over the bf16 tensor-core rate; ~6.6e11
+// at B=32, L=9216, band 512, and ~3.45e12 with no band at the smoke run's
+// lengths.
 //
 // Design (the FlashAttention-3 form, the out projection kept fused):
 // - A persistent grid; a block takes tiles of 128 query rows of one batch
-//   element, all heads, in the order (batch, query block), so the blocks in
-//   flight at once share K/V in L2.
+//   element, all heads. Under kMaskBand it walks them with a static stride
+//   in the order (batch, query block), so the blocks in flight at once share
+//   K/V in L2. Under kMaskFull a tile costs as many key tiles as its batch
+//   element's length holds, up to 72 a head at L=9216, so equal strides
+//   would leave some SMs a fifth longer than the mean: there the tiles below
+//   each length come first, batch elements by descending length, then the
+//   tiles past the lengths, and the blocks take them in a snake order (block
+//   i takes position i of even rounds and G-1-i of odd ones). On the H100
+//   K2's static stride took 15% longer at the smoke run's mixed lengths and
+//   4.4% longer over the batches of an eval run, whose buckets hold lengths
+//   from 0.75 L to L and whose last batches are part empty (PERF.md).
+//   The producer warp finds each tile's position (full_tile_at) and hands it
+//   to the consumers in shared memory with the tile's Q. A tile past the
+//   length loads nothing and does no attention: its rows come out as
+//   bf16(x + bo).
 // - A producer warp loads by TMA (3-D tensor maps over [B*H, L, D], so rows
 //   past L arrive as zeros): every head's Q into that head's columns of the
 //   block's attn tile [128, H*D] (128-byte swizzled, free until the head's
-//   result is written over it), then per head the band's 128-key K and V
-//   tiles, then Wo in [64, 256] tiles, all through one ring of three 32 KB
-//   stages with full/empty mbarriers.
+//   result is written over it), then per head the walked 128-key K and V
+//   tiles (the band's, or all below the length), then Wo in [64, 256] tiles,
+//   all through one ring of three 32 KB stages with full/empty mbarriers.
 // - Two consumer warpgroups own 64 query rows each. S = Q.K^T by wgmma from
 //   shared memory (64x128 fp32, 64 registers); the mask only on the band's
 //   edge tiles and the tile at the length, the online softmax in registers;
 //   P stays in registers as the A operand of P.V (wgmma with A from
 //   registers, V MN-major); O is 64x128 fp32, 64 registers. A warpgroup
-//   skips the products of a tile its rows cannot reach but still releases it.
+//   skips the products of a tile its rows cannot reach (under kMaskFull:
+//   every tile, once its first row is at or past the length) but still
+//   releases it. Under kMaskFull no score is rewritten outside the tile at
+//   the length: the scale goes into the exponent, exp2(s*sl2 - m) as one FMA.
 //   Each warpgroup runs S, softmax and P.V of a tile in turn; the two
 //   overlap each other only as they drift. Taking turns on the tensor cores
-//   through named barriers, and issuing S(it + 1) before the softmax of
-//   S(it), both measured slower on the H100 (the second spills at 232-240
-//   registers), so what the tensor cores still wait on is the softmax.
+//   through named barriers, and issuing S(it + 1) before the softmax of S(it)
+//   (FlashAttention-3's overlap inside a warpgroup), both measured slower on
+//   the H100, for K2's 9 key tiles a head and for K7's up to 72 alike: with
+//   O, P and S in flight at once a consumer needs more than its 232 (or 240)
+//   registers, and ptxas spills and serialises the wgmma (C7511, C7514; the
+//   ping-pong loop is in tools/kernel_variants/). So what the tensor cores
+//   still wait on is the softmax.
 // - After each head O is normalised and stored in bf16 to the head's attn
 //   columns; after the last head the out projection runs by wgmma against
 //   the streamed Wo tiles in passes of 256 output columns (128 registers),
@@ -51,6 +78,8 @@ namespace fo90 {
 
 using namespace sm90;
 
+enum : int { kMaskBand = 0, kMaskFull = 1 };
+
 constexpr int kD = 128;                // head dim
 constexpr int kBQ = 128;               // query rows per tile, 64 per consumer warpgroup
 constexpr int kBK = 128;               // keys per K/V tile
@@ -63,9 +92,10 @@ constexpr int kThreadsFo = 384;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// the ring, the attn tile, 2 * kStages + 2 mbarriers and the tile slot
 template <int H>
 constexpr size_t smem_bytes() {
-  return 1024 + kStages * kStageBytes + (size_t)H * 2 * kHalf + (2 * kStages + 2) * 8;
+  return 1024 + kStages * kStageBytes + (size_t)H * 2 * kHalf + (2 * kStages + 2) * 8 + 8;
 }
 
 struct Band {
@@ -83,7 +113,44 @@ __device__ inline Band band_of(const int* lengths, int b, int q0, int L, int win
   return r;
 }
 
-template <int H, int DM>
+// the query tiles of a batch element below its length
+__device__ inline int live_tiles(int len, int L) {
+  len = min(len, L);
+  return len > 0 ? (len + kBQ - 1) / kBQ : 0;
+}
+
+// kMaskFull: the tile at position p of the order the blocks walk, as (b, q0):
+// first the n_live tiles below the lengths, batch elements by descending
+// count (ties by index), then the tiles past the lengths in batch order. A
+// whole warp computes it, lane l testing batch elements l, l + 32, ...
+__device__ inline int2 full_tile_at(const int* lengths, int B, int L, int n_qb, int n_live,
+                                    int p, int lane) {
+  const bool live = p < n_live;
+  const int pp = live ? p : p - n_live;
+  for (int b0 = 0; b0 < B; b0 += 32) {
+    const int b = b0 + lane;
+    int start = 0, n = 0, qb0 = 0;
+    if (b < B) {
+      const int nb = live_tiles(lengths[b], L);
+      n = live ? nb : n_qb - nb;
+      qb0 = live ? 0 : nb;
+      for (int o = 0; o < B; ++o) {
+        const int no = live_tiles(lengths[o], L);
+        if (live ? no > nb || (no == nb && o < b) : o < b) start += live ? no : n_qb - no;
+      }
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, pp >= start && pp < start + n);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      const int hb = __shfl_sync(0xffffffffu, b, src);
+      const int qb = __shfl_sync(0xffffffffu, qb0 + pp - start, src);
+      return make_int2(hb, qb * kBQ);
+    }
+  }
+  return make_int2(0, L);  // not reached: the positions cover every tile
+}
+
+template <int H, int DM, int kMask>
 __global__ void __launch_bounds__(kThreadsFo, 1)
 flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -92,6 +159,7 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const bf16* __restrict__ x, const bf16* __restrict__ bo,
                           const int* __restrict__ lengths, bf16* __restrict__ out, int B, int L,
                           int window, float scale) {
+  constexpr bool kFull = kMask == kMaskFull;
   constexpr int kPasses = DM / 256;        // out-projection passes of 256 columns
   constexpr int kWoStages = H * kD / kWoRows;  // Wo stages per pass
   extern __shared__ unsigned char smem_raw[];
@@ -102,9 +170,18 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
   uint64_t* attn_free = q_full + 1;
+  int* tile_slot = reinterpret_cast<int*>(attn_free + 1);  // kMaskFull: (b, q0)
 
   const int n_qb = (L + kBQ - 1) / kBQ;
   const int n_tiles = B * n_qb;
+  // the position of this block's tile in round r (kMaskFull: snake order)
+  auto position = [&](int r) {
+    if constexpr (kFull)
+      return r * (int)gridDim.x + ((r & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x
+                                           : (int)blockIdx.x);
+    else
+      return (int)blockIdx.x + r * (int)gridDim.x;
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -120,11 +197,15 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x >= 256) {
     // ---------------- producer ----------------
     reg_dealloc<40>();
-    if (threadIdx.x != 256) return;
-    prefetch_map(&q_map);
-    prefetch_map(&k_map);
-    prefetch_map(&v_map);
-    prefetch_map(&wo_map);
+    // kMaskFull keeps the whole warp, which finds the tiles; one thread loads
+    if (threadIdx.x >= (kFull ? 288 : 257)) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      prefetch_map(&q_map);
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+      prefetch_map(&wo_map);
+    }
     int slot = 0;
     uint32_t phase = 0, free_phase = 0;
     auto acquire = [&]() {
@@ -138,12 +219,8 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
         phase ^= 1;
       }
     };
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int b = tile / n_qb, q0 = (tile % n_qb) * kBQ;
-      const Band band = band_of(lengths, b, q0, L, window);
-      // Q of every head, once the last tile's out projection has read attn
-      mbar_wait(attn_free, free_phase ^ 1);
-      free_phase ^= 1;
+    // Q of every head, the walked K/V tiles of every head, then Wo
+    auto load_tile = [&](int b, int q0, const Band& band) {
       mbar_expect_tx(q_full, H * 2 * kHalf);
       for (int h = 0; h < H; ++h)
         for (int c = 0; c < 2; ++c)
@@ -169,6 +246,40 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           advance();
         }
       }
+    };
+    if constexpr (kFull) {
+      int n_live = 0;
+      for (int b = lane; b < B; b += 32) n_live += live_tiles(lengths[b], L);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) n_live += __shfl_xor_sync(0xffffffffu, n_live, off);
+      for (int r = 0;; ++r) {
+        const int p = position(r);
+        if (p >= n_tiles) break;
+        const int2 tile = full_tile_at(lengths, B, L, n_qb, n_live, p, lane);
+        if (lane == 0) {
+          // the slot and attn are free once the last tile is done with both
+          mbar_wait(attn_free, free_phase ^ 1);
+          free_phase ^= 1;
+          tile_slot[0] = tile.x;
+          tile_slot[1] = tile.y;
+          const int len = min(lengths[tile.x], L);
+          if (tile.y >= len)
+            mbar_arrive(q_full);  // no attention: the slot alone
+          else
+            load_tile(tile.x, tile.y, Band{len, 0, (len + kBK - 1) / kBK});
+        }
+      }
+    } else {
+      for (int r = 0;; ++r) {
+        const int tile = position(r);
+        if (tile >= n_tiles) break;
+        const int b = tile / n_qb, q0 = (tile % n_qb) * kBQ;
+        const Band band = band_of(lengths, b, q0, L, window);
+        // Q of every head, once the last tile's out projection has read attn
+        mbar_wait(attn_free, free_phase ^ 1);
+        free_phase ^= 1;
+        load_tile(b, q0, band);
+      }
     }
     return;
   }
@@ -190,14 +301,55 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   };
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int b = tile / n_qb, q0 = (tile % n_qb) * kBQ;
-    const Band band = band_of(lengths, b, q0, L, window);
+  for (int r = 0;; ++r) {
+    const int tile = position(r);
+    if (tile >= n_tiles) break;
+    int b, q0;
+    Band band;
+    if constexpr (kFull) {
+      mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+      b = tile_slot[0];
+      q0 = tile_slot[1];
+      band.len = min(lengths[b], L);
+      band.kt0 = 0;
+      band.n_kt = (band.len + kBK - 1) / kBK;
+    } else {
+      b = tile / n_qb;
+      q0 = (tile % n_qb) * kBQ;
+      band = band_of(lengths, b, q0, L, window);
+    }
     const int r0 = q0 + wg * 64;                       // this warpgroup's first row
     const int row_a = r0 + warp * 16 + g, row_b = row_a + 8;  // this thread's rows
     const int arow = wg * 64 + warp * 16 + g;          // row_a within the tile
-    mbar_wait(q_full, q_phase);
-    q_phase ^= 1;
+    if constexpr (kFull) {
+      if (q0 >= band.len) {
+        // past the length: this warpgroup's rows below L are bf16(x + bo)
+        constexpr int kChunks = DM / 8;
+        const int n_rows = min(64, L - r0);
+        for (int e = t; e < n_rows * kChunks; e += 128) {
+          const int c = (e % kChunks) * 8;
+          const size_t o_ = ((size_t)b * L + r0 + e / kChunks) * DM + c;
+          const uint4 xv = *reinterpret_cast<const uint4*>(x + o_);
+          const uint4 bv = *reinterpret_cast<const uint4*>(bo + c);
+          uint4 ov;
+          const bf162* xp = reinterpret_cast<const bf162*>(&xv);
+          const bf162* bp = reinterpret_cast<const bf162*>(&bv);
+          bf162* op = reinterpret_cast<bf162*>(&ov);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 xf = __bfloat1622float2(xp[i]), bf = __bfloat1622float2(bp[i]);
+            op[i] = __floats2bfloat162_rn(xf.x + bf.x, xf.y + bf.y);
+          }
+          *reinterpret_cast<uint4*>(out + o_) = ov;
+        }
+        if (t == 0) mbar_arrive(attn_free);  // done with the slot
+        continue;
+      }
+    } else {
+      mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+    }
 
 #pragma unroll 1
     for (int h = 0; h < H; ++h) {
@@ -210,7 +362,11 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll 1
       for (int it = 0; it < band.n_kt; ++it) {
         const int kt = band.kt0 + it * kBK;
-        const bool live = r0 < L && kt + kBK - 1 >= r0 - window && kt <= r0 + 63 + window;
+        bool live;
+        if constexpr (kFull)
+          live = r0 < band.len;
+        else
+          live = r0 < L && kt + kBK - 1 >= r0 - window && kt <= r0 + 63 + window;
         // zeroed, not only overwritten by the first product, so that no
         // value is carried in registers from the last tile
         float s[64];
@@ -235,33 +391,53 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 
         uint32_t p[kBK / 16][4];
         if (live) {
-          // every score tested only on the band's edge tiles and at the length
-          const bool edge = !(kt >= r0 + 63 - window && kt + kBK - 1 <= r0 + window) ||
-                            kt + kBK > band.len;
           float mx_a = kNegInf, mx_b = kNegInf;
+          if constexpr (kFull) {
+            // only the tile at the length is masked; scores stay unscaled
+            const bool edge = kt + kBK > band.len;
 #pragma unroll
-          for (int j = 0; j < kBK / 8; ++j)
+            for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int ik = kt + 8 * j + 2 * q + e;
-              float& sa = s[4 * j + e];
-              float& sb = s[4 * j + 2 + e];
-              if (edge) {
-                sa = (ik < band.len && abs(row_a - ik) <= window) ? sa * sl2 : kNegInf;
-                sb = (ik < band.len && abs(row_b - ik) <= window) ? sb * sl2 : kNegInf;
-              } else {
-                sa *= sl2;
-                sb *= sl2;
+              for (int e = 0; e < 2; ++e) {
+                float& sa = s[4 * j + e];
+                float& sb = s[4 * j + 2 + e];
+                if (edge && kt + 8 * j + 2 * q + e >= band.len) {
+                  sa = kNegInf;
+                  sb = kNegInf;
+                }
+                mx_a = fmaxf(mx_a, sa);
+                mx_b = fmaxf(mx_b, sb);
               }
-              mx_a = fmaxf(mx_a, sa);
-              mx_b = fmaxf(mx_b, sb);
-            }
+          } else {
+            // every score tested only on the band's edge tiles and at the length
+            const bool edge = !(kt >= r0 + 63 - window && kt + kBK - 1 <= r0 + window) ||
+                              kt + kBK > band.len;
+#pragma unroll
+            for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int ik = kt + 8 * j + 2 * q + e;
+                float& sa = s[4 * j + e];
+                float& sb = s[4 * j + 2 + e];
+                if (edge) {
+                  sa = (ik < band.len && abs(row_a - ik) <= window) ? sa * sl2 : kNegInf;
+                  sb = (ik < band.len && abs(row_b - ik) <= window) ? sb * sl2 : kNegInf;
+                } else {
+                  sa *= sl2;
+                  sb *= sl2;
+                }
+                mx_a = fmaxf(mx_a, sa);
+                mx_b = fmaxf(mx_b, sb);
+              }
+          }
 #pragma unroll
           for (int off = 1; off < 4; off <<= 1) {
             mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
             mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
           }
-          const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+          // kMaskFull: the maximum in log2 units, as the band's scores are
+          const float mn_a = fmaxf(m_a, kFull ? mx_a * sl2 : mx_a);
+          const float mn_b = fmaxf(m_b, kFull ? mx_b * sl2 : mx_b);
           const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
           m_a = mn_a;
           m_b = mn_b;
@@ -278,8 +454,18 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           // j / 2, its low (j even) or high key half
 #pragma unroll
           for (int j = 0; j < kBK / 8; ++j) {
-            const float p0 = exp2f(s[4 * j] - mn_a), p1 = exp2f(s[4 * j + 1] - mn_a);
-            const float p2 = exp2f(s[4 * j + 2] - mn_b), p3 = exp2f(s[4 * j + 3] - mn_b);
+            float p0, p1, p2, p3;
+            if constexpr (kFull) {
+              p0 = exp2f(fmaf(s[4 * j], sl2, -mn_a));
+              p1 = exp2f(fmaf(s[4 * j + 1], sl2, -mn_a));
+              p2 = exp2f(fmaf(s[4 * j + 2], sl2, -mn_b));
+              p3 = exp2f(fmaf(s[4 * j + 3], sl2, -mn_b));
+            } else {
+              p0 = exp2f(s[4 * j] - mn_a);
+              p1 = exp2f(s[4 * j + 1] - mn_a);
+              p2 = exp2f(s[4 * j + 2] - mn_b);
+              p3 = exp2f(s[4 * j + 3] - mn_b);
+            }
             l_a += p0 + p1;
             l_b += p2 + p3;
             p[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
@@ -368,8 +554,8 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // Launch on `stream`; returns 0 or a CUDA error. A band wider than L masks
-// nothing more than L does, so it is clamped there.
-template <int H, int DM>
+// nothing more than L does, so it is clamped there; kMaskFull reads no window.
+template <int H, int DM, int kMask>
 inline int launch(const void* q, const void* k, const void* v, const void* x, const void* wo,
                   const void* bo, const int* lengths, void* out, int B, int L, int window,
                   float scale, cudaStream_t stream) {
@@ -385,7 +571,7 @@ inline int launch(const void* q, const void* k, const void* v, const void* x, co
   if (!err) err = make_map_bf16(&vm, v, 3, dims, strides, box);
   if (!err) err = make_map_bf16(&wm, wo, 2, wdims, wstrides, wbox);
   if (err) return err;
-  auto kernel = flash_outproj_sm90_kernel<H, DM>;
+  auto kernel = flash_outproj_sm90_kernel<H, DM, kMask>;
   const size_t smem = smem_bytes<H>();
   err = set_smem((const void*)kernel, smem);
   if (err) return err;
@@ -395,6 +581,20 @@ inline int launch(const void* q, const void* k, const void* v, const void* x, co
   kernel<<<grid, kThreadsFo, smem, stream>>>(qm, km, vm, wm, (const bf16*)x, (const bf16*)bo,
                                              lengths, (bf16*)out, B, L, window, scale);
   return (int)cudaGetLastError();
+}
+
+// The widths the kernels are built for: (H, d) = (4, 512) or (2, 256), D 128.
+template <int kMask>
+inline int launch_widths(const void* q, const void* k, const void* v, const void* x,
+                         const void* wo, const void* bo, const int* lengths, void* out, int B,
+                         int H, int L, int d, int window, float scale, void* stream) {
+  if (B < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (H == 4 && d == 512)
+    return launch<4, 512, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
+  if (H == 2 && d == 256)
+    return launch<2, 256, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace fo90

@@ -271,6 +271,11 @@ def flash_kernel_name(local_window) -> str:
     return "flash_outproj_band"
 
 
+# (n_heads, d_model) of the attention kernels' instantiations
+# (csrc/flash_outproj_sm90.cuh): every shipped checkpoint's
+ATTENTION_WIDTHS = ((4, 512), (2, 256))
+
+
 def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
     B, H, L, D = q.shape
     d = x.shape[-1]
@@ -278,7 +283,8 @@ def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
     _cuda.check(local_window is None or local_window >= 0,
                 f"local_window {local_window} is negative")
     _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
-    _cuda.check(d % 128 == 0, f"d_model {d} is not a multiple of 128")
+    _cuda.check((H, d) in ATTENTION_WIDTHS,
+                f"(n_heads, d_model) = ({H}, {d}): the kernel takes {ATTENTION_WIDTHS}")
     _cuda.check(k.shape == q.shape and v.shape == q.shape, "q/k/v shapes")
     _cuda.check(x.shape == (B, L, d) and wo.shape == (H, D, d) and bo.shape == (d,),
                 "x/wo/bo shapes")
@@ -326,7 +332,8 @@ def _ln_ffn_plain(x, scale, bias, w1, b1, w2, b2):
 def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
     d = x.shape[-1]
     f = w1.shape[1]
-    _cuda.check(d % 128 == 0 and f % 128 == 0, f"d={d}, f={f}: not multiples of 128")
+    _cuda.check(d in (256, 512), f"d_model {d}: the kernel takes 256 or 512")
+    _cuda.check(f >= 128 and f % 128 == 0, f"d_ff {f}: the kernel takes a multiple of 128")
     _cuda.check(w1.shape == (d, f) and b1.shape == (f,), "ff1 shapes")
     _cuda.check(w2.shape == (f, d) and b2.shape == (d,), "ff2 shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")

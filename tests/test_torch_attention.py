@@ -227,8 +227,9 @@ def test_each_attention_kernel_has_its_own_entry_and_source():
 @pytest.mark.parametrize("local_window", [None, 384, 512])
 def test_cuda_wrapper_never_runs_on_cpu_tensors(local_window):
     """The card's wrapper raises on CPU tensors; only the public op, handed
-    CPU tensors, takes the plain version."""
-    args = [_t(a, torch.bfloat16) for a in _inputs(36, D=128, d=128)]
+    CPU tensors, takes the plain version. (H, d) = (2, 256) is a width the
+    kernels take, so the device is what it refuses."""
+    args = [_t(a, torch.bfloat16) for a in _inputs(36, L=64, H=2, D=128, d=256)]
     before = kernels.launch_counts.snapshot()
     with pytest.raises(ValueError, match="not on the card"):
         fused._flash_outproj_cuda(*args, local_window)
@@ -240,6 +241,14 @@ def test_cuda_wrapper_never_runs_on_cpu_tensors(local_window):
 # ---------------------------------------------------------------------------
 
 GPU_D, GPU_H, GPU_L = 256, 2, 1000  # r9 / r10deep widths, a ragged tail block
+# (H, d) of every shipped checkpoint: r9 / r10deep, and r10
+GPU_WIDTHS = [(GPU_H, GPU_D), (4, 512)]
+
+
+def _gpu_lengths(gl):
+    """The full length, a cut, one not a multiple of a tile, one under a
+    tile, one row and none."""
+    return (gl, gl - 300, 937, 127, 1, 0)
 
 
 def _card():
@@ -249,9 +258,13 @@ def _card():
     return torch.device("cuda")
 
 
-def _on_card(local_window, lengths, name):
+def _on_card(local_window, gl, heads, width, name):
+    """One launch of ``name``'s own counter and no other; every output row
+    finite (the padding rows too); the rows below each length within
+    4 bf16 ulps at the largest magnitude of the plain version's."""
     dev = _card()
-    args = _inputs(37, lengths=lengths, L=GPU_L, H=GPU_H, D=128, d=GPU_D)
+    lengths = _gpu_lengths(gl)
+    args = _inputs(37, lengths=lengths, L=gl, H=heads, D=128, d=width)
     targs = [_t(a, torch.bfloat16).to(dev) for a in args]
     before = kernels.launch_counts.snapshot()
     got = fused._flash_outproj_cuda(*targs, local_window)
@@ -260,20 +273,27 @@ def _on_card(local_window, lengths, name):
     assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {name: 1}
     want = fused._flash_outproj_plain(*targs, local_window).float().cpu().numpy()
     _close_valid_rows(got.float().cpu().numpy(), want, args[-1], _bf16_tol(want))
+    return got, targs
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lengths", [(GPU_L, GPU_L - 300), (0, 77)])
-def test_full_kernel_matches_plain_on_card(lengths):
-    _on_card(None, lengths, "flash_outproj_full")
+@pytest.mark.parametrize("heads,width", GPU_WIDTHS)
+@pytest.mark.parametrize("gl", [1024, GPU_L])
+def test_full_kernel_matches_plain_on_card(gl, heads, width):
+    """Lengths L, L - 300, 937, 127, 1 and 0 in one batch: query tiles past
+    a length do no attention, and a length of 0 leaves exactly bf16(x + bo)."""
+    got, (_, _, _, x, _, bo, _) = _on_card(None, gl, heads, width, "flash_outproj_full")
+    empty = _gpu_lengths(gl).index(0)
+    assert torch.equal(got[empty], (x[empty].float() + bo.float()).to(torch.bfloat16))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads,width", GPU_WIDTHS)
 @pytest.mark.parametrize("local_window", [1, 40, 100, 384, 5000])
-def test_band_kernel_matches_plain_on_card(local_window):
+def test_band_kernel_matches_plain_on_card(local_window, heads, width):
     """Below one key tile (1, 40), across tiles (100, 384), wider than the
     sequence (5000)."""
-    _on_card(local_window, (GPU_L, GPU_L - 300), "flash_outproj_band")
+    _on_card(local_window, GPU_L, heads, width, "flash_outproj_band")
 
 
 # ---------------------------------------------------------------------------

@@ -389,6 +389,39 @@ def _launches(name):
     return kernels.launch_counts.snapshot()[name]
 
 
+@pytest.mark.parametrize(
+    "op,mask,heads,width,f",
+    [("flash_outproj", mask, heads, width, None)
+     for mask in (None, 384, 512) for heads, width in [(3, 384), (4, 256), (2, 512)]]
+    + [("ln_ffn", None, None, width, f) for width, f in [(384, 1024), (128, 512), (256, 64)]],
+)
+def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f):
+    """The Hopper kernels are built for (H, d) = (4, 512) or (2, 256)
+    (attention, all three masks) and d 256 or 512 with d_ff a multiple of 128
+    (ln_ffn); the wrapper names any other width in a ValueError before it
+    looks at the device (these are CPU tensors) and launches nothing."""
+    rng = np.random.default_rng(30)
+    bf = torch.bfloat16
+    if op == "flash_outproj":
+        gl = 64
+        q, k, v = (_t(rng.normal(size=(1, heads, gl, 128))).to(bf) for _ in range(3))
+        args = (q, k, v, _t(rng.normal(size=(1, gl, width))).to(bf),
+                _t(rng.normal(size=(heads, 128, width))).to(bf),
+                _t(rng.normal(size=(width,))).to(bf), _t(np.array([gl], np.int32)), mask)
+        call, match = fused._flash_outproj_cuda, "n_heads, d_model"
+    else:
+        x, s, b, w1, b1, w2, b2 = _ffn_inputs(30, d=width, f=f, rows=64)
+        args = (_t(x).to(bf), _t(s), _t(b), _t(w1).to(bf), _t(b1).to(bf), _t(w2).to(bf),
+                _t(b2).to(bf))
+        call, match = fused._ln_ffn_cuda, "d_model" if width not in (256, 512) else "d_ff"
+    from herro_tpu_torch.ops import cuda as kernels
+
+    before = kernels.launch_counts.snapshot()
+    with pytest.raises(ValueError, match=match):
+        call(*args)
+    assert kernels.launch_counts.snapshot() == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("heads,width", K2_WIDTHS)
 @pytest.mark.parametrize("band", [256, 512])
