@@ -17,7 +17,10 @@ each print one JSON line:
    attention with mixed lengths, one of them 0 (K7), and the general band
    at 384 and at 40 (K6). The split-rope kernel (K8) is also held against
    the table-fed one (K1); the int8 kernels (K10, K11) also report the share
-   of output elements that differ from the plain version at all; the
+   of output elements that differ from the plain version at all, and K11,
+   also at L=5120 and at the r9 width (d 256, d_ff 1536), that share between
+   two plain runs whose LayerNorm sums in float32 and in float64 (the floor
+   the order of a sum sets), beside its time before its Hopper redesign; the
    standalone flash attention (K9) runs under band 512 and under no band
    with mixed lengths, one of them 0 (which must come out 0);
 3. ``golden``  — the port's bf16 forward of the flagship checkpoint on
@@ -79,6 +82,10 @@ PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 
 B, L = 32, 9216  # CLI default batch at the R10 bucket (pipeline/batching.py)
+
+# K11's time before its Hopper redesign: the earlier mma.sync kernel at
+# B=32, L=9216, R10 widths (PERF.md section 6), printed beside the new time
+K11_MMA_SYNC_MS = 4.537
 
 
 def emit(phase: str, **kw) -> None:
@@ -148,6 +155,28 @@ def compare(torch, got, ref, keep=None, residual=None, exact=False):
     return err, tol, part_err, part_tol
 
 
+def ln_ffn_q_float64_sums(fused, *args):
+    """``_ln_ffn_q_plain`` with LayerNorm's two sums (of x and of x^2) taken
+    in float64 and rounded to float32, every other step as it is."""
+    import torch
+
+    def layernorm(x, scale, bias, eps: float = 1e-6):
+        xf = x.float()
+        xd = xf.double()
+        mu = xd.mean(dim=-1, keepdim=True).float()
+        msq = (xd * xd).mean(dim=-1, keepdim=True).float()
+        var = torch.clamp(msq - mu * mu, min=0.0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * scale.float() + bias.float()).to(x.dtype)
+
+    kept = fused.layernorm
+    fused.layernorm = layernorm
+    try:
+        return fused._ln_ffn_q_plain(*args)
+    finally:
+        fused.layernorm = kept
+
+
 def phase_kernels(torch, results: dict) -> None:
     """K1-K11 at the main-path shapes against their plain versions."""
     import numpy as np
@@ -203,11 +232,41 @@ def phase_kernels(torch, results: dict) -> None:
     w2_i8, s2 = fused.quantize_weight(w2.float())
     wq_i8, w1_i8, w2_i8 = (fused.k_major(t) for t in (wq_i8, w1_i8, w2_i8))
     b1_f, b2_f = b1.float(), b2.float()
+    # K11 at the r9 width: d 256, d_ff 1536
+    d9, f9 = 256, 1536
+    x9 = randn(B, L, d9)
+    ln_s9 = 1.0 + randn(d9, std=0.1, dtype=torch.float32)
+    ln_b9 = randn(d9, std=0.1, dtype=torch.float32)
+    w19_i8, s19 = fused.quantize_weight(randn(d9, f9, std=d9 ** -0.5, dtype=torch.float32))
+    w29_i8, s29 = fused.quantize_weight(randn(f9, d9, std=f9 ** -0.5, dtype=torch.float32))
+    w19_i8, w29_i8 = fused.k_major(w19_i8), fused.k_major(w29_i8)
+    b19 = randn(f9, std=bias_std, dtype=torch.float32)
+    b29 = randn(d9, std=bias_std, dtype=torch.float32)
 
-    def ln_rows_i8():
+    def ln_rows_i8(xs=x, s=ln_s, b=ln_b):
         """LN(x) quantized per row, the left operand of torch._int_mm."""
-        y = fused.layernorm(x, ln_s, ln_b).float().view(T, d)
+        y = fused.layernorm(xs, s, b).float().view(-1, xs.shape[-1])
         return fused._quant_rows(y)[0]
+
+    def ffn_q_case(xs, s, b, w1q, s1q, b1q, w2q, s2q, b2q):
+        """K11 on these rows and weights. ``floor``: the plain version with
+        LayerNorm's sums taken in float64, the noise that the order of two
+        float32 sums alone makes."""
+        ts, dd = xs.shape[0] * xs.shape[1], xs.shape[-1]
+        ff = w1q.shape[1]
+        args = (xs, s, b, w1q, s1q, b1q, w2q, s2q, b2q)
+        return dict(
+            name="ln_ffn_q", replaces="herro_tpu/ops/fused.py:420",
+            kernel=lambda: fused._ln_ffn_q_cuda(*args),
+            plain=lambda: fused._ln_ffn_q_plain(*args),
+            floor=lambda: ln_ffn_q_float64_sums(fused, *args),
+            library=("torch._int_mm quant(LN(x))[T,d] @ W1[d,f] int8 -> int32, half the "
+                     "operations (partial: no LN, quantization, gelu, second product)",
+                     lambda y_i8: torch._int_mm(y_i8, w1q), lambda: ln_rows_i8(xs, s, b)),
+            bound=bound(2 * ts * dd * 2 + 2 * dd * ff + (dd + ff) * 8, 4 * ts * dd * ff,
+                        PEAK_INT8),
+            residual=xs, share_differing=True,
+        )
 
     # band pairs this data needs: every query row below the length against
     # keys j < length with |i - j| <= w (rows past it are padding nobody reads)
@@ -444,18 +503,11 @@ def phase_kernels(torch, results: dict) -> None:
             bound=bound(x_bytes + kv_bytes + d * N + N * 6, 2 * T * d * N, PEAK_INT8),
             share_differing=True,
         ),
-        "ln_ffn_q": dict(
-            replaces="herro_tpu/ops/fused.py:420",
-            kernel=lambda: fused._ln_ffn_q_cuda(
-                x, ln_s, ln_b, w1_i8, s1, b1_f, w2_i8, s2, b2_f),
-            plain=lambda: fused._ln_ffn_q_plain(
-                x, ln_s, ln_b, w1_i8, s1, b1_f, w2_i8, s2, b2_f),
-            library=("torch._int_mm quant(LN(x))[T,d] @ W1[d,f] int8 -> int32, half the "
-                     "operations (partial: no LN, quantization, gelu, second product)",
-                     lambda y_i8: torch._int_mm(y_i8, w1_i8), ln_rows_i8),
-            bound=bound(2 * x_bytes + 2 * d * f + (d + f) * 8, 4 * T * d * f, PEAK_INT8),
-            residual=x, share_differing=True,
-        ),
+        "ln_ffn_q": ffn_q_case(x, ln_s, ln_b, w1_i8, s1, b1_f, w2_i8, s2, b2_f),
+        "ln_ffn_q[L=5120]": ffn_q_case(x5, ln_s, ln_b, w1_i8, s1, b1_f, w2_i8, s2, b2_f),
+        # the r9 width (d 256, d_ff 1536), which the int8 eval of model_r9_sim runs
+        "ln_ffn_q[d=256, f=1536]": ffn_q_case(x9, ln_s9, ln_b9, w19_i8, s19, b19, w29_i8,
+                                              s29, b29),
         "flash_attention": flash_attention_case(
             lengths, lengths_np, w, pairs, "the band 512 and the length mask"),
         # no band, mixed lengths, one of them 0 (that example must come out 0)
@@ -489,6 +541,15 @@ def phase_kernels(torch, results: dict) -> None:
             pairs_ = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
             differ = [float((a != r).float().mean()) for a, r in pairs_]
             extra["share_differing"] = max(differ)
+        if "floor" in c:  # the same share between two plain runs, LN's sums apart
+            extra["share_differing_floor"] = float((c["floor"]() != ref).float().mean())
+        if case == "ln_ffn_q":
+            extra["ms_mma_sync_kernel"] = K11_MMA_SYNC_MS
+            # rows whose scale max|y| / 127 differs when PyTorch divides by the
+            # Python number 127.0 (a multiplication by its reciprocal on the card)
+            amax = fused.layernorm(x, ln_s, ln_b).float().abs().amax(dim=-1)
+            extra["share_scale_by_reciprocal_differs"] = float(
+                (amax / 127.0 != fused._div127(amax)).float().mean())
         if "twin" in c:  # K8 against K1: within the tolerance
             gap = max(float((a.float() - t.float()).abs().max())
                       for a, t in zip(got, c["twin"]()))
@@ -527,7 +588,7 @@ def phase_kernels(torch, results: dict) -> None:
         raise RuntimeError("kernels disagree with their plain versions: " + ", ".join(bad))
     results["kernels"] = report
     del q, k, v, kpad, k_spans, q_blocks, q5, k5, v5, x5, k5_spans, q5_blocks
-    del cases, tokens5, quals5
+    del cases, tokens5, quals5, x9, w19_i8, w29_i8
     torch.cuda.empty_cache()
 
 

@@ -1,4 +1,5 @@
-// Shared device helpers for the int8 kernels (ln_qkv_rope_q, ln_ffn_q).
+// Shared device helpers for the int8 kernels: the quantization steps (K10
+// ln_qkv_rope_q and K11 ln_ffn_q), and K10's LayerNorm and mma.sync product.
 //
 // The int8 path of herro_tpu/ops/fused.py quantizes activations per row and
 // weights per output column, multiplies int8 x int8 into int32 and
@@ -10,7 +11,8 @@
 // product is bit-equal to the plain version's and only LayerNorm and gelu can
 // differ in their last bit.
 //
-// The products run on the tensor cores with mma.sync m16n8k32 s8 x s8 -> s32.
+// K10's products run on the tensor cores with mma.sync m16n8k32 s8 x s8 -> s32
+// (K11 runs wgmma, sm90.cuh).
 // That mma wants operand B with k contiguous, and ldmatrix transposes
 // 16-bit elements only, so the int8 weights arrive k-major ([out, in], the
 // transpose of the reference's [in, out]) and both operands load by plain

@@ -1,164 +1,498 @@
 // K11: int8 LayerNorm + FFN + residual, the hidden kept on chip.
 //
 // Replaces herro_tpu/ops/fused.py:_ln_ffn_q_kernel (via _ln_ffn_q_pallas).
-//   y  = bf16(LN(x)), quantized per row to int8
-//   h  = gelu_tanh(bf16((float(y_i8 @ W1_i8) * s_row) * s1 + b1)), in bf16
-//   h is quantized per row over the whole d_ff row
-//   out = bf16(x + ((float(h_i8 @ W2_i8) * hs_row) * s2 + b2))
-// Both weights arrive k-major (W1 as [f, d], W2 as [d, f]); b1, b2 are
-// float32.
-// Bound on the H100: operations (4*T*d*f) over the int8 tensor-core rate.
-// Design: K3's (ln_ffn.cu) with int8 operands. A block owns BM token rows;
-// the first product's epilogue writes the bf16 hidden [BM, f] into shared
-// memory, because the second quantization needs the maximum of a whole
-// hidden row, known only when all of it exists. Each row is then quantized
-// in place: a warp finds the row's maximum, then walks it upwards in groups
-// of 32 values, every lane reading its bf16 value before any lane writes an
-// int8 one, the int8 row filling the first half of the bytes the bf16 row
-// held (byte j of the int8 row overwrites bf16 value j/2, read one or more
-// groups earlier). The row stride stays the bf16 one, whose odd multiple of
-// 16 bytes keeps ldmatrix free of bank conflicts. So a block of 64 rows fits
-// (d = 512, f = 1024: 186 KB) where an int8 copy beside the bf16 hidden
-// would not; d_ff 1536 takes 32-row blocks. Both products run on mma.sync
-// m16n8k32 (int8.cuh); dequantization, bias, gelu and the residual are
-// applied to the accumulator fragments in registers.
+//   y   = bf16(LN(x));            y_i8, s_row  = quant_rows(y)   (per row over d)
+//   h   = bf16(float(y_i8 @ W1_i8) * s_row * s1 + b1)
+//   h   = bf16(gelu_tanh(h));     h_i8, hs_row = quant_rows(h)   (over all of d_ff)
+//   out = bf16(x + (float(h_i8 @ W2_i8) * hs_row * s2 + b2))
+// Both weights arrive k-major (W1 as [f, d], W2 as [d, f]): int8 wgmma has
+// no transpose, so both of its operands are K-major. The scales and biases
+// are float32.
+//
+// Bound on the H100: operations, 4*T*d*f over the int8 tensor-core rate.
+//
+// Design (sm_90a), K3's (ln_ffn.cu) with int8 wgmma: a persistent grid, one
+// block per SM walking 64-row tiles, each block three warpgroups.
+// - A producer warp streams W1 and W2 through a ring of 16 KB slots by TMA,
+//   in the order the consumers take them: per 128-column chunk of the
+//   hidden, d/128 stages of W1 ([128 rows][128 k], 128-byte swizzle); then
+//   f/32 stages of W2 ([d rows][32 k], 32-byte swizzle, so that one stage
+//   holds a k-step of every output column). Blocks run in clusters of
+//   kCluster that walk the same weight stream; each loads its share of a
+//   stage's boxes and multicasts them, so L2 serves each weight byte once
+//   per kCluster tiles. The producer also loads each tile's x by TMA.
+// - Two consumer warpgroups. LayerNorm, rounded to bf16, then quantized per
+//   row into y_i8, written in the swizzled layout of wgmma's A operand. Per
+//   chunk, each warpgroup computes half of the chunk's 128 hidden columns
+//   (m64n64k32), then dequantizes, adds b1, rounds, applies gelu_tanh and
+//   rounds in registers, keeps each row's running max|h| and stores the bf16
+//   hidden. The second quantization needs the maximum of the whole d_ff row,
+//   known only after the last chunk, so the [64, f] hidden stays in shared
+//   memory (128 KB at f 1024) and is quantized there in place; then each
+//   warpgroup accumulates its half of the output columns over K = f
+//   (m64n256k32 at d 512, 128 int32 registers a thread), and the epilogue
+//   applies hs_row, s2, b2 and the residual.
+// - The in-place quantization: the bf16 hidden is stored column-chunk-major,
+//   one 8 KB block of [64 rows][64 columns] after another, and the int8
+//   hidden in 8 KB blocks of [64 rows][128 columns] (the A layout), so int8
+//   block j lands on bf16 block j, whose columns (64j..) were quantized
+//   already, into int8 block j/2. Per int8 block, every thread of a
+//   warpgroup reads its values, one barrier, then writes. The int8 hidden
+//   fills the lower half of the buffer; the next tile's x lands by TMA in
+//   the upper half while this tile's GEMM2 runs. At d 256 and f >= 768,
+//   y_i8 too lives in the upper half (in the last chunk's bf16 blocks, which
+//   the last epilogue writes once both warpgroups' products are done), so
+//   (256, 1536) fits in a two-slot ring.
+// - Every rounding follows the plain version as it runs on the card
+//   (fused.py:_ln_ffn_q_plain): LayerNorm's variance, normalisation and
+//   affine in separate roundings and rsqrtf, as torch.rsqrt; gelu_tanh as
+//   PyTorch's CUDA kernel computes it; true divisions in the quantization.
+//   Only the order of LayerNorm's two sums differs.
+// - setmaxnreg gives the consumers 232 registers and the producer 40; the
+//   accumulators are never written by hand (a write while a product is in
+//   flight serialises every wgmma).
+// Shapes: d 256 or 512; f a multiple of 128, at least 2d, as far as shared
+// memory holds the hidden and a ring of two slots (plan() below: f up to
+// 1536 at d 256, 1280 at d 512); any T >= 1 (rows past T read as zeros and
+// are not stored).
 #include "int8.cuh"
+#include "sm90.cuh"
 
 namespace herro {
+namespace ffn_q {
 
+using namespace sm90;
+
+constexpr int kBM = 64;              // token rows per tile
+constexpr int kFC = 128;             // hidden columns per GEMM1 chunk
+constexpr int kBlock = kBM * 128;    // one swizzled [64 rows][128 bytes] block
+constexpr int kSlotBytes = 16384;    // one ring slot
+constexpr int kMaxSlots = 4;
+constexpr int kSmallBytes = 1024;    // row maxima, row scales, barriers
+constexpr int kThreadsFfnQ = 384;    // two consumer warpgroups and a producer
+constexpr int kCluster = 2;          // blocks sharing one weight stream
+
+// shared-memory plan for (d, f): [ring][hidden][y_i8 unless in the hidden][small]
+struct Plan {
+  int slots;        // ring slots, 0 when (d, f) does not fit
+  bool y_in_h;      // y_i8 in the last chunk's bf16 blocks of the hidden
+  size_t h_off, x_off, y_off, small_off, bytes;
+};
+
+__host__ __device__ inline Plan plan(int d, int f) {
+  Plan p;
+  const size_t h_bytes = (size_t)kBM * f * 2;
+  p.y_in_h = kBM * d <= 2 * kBlock && f >= 3 * d;
+  const size_t fixed = h_bytes + (p.y_in_h ? 0 : (size_t)kBM * d) + kSmallBytes;
+  const long room = (long)kMaxSmem - 1024 - (long)fixed;
+  p.slots = room < 0 ? 0 : (int)(room / kSlotBytes < kMaxSlots ? room / kSlotBytes : kMaxSlots);
+  if ((d != 256 && d != 512) || f % kFC || f < 2 * d || p.slots < 2) p.slots = 0;
+  p.h_off = (size_t)p.slots * kSlotBytes;
+  p.x_off = p.h_off + (size_t)kBM * f;  // the upper half
+  p.y_off = p.y_in_h ? p.h_off + h_bytes - (size_t)kBM * d : p.h_off + h_bytes;
+  p.small_off = p.h_off + h_bytes + (p.y_in_h ? 0 : (size_t)kBM * d);
+  p.bytes = 1024 + p.small_off + kSmallBytes;
+  return p;
+}
+
+// gelu_tanh as PyTorch's CUDA kernel computes it in float32 (the plain
+// version's F.gelu on the card): the cube (exact for a bf16 input), one
+// fused multiply-add, tanhf
 __device__ inline float gelu_tanh(float v) {
-  const float inner = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-  return 0.5f * v * (1.f + tanhf(inner));
+  const float cube = __fmul_rn(__fmul_rn(v, v), v);
+  const float inner = __fmul_rn(0.7978845608028654f, __fmaf_rn(0.044715f, cube, v));
+  return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.f, tanhf(inner)));
 }
 
-// per-row symmetric int8 of the bf16 rows h [n_rows][ldh], in place: row r's
-// int8 values land at the start of its own bytes, its scale in hs_row[r]
-__device__ inline void quant_rows_in_place(bf16* h, int ldh, int n_rows, int f,
-                                           float* hs_row) {
+// four int8 values, the first in the lowest byte
+__device__ inline uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | (uint32_t)(b & 0xff) << 8 | (uint32_t)(c & 0xff) << 16 |
+         (uint32_t)(d & 0xff) << 24;
+}
+
+// LayerNorm (flax semantics, fused.py:layernorm) of the x tile that TMA left
+// in `xt` (D/64 swizzled bf16 blocks of [64][64]), rounded to bf16, then
+// quantized per row into `yq` (D/128 swizzled int8 blocks of [64][128]),
+// each row's scale in srow. The 8 consumer warps take 8 rows each; a lane
+// holds D/256 16-byte chunks (8 values) of its row. Rows past T arrived as
+// zeros and are never stored.
+template <int D>
+__device__ inline void ln_quant_tile(const float* __restrict__ scale,
+                                     const float* __restrict__ bias, const unsigned char* xt,
+                                     unsigned char* yq, float* srow) {
+  constexpr int kCh = D / 256;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < n_rows; r += blockDim.x >> 5) {
-    bf16* hr = h + (size_t)r * ldh;
+  float sc[kCh][8], bi[kCh][8];
+#pragma unroll
+  for (int i = 0; i < kCh; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      sc[i][e] = scale[(lane + 32 * i) * 8 + e];
+      bi[i][e] = bias[(lane + 32 * i) * 8 + e];
+    }
+#pragma unroll 2  // two rows in flight: a row alone waits on its shuffles
+  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
+    float v[kCh][8];
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kCh; ++i) {
+      const int ch = lane + 32 * i;
+      const uint4 xv =
+          *reinterpret_cast<const uint4*>(xt + (ch >> 3) * kBlock + swizzle128(r, ch & 7));
+      const bf162* p = reinterpret_cast<const bf162*>(&xv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f2 = __bfloat1622float2(p[e]);
+        v[i][2 * e] = f2.x;
+        v[i][2 * e + 1] = f2.y;
+        s += f2.x + f2.y;
+        ss += f2.x * f2.x + f2.y * f2.y;  // squares of bf16 values are exact
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    // as the plain version: mean(x^2) - mu^2 clamped, + eps, torch.rsqrt
+    const float mu = __fdiv_rn(s, (float)D);
+    const float var = fmaxf(__fsub_rn(__fdiv_rn(ss, (float)D), __fmul_rn(mu, mu)), 0.f);
+    const float rs = rsqrtf(__fadd_rn(var, 1e-6f));
     float m = 0.f;
-    for (int c = lane; c < f; c += 32) m = fmaxf(m, fabsf(__bfloat162float(hr[c])));
-    const float s = quant_scale(warp_max(m));
-    int8_t* qr = reinterpret_cast<int8_t*>(hr);
-    for (int c = lane; c < f; c += 32) {
-      const float v = __bfloat162float(hr[c]);
-      __syncwarp();  // every lane has read its value of this group
-      qr[c] = (int8_t)quant(v, s);
-      __syncwarp();  // and written it before the next group is read
+#pragma unroll
+    for (int i = 0; i < kCh; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[i][e] = bf16_round(__fadd_rn(
+            __fmul_rn(__fmul_rn(__fsub_rn(v[i][e], mu), rs), sc[i][e]), bi[i][e]));
+        m = fmaxf(m, fabsf(v[i][e]));
+      }
+    const float sq = quant_scale(warp_max(m));
+#pragma unroll
+    for (int i = 0; i < kCh; ++i) {
+      const int ch = lane + 32 * i;
+      uint32_t w[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        w[h] = pack_s8(quant(v[i][4 * h], sq), quant(v[i][4 * h + 1], sq),
+                       quant(v[i][4 * h + 2], sq), quant(v[i][4 * h + 3], sq));
+      *reinterpret_cast<uint2*>(yq + (ch >> 4) * kBlock + swizzle128(r, (ch & 15) >> 1) +
+                                (ch & 1) * 8) = make_uint2(w[0], w[1]);
     }
-    if (lane == 0) hs_row[r] = s;
+    if (lane == 0) srow[r] = sq;
   }
 }
 
-// BM rows per block: warps form a (BM/16) x WN grid over a 128-column pass,
-// each warp a 16 x (8*NT) tile.
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-ln_ffn_q_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                const float* __restrict__ ln_b, const int8_t* __restrict__ w1t,
-                const float* __restrict__ s1, const float* __restrict__ b1,
-                const int8_t* __restrict__ w2t, const float* __restrict__ s2,
-                const float* __restrict__ b2, bf16* __restrict__ out, long T, int d,
-                int f) {
-  constexpr int WM = BM / 16, WN = 8 / WM, NT = kChunkN / WN / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldq = d + kQPad, ldh = f + 8;
-  const size_t off_h = align128((size_t)BM * ldq);
-  const size_t off_r = off_h + align128((size_t)BM * ldh * 2);
-  const size_t off_s = off_r + align128(2 * BM * sizeof(float));
-  int8_t* yq = reinterpret_cast<int8_t*>(smem);
-  bf16* h = reinterpret_cast<bf16*>(smem + off_h);
-  float* s_row = reinterpret_cast<float*>(smem + off_r);
-  float* hs_row = s_row + BM;
-  int8_t* stage = reinterpret_cast<int8_t*>(smem + off_s);
-  const long row0 = (long)blockIdx.x * BM;
-
-  ln_quant_rows(x, ln_s, ln_b, row0, BM, T, d, yq, ldq, s_row);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / WN, wn = warp % WN;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_a = wm * 16 + g, r_b = r_a + 8;  // this thread's two rows
-  const float sr_a = s_row[r_a], sr_b = s_row[r_b];
-
-  for (int n0 = 0; n0 < f; n0 += kChunkN) {
-    int acc[NT][4];
-    zero(acc);
-    block_gemm_q<NT>(acc, yq, ldq, wm * 16, w1t, n0, d, stage, wn);
+// h_i8 over the bf16 hidden, in place (see the head of the file), for the
+// warpgroup's 32 rows: per int8 block j, a thread quantizes two 16-byte
+// units, row 32 wg + t/8 (and 16 rows further), 16-byte chunk t % 8.
+__device__ inline void quant_hidden(unsigned char* hbuf, const float* smax, int n_chunks,
+                                    int wg, int t) {
+  const int c = t & 7;
+  int rr[2];
+  float hs[2];
 #pragma unroll
-    for (int nn = 0; nn < NT; ++nn) {
-      const int c = n0 + wn * NT * 8 + nn * 8 + 2 * t;
-      const float sc0 = s1[c], sc1 = s1[c + 1], bb0 = b1[c], bb1 = b1[c + 1];
-      *reinterpret_cast<bf162*>(h + (size_t)r_a * ldh + c) = __floats2bfloat162_rn(
-          gelu_tanh(bf16_round(dequant(acc[nn][0], sr_a, sc0, bb0))),
-          gelu_tanh(bf16_round(dequant(acc[nn][1], sr_a, sc1, bb1))));
-      *reinterpret_cast<bf162*>(h + (size_t)r_b * ldh + c) = __floats2bfloat162_rn(
-          gelu_tanh(bf16_round(dequant(acc[nn][2], sr_b, sc0, bb0))),
-          gelu_tanh(bf16_round(dequant(acc[nn][3], sr_b, sc1, bb1))));
+  for (int u = 0; u < 2; ++u) {
+    rr[u] = wg * 32 + (t >> 3) + 16 * u;
+    hs[u] = quant_scale(fmaxf(smax[rr[u]], smax[kBM + rr[u]]));
+  }
+  for (int j = 0; j < n_chunks; ++j) {
+    // int8 columns 128j + 16c .. + 15: bf16 block 2j + c/4, chunks 2(c%4), 2(c%4)+1
+    const unsigned char* src = hbuf + (2 * j + (c >> 2)) * kBlock;
+    uint4 v[2][2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        v[u][e] = *reinterpret_cast<const uint4*>(src + swizzle128(rr[u], 2 * (c & 3) + e));
+    named_bar_sync(5 + wg, 128);  // block j's bf16 values were all read (at j/2 <= j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const bf162* p = reinterpret_cast<const bf162*>(v[u]);
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 a = __bfloat1622float2(p[2 * k]), b = __bfloat1622float2(p[2 * k + 1]);
+        w[k] = pack_s8(quant(a.x, hs[u]), quant(a.y, hs[u]), quant(b.x, hs[u]),
+                       quant(b.y, hs[u]));
+      }
+      *reinterpret_cast<uint4*>(hbuf + j * kBlock + swizzle128(rr[u], c)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
-  __syncthreads();
-  quant_rows_in_place(h, ldh, BM, f, hs_row);
-  __syncthreads();
+}
 
-  const int8_t* hq = reinterpret_cast<const int8_t*>(h);
-  const float hs_a = hs_row[r_a], hs_b = hs_row[r_b];
-  for (int n0 = 0; n0 < d; n0 += kChunkN) {
-    int acc[NT][4];
-    zero(acc);
-    block_gemm_q<NT>(acc, hq, ldh * 2, wm * 16, w2t, n0, f, stage, wn);
+template <int D>
+__global__ void __launch_bounds__(kThreadsFfnQ, 1)
+ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap w1_map,
+                const __grid_constant__ CUtensorMap w2_map, const bf16* __restrict__ x,
+                const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+                const float* __restrict__ s1, const float* __restrict__ b1,
+                const float* __restrict__ s2, const float* __restrict__ b2,
+                bf16* __restrict__ out, long T, int f) {
+  constexpr int kN2 = D / 2;           // output columns per consumer
+  constexpr int kW2Box = kN2 * 32;     // [kN2 rows][32 k]: a consumer's half of a W2 stage
+  constexpr int kS1 = D / 128;         // W1 stages per chunk
+  const Plan p = plan(D, f);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem;
+  unsigned char* hbuf = smem + p.h_off;
+  unsigned char* xt = smem + p.x_off;
+  unsigned char* yq = smem + p.y_off;
+  float* smax = reinterpret_cast<float*>(smem + p.small_off);  // [2][64]: per warpgroup
+  float* srow = smax + 2 * kBM;                                // [64]: y's row scales
+  uint64_t* full = reinterpret_cast<uint64_t*>(srow + kBM);
+  uint64_t* empty = full + kMaxSlots;
+  uint64_t* x_full = empty + kMaxSlots;  // the tile's x has landed in `xt`
+  uint64_t* h_free = x_full + 1;         // the upper half of the hidden is free for x
+
+  const long n_tiles = (T + kBM - 1) / kBM;
+  const int n_chunks = f / kFC;
+  const int n_w2 = f / 32;
+  constexpr int C = kCluster;
+  const uint32_t rank = cluster_rank();
+  const long group = cluster_id(), n_groups = cluster_count();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMaxSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * C);
+    }
+    mbar_init(x_full, 1);
+    mbar_init(h_free, 1);
+    fence_barrier_init();
+  }
+  cluster_sync();  // the peers' barriers exist before anyone multicasts to them
+
+  // the blocks of a cluster take C consecutive tiles per iteration; a block
+  // whose tile lies past the end runs it on zero rows and stores nothing,
+  // so that it keeps its share of the cluster's weight stream
+  auto first_tile = [&](long it) { return (it * n_groups + group) * C; };
+
+  if (threadIdx.x >= 256) {
+    // ---------------- producer ----------------
+    reg_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    prefetch_map(&x_map);
+    prefetch_map(&w1_map);
+    prefetch_map(&w2_map);
+    int slot = 0;
+    uint32_t phase = 0, free_phase = 0;
+    auto acquire = [&](uint32_t bytes) {
+      mbar_wait(&empty[slot], phase ^ 1);
+      mbar_expect_tx(&full[slot], bytes);
+      return ring + slot * kSlotBytes;
+    };
+    auto advance = [&]() {
+      if (++slot == p.slots) {
+        slot = 0;
+        phase ^= 1;
+      }
+    };
+    auto load = [&](void* dst, const CUtensorMap* map, int c0, int c1) {
+      tma_load_2d_multicast(dst, map, &full[slot], c0, c1, (uint16_t)((1 << C) - 1));
+    };
+    for (long it = 0; first_tile(it) < n_tiles; ++it) {
+      // this tile's x into the hidden's upper half once the last tile's
+      // quantization has read it
+      mbar_wait(h_free, free_phase ^ 1);
+      free_phase ^= 1;
+      mbar_expect_tx(x_full, kBM * D * 2);
+      for (int b = 0; b < D / 64; ++b)
+        tma_load_2d(xt + b * kBlock, &x_map, x_full, b * 64,
+                    (int)((first_tile(it) + rank) * kBM));
+      for (int c = 0; c < n_chunks; ++c)
+        for (int s = 0; s < kS1; ++s) {
+          unsigned char* dst = acquire(kSlotBytes);
+          for (int b = rank; b < 2; b += C)
+            load(dst + b * kBlock, &w1_map, s * 128, c * kFC + b * 64);
+          advance();
+        }
+      for (int s = 0; s < n_w2; ++s) {
+        unsigned char* dst = acquire(2 * kW2Box);
+        for (int b = rank; b < 2; b += C) load(dst + b * kW2Box, &w2_map, s * 32, b * kN2);
+        advance();
+      }
+    }
+    // every slot released by every consumer of the cluster: no block may
+    // exit while a peer can still arrive on its barriers
+    for (int s = 0; s < p.slots; ++s) {
+      mbar_wait(&empty[slot], phase ^ 1);
+      advance();
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  reg_alloc<232>();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int ra = warp * 16 + g, rb = ra + 8;  // this thread's rows of the tile
+  int slot = 0, held = -1;
+  uint32_t phase = 0, x_phase = 0;
+  // release a slot to the producers of the cluster once its products are done
+  auto release = [&](int s) {
+    if (t < C) mbar_arrive_cluster(&empty[s], t);
+  };
+  // after committing a group on `slot`: the group before it is done
+  auto retire_previous = [&]() {
+    wgmma_wait<1>();
+    if (held >= 0) release(held);
+    held = slot;
+    if (++slot == p.slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  };
+  auto retire_all = [&]() {
+    wgmma_wait<0>();
+    if (held >= 0) release(held);
+    held = -1;
+  };
+
+  for (long it = 0; first_tile(it) < n_tiles; ++it) {
+    const long row0 = (first_tile(it) + rank) * kBM;
+    mbar_wait(x_full, x_phase);
+    x_phase ^= 1;
+    ln_quant_tile<D>(ln_s, ln_b, xt, yq, srow);
+    fence_proxy_async();
+    named_bar_sync(1, 256);  // y_i8 complete; both warpgroups' last GEMM2 done
+
+    const float sra = srow[ra], srb = srow[rb];
+    float ma = 0.f, mb = 0.f;  // running max|h| of rows ra, rb over this thread's columns
+    for (int c = 0; c < n_chunks; ++c) {
+      int acc1[32];
+      for (int s = 0; s < kS1; ++s) {
+        mbar_wait(&full[slot], phase);
+        const unsigned char* wb = ring + slot * kSlotBytes + wg * kBlock;
+        wgmma_fence();
 #pragma unroll
-    for (int nn = 0; nn < NT; ++nn) {
-      const int c = n0 + wn * NT * 8 + nn * 8 + 2 * t;
-      const float sc0 = s2[c], sc1 = s2[c + 1], bb0 = b2[c], bb1 = b2[c + 1];
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = wgmma_desc(yq + s * kBlock + kk * 32, 16, 1024);
+          const uint64_t db = wgmma_desc(wb + kk * 32, 16, 1024);
+          wgmma_s8_n64(acc1, da, db, s > 0 || kk > 0);
+        }
+        wgmma_commit();
+        retire_previous();
+      }
+      retire_all();
+      fence_operand(acc1);
+      // y_i8 in the last chunk's blocks: both warpgroups' products are done
+      if (p.y_in_h && c == n_chunks - 1) named_bar_sync(2, 256);
+
+      // h = bf16(gelu(bf16(dequant(acc) + b1))) into bf16 block 2c + wg
+      unsigned char* hc = hbuf + (2 * c + wg) * kBlock;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c * kFC + wg * 64 + 8 * j + 2 * q;
+        const float sc0 = s1[col], sc1 = s1[col + 1], bb0 = b1[col], bb1 = b1[col + 1];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float sr = half ? srb : sra;
+          const bf162 hv = __floats2bfloat162_rn(
+              gelu_tanh(bf16_round(dequant(acc1[4 * j + 2 * half], sr, sc0, bb0))),
+              gelu_tanh(bf16_round(dequant(acc1[4 * j + 2 * half + 1], sr, sc1, bb1))));
+          const float2 hf = __bfloat1622float2(hv);
+          const float m = fmaxf(fabsf(hf.x), fabsf(hf.y));
+          if (half) mb = fmaxf(mb, m); else ma = fmaxf(ma, m);
+          *reinterpret_cast<bf162*>(hc + swizzle128(ra + 8 * half, j) + 4 * q) = hv;
+        }
+      }
+    }
+    // the row maxima over the row's four lanes, then over the warpgroups
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, o));
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
+    }
+    if (q == 0) {
+      smax[wg * kBM + ra] = ma;
+      smax[wg * kBM + rb] = mb;
+    }
+    named_bar_sync(3, 256);  // the bf16 hidden and both warpgroups' maxima are in place
+    quant_hidden(hbuf, smax, n_chunks, wg, t);
+    fence_proxy_async();
+    named_bar_sync(4, 256);  // h_i8 complete
+    if (threadIdx.x == 0) mbar_arrive(h_free);
+
+    int acc2[kN2 / 2];
+    for (int s = 0; s < n_w2; ++s) {
+      mbar_wait(&full[slot], phase);
+      const unsigned char* wb = ring + slot * kSlotBytes + wg * kW2Box;
+      const int k = s * 32;
+      wgmma_fence();
+      const uint64_t da = wgmma_desc(hbuf + (k >> 7) * kBlock + (k & 127), 16, 1024);
+      const uint64_t db = wgmma_desc_sw32(wb, 256);
+      if constexpr (kN2 == 256) {
+        wgmma_s8_n256(acc2, da, db, s > 0);
+      } else {
+        wgmma_s8_n128(acc2, da, db, s > 0);
+      }
+      wgmma_commit();
+      retire_previous();
+    }
+    retire_all();
+    fence_operand(acc2);
+
+    // out = bf16(x + ((float(acc) * hs_row) * s2 + b2)) for this warpgroup's columns
+    const float hsa = quant_scale(fmaxf(smax[ra], smax[kBM + ra]));
+    const float hsb = quant_scale(fmaxf(smax[rb], smax[kBM + rb]));
+#pragma unroll
+    for (int j = 0; j < kN2 / 8; ++j) {
+      const int col = wg * kN2 + 8 * j + 2 * q;
+      const float sc0 = s2[col], sc1 = s2[col + 1], bb0 = b2[col], bb1 = b2[col + 1];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const long row = row0 + (half ? r_b : r_a);
+        const long row = row0 + ra + 8 * half;
         if (row >= T) continue;
-        const float hs = half ? hs_b : hs_a;
-        const size_t o = (size_t)row * d + c;
+        const float hs = half ? hsb : hsa;
+        const size_t o = (size_t)row * D + col;
         const float2 xr = __bfloat1622float2(*reinterpret_cast<const bf162*>(x + o));
         *reinterpret_cast<bf162*>(out + o) = __floats2bfloat162_rn(
-            __fadd_rn(xr.x, dequant(acc[nn][2 * half], hs, sc0, bb0)),
-            __fadd_rn(xr.y, dequant(acc[nn][2 * half + 1], hs, sc1, bb1)));
+            __fadd_rn(xr.x, dequant(acc2[4 * j + 2 * half], hs, sc0, bb0)),
+            __fadd_rn(xr.y, dequant(acc2[4 * j + 2 * half + 1], hs, sc1, bb1)));
       }
     }
   }
 }
 
-template <int BM>
-size_t ffn_q_smem(int d, int f) {
-  return align128((size_t)BM * (d + kQPad)) + align128((size_t)BM * (f + 8) * 2) +
-         align128(2 * BM * sizeof(float)) + kQStageBytes;
-}
-
-template <int BM>
-int launch_ffn_q(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
-                 const float* s1, const float* b1, const void* w2t, const float* s2,
-                 const float* b2, void* out, long T, int d, int f, cudaStream_t stream) {
-  const size_t smem = ffn_q_smem<BM>(d, f);
-  int err = set_smem((const void*)ln_ffn_q_kernel<BM>, smem);
+template <int D>
+int launch(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
+           const float* s1, const float* b1, const void* w2t, const float* s2,
+           const float* b2, void* out, long T, int f, cudaStream_t stream) {
+  const Plan p = plan(D, f);
+  if (!p.slots) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, m1, m2;
+  const uint64_t dimsx[2] = {D, (uint64_t)T}, stridesx[1] = {D * 2};
+  const uint32_t boxx[2] = {64, kBM};
+  const uint64_t dims1[2] = {D, (uint64_t)f}, strides1[1] = {D};
+  const uint32_t box1[2] = {128, 64};
+  const uint64_t dims2[2] = {(uint64_t)f, D}, strides2[1] = {(uint64_t)f};
+  const uint32_t box2[2] = {32, D / 2};
+  int err = make_map_bf16(&mx, x, 2, dimsx, stridesx, boxx);
+  if (!err) err = make_map_u8(&m1, w1t, dims1, strides1, box1, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err) err = make_map_u8(&m2, w2t, dims2, strides2, box2, CU_TENSOR_MAP_SWIZZLE_32B);
   if (err) return err;
-  const unsigned grid = (unsigned)((T + BM - 1) / BM);
-  ln_ffn_q_kernel<BM><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)x, ln_s, ln_b, (const int8_t*)w1t, s1, b1, (const int8_t*)w2t, s2, b2,
-      (bf16*)out, T, d, f);
-  return (int)cudaGetLastError();
+  auto kernel = ln_ffn_q_kernel<D>;
+  err = set_smem((const void*)kernel, p.bytes);
+  if (err) return err;
+  return launch_clusters(kernel, kCluster, kThreadsFfnQ, p.bytes, (T + kBM - 1) / kBM, stream,
+                         mx, m1, m2, (const bf16*)x, ln_s, ln_b, s1, b1, s2, b2, (bf16*)out,
+                         T, f);
 }
 
+}  // namespace ffn_q
 }  // namespace herro
 
 extern "C" int herro_ln_ffn_q(const void* x, const float* ln_s, const float* ln_b,
                               const void* w1t, const float* s1, const float* b1,
                               const void* w2t, const float* s2, const float* b2, void* out,
                               long T, int d, int f, void* stream) {
-  using namespace herro;
-  if (d % kChunkN || f % kChunkN) return (int)cudaErrorInvalidValue;
+  using namespace herro::ffn_q;
+  if (T < 1 || !plan(d, f).slots) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (ffn_q_smem<64>(d, f) <= (size_t)kMaxSmem)
-    return launch_ffn_q<64>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, T, d, f, s);
-  return launch_ffn_q<32>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, T, d, f, s);
+  if (d == 512) return launch<512>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, T, f, s);
+  return launch<256>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, T, f, s);
 }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the TMA/wgmma kernels of the port
-// (K3 ln_ffn.cu, K2 flash_outproj_sm90.cuh): mbarriers, TMA tensor loads and
+// (K1, K2/K6/K7, K3, K4 and K11): mbarriers, TMA tensor loads and
 // their host-side tensor maps, wgmma descriptors and instructions, register
 // reallocation, named and cluster barriers.
 //
@@ -14,6 +14,11 @@
 //   MN-major B (stored [K, N], N contiguous: the weights, V): a block holds
 //   64 n-values of its k-rows; LBO = the bytes from one 64-column block to the
 //   next, SBO = 1024, a k-step of 16 adds 16 rows = 2048 bytes.
+// - int8 operands (K11 ln_ffn_q.cu) are K-major on both sides: int8 wgmma
+//   has no transpose. A 128-byte-swizzled block then holds 128 k-values of
+//   its rows, and a k-step of 32 adds 32 bytes. A K-major tile may also use
+//   the 32-byte swizzle (CU_TENSOR_MAP_SWIZZLE_32B): rows of 32 k-values,
+//   one k-step, SBO = 256 (8 rows).
 // - Ring stages are handed over with a full and an empty mbarrier each: the
 //   producer waits "empty" with its phase flipped, so its first pass is free.
 //
@@ -202,6 +207,16 @@ __device__ inline uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo)
   return d;
 }
 
+// the same for the 32-byte swizzle (layout type 3): K-major, one k-step of
+// 32 bytes a row, sbo the bytes from one 8-row group to the next
+__device__ inline uint64_t wgmma_desc_sw32(const void* p, uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)3 << 62;
+  return d;
+}
+
 __device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 
 __device__ inline void wgmma_commit() {
@@ -220,6 +235,12 @@ template <int R>
 __device__ inline void fence_operand(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ inline void fence_operand(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Accumulator layout of m64nNk16 (f32), thread t of the warpgroup: warp
@@ -332,6 +353,93 @@ __device__ inline void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uin
 }
 
 // ---------------------------------------------------------------------------
+// wgmma on int8: s8 x s8 -> s32, both operands K-major in shared memory. The
+// s32 accumulator has the f32 layout above.
+// ---------------------------------------------------------------------------
+
+// m64n64k32, s8 x s8 -> s32, A and B from shared memory (both K-major)
+__device__ inline void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "},"
+      " %32, %33, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// m64n128k32, s8 x s8 -> s32, A and B from shared memory (both K-major)
+__device__ inline void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "},"
+      " %64, %65, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// m64n256k32, s8 x s8 -> s32, A and B from shared memory (both K-major)
+__device__ inline void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127"
+      "},"
+      " %128, %129, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+      "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+      "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+      "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+      "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+      "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+      "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+      "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+      "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
 // registers between the warpgroups of a warp-specialised block
 // ---------------------------------------------------------------------------
 
@@ -391,6 +499,21 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int rank, const uin
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                         const_cast<void*>(base), gdim, gstride, bdim, estride,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The same for a row-major tensor of bytes (int8 weights) of rank 2, with
+// the swizzle the box is read in (box[0] bytes <= the swizzle's width).
+inline int make_map_u8(CUtensorMap* map, const void* base, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t gdim[2] = {dims[0], dims[1]}, gstride[1] = {strides[0]};
+  const cuuint32_t bdim[2] = {box[0], box[1]}, estride[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), gdim,
+                        gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -364,10 +364,18 @@ def ln_ffn(x, scale, bias, w1, b1, w2, b2):
 # ---------------------------------------------------------------------------
 
 
+def _div127(t):
+    """t / 127 as a true division on every device. On the card PyTorch turns a
+    division by a Python number into a multiplication by its float32
+    reciprocal, which rounds differently for some t; dividing by a tensor
+    keeps the IEEE quotient that the reference and the kernels compute."""
+    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
+
+
 def quantize_weight(w):
     """Per-output-channel symmetric int8: w [d, f] -> (w_i8 [d, f], s [f])."""
     wf = w.float()
-    s = (wf.abs().amax(dim=0) / 127.0).clamp_min(1e-12)
+    s = _div127(wf.abs().amax(dim=0)).clamp_min(1e-12)
     w_i8 = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return w_i8, s
 
@@ -383,7 +391,7 @@ def k_major(w_i8):
 def _quant_rows(y):
     """Per-row symmetric int8 of f32 y [T, d] -> (y_i8, s_row [T, 1]): a true
     division, round half to even, clipped to +-127."""
-    s = (y.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    s = _div127(y.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-12)
     y_i8 = torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
     return y_i8, s
 
@@ -468,10 +476,19 @@ def _ln_ffn_q_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
     return (xf.float() + o).to(x.dtype).reshape(x.shape)
 
 
+# d_model -> the d_ff range K11 takes (csrc/ln_ffn_q.cu, plan()): the hidden
+# of a 64-row tile, [64, d_ff] bf16, stays in shared memory beside a ring of
+# at least two weight stages, and the next tile's x fits in its upper half
+FFN_Q_D_FF = {256: (512, 1536), 512: (1024, 1280)}
+
+
 def _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
     d = x.shape[-1]
     f = w1_i8.shape[1]
-    _cuda.check(d % 128 == 0 and f % 128 == 0, f"d={d}, f={f}: not multiples of 128")
+    lo, hi = FFN_Q_D_FF.get(d, (0, -1))
+    _cuda.check(lo <= f <= hi and f % 128 == 0,
+                f"(d_model, d_ff) = ({d}, {f}): the kernel takes d_ff a multiple of 128 "
+                f"in {FFN_Q_D_FF} by d_model")
     _cuda.check(w1_i8.shape == (d, f) and s1.shape == (f,) and b1.shape == (f,),
                 "ff1 shapes")
     _cuda.check(w2_i8.shape == (f, d) and s2.shape == (d,) and b2.shape == (d,),

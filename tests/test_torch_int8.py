@@ -336,8 +336,9 @@ def _bf16_qkv_q_args(seed):
             _t(bias, "bfloat16"), 1]
 
 
-def _bf16_ffn_q_args(seed):
-    x, s, b, w1, b1, w2, b2 = _ffn_inputs(seed, d=128, f=128)
+def _bf16_ffn_q_args(seed, d=256, f=512, rows=B * L):
+    """bf16 operands at a width the K11 kernel takes."""
+    x, s, b, w1, b1, w2, b2 = _ffn_inputs(seed, d=d, f=f, rows=rows)
     (q1, s1), (q2, s2) = fused.quantize_weight(_t(w1)), fused.quantize_weight(_t(w2))
     return [_t(x, "bfloat16"), _t(s), _t(b), fused.k_major(q1), s1, _t(b1),
             fused.k_major(q2), s2, _t(b2)]
@@ -364,6 +365,46 @@ def test_split_rope_cuda_wrapper_never_runs_on_cpu_tensors(monkeypatch):
         fused._ln_qkv_rope_cuda(_t(x, "bfloat16"), _t(s), _t(b), _t(w, "bfloat16"),
                                 _t(bias, "bfloat16"), 1)
     assert kernels.launch_counts.snapshot() == before
+
+
+@pytest.mark.parametrize("d_model,d_ff", [(128, 512), (384, 1024), (512, 512), (512, 1536),
+                                           (256, 384), (256, 1664), (512, 1088)])
+def test_ln_ffn_q_cuda_wrapper_names_a_refused_width(d_model, d_ff):
+    """K11 takes d_model 256 or 512 and a d_ff range for each (the hidden of
+    a tile stays in shared memory): any other width raises a ValueError that
+    names it, before the wrapper looks at the device (these are CPU
+    tensors), and launches nothing."""
+    lo, hi = fused.FFN_Q_D_FF.get(d_model, (1, 0))
+    assert d_ff % 128 or not lo <= d_ff <= hi  # a width the kernel refuses
+    before = kernels.launch_counts.snapshot()
+    with pytest.raises(ValueError, match=rf"\(d_model, d_ff\) = \({d_model}, {d_ff}\)"):
+        fused._ln_ffn_q_cuda(*_bf16_ffn_q_args(34, d=d_model, f=d_ff, rows=64))
+    assert kernels.launch_counts.snapshot() == before
+
+
+def test_ln_ffn_q_plain_noise_floor_of_the_layernorm_sums():
+    """How often LayerNorm's summation order alone changes K11's output: the
+    plain version at the R10 widths (d 512, d_ff 1024) on 4096 bf16 rows,
+    against the same with LayerNorm's two sums taken in float64 (the helper
+    chip_smoke.py runs on the card beside the kernel). A sum one ulp apart
+    flips the bf16 rounding of a LayerNorm value now and then; one int8 value
+    of a row moves every output of that row. Measured here: one row of 4096,
+    1.25e-4 of the outputs; the share must be above 0 (the order matters) and
+    below 1e-3, far below the 1.96% by which the earlier mma.sync kernel
+    departed from the plain version on the card."""
+    from chip_smoke import ln_ffn_q_float64_sums
+
+    x, s, b, w1, b1, w2, b2 = _ffn_inputs(0, d=512, f=1024, rows=4096)
+    (q1, s1), (q2, s2) = fused.quantize_weight(_t(w1)), fused.quantize_weight(_t(w2))
+    args = (_t(x, "bfloat16"), _t(s), _t(b), q1, s1, _t(b1), q2, s2, _t(b2))
+    want = fused._ln_ffn_q_plain(*args)
+    other = ln_ffn_q_float64_sums(fused, *args)
+    differ = want != other
+    share = float(differ.float().mean())
+    assert 0 < share < 1e-3, share
+    rows = differ.any(dim=-1)
+    # where a row moves, about half its outputs change their last bf16 bit
+    assert 0 < int(rows.sum()) <= 4 and float(differ[rows].float().mean()) > 0.2
 
 
 def test_int8_cuda_wrappers_want_k_major_weights():
@@ -625,11 +666,31 @@ def test_ln_qkv_rope_q_kernel_matches_plain_on_card(gl):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("gl,f", [(1024, 512), (1000, 512), (1000, 1536)])
-def test_ln_ffn_q_kernel_matches_plain_on_card(gl, f):
-    """d_ff 512 keeps 64-row blocks, 1536 (r9) needs the 32-row blocks."""
+@pytest.mark.parametrize("d_model,f,rows,zero_rows", [
+    pytest.param(GPU_D, 512, 2 * 1024, False, id="1024-512"),
+    pytest.param(GPU_D, 512, 2 * 1000, False, id="1000-512"),
+    pytest.param(GPU_D, 1536, 2 * 1000, False, id="1000-1536"),
+    pytest.param(512, 1024, 2000, False, id="r10-ragged"),
+    pytest.param(512, 1024, 50, False, id="r10-T50"),
+    pytest.param(256, 1536, 40, False, id="r9-T40"),
+    # three tiles: the second block of the second cluster runs past T
+    pytest.param(512, 1024, 130, False, id="r10-cluster-tail"),
+    pytest.param(256, 1536, 130, False, id="r9-cluster-tail"),
+    pytest.param(512, 1024, 300, True, id="r10-zero-hidden"),
+    pytest.param(256, 1536, 300, True, id="r9-zero-hidden"),
+])
+def test_ln_ffn_q_kernel_matches_plain_on_card(d_model, f, rows, zero_rows):
+    """Both shipped widths, (512, 1024) and the r9 (256, 1536), whose hidden
+    leaves a two-slot ring; T not a multiple of 64, below 64, and a
+    cluster's last tile past T. ``zero_rows``: every 7th row constant, with
+    LayerNorm's bias and b1 zero, so that its y and its hidden are all zero
+    (both scales clamp at 1e-12) and its output is x + b2."""
     dev = _card()
-    x, s, b, w1, b1, w2, b2 = _ffn_inputs(52, d=GPU_D, f=f, rows=B * gl)
+    x, s, b, w1, b1, w2, b2 = _ffn_inputs(52, d=d_model, f=f, rows=rows)
+    if zero_rows:
+        x[::7] = 0.5
+        b[:] = 0.0
+        b1[:] = 0.0
     (q1, s1), (q2, s2) = (fused.quantize_weight(_t(w).to(dev)) for w in (w1, w2))
     args = (_t(x, "bfloat16").to(dev), _t(s).to(dev), _t(b).to(dev), fused.k_major(q1), s1,
             _t(b1).to(dev), fused.k_major(q2), s2, _t(b2).to(dev))
@@ -637,4 +698,8 @@ def test_ln_ffn_q_kernel_matches_plain_on_card(gl, f):
     got = fused._ln_ffn_q_cuda(*args)
     torch.cuda.synchronize()
     assert _launched(before) == {"ln_ffn_q": 1}
-    _bf16_close(got, fused._ln_ffn_q_plain(*args))
+    want = fused._ln_ffn_q_plain(*args)
+    _bf16_close(got, want)
+    if zero_rows:
+        zero = (args[0][::7].float() + args[-1].float()).to(torch.bfloat16)
+        assert torch.equal(got[::7], zero) and torch.equal(want[::7], zero)
