@@ -1,10 +1,10 @@
 // Shared device helpers for the hand-written Hopper kernels of herro_tpu_torch.
 //
-// Every matmul kernel here takes bfloat16 activations and weights and
-// accumulates in float32 on the tensor cores (mma.sync m16n8k16 with
-// ldmatrix operands); every kernel is launched from a plain C entry point
-// that returns cudaGetLastError(), so the ctypes wrapper can raise on a
-// refused launch.
+// Every kernel is launched from a plain C entry point that returns 0 or a
+// CUDA error code (cudaGetLastError() after the launch), so the ctypes
+// wrapper can raise on a refused launch. The TMA/wgmma kernels build on
+// sm90.cuh; the register-level mma.sync primitives below serve the one
+// kernel still on that form, K9 flash_attention.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,53 +16,11 @@ namespace herro {
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
 
-constexpr int kThreads = 256;  // 8 warps per block in every matmul kernel
+constexpr int kThreads = 256;  // 8 warps a block (K9)
 constexpr int kMaxSmem = 232448;  // 227 KB: the most one H100 block may use
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
 __device__ inline float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// LayerNorm (flax semantics, as herro_tpu/ops/fused.py:layernorm): float32
-// statistics, the fast variance mean(x^2) - mu^2 clamped at 0, eps 1e-6, the
-// result rounded to bf16. Rows [row0, row0 + n_rows) of x [T, d] go to shared
-// memory y [n_rows][ldy]; rows at or past T are zero-filled. One warp per row.
-__device__ inline void layernorm_rows(const bf16* __restrict__ x,
-                                      const float* __restrict__ scale,
-                                      const float* __restrict__ bias,
-                                      long row0, int n_rows, long T, int d,
-                                      bf16* y, int ldy) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  for (int r = warp; r < n_rows; r += n_warps) {
-    const long row = row0 + r;
-    bf16* yr = y + (size_t)r * ldy;
-    if (row >= T) {
-      for (int c = lane; c < d; c += 32) yr[c] = __float2bfloat16(0.f);
-      continue;
-    }
-    const bf16* xr = x + (size_t)row * d;
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      const float v = __bfloat162float(xr[c]);
-      s += v;
-      ss += v * v;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mu = s / (float)d;
-    const float var = fmaxf(ss / (float)d - mu * mu, 0.f);
-    const float rs = 1.f / sqrtf(var + 1e-6f);
-    for (int c = lane; c < d; c += 32) {
-      const float v = __bfloat162float(xr[c]);
-      yr[c] = __float2bfloat16((v - mu) * rs * scale[c] + bias[c]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -119,56 +77,6 @@ __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\
 template <int N>
 __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-constexpr int kChunkK = 32;          // k rows of B staged per step
-constexpr int kChunkN = 128;         // B columns per block pass
-constexpr int kLdChunk = kChunkN + 8;  // staged row stride: conflict-free ldmatrix
-constexpr size_t kStageBytes = 2 * (size_t)kChunkK * kLdChunk * 2;  // double buffer
-
-// One block pass of a warp-tiled product on the tensor cores:
-//   acc[NT][4] += A[a_row0 .. a_row0+15, 0..K) @ B[0..K, n0 + warp_n*NT*8 ..)
-// A is row-major bf16 in shared memory (row stride lda); B is row-major bf16
-// [K, ldb] in global memory, its [kChunkK, kChunkN] chunks staged through the
-// double buffer `stage` by cp.async (every thread of the block takes part, so
-// every thread must call this). K is a multiple of kChunkK, ldb of 8.
-template <int NT>
-__device__ inline void block_gemm(float (&acc)[NT][4], const bf16* A, int lda, int a_row0,
-                                  const bf16* __restrict__ B, int ldb, int n0, int K,
-                                  bf16* stage, int warp_n) {
-  const int lane = threadIdx.x & 31;
-  auto load_chunk = [&](int kc, int buf) {
-    bf16* dst = stage + (size_t)buf * kChunkK * kLdChunk;
-    for (int e = threadIdx.x; e < kChunkK * (kChunkN / 8); e += blockDim.x) {
-      const int r = e / (kChunkN / 8), c = (e % (kChunkN / 8)) * 8;
-      cp_async16(dst + r * kLdChunk + c, B + (size_t)(kc * kChunkK + r) * ldb + n0 + c, true);
-    }
-  };
-  const int nk = K / kChunkK;
-  load_chunk(0, 0);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) load_chunk(kc + 1, (kc + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Bs = stage + (size_t)(kc & 1) * kChunkK * kLdChunk + warp_n * NT * 8;
-#pragma unroll
-    for (int ks = 0; ks < kChunkK / 16; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, A + (size_t)(a_row0 + (lane & 15)) * lda + kc * kChunkK + ks * 16 +
-                     (lane >> 4) * 8);
-#pragma unroll
-      for (int nn = 0; nn < NT; nn += 2) {
-        uint32_t bb[4];
-        ldsm_x4_trans(bb, Bs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdChunk +
-                              nn * 8 + (lane >> 4) * 8);
-        mma16816(acc[nn], a, bb[0], bb[1]);
-        mma16816(acc[nn + 1], a, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // the buffer is free for the chunk after next
-  }
 }
 
 template <int NT>

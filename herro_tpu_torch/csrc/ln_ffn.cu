@@ -75,7 +75,7 @@ __device__ inline float gelu_tanh(float v) {
   return 0.5f * v * (1.f + tanhf(inner));
 }
 
-// LayerNorm (flax semantics, as common.cuh:layernorm_rows), in place on the
+// LayerNorm (flax semantics, as fused.py:layernorm), in place on the
 // x tile that TMA left in `ln` (D/64 swizzled blocks of [64][64]): float32
 // statistics, the fast variance clamped at 0, eps 1e-6, bf16 out. Rows past T
 // arrived as zeros and are never stored. The 8 consumer warps take 8 rows each.

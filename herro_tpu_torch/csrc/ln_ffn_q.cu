@@ -104,85 +104,6 @@ __device__ inline float gelu_tanh(float v) {
   return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.f, tanhf(inner)));
 }
 
-// four int8 values, the first in the lowest byte
-__device__ inline uint32_t pack_s8(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xff) | (uint32_t)(b & 0xff) << 8 | (uint32_t)(c & 0xff) << 16 |
-         (uint32_t)(d & 0xff) << 24;
-}
-
-// LayerNorm (flax semantics, fused.py:layernorm) of the x tile that TMA left
-// in `xt` (D/64 swizzled bf16 blocks of [64][64]), rounded to bf16, then
-// quantized per row into `yq` (D/128 swizzled int8 blocks of [64][128]),
-// each row's scale in srow. The 8 consumer warps take 8 rows each; a lane
-// holds D/256 16-byte chunks (8 values) of its row. Rows past T arrived as
-// zeros and are never stored.
-template <int D>
-__device__ inline void ln_quant_tile(const float* __restrict__ scale,
-                                     const float* __restrict__ bias, const unsigned char* xt,
-                                     unsigned char* yq, float* srow) {
-  constexpr int kCh = D / 256;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float sc[kCh][8], bi[kCh][8];
-#pragma unroll
-  for (int i = 0; i < kCh; ++i)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      sc[i][e] = scale[(lane + 32 * i) * 8 + e];
-      bi[i][e] = bias[(lane + 32 * i) * 8 + e];
-    }
-#pragma unroll 2  // two rows in flight: a row alone waits on its shuffles
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    float v[kCh][8];
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCh; ++i) {
-      const int ch = lane + 32 * i;
-      const uint4 xv =
-          *reinterpret_cast<const uint4*>(xt + (ch >> 3) * kBlock + swizzle128(r, ch & 7));
-      const bf162* p = reinterpret_cast<const bf162*>(&xv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f2 = __bfloat1622float2(p[e]);
-        v[i][2 * e] = f2.x;
-        v[i][2 * e + 1] = f2.y;
-        s += f2.x + f2.y;
-        ss += f2.x * f2.x + f2.y * f2.y;  // squares of bf16 values are exact
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    // as the plain version: mean(x^2) - mu^2 clamped, + eps, torch.rsqrt
-    const float mu = __fdiv_rn(s, (float)D);
-    const float var = fmaxf(__fsub_rn(__fdiv_rn(ss, (float)D), __fmul_rn(mu, mu)), 0.f);
-    const float rs = rsqrtf(__fadd_rn(var, 1e-6f));
-    float m = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCh; ++i)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        v[i][e] = bf16_round(__fadd_rn(
-            __fmul_rn(__fmul_rn(__fsub_rn(v[i][e], mu), rs), sc[i][e]), bi[i][e]));
-        m = fmaxf(m, fabsf(v[i][e]));
-      }
-    const float sq = quant_scale(warp_max(m));
-#pragma unroll
-    for (int i = 0; i < kCh; ++i) {
-      const int ch = lane + 32 * i;
-      uint32_t w[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        w[h] = pack_s8(quant(v[i][4 * h], sq), quant(v[i][4 * h + 1], sq),
-                       quant(v[i][4 * h + 2], sq), quant(v[i][4 * h + 3], sq));
-      *reinterpret_cast<uint2*>(yq + (ch >> 4) * kBlock + swizzle128(r, (ch & 15) >> 1) +
-                                (ch & 1) * 8) = make_uint2(w[0], w[1]);
-    }
-    if (lane == 0) srow[r] = sq;
-  }
-}
-
 // h_i8 over the bf16 hidden, in place (see the head of the file), for the
 // warpgroup's 32 rows: per int8 block j, a thread quantizes two 16-byte
 // units, row 32 wg + t/8 (and 16 rows further), 16-byte chunk t % 8.
@@ -356,7 +277,7 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
     const long row0 = (first_tile(it) + rank) * kBM;
     mbar_wait(x_full, x_phase);
     x_phase ^= 1;
-    ln_quant_tile<D>(ln_s, ln_b, xt, yq, srow);
+    ln_quant_tile<D, kBM>(ln_s, ln_b, xt, yq, srow);
     fence_proxy_async();
     named_bar_sync(1, 256);  // y_i8 complete; both warpgroups' last GEMM2 done
 

@@ -204,17 +204,20 @@ def rope_kernel_name() -> str:
     return "ln_qkv_rope_split"
 
 
+# d_model of the qkv kernels' instantiations (K1, K8, K10;
+# csrc/ln_qkv_rope_sm90.cuh): every shipped checkpoint's
+QKV_WIDTHS = (256, 512)
+
+
 def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = None):
     """``kernel`` names K1 or K8; None takes ``rope_kernel_name()``."""
     kernel = kernel or rope_kernel_name()
     B, L, d = x.shape
     H = n_heads
     D = w.shape[1] // (3 * H)
+    _cuda.check(kernel in ("ln_qkv_rope", "ln_qkv_rope_split"), f"no rope kernel {kernel!r}")
     _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
-    if kernel == "ln_qkv_rope":
-        _cuda.check(d in (256, 512), f"d_model {d}: the kernel takes 256 or 512")
-    else:
-        _cuda.check(d % 64 == 0, f"d_model {d} is not a multiple of 64")
+    _cuda.check(d in QKV_WIDTHS, f"d_model {d}: the kernel takes {QKV_WIDTHS}")
     _cuda.check(w.shape == (d, 3 * H * D) and b.shape == (3 * H * D,), "qkv shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
     _cuda.require_dtype(torch.bfloat16, x=x, w=w, b=b)
@@ -230,7 +233,6 @@ def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = N
             cos, sin = _rope_tables_cached(L, D, dev)
             _cuda.call(kernel, *head, cos.data_ptr(), sin.data_ptr(), *tail)
         else:
-            _cuda.check(kernel == "ln_qkv_rope_split", f"no rope kernel {kernel!r}")
             _cuda.call(kernel, *head, *tail)
     return q, k, v
 
@@ -435,7 +437,7 @@ def _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads: int):
     D = w_i8.shape[1] // (3 * H)
     N = 3 * H * D
     _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
-    _cuda.check(d % 64 == 0, f"d_model {d} is not a multiple of 64")
+    _cuda.check(d in QKV_WIDTHS, f"d_model {d}: the kernel takes {QKV_WIDTHS}")
     _cuda.check(w_i8.shape == (d, N) and s_col.shape == (N,) and b.shape == (N,),
                 "qkv shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")

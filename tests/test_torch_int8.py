@@ -281,6 +281,27 @@ def test_ln_qkv_rope_plain_matches_split_rope_pallas_interpret(dtype, ref):
         np.testing.assert_allclose(_f32(g), _f32(r), atol=_tol(_f32(r), dtype), rtol=0)
 
 
+@pytest.mark.parametrize("gl", [1000, 9216])
+def test_rope_tables_match_reference_block_tables(gl, ref):
+    """The port's rope tables (K1's inputs; K8 and K10 build the same on the
+    card) against herro_tpu's ``_rope_tables_blk``, which the split-rope and
+    int8 TPU kernels build, at the R10 head dim (D 128) and positions 0..L-1.
+    Both compute freq_i = exp(-ln(1e4) i / 64), ang = pos * freq_i and cos/sin
+    in float32, each cos/sin within an ulp of the exact one; XLA's exp on the
+    CPU is not correctly rounded (9 of the 64 frequencies differ from
+    torch.exp's by one ulp), which moves the angle at position p by up to
+    p * 2^-23 and the angle's own rounding by as much again: the bound is
+    (p + 1) * 2^-22 per row, plus an ulp of the result."""
+    want_c, want_s = (np.asarray(t) for t in ref.fused._rope_tables_blk(0, gl, 64))
+    got_c, got_s = (t.numpy() for t in fused.rope_tables(gl, 128, "cpu"))
+    assert got_c.shape == got_s.shape == (gl, 64)
+    bound = (np.arange(gl, dtype=np.float64)[:, None] + 1) * 2.0 ** -22 + 2.0 ** -23
+    for got, want in ((got_c, want_c), (got_s, want_s)):
+        assert (np.abs(got.astype(np.float64) - want) <= bound).all()
+    # position 0: every angle is 0 on both sides
+    assert (got_c[0] == 1).all() and (got_s[0] == 0).all()
+
+
 @pytest.mark.parametrize(
     "value,name",
     [(None, "ln_qkv_rope"), ("tbl", "ln_qkv_rope"), ("split", "ln_qkv_rope_split"),
@@ -329,11 +350,12 @@ def test_registry_holds_all_eleven_kernels():
     assert sources == set(kernels.KERNELS)
 
 
-def _bf16_qkv_q_args(seed):
-    x, s, b, w, bias = _qkv_inputs(seed, d=128, H=1, D=128)
+def _bf16_qkv_q_args(seed, d=256, heads=2):
+    """bf16 operands at a width the K10 kernel takes (d 256, H 2: r9's)."""
+    x, s, b, w, bias = _qkv_inputs(seed, d=d, H=heads, D=128)
     w_i8, s_col = fused.quantize_weight(_t(w, "bfloat16"))
     return [_t(x, "bfloat16"), _t(s), _t(b), fused.k_major(w_i8), s_col,
-            _t(bias, "bfloat16"), 1]
+            _t(bias, "bfloat16"), heads]
 
 
 def _bf16_ffn_q_args(seed, d=256, f=512, rows=B * L):
@@ -359,11 +381,11 @@ def test_int8_cuda_wrappers_never_run_on_cpu_tensors(wrapper, make_args):
 
 def test_split_rope_cuda_wrapper_never_runs_on_cpu_tensors(monkeypatch):
     monkeypatch.setenv("HERRO_TPU_ROPE", "split")
-    x, s, b, w, bias = _qkv_inputs(31, d=128, H=1, D=128)
+    x, s, b, w, bias = _qkv_inputs(31, d=256, H=2, D=128)  # a width K8 takes
     before = kernels.launch_counts.snapshot()
     with pytest.raises(ValueError, match="not on the card"):
         fused._ln_qkv_rope_cuda(_t(x, "bfloat16"), _t(s), _t(b), _t(w, "bfloat16"),
-                                _t(bias, "bfloat16"), 1)
+                                _t(bias, "bfloat16"), 2)
     assert kernels.launch_counts.snapshot() == before
 
 
@@ -392,19 +414,43 @@ def test_ln_ffn_q_plain_noise_floor_of_the_layernorm_sums():
     1.25e-4 of the outputs; the share must be above 0 (the order matters) and
     below 1e-3, far below the 1.96% by which the earlier mma.sync kernel
     departed from the plain version on the card."""
-    from chip_smoke import ln_ffn_q_float64_sums
+    from chip_smoke import float64_layernorm_sums
 
     x, s, b, w1, b1, w2, b2 = _ffn_inputs(0, d=512, f=1024, rows=4096)
     (q1, s1), (q2, s2) = fused.quantize_weight(_t(w1)), fused.quantize_weight(_t(w2))
     args = (_t(x, "bfloat16"), _t(s), _t(b), q1, s1, _t(b1), q2, s2, _t(b2))
     want = fused._ln_ffn_q_plain(*args)
-    other = ln_ffn_q_float64_sums(fused, *args)
+    other = float64_layernorm_sums(fused, fused._ln_ffn_q_plain, *args)
     differ = want != other
     share = float(differ.float().mean())
     assert 0 < share < 1e-3, share
     rows = differ.any(dim=-1)
     # where a row moves, about half its outputs change their last bf16 bit
     assert 0 < int(rows.sum()) <= 4 and float(differ[rows].float().mean()) > 0.2
+
+
+def test_ln_qkv_rope_q_plain_noise_floor_of_the_layernorm_sums():
+    """The same floor for K10's qkv path: the plain version at the R10 widths
+    (d 512, H 4) on the 4096 LayerNorm rows of the K11 test above, against
+    LayerNorm's two sums in float64. The one row whose bf16 LayerNorm value
+    flips there moves its int8 row and so a share of its q, k and v: the
+    share of each output is above 0 and below 1e-3. ``chip_smoke.py`` holds
+    the kernel on the card to at most twice this floor (and the ``gpu`` test
+    below)."""
+    from chip_smoke import float64_layernorm_sums, share_differing
+
+    x, s, b = _ffn_inputs(0, d=512, f=1024, rows=4096)[:3]
+    w = np.random.default_rng(5).normal(0, 512 ** -0.5, size=(512, 3 * 4 * 128))
+    w_i8, s_col = fused.quantize_weight(_t(w.astype(np.float32), "bfloat16"))
+    bias = np.random.default_rng(6).normal(0, 0.25, size=(3 * 4 * 128,))
+    args = (_t(x, "bfloat16").reshape(1, 4096, 512), _t(s), _t(b), w_i8, s_col,
+            _t(bias.astype(np.float32), "bfloat16"), 4)
+    want = fused._ln_qkv_rope_q_plain(*args)
+    other = float64_layernorm_sums(fused, fused._ln_qkv_rope_q_plain, *args)
+    share = share_differing(other, want)
+    assert 0 < share < 1e-3, share
+    rows = [(a != r).any(dim=-1) for a, r in zip(other, want)]  # [1, H, L] each
+    assert 0 < int(rows[0].any(dim=1).sum()) <= 4  # the flipped LayerNorm rows
 
 
 def test_int8_cuda_wrappers_want_k_major_weights():
@@ -632,13 +678,32 @@ def _launched(before):
     return {n: after[n] - before[n] for n in after if after[n] != before[n]}
 
 
+# the qkv kernels at both shipped widths, (H, d) 2/256 (r9, r10deep) and
+# 4/512 (r10); rows B x L of 1 x 1, 1 x 37 (a ragged tile, fewer tiles than
+# SMs), 2 x GPU_LENGTHS (whole tiles, and a tile that ends mid-example) and
+# 32 x 1000 (many tiles per SM, each example's last tile ragged)
+QKV_WIDTHS = [(2, 256), (4, 512)]
+QKV_ROWS = [(1, 1), (1, 37), *((2, gl) for gl in GPU_LENGTHS), (32, 1000)]
+
+
+def _qkv_card_args(seed, heads, width, nb, gl, dev):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(nb, gl, width)).astype(np.float32)
+    s, b = _ln_params(rng, width)
+    w = rng.normal(0, width ** -0.5, size=(width, 3 * heads * 128)).astype(np.float32)
+    bias = rng.normal(0, 0.25, size=(3 * heads * 128,)).astype(np.float32)
+    return (_t(x, "bfloat16").to(dev), _t(s).to(dev), _t(b).to(dev),
+            _t(w, "bfloat16").to(dev), _t(bias, "bfloat16").to(dev), heads)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("gl", GPU_LENGTHS)
-def test_split_rope_kernel_matches_plain_and_table_kernel_on_card(gl):
+@pytest.mark.parametrize("heads,width", QKV_WIDTHS)
+@pytest.mark.parametrize("nb,gl", QKV_ROWS)
+def test_split_rope_kernel_matches_plain_and_table_kernel_on_card(heads, width, nb, gl):
+    """K8 builds the tables K1 reads, bit for bit, and shares the rest of
+    its code: the two kernels give the same bits."""
     dev = _card()
-    x, s, b, w, bias = _qkv_inputs(50, d=GPU_D, H=GPU_H, D=128, L=gl)
-    args = (_t(x, "bfloat16").to(dev), _t(s).to(dev), _t(b).to(dev),
-            _t(w, "bfloat16").to(dev), _t(bias, "bfloat16").to(dev), GPU_H)
+    args = _qkv_card_args(50, heads, width, nb, gl, dev)
     before = kernels.launch_counts.snapshot()
     got = fused._ln_qkv_rope_cuda(*args, kernel="ln_qkv_rope_split")
     torch.cuda.synchronize()
@@ -646,23 +711,49 @@ def test_split_rope_kernel_matches_plain_and_table_kernel_on_card(gl):
     tbl = fused._ln_qkv_rope_cuda(*args, kernel="ln_qkv_rope")
     for g, r, t in zip(got, fused._ln_qkv_rope_plain(*args), tbl):
         _bf16_close(g, r)
-        _bf16_close(g, t)
+        assert torch.equal(g, t)
+
+
+def _qkv_q_card_args(seed, heads, width, nb, gl, dev):
+    x, s, b, w, bias, heads = _qkv_card_args(seed, heads, width, nb, gl, dev)
+    w_i8, s_col = fused.quantize_weight(w)
+    return x, s, b, fused.k_major(w_i8), s_col, bias, heads
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("gl", GPU_LENGTHS)
-def test_ln_qkv_rope_q_kernel_matches_plain_on_card(gl):
+@pytest.mark.parametrize("heads,width", QKV_WIDTHS)
+@pytest.mark.parametrize("nb,gl", QKV_ROWS)
+def test_ln_qkv_rope_q_kernel_matches_plain_on_card(heads, width, nb, gl):
     dev = _card()
-    x, s, b, w, bias = _qkv_inputs(51, d=GPU_D, H=GPU_H, D=128, L=gl)
-    w_i8, s_col = fused.quantize_weight(_t(w, "bfloat16").to(dev))
-    args = (_t(x, "bfloat16").to(dev), _t(s).to(dev), _t(b).to(dev), fused.k_major(w_i8),
-            s_col, _t(bias, "bfloat16").to(dev), GPU_H)
+    args = _qkv_q_card_args(51, heads, width, nb, gl, dev)
     before = kernels.launch_counts.snapshot()
     got = fused._ln_qkv_rope_q_cuda(*args)
     torch.cuda.synchronize()
     assert _launched(before) == {"ln_qkv_rope_q": 1}
     for g, r in zip(got, fused._ln_qkv_rope_q_plain(*args)):
         _bf16_close(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,width", QKV_WIDTHS)
+def test_ln_qkv_rope_q_kernel_differs_at_most_twice_the_floor_on_card(heads, width):
+    """K10 follows the plain version's roundings but for the order of
+    LayerNorm's two sums: the share of its outputs that differ from the plain
+    version is at most twice the share by which the plain version moves when
+    those sums run in float64 (``test_ln_qkv_rope_q_plain_noise_floor_of_the_
+    layernorm_sums``'s floor, here on the card over 131,072 rows, tens of
+    them flipped)."""
+    from chip_smoke import float64_layernorm_sums, share_differing
+
+    dev = _card()
+    args = _qkv_q_card_args(53, heads, width, 32, 4096, dev)
+    got = fused._ln_qkv_rope_q_cuda(*args)
+    want = fused._ln_qkv_rope_q_plain(*args)
+    floor = share_differing(float64_layernorm_sums(fused, fused._ln_qkv_rope_q_plain, *args),
+                            want)
+    share = share_differing(got, want)
+    assert 0 < floor < 1e-3
+    assert share <= 2 * floor, (share, floor)
 
 
 @pytest.mark.gpu

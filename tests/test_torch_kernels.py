@@ -19,6 +19,7 @@ JAX is imported inside the fixture that needs it, so the ``gpu`` tests also
 run where only PyTorch is installed (``pytest --noconftest -m gpu``).
 """
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -393,16 +394,31 @@ def _launches(name):
     "op,mask,heads,width,f",
     [("flash_outproj", mask, heads, width, None)
      for mask in (None, 384, 512) for heads, width in [(3, 384), (4, 256), (2, 512)]]
-    + [("ln_ffn", None, None, width, f) for width, f in [(384, 1024), (128, 512), (256, 64)]],
+    + [("ln_ffn", None, None, width, f) for width, f in [(384, 1024), (128, 512), (256, 64)]]
+    + [(op, None, heads, width, None)
+       for op in ("ln_qkv_rope", "ln_qkv_rope_split", "ln_qkv_rope_q")
+       for heads, width in [(1, 128), (3, 384), (4, 640), (2, 192)]],
 )
 def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f):
     """The Hopper kernels are built for (H, d) = (4, 512) or (2, 256)
-    (attention, all three masks) and d 256 or 512 with d_ff a multiple of 128
-    (ln_ffn); the wrapper names any other width in a ValueError before it
-    looks at the device (these are CPU tensors) and launches nothing."""
+    (attention, all three masks), d 256 or 512 with d_ff a multiple of 128
+    (ln_ffn), and d 256 or 512 with any H (the qkv kernels K1, K8 and K10);
+    the wrapper names any other width in a ValueError before it looks at the
+    device (these are CPU tensors) and launches nothing."""
     rng = np.random.default_rng(30)
     bf = torch.bfloat16
-    if op == "flash_outproj":
+    if op.startswith("ln_qkv_rope"):
+        x, s, b, w, bias = _qkv_inputs(30, d=width, H=heads, D=128, L=64)
+        if op == "ln_qkv_rope_q":
+            w_i8, s_col = fused.quantize_weight(_t(w).to(bf))
+            args = (_t(x).to(bf), _t(s), _t(b), fused.k_major(w_i8), s_col, _t(bias).to(bf),
+                    heads)
+            call = fused._ln_qkv_rope_q_cuda
+        else:
+            args = (_t(x).to(bf), _t(s), _t(b), _t(w).to(bf), _t(bias).to(bf), heads)
+            call = functools.partial(fused._ln_qkv_rope_cuda, kernel=op)
+        match = rf"d_model {width}: the kernel takes \(256, 512\)"
+    elif op == "flash_outproj":
         gl = 64
         q, k, v = (_t(rng.normal(size=(1, heads, gl, 128))).to(bf) for _ in range(3))
         args = (q, k, v, _t(rng.normal(size=(1, gl, width))).to(bf),

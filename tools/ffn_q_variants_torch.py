@@ -4,10 +4,10 @@
     python3 tools/ffn_q_variants_torch.py --width r9 slots3 clocks
 
 A variant is the committed ``herro_tpu_torch/csrc/`` with a few textual
-edits to ``ln_ffn_q.cu`` (``VARIANTS`` below): another cluster size, a
+edits to ``ln_ffn_q.cu`` and ``int8.cuh`` (``VARIANTS`` below): another cluster size, a
 shallower weight ring, the quantization's quotients through a reciprocal,
 LayerNorm a row at a time, or per-phase ``clock64`` counters. The edits name
-lines of ``ln_ffn_q.cu`` as they stand; the tool raises when one of them is
+lines of those files as they stand; the tool raises when one of them is
 gone, and a redesign of the kernel retires the variant.
 
 Each variant runs in a process of its own: it is built with nvcc (``-Xptxas
@@ -39,6 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SRC = "ln_ffn_q.cu"
+LN = "int8.cuh"  # LayerNorm and the row quantization (ln_quant_tile), shared with K10
 WIDTHS = {"r10": (512, 1024), "r9": (256, 1536)}
 
 # the phases of a tile the clocks variant reports, in order; then the parts of
@@ -111,8 +112,8 @@ __device__ inline int quant_near(float y, float r, bool& tie) {
 
 """
 RECIPROCAL = [
-    (SRC, "// LayerNorm (flax semantics", QUANT_NEAR + "// LayerNorm (flax semantics"),
-    (SRC, """    const float sq = quant_scale(warp_max(m));
+    (LN, "// LayerNorm (flax semantics", QUANT_NEAR + "// LayerNorm (flax semantics"),
+    (LN, """    const float sq = quant_scale(warp_max(m));
 #pragma unroll
     for (int i = 0; i < kCh; ++i) {
       const int ch = lane + 32 * i;
@@ -180,14 +181,14 @@ VARIANTS = {
                    "falling back to the true division when one lies within 2^-14 of a "
                    "rounding tie (the same integers, fewer divisions)", RECIPROCAL),
     "ln_one_row": ("LayerNorm's row loop not unrolled: a warp's rows one after another",
-                   [(SRC, "#pragma unroll 2  // two rows in flight", "#pragma unroll 1  // one row")]),
+                   [(LN, "#pragma unroll 2  // two rows in flight", "#pragma unroll 1  // one row")]),
     "clocks": ("per-phase clock64 counters of the first consumer thread", _clocks_edits()),
 }
 
 
-def build(kernels, tmp: str, name: str, edits) -> tuple[ctypes.CDLL, str]:
-    """csrc/ with ``edits`` applied, built into tmp/<name>/; returns the
-    library and ptxas's register, spill and C75xx lines."""
+def build(kernels, tmp: str, name: str, edits, source: str = SRC) -> tuple[ctypes.CDLL, str]:
+    """csrc/ with ``edits`` applied, ``source`` built into tmp/<name>/; returns
+    the library and ptxas's register, spill and C75xx lines."""
     src = os.path.join(tmp, name)
     shutil.copytree(kernels.CSRC, src, ignore=shutil.ignore_patterns("build"))
     for fname, old, new in edits:
@@ -201,7 +202,7 @@ def build(kernels, tmp: str, name: str, edits) -> tuple[ctypes.CDLL, str]:
     so = os.path.join(src, "lib.so")
     res = subprocess.run(
         [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
-         os.path.join(src, SRC)],
+         os.path.join(src, source)],
         capture_output=True, text=True,
     )
     if res.returncode != 0:
@@ -209,6 +210,26 @@ def build(kernels, tmp: str, name: str, edits) -> tuple[ctypes.CDLL, str]:
     ptxas = " | ".join(l.strip() for l in res.stderr.splitlines()
                        if "registers" in l or "spill" in l or "(C75" in l)
     return ctypes.CDLL(so), ptxas
+
+
+def run_each(script: str, names, flags, timeout: int) -> int:
+    """``script`` once per variant, each in a process of its own (libraries of
+    the same kernels loaded side by side in one process once hung); passes on
+    their JSON lines and returns the first failure's exit code, else 0."""
+    rc = 0
+    for name in names:
+        cmd = [sys.executable, os.path.abspath(script), *flags, name]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+        except subprocess.TimeoutExpired:
+            print(json.dumps(dict(variant=name, timed_out=timeout)), flush=True)
+            rc = rc or 1
+            continue
+        sys.stderr.write(res.stderr)
+        print("".join(l for l in res.stdout.splitlines(True) if l.startswith("{")),
+              end="", flush=True)
+        rc = rc or res.returncode
+    return rc
 
 
 def inputs(torch, dev, d: int, f: int):
@@ -250,23 +271,8 @@ def main() -> int:
     names = args.variants or list(VARIANTS)
     print(nvidia_smi(), flush=True)
     if len(names) > 1:
-        # one process a variant: libraries of the same kernels loaded side by
-        # side in one process once hung
-        rc = 0
-        for name in names:
-            cmd = [sys.executable, os.path.abspath(__file__), "--turns", str(args.turns),
-                   "--width", args.width, name]
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True, timeout=args.timeout)
-            except subprocess.TimeoutExpired:
-                print(json.dumps(dict(variant=name, timed_out=args.timeout)), flush=True)
-                rc = 1
-                continue
-            sys.stderr.write(res.stderr)
-            print("".join(l for l in res.stdout.splitlines(True) if l.startswith("{")),
-                  end="", flush=True)
-            rc = rc or res.returncode
-        return rc
+        return run_each(__file__, names, ["--turns", str(args.turns), "--width", args.width],
+                        args.timeout)
     dev = torch.device("cuda")
     d, f = WIDTHS[args.width]
     ops = inputs(torch, dev, d, f)

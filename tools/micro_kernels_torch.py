@@ -12,7 +12,8 @@ with its tolerance; times by CUDA events) ``--spread`` times in one process
 and prints every kernel's time per pass. It is the short first call after a
 kernel changes: what the compiler refuses, or a kernel that is wrong, shows
 here in about a minute and fails the command. Shapes the smoke run does not
-take (the r9 widths but K11's, ragged lengths) are held by the ``gpu`` tests.
+take (the r9 widths but K8's, K10's and K11's, ragged lengths) are held by
+the ``gpu`` tests.
 
 Needs a CUDA card and nvcc; imports nothing of JAX.
 """
