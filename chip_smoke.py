@@ -21,9 +21,10 @@ each print one JSON line:
    the share of output elements that differ from the plain version at all,
    which may be at most twice that share between two plain runs whose
    LayerNorm sums in float32 and in float64 (the floor the order of a sum
-   sets); K8, K10 and K11 print their times before their Hopper redesigns;
-   the standalone flash attention (K9) runs under band 512 and under no band
-   with mixed lengths, one of them 0 (which must come out 0);
+   sets); the standalone flash attention (K9) runs under band 512 and 40 and
+   under no band with mixed lengths, one of them 0 (which must come out 0),
+   band 512 and no band also at L=5120; the counting rule (K5) at both
+   lengths must equal its plain version;
 3. ``golden``  — the port's bf16 forward of the flagship checkpoint on
    ``tests/golden/logits_r10.npz`` against the JAX logits frozen there;
 4. ``e2e``     — ``run_correction`` with ``CorrectionRunner(device="cuda")``
@@ -110,6 +111,25 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Per-call device time of ``fn`` from the replay of one CUDA graph of
+    ``iters`` calls. A kernel of a few microseconds takes less time on the
+    card than its Python wrapper takes to launch it, so an eager loop times
+    the wrapper; the graph replays the launches alone."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as capture wants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = time_ms(torch, graph.replay, 5) / iters
+    del graph
+    return ms
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -355,17 +375,35 @@ def phase_kernels(torch, results: dict) -> None:
             rows=lens_np, residual=xx,
         )
 
-    def flash_attention_case(lens, lens_np, band, n_pairs, label):
-        """K9: the same function as SDPA with the mask, on the valid rows."""
+    def flash_attention_case(lens, lens_np, band, n_pairs, label, qkv=None):
+        """K9 on ``qkv``, the L=9216 inputs by default: the same function as
+        SDPA with the mask, on the valid rows."""
+        qq, kk, vv = qkv or (q, k, v)
+        n = qq.shape[2]
         return dict(
             name="flash_attention", replaces="herro_tpu/ops/attention.py:36",
-            kernel=lambda: attention._flash_attention_cuda(q, k, v, lens, band),
-            plain=lambda: attention._flash_attention_plain(q, k, v, lens, band),
+            kernel=lambda: attention._flash_attention_cuda(qq, kk, vv, lens, band),
+            plain=lambda: attention._flash_attention_plain(qq, kk, vv, lens, band),
             library=(f"F.scaled_dot_product_attention (memory-efficient backend) with "
                      f"{label} as an additive mask: the same function",
-                     sdpa, lambda: sdpa_bias(lens, band)),
-            bound=bound(kv_bytes * 4 // 3, 4 * H * D * n_pairs, PEAK_BF16),
+                     lambda bias: sdpa(bias, (qq, kk, vv)), lambda: sdpa_bias(lens, band, n)),
+            bound=bound(kv_bytes * n // L * 4 // 3, 4 * H * D * n_pairs, PEAK_BF16),
             rows=lens_np,
+        )
+
+    def count_case(toks):
+        """K5 on these tokens. The function needs rows 0..n_alns of each
+        batch element (row 0 at least, for the target), one byte a column
+        out."""
+        n = toks.shape[2]
+        rows = int(np.clip(n_alns_np.astype(np.int64) + 1, 1, R).sum())
+        return dict(
+            name="count_decisions", replaces="herro_tpu/ops/fused.py:212",
+            kernel=lambda: consensus._count_decisions_cuda(toks, n_alns),
+            plain=lambda: consensus._count_decisions_plain(toks, n_alns),
+            library=("none: no PyTorch call computes the counting rule", None),
+            bound=bound(rows * n + B * n + 4 * B, 0, PEAK_F32),
+            exact=True, graph=True,
         )
 
     x_bytes = T * d * 2
@@ -482,14 +520,8 @@ def phase_kernels(torch, results: dict) -> None:
             bound=bound(2 * T5 * d * 2 + 2 * d * f * 2, 4 * T5 * d * f, PEAK_BF16),
             residual=x5,
         ),
-        "count_decisions": dict(
-            replaces="herro_tpu/ops/fused.py:212",
-            kernel=lambda: consensus._count_decisions_cuda(tokens, n_alns),
-            plain=lambda: consensus._count_decisions_plain(tokens, n_alns),
-            library=("none: no PyTorch call computes the counting rule", None),
-            bound=bound(B * R * L + B * L + 4 * B, 0, PEAK_F32),
-            exact=True,
-        ),
+        "count_decisions": count_case(tokens),
+        "count_decisions[L=5120]": count_case(tokens5),
         "flash_outproj_full": attention_case(
             "flash_outproj_full", "herro_tpu/ops/fused.py:821", lengths_full,
             lengths_full_np, None, pairs_full, "the length mask",
@@ -536,6 +568,15 @@ def phase_kernels(torch, results: dict) -> None:
         # no band, mixed lengths, one of them 0 (that example must come out 0)
         "flash_attention[full]": flash_attention_case(
             lengths_full, lengths_full_np, None, pairs_full, "the length mask"),
+        # a band below one 128-key tile, and both masks at L=5120
+        "flash_attention[w=40]": flash_attention_case(
+            lengths, lengths_np, 40, band_pairs(40), "the band 40 and the length mask"),
+        "flash_attention[L=5120]": flash_attention_case(
+            lengths5, lengths5_np, w, pairs5, "the band 512 and the length mask",
+            (q5, k5, v5)),
+        "flash_attention[full, L=5120]": flash_attention_case(
+            lengths_full5, lengths_full5_np, None, pairs_full5, "the length mask",
+            (q5, k5, v5)),
     }
     report = []
     for case, c in cases.items():
@@ -579,6 +620,9 @@ def phase_kernels(torch, results: dict) -> None:
             ok = ok and gap == 0
         iters = 20
         ms = time_ms(torch, c["kernel"], iters)
+        if c.get("graph"):  # device time; the eager loop's is the wrapper's
+            extra["eager_ms"] = ms
+            ms = graph_ms(torch, c["kernel"], iters)
         plain_ms = time_ms(torch, c["plain"], 3, warmup=1)
         del got, ref
         lib_label, lib_fn, *lib_setup = c["library"]

@@ -1,10 +1,11 @@
-// The device code of the port's three attention kernels for Hopper (sm_90a):
+// The device code of the port's four attention kernels for Hopper (sm_90a):
 // attention + out projection + residual, all heads in a block, fed by TMA and
-// run on wgmma, as a template over the mask.
+// run on wgmma, as a template over the mask; or (DM 0) the attention alone.
 //
 //   flash_outproj.cu       K2  band |i - j| <= w, w a multiple of 256
 //   flash_outproj_band.cu  K6  band with any w >= 1
 //   flash_outproj_full.cu  K7  no band: every key below the length
+//   flash_attention.cu     K9  DM 0: no out projection, either mask, any H
 //
 // For every query row i of batch b and head h: softmax over the keys j <
 // length (and |i - j| <= window under kMaskBand) of scale * q_i . k_j (scores
@@ -67,7 +68,18 @@
 //   and the epilogue adds bo and the residual.
 // - setmaxnreg gives the consumers 232 registers and the producer 40 (the
 //   block's 384 x 168 at launch, redistributed).
-// Shapes: D 128, (H, d) = (4, 512) or (2, 256), any L, lengths 0..L.
+// - DM 0 (K9, the attention alone, out [B, H, L, D]): with no out projection
+//   the heads need not share a block, so a tile is 128 query rows of one
+//   head, H = 1 over the [B*H] axis of the tensor maps, its length that of
+//   batch element bh / heads (`heads` the real H, any value; 1 for the
+//   others). The fourth tensor map is then the output's, in [64, 64] boxes:
+//   after the head's O is in its attn columns, each warpgroup meets at a
+//   named barrier and one thread stores its 64 rows by TMA (clipped at L) and
+//   waits until the store has read them before it frees attn for the next
+//   tile's Q. A tile past the length (kMaskFull) stores zeros, so an example
+//   of length 0 comes out all 0. Every difference is behind `if constexpr`.
+// Shapes: D 128, (H, d) = (4, 512) or (2, 256), any L, lengths 0..L; DM 0:
+// any H.
 #pragma once
 
 #include "common.cuh"
@@ -123,8 +135,11 @@ __device__ inline int live_tiles(int len, int L) {
 // first the n_live tiles below the lengths, batch elements by descending
 // count (ties by index), then the tiles past the lengths in batch order. A
 // whole warp computes it, lane l testing batch elements l, l + 32, ...
-__device__ inline int2 full_tile_at(const int* lengths, int B, int L, int n_qb, int n_live,
-                                    int p, int lane) {
+// kPerHead (K9): each batch element holds `heads` times its tiles, head by
+// head, and the tile is returned as (b * heads + h, q0).
+template <bool kPerHead>
+__device__ inline int2 full_tile_at(const int* lengths, int B, int heads, int L, int n_qb,
+                                    int n_live, int p, int lane) {
   const bool live = p < n_live;
   const int pp = live ? p : p - n_live;
   for (int b0 = 0; b0 < B; b0 += 32) {
@@ -138,18 +153,30 @@ __device__ inline int2 full_tile_at(const int* lengths, int B, int L, int n_qb, 
         const int no = live_tiles(lengths[o], L);
         if (live ? no > nb || (no == nb && o < b) : o < b) start += live ? no : n_qb - no;
       }
+      if constexpr (kPerHead) start *= heads;
     }
-    const unsigned hit = __ballot_sync(0xffffffffu, pp >= start && pp < start + n);
+    const int span = kPerHead ? n * heads : n;
+    const unsigned hit = __ballot_sync(0xffffffffu, pp >= start && pp < start + span);
     if (hit) {
       const int src = __ffs(hit) - 1;
-      const int hb = __shfl_sync(0xffffffffu, b, src);
-      const int qb = __shfl_sync(0xffffffffu, qb0 + pp - start, src);
-      return make_int2(hb, qb * kBQ);
+      if constexpr (kPerHead) {
+        const int at = __shfl_sync(0xffffffffu, pp - start, src);
+        const int per = __shfl_sync(0xffffffffu, n, src);
+        const int hb = __shfl_sync(0xffffffffu, b, src) * heads + at / per;
+        const int qb = __shfl_sync(0xffffffffu, qb0, src) + at % per;
+        return make_int2(hb, qb * kBQ);
+      } else {
+        const int hb = __shfl_sync(0xffffffffu, b, src);
+        const int qb = __shfl_sync(0xffffffffu, qb0 + pp - start, src);
+        return make_int2(hb, qb * kBQ);
+      }
     }
   }
   return make_int2(0, L);  // not reached: the positions cover every tile
 }
 
+// DM 0 is K9: no out projection, one head a tile, `wo_map` the output's map
+// and `heads` the real H (the others pass 1 and read neither x, bo nor heads).
 template <int H, int DM, int kMask>
 __global__ void __launch_bounds__(kThreadsFo, 1)
 flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -158,8 +185,9 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap wo_map,
                           const bf16* __restrict__ x, const bf16* __restrict__ bo,
                           const int* __restrict__ lengths, bf16* __restrict__ out, int B, int L,
-                          int window, float scale) {
+                          int window, float scale, int heads) {
   constexpr bool kFull = kMask == kMaskFull;
+  constexpr bool kStore = DM == 0;         // K9: O leaves by TMA store, per head
   constexpr int kPasses = DM / 256;        // out-projection passes of 256 columns
   constexpr int kWoStages = H * kD / kWoRows;  // Wo stages per pass
   extern __shared__ unsigned char smem_raw[];
@@ -173,7 +201,9 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   int* tile_slot = reinterpret_cast<int*>(attn_free + 1);  // kMaskFull: (b, q0)
 
   const int n_qb = (L + kBQ - 1) / kBQ;
-  const int n_tiles = B * n_qb;
+  const int n_tiles = B * (kStore ? heads : 1) * n_qb;
+  // the batch element of tile row b: b itself, or under kStore b / heads
+  auto elem = [&](int b) { return kStore ? b / heads : b; };
   // the position of this block's tile in round r (kMaskFull: snake order)
   auto position = [&](int r) {
     if constexpr (kFull)
@@ -252,17 +282,18 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int b = lane; b < B; b += 32) n_live += live_tiles(lengths[b], L);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) n_live += __shfl_xor_sync(0xffffffffu, n_live, off);
+      if constexpr (kStore) n_live *= heads;
       for (int r = 0;; ++r) {
         const int p = position(r);
         if (p >= n_tiles) break;
-        const int2 tile = full_tile_at(lengths, B, L, n_qb, n_live, p, lane);
+        const int2 tile = full_tile_at<kStore>(lengths, B, heads, L, n_qb, n_live, p, lane);
         if (lane == 0) {
           // the slot and attn are free once the last tile is done with both
           mbar_wait(attn_free, free_phase ^ 1);
           free_phase ^= 1;
           tile_slot[0] = tile.x;
           tile_slot[1] = tile.y;
-          const int len = min(lengths[tile.x], L);
+          const int len = min(lengths[elem(tile.x)], L);
           if (tile.y >= len)
             mbar_arrive(q_full);  // no attention: the slot alone
           else
@@ -274,7 +305,7 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
         const int tile = position(r);
         if (tile >= n_tiles) break;
         const int b = tile / n_qb, q0 = (tile % n_qb) * kBQ;
-        const Band band = band_of(lengths, b, q0, L, window);
+        const Band band = band_of(lengths, elem(b), q0, L, window);
         // Q of every head, once the last tile's out projection has read attn
         mbar_wait(attn_free, free_phase ^ 1);
         free_phase ^= 1;
@@ -311,37 +342,45 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       q_phase ^= 1;
       b = tile_slot[0];
       q0 = tile_slot[1];
-      band.len = min(lengths[b], L);
+      band.len = min(lengths[elem(b)], L);
       band.kt0 = 0;
       band.n_kt = (band.len + kBK - 1) / kBK;
     } else {
       b = tile / n_qb;
       q0 = (tile % n_qb) * kBQ;
-      band = band_of(lengths, b, q0, L, window);
+      band = band_of(lengths, elem(b), q0, L, window);
     }
     const int r0 = q0 + wg * 64;                       // this warpgroup's first row
     const int row_a = r0 + warp * 16 + g, row_b = row_a + 8;  // this thread's rows
     const int arow = wg * 64 + warp * 16 + g;          // row_a within the tile
     if constexpr (kFull) {
       if (q0 >= band.len) {
-        // past the length: this warpgroup's rows below L are bf16(x + bo)
-        constexpr int kChunks = DM / 8;
         const int n_rows = min(64, L - r0);
-        for (int e = t; e < n_rows * kChunks; e += 128) {
-          const int c = (e % kChunks) * 8;
-          const size_t o_ = ((size_t)b * L + r0 + e / kChunks) * DM + c;
-          const uint4 xv = *reinterpret_cast<const uint4*>(x + o_);
-          const uint4 bv = *reinterpret_cast<const uint4*>(bo + c);
-          uint4 ov;
-          const bf162* xp = reinterpret_cast<const bf162*>(&xv);
-          const bf162* bp = reinterpret_cast<const bf162*>(&bv);
-          bf162* op = reinterpret_cast<bf162*>(&ov);
+        if constexpr (kStore) {
+          // past the length, K9: this warpgroup's rows below L are 0
+          constexpr int kChunks = kD / 8;
+          for (int e = t; e < n_rows * kChunks; e += 128)
+            *reinterpret_cast<uint4*>(out + ((size_t)b * L + r0 + e / kChunks) * kD +
+                                      (e % kChunks) * 8) = make_uint4(0, 0, 0, 0);
+        } else {
+          // past the length: this warpgroup's rows below L are bf16(x + bo)
+          constexpr int kChunks = DM / 8;
+          for (int e = t; e < n_rows * kChunks; e += 128) {
+            const int c = (e % kChunks) * 8;
+            const size_t o_ = ((size_t)b * L + r0 + e / kChunks) * DM + c;
+            const uint4 xv = *reinterpret_cast<const uint4*>(x + o_);
+            const uint4 bv = *reinterpret_cast<const uint4*>(bo + c);
+            uint4 ov;
+            const bf162* xp = reinterpret_cast<const bf162*>(&xv);
+            const bf162* bp = reinterpret_cast<const bf162*>(&bv);
+            bf162* op = reinterpret_cast<bf162*>(&ov);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 xf = __bfloat1622float2(xp[i]), bf = __bfloat1622float2(bp[i]);
-            op[i] = __floats2bfloat162_rn(xf.x + bf.x, xf.y + bf.y);
+            for (int i = 0; i < 4; ++i) {
+              const float2 xf = __bfloat1622float2(xp[i]), bf = __bfloat1622float2(bp[i]);
+              op[i] = __floats2bfloat162_rn(xf.x + bf.x, xf.y + bf.y);
+            }
+            *reinterpret_cast<uint4*>(out + o_) = ov;
           }
-          *reinterpret_cast<uint4*>(out + o_) = ov;
         }
         if (t == 0) mbar_arrive(attn_free);  // done with the slot
         continue;
@@ -505,6 +544,21 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
     fence_proxy_async();  // attn, written by these threads, is read by wgmma next
+    if constexpr (kStore) {
+      // K9: this warpgroup's 64 rows of O leave by TMA from its attn rows,
+      // clipped at L; attn is freed once the store has read them
+      named_bar_sync(1 + wg, 128);
+      if (t == 0) {
+        if (r0 < L) {
+          for (int c = 0; c < 2; ++c)
+            tma_store_3d(&wo_map, attn + c * kHalf + wg * 64 * 128, c * 64, r0, b);
+          bulk_commit();
+          bulk_wait_read<0>();
+        }
+        mbar_arrive(attn_free);
+      }
+      continue;
+    }
 
     // out = (x + bo) + attn @ Wo in passes of 256 columns; a stage is
     // released one committed group behind
@@ -551,35 +605,46 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     if (t == 0) mbar_arrive(attn_free);  // this warpgroup is done reading attn
   }
+  if constexpr (kStore) {
+    if (t == 0) bulk_wait<0>();  // the stores are written before the block exits
+  }
 }
 
 // Launch on `stream`; returns 0 or a CUDA error. A band wider than L masks
 // nothing more than L does, so it is clamped there; kMaskFull reads no window.
+// DM 0 (K9): no x, wo or bo; `heads` is the real H and the fourth map the
+// output's.
 template <int H, int DM, int kMask>
 inline int launch(const void* q, const void* k, const void* v, const void* x, const void* wo,
                   const void* bo, const int* lengths, void* out, int B, int L, int window,
-                  float scale, cudaStream_t stream) {
+                  float scale, cudaStream_t stream, int heads = 1) {
+  const long n_tiles = (long)B * heads * ((L + kBQ - 1) / kBQ);
+  if (B < 1 || L < 1 || heads < 1 || n_tiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   window = window < L ? window : L;
   CUtensorMap qm, km, vm, wm;
-  const uint64_t dims[3] = {kD, (uint64_t)L, (uint64_t)B * H};
+  const uint64_t dims[3] = {kD, (uint64_t)L, (uint64_t)B * H * heads};
   const uint64_t strides[2] = {kD * 2, (uint64_t)L * kD * 2};
   const uint32_t box[2] = {64, kBQ};
-  const uint64_t wdims[2] = {DM, H * kD}, wstrides[1] = {DM * 2};
-  const uint32_t wbox[2] = {64, kWoRows};
   int err = make_map_bf16(&qm, q, 3, dims, strides, box);
   if (!err) err = make_map_bf16(&km, k, 3, dims, strides, box);
   if (!err) err = make_map_bf16(&vm, v, 3, dims, strides, box);
-  if (!err) err = make_map_bf16(&wm, wo, 2, wdims, wstrides, wbox);
+  if constexpr (DM == 0) {
+    const uint32_t obox[2] = {64, 64};  // a warpgroup's rows
+    if (!err) err = make_map_bf16(&wm, out, 3, dims, strides, obox);
+  } else {
+    const uint64_t wdims[2] = {DM, H * kD}, wstrides[1] = {DM * 2};
+    const uint32_t wbox[2] = {64, kWoRows};
+    if (!err) err = make_map_bf16(&wm, wo, 2, wdims, wstrides, wbox);
+  }
   if (err) return err;
   auto kernel = flash_outproj_sm90_kernel<H, DM, kMask>;
   const size_t smem = smem_bytes<H>();
   err = set_smem((const void*)kernel, smem);
   if (err) return err;
-  const int n_tiles = B * ((L + kBQ - 1) / kBQ);
   const int sms = sm_count();
-  const int grid = n_tiles < sms ? n_tiles : sms;
+  const int grid = n_tiles < sms ? (int)n_tiles : sms;
   kernel<<<grid, kThreadsFo, smem, stream>>>(qm, km, vm, wm, (const bf16*)x, (const bf16*)bo,
-                                             lengths, (bf16*)out, B, L, window, scale);
+                                             lengths, (bf16*)out, B, L, window, scale, heads);
   return (int)cudaGetLastError();
 }
 
@@ -588,7 +653,6 @@ template <int kMask>
 inline int launch_widths(const void* q, const void* k, const void* v, const void* x,
                          const void* wo, const void* bo, const int* lengths, void* out, int B,
                          int H, int L, int d, int window, float scale, void* stream) {
-  if (B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (H == 4 && d == 512)
     return launch<4, 512, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);

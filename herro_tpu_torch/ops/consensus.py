@@ -24,6 +24,9 @@ from . import cuda as _cuda
 
 # Decision value for "not decodable" (padding columns).
 DECISION_PAD = 255
+# The most pileup rows the kernel counts: it packs a column's five counts
+# into 6-bit fields of one register.
+COUNT_MAX_ROWS = 63
 
 
 def _count_decisions_plain(tokens: torch.Tensor, n_alns: torch.Tensor) -> torch.Tensor:
@@ -58,6 +61,8 @@ def _count_decisions_plain(tokens: torch.Tensor, n_alns: torch.Tensor) -> torch.
 
 def _count_decisions_cuda(tokens: torch.Tensor, n_alns: torch.Tensor) -> torch.Tensor:
     B, R, L = tokens.shape
+    _cuda.check(1 <= R <= COUNT_MAX_ROWS,
+                f"R {R}: the kernel counts 1 to {COUNT_MAX_ROWS} pileup rows")
     _cuda.check(tokens.dtype == torch.uint8, f"tokens are {tokens.dtype}, not uint8")
     _cuda.check(n_alns.dtype == torch.int32 and n_alns.shape == (B,),
                 "n_alns must be int32 [B]")

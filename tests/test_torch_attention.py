@@ -338,8 +338,9 @@ def test_attention_impl_matches_jax(impl, local_window, ref):
 
 
 @pytest.mark.parametrize("impl", ["flash", "chunked", "naive"])
-@pytest.mark.parametrize("local_window", [None, 32])
+@pytest.mark.parametrize("local_window", [None, 32, 0, 300])
 def test_attention_impl_matches_flash_pallas_interpret(impl, local_window, ref):
+    """Bands up to the diagonal alone (0) and wider than L (300 > 256)."""
     args = _qkv(42)
     with ref.pltpu.force_tpu_interpret_mode():
         want = ref.attn.flash_attention(
@@ -360,6 +361,28 @@ def test_flash_plain_bf16_matches_flash_pallas_interpret(ref):
     got = tattn.flash_attention(*(_t(a, torch.bfloat16) for a in args), 32)
     assert got.dtype == torch.bfloat16
     _valid_rows_close(got.float().numpy(), want, args[-1], _bf16_tol(want))
+
+
+@pytest.mark.parametrize("local_window", [0, 192, 500])
+def test_flash_plain_bf16_matches_flash_pallas_interpret_at_band_edges(local_window, ref):
+    """The band's edges as the kernel takes them: the diagonal alone (0), a
+    band of exactly L and one wider (clamped to L), at L = 192, which is not
+    a multiple of the kernel's 128-row tiles (the Pallas kernel takes one
+    block of 192). bf16, P rounded before P.V on both sides: 4 bf16 ulps at
+    the largest magnitude."""
+    args = _qkv(54, lengths=(192, 150), L=192)
+    bf = ref.jnp.bfloat16
+    jargs = [ref.jnp.asarray(a, bf) for a in args[:3]] + [ref.jnp.asarray(args[3])]
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.attn.flash_attention(*jargs, local_window)
+    want = np.asarray(want.astype(ref.jnp.float32))
+    got = tattn.flash_attention(*(_t(a, torch.bfloat16) for a in args), local_window)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, H, 192, D)
+    _valid_rows_close(got.float().numpy(), want, args[-1], _bf16_tol(want))
+    if local_window == 0:  # each row attends itself alone: v, exactly
+        v = _t(args[2], torch.bfloat16).float().numpy()
+        for b, n in enumerate(args[-1]):
+            np.testing.assert_array_equal(got[b, :, :n].float().numpy(), v[b, :, :n])
 
 
 @pytest.mark.parametrize("local_window", [None, 32])
@@ -466,6 +489,18 @@ def test_attention_auto_never_gives_way_to_plain_on_the_card(dtype, D, message):
     assert tattn.attention(q, k, v, lengths.int(), 32, impl="chunked").shape == q.shape
 
 
+@pytest.mark.parametrize("heads", [1, 3, 5])
+def test_flash_cuda_wrapper_takes_any_heads(heads):
+    """The kernel runs one head a tile, so its wrapper refuses no H: on CPU
+    tensors of any H it gets as far as the device and refuses that."""
+    args = [_t(a, torch.bfloat16) for a in _qkv(55, L=64, lengths=(64, 10), H=heads, D=128)]
+    args[3] = args[3].int()
+    before = kernels.launch_counts.snapshot()
+    with pytest.raises(ValueError, match="not on the card"):
+        tattn._flash_attention_cuda(*args, 40)
+    assert kernels.launch_counts.snapshot() == before
+
+
 def test_flash_cuda_wrapper_never_runs_on_cpu_tensors():
     args = [_t(a, torch.bfloat16) for a in _qkv(49, D=128)]
     before = kernels.launch_counts.snapshot()
@@ -481,9 +516,9 @@ def test_flash_cuda_wrapper_never_runs_on_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 
-def _flash_on_card(local_window, lengths):
+def _flash_on_card(local_window, lengths, heads=GPU_H, gl=GPU_L):
     dev = _card()
-    args = _qkv(50, lengths=lengths, L=GPU_L, H=GPU_H, D=128)
+    args = _qkv(50, lengths=lengths, L=gl, H=heads, D=128)
     targs = [_t(a, torch.bfloat16).to(dev) for a in args]
     before = kernels.launch_counts.snapshot()
     got = tattn.attention(*targs, local_window)  # auto: the kernel
@@ -497,15 +532,22 @@ def _flash_on_card(local_window, lengths):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("local_window", [None, 0, 1, 40, 100, 512, 5000])
-def test_flash_attention_kernel_matches_plain_on_card(local_window):
-    _flash_on_card(local_window, (GPU_L, GPU_L - 300))
+@pytest.mark.parametrize("gl", [1024, GPU_L])
+@pytest.mark.parametrize("heads", [1, 2, 4])
+@pytest.mark.parametrize("local_window", [None, 0, 1, 40, 100, 384, 512, 5000])
+def test_flash_attention_kernel_matches_plain_on_card(local_window, heads, gl):
+    """One head a tile, so any H; the diagonal alone (0), bands below one
+    128-key tile (1, 40), across tiles (100, 384, 512) and wider than the
+    sequence (5000); L a multiple of 128 and not (1000); lengths L, L - 300,
+    one not a multiple of 128 and one under a tile."""
+    _flash_on_card(local_window, (gl, gl - 300, 937, 77), heads, gl)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("local_window", [None, 40])
-def test_flash_attention_kernel_length_zero_gives_zeros_on_card(local_window):
-    got = _flash_on_card(local_window, (0, 77))
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("local_window", [None, 0, 40])
+def test_flash_attention_kernel_length_zero_gives_zeros_on_card(local_window, heads):
+    got = _flash_on_card(local_window, (0, 77), heads)
     assert not got[0].any()
 
 

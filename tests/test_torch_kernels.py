@@ -67,6 +67,18 @@ def _pileup(seed, B=B, L=L):
     return tok, quals, lengths, n_alns
 
 
+def _garbage_past_n_alns(seed, rows=R, L=L, n_alns=(0, 1, 15, 30, 31, 40)):
+    """Tokens [len(n_alns), rows, L] with every token a base (< 10), rows
+    past n_alns included, and runs of one token so that columns reach the
+    counting rule's ties and plurality; n_alns as given."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, 10, size=(len(n_alns), rows, L)).astype(np.uint8)
+    same = rng.random(size=tok.shape) < 0.4
+    tok[same] = np.broadcast_to(tok[:, :1], tok.shape)[same]
+    tok[:, :, L // 2 :][rng.random(size=(len(n_alns), rows, L - L // 2)) < 0.05] = 11
+    return tok, np.asarray(n_alns, dtype=np.int32)
+
+
 def _embed_weights(seed, d=d):
     rng = np.random.default_rng(seed)
     return (
@@ -169,6 +181,17 @@ def test_count_decisions_plain_matches_jnp_twin(ref):
     want = ref.cons.count_decisions_jnp(ref.jnp.asarray(tok), ref.jnp.asarray(n_alns))
     got = consensus.count_decisions(_t(tok), _t(n_alns))
     assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+@pytest.mark.parametrize("gl", [1000, 37])
+def test_count_decisions_plain_matches_jnp_twin_at_ragged_length(gl, ref):
+    """L not a multiple of the kernel's 16 columns a thread (its byte path),
+    every row a base past n_alns."""
+    tok, n_alns = _garbage_past_n_alns(16, L=gl)
+    want = ref.cons.count_decisions_jnp(ref.jnp.asarray(tok), ref.jnp.asarray(n_alns))
+    got = consensus.count_decisions(_t(tok), _t(n_alns))
+    assert got.shape == (len(n_alns), gl)
     np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
@@ -282,6 +305,21 @@ def test_count_decisions_plain_matches_pallas_interpret(ref):
     np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
+@pytest.mark.parametrize("n_alns", [0, 1, 15, 30, 31, 40])
+def test_count_decisions_plain_matches_pallas_interpret_past_n_alns(n_alns, ref):
+    """R = 31 as on the main path, every token past n_alns a base (< 10): the
+    rows the kernel does not read would change the answer if counted, which
+    the plain version with every row counted shows."""
+    tok, na = _garbage_past_n_alns(17, L=512, n_alns=(n_alns, n_alns))
+    with ref.pltpu.force_tpu_interpret_mode():
+        want = ref.fused.count_decisions_pallas(ref.jnp.asarray(tok), ref.jnp.asarray(na))
+    got = consensus.count_decisions(_t(tok), _t(na))
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+    if n_alns < R - 1:
+        every_row = consensus.count_decisions(_t(tok), _t(np.full_like(na, R - 1)))
+        assert not torch.equal(got, every_row)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions, on the card
 # ---------------------------------------------------------------------------
@@ -378,6 +416,20 @@ def test_count_decisions_kernel_matches_plain_on_card(gl):
     )
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,gl", [(31, 9216), (31, 1024), (31, 1000), (31, 7), (1, 1024),
+                                     (1, 1000), (63, 1000)])
+def test_count_decisions_kernel_reads_no_row_past_n_alns_on_card(rows, gl):
+    """Tokens < 10 in every row, so a row past n_alns that were counted would
+    change the answer; n_alns from 0 to past R; L a multiple of 16 (16-byte
+    loads) or not (bytes, masked at L); R = 1 counts the target row alone."""
+    dev = _card()
+    tok, n_alns = _garbage_past_n_alns(26, rows, gl)
+    t, n = _cuda(tok, dev), _cuda(n_alns, dev)
+    got = consensus._count_decisions_cuda(t, n)
+    assert torch.equal(got, consensus._count_decisions_plain(t, n))
+
+
 # K2 and K3 at every width a shipped checkpoint takes: (H, d) 2/256 (r9,
 # r10deep) and 4/512 (r10); (d, f) 512/1024, 256/1024 and 256/1536
 K2_WIDTHS = [(2, 256), (4, 512)]
@@ -397,17 +449,23 @@ def _launches(name):
     + [("ln_ffn", None, None, width, f) for width, f in [(384, 1024), (128, 512), (256, 64)]]
     + [(op, None, heads, width, None)
        for op in ("ln_qkv_rope", "ln_qkv_rope_split", "ln_qkv_rope_q")
-       for heads, width in [(1, 128), (3, 384), (4, 640), (2, 192)]],
+       for heads, width in [(1, 128), (3, 384), (4, 640), (2, 192)]]
+    + [("count_decisions", None, None, rows, None) for rows in (0, 64, 100)],
 )
 def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f):
     """The Hopper kernels are built for (H, d) = (4, 512) or (2, 256)
     (attention, all three masks), d 256 or 512 with d_ff a multiple of 128
-    (ln_ffn), and d 256 or 512 with any H (the qkv kernels K1, K8 and K10);
-    the wrapper names any other width in a ValueError before it looks at the
+    (ln_ffn), d 256 or 512 with any H (the qkv kernels K1, K8 and K10), and
+    1 to 63 pileup rows (count_decisions, ``width`` here: 6-bit counts); the
+    wrapper names any other width in a ValueError before it looks at the
     device (these are CPU tensors) and launches nothing."""
     rng = np.random.default_rng(30)
     bf = torch.bfloat16
-    if op.startswith("ln_qkv_rope"):
+    if op == "count_decisions":
+        args = (_t(rng.integers(0, 10, size=(2, width, 64)).astype(np.uint8)),
+                _t(np.array([5, 70], np.int32)))
+        call, match = consensus._count_decisions_cuda, rf"R {width}: the kernel counts"
+    elif op.startswith("ln_qkv_rope"):
         x, s, b, w, bias = _qkv_inputs(30, d=width, H=heads, D=128, L=64)
         if op == "ln_qkv_rope_q":
             w_i8, s_col = fused.quantize_weight(_t(w).to(bf))

@@ -78,7 +78,8 @@ VARIANTS = {
         "tiles in (batch, query block) order, block i taking i, i + G, ... (K2's order)",
         [(HEADER, "    if constexpr (kFull)\n      return r * (int)gridDim.x",
           "    if constexpr (false)\n      return r * (int)gridDim.x"),
-         (HEADER, "const int2 tile = full_tile_at(lengths, B, L, n_qb, n_live, p, lane);",
+         (HEADER, "const int2 tile = full_tile_at<kStore>(lengths, B, heads, L, n_qb, n_live, "
+                  "p, lane);",
           "const int2 tile = make_int2(p / n_qb, (p % n_qb) * kBQ);")],
     ),
     "pingpong": (

@@ -8,10 +8,11 @@ Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
 prints each kernel's registers, spills and ptxas's performance advisories
 (C75xx, such as serialised ``wgmma``), then runs ``chip_smoke.py``'s
 ``kernels`` phase (every kernel against its plain version at B=32, L=9216,
-with its tolerance; times by CUDA events) ``--spread`` times in one process
-and prints every kernel's time per pass. It is the short first call after a
-kernel changes: what the compiler refuses, or a kernel that is wrong, shows
-here in about a minute and fails the command. Shapes the smoke run does not
+with its tolerance; times by CUDA events, K5's by CUDA-graph replay with the
+eager loop's beside it) ``--spread`` times in one process and prints every
+kernel's time per pass, to four significant digits. It is the short first
+call after a kernel changes: what the compiler refuses, or a kernel that is
+wrong, shows here in about a minute and fails the command. Shapes the smoke run does not
 take (the r9 widths but K8's, K10's and K11's, ragged lengths) are held by
 the ``gpu`` tests.
 
@@ -78,7 +79,12 @@ def main() -> int:
         results: dict = {}
         with contextlib.redirect_stdout(io.StringIO()):
             chip_smoke.phase_kernels(torch, results)
-        print(i, {k["case"]: round(k["ms"], 3) for k in results["kernels"]}, flush=True)
+        times = {}
+        for k in results["kernels"]:
+            times[k["case"]] = float(f"{k['ms']:.4g}")
+            if "eager_ms" in k:  # a graphed time: the eager loop's beside it
+                times[k["case"] + " eager"] = float(f"{k['eager_ms']:.4g}")
+        print(i, times, flush=True)
     return 0
 
 
