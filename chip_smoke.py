@@ -50,7 +50,23 @@ each print one JSON line:
    under ``HERRO_TPU_ROPE=split`` (``ln_qkv_rope_split`` launched, the table
    kernel not); ``attention`` — ``attention(impl="auto")`` on CUDA tensors at
    L=9216 (must launch ``flash_attention``) and its gradient at a small size
-   against autograd through ``naive_attention``.
+   against autograd through ``naive_attention``;
+8. ``grad``    — the three differentiable ops (``entry_embed``, ``ln_ffn``,
+   ``attention_block``) under autograd on CUDA tensors at the R10 widths, B 2,
+   L 1024: the forward is the op's direct output bit for bit with one launch
+   of each of its kernels, every gradient autograd's through the plain
+   version on the same inputs, finite and nonzero;
+9. ``train``   — ``train --config r10`` through the CLI at batch 32 on the
+   bucket ladder (demo-size simulated data): ms a step by CUDA events from
+   step 3 on, the forward/backward split, the peak of allocated memory and
+   the launches of every step (K4 once, K1-K3 n_layers x 2 under remat, no
+   other kernel); then in process a seeded R10 trainer: every parameter a
+   finite nonzero gradient, one step at each bucket of the ladder, 20 steps
+   on one fixed batch bringing CE below 0.7 x its first value, and
+   ``Trainer.save`` loading back through ``load_model``;
+10. ``distill`` — ``distill`` through the CLI over the ``features`` phase's
+   tree, teacher ``model_r10_sim`` (its labelling launches K1-K5), student
+   ``r9`` (K1-K4 at d 256), batch 8, whose checkpoint loads.
 
 Any failed phase exits nonzero. The last lines are the card line of
 nvidia-smi, the per-kernel JSON summary and ``{"ok": true, "device": ...}``.
@@ -1114,6 +1130,314 @@ def phase_attention(torch) -> dict:
     return launches
 
 
+def _grad_cases(torch):
+    """(differentiable inputs, the op, its plain version, its launches) of
+    the three differentiable ops at the R10 widths, B 2, L 1024."""
+    from herro_tpu_torch.ops import fused
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf, f32 = torch.bfloat16, torch.float32
+    Bg, Lg, d, H, D, F = 2, 1024, 512, 4, 128, 1024
+
+    def r(*shape, scale=1.0, dt=bf):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(dt)
+
+    bases = torch.randint(0, 13, (Bg, 31, Lg), generator=g, device=dev).to(torch.uint8)
+    lengths = torch.tensor([Lg, 700], dtype=torch.int32, device=dev)
+
+    def embed(fn):
+        return lambda p: fn(bases, p["quals"], fused.col_proj_table(p["w_embT"], p["w_qT"]),
+                            p["cb"], bf)
+
+    x = r(Bg, Lg, d)
+    return {
+        "entry_embed": (
+            dict(quals=torch.rand(Bg, 31, Lg, generator=g, device=dev) * 2 - 1,
+                 w_embT=r(d, 31 * 12, scale=0.05), w_qT=r(d, 31, scale=0.05),
+                 cb=r(d, scale=0.1, dt=f32)),
+            embed(fused.entry_embed), embed(fused._entry_embed_plain), {"entry_embed": 1}),
+        "ln_ffn": (
+            dict(x=x, scale=1 + r(d, scale=0.1, dt=f32), bias=r(d, scale=0.1, dt=f32),
+                 w1=r(d, F, scale=d ** -0.5), b1=r(F, scale=0.1),
+                 w2=r(F, d, scale=F ** -0.5), b2=r(d, scale=0.1)),
+            lambda p: fused.ln_ffn(*p.values()), lambda p: fused._ln_ffn_plain(*p.values()),
+            {"ln_ffn": 1}),
+        "attention_block": (
+            dict(x=x, ln_s=1 + r(d, scale=0.1, dt=f32), ln_b=r(d, scale=0.1, dt=f32),
+                 w_qkv=r(d, 3 * H * D, scale=d ** -0.5), b_qkv=r(3 * H * D, scale=0.1),
+                 wo=r(H, D, d, scale=(H * D) ** -0.5), bo=r(d, scale=0.1)),
+            lambda p: fused.attention_block(*p.values(), lengths, H, 512),
+            lambda p: fused._attention_block_plain(*p.values(), lengths, H, 512),
+            {"ln_qkv_rope": 1, "flash_outproj": 1}),
+    }
+
+
+def phase_grad(torch) -> None:
+    """Each differentiable op's autograd Function on the card: the forward
+    equals the op's direct output bit for bit and launches each of its
+    kernels once; every gradient equals autograd's through the plain version
+    on the same inputs exactly (the Function's backward is the plain version),
+    finite and nonzero."""
+    from herro_tpu_torch.ops import cuda as kernels
+
+    report, failed = {}, []
+    for op, (inputs, fn, plain, want_launches) in _grad_cases(torch).items():
+        leaves = {k: v.clone().requires_grad_(True) for k, v in inputs.items()}
+        with torch.no_grad():
+            direct = fn(leaves)
+        torch.cuda.synchronize()
+        kernels.launch_counts.reset()
+        out = fn(leaves)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in kernels.launch_counts.snapshot().items() if n}
+        cot = torch.randn(out.shape, device=out.device).to(out.dtype)
+        grads = torch.autograd.grad(out, list(leaves.values()), cot)
+        ref_leaves = {k: v.clone().requires_grad_(True) for k, v in inputs.items()}
+        ref = torch.autograd.grad(plain(ref_leaves), list(ref_leaves.values()), cot)
+        errs, ok = {}, torch.equal(out.detach(), direct) and launched == want_launches
+        for name, a, b in zip(inputs, grads, ref):
+            err = float((a.float() - b.float()).abs().max())
+            good = bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0 and err == 0
+            errs[name] = dict(max_abs_err=err, finite_nonzero=good)
+            ok = ok and good
+        report[op] = dict(forward_bit_equal=torch.equal(out.detach(), direct),
+                          launches=launched, grads=errs)
+        if not ok:
+            failed.append(op)
+    emit("grad", shape=[2, 1024, 512], ops=report)
+    if failed:
+        raise RuntimeError(f"grad: {failed} failed: {report}")
+
+
+# the kernels of a training step's forward: K4 once, K1-K3 in every block
+TRAIN_KERNELS = ("entry_embed", "ln_qkv_rope", "flash_outproj", "ln_ffn")
+TRAIN_ARGS = ["--config", "r10", "--batch-size", "32", "--steps", "8", "-w", "4096",
+              "--genome-len", "150000", "--n-reads", "160", "--seed", "777"]
+
+
+def _want_step_launches(cfg) -> dict:
+    """One train step's launches: K4 once; K1, K2 and K3 n_layers times in the
+    forward and, under remat, as often again when the backward recomputes
+    each block."""
+    per_block = cfg.n_layers * (2 if cfg.remat else 1)
+    return {"entry_embed": 1, "ln_qkv_rope": per_block, "flash_outproj": per_block,
+            "ln_ffn": per_block}
+
+
+@contextlib.contextmanager
+def _timed_steps(torch, steps: list):
+    """Record each ``Trainer.train_step`` into ``steps``: its bucket, CUDA
+    events at its start, between the forward and the backward, and at its
+    end, its peak of allocated memory (with what was allocated before it:
+    the model, the optimiser state, and what earlier phases still hold) and
+    its launches."""
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.training import train as train_mod
+
+    step_fn, apply_fn = train_mod.Trainer.train_step, train_mod.apply_gradients
+
+    def apply_gradients(*args, **kwargs):
+        steps[-1]["events"][1].record()
+        return apply_fn(*args, **kwargs)
+
+    def train_step(self, batch):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        rec = dict(L=int(batch.tokens.shape[2]), S=int(batch.labels.shape[1]),
+                   events=events)
+        steps.append(rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["start_bytes"] = torch.cuda.memory_allocated()
+        before = kernels.launch_counts.snapshot()
+        events[0].record()
+        out = step_fn(self, batch)
+        events[2].record()
+        torch.cuda.synchronize()
+        after = kernels.launch_counts.snapshot()
+        rec.update(metrics=out, peak_bytes=torch.cuda.max_memory_allocated(),
+                   launches={k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return out
+
+    train_mod.Trainer.train_step, train_mod.apply_gradients = train_step, apply_gradients
+    try:
+        yield
+    finally:
+        train_mod.Trainer.train_step, train_mod.apply_gradients = step_fn, apply_fn
+
+
+def _step_times(steps: list) -> list:
+    out = []
+    for i, rec in enumerate(steps):
+        e0, e1, e2 = rec["events"]
+        out.append(dict(step=i + 1, L=rec["L"], S=rec["S"], ms=e0.elapsed_time(e2),
+                        forward_ms=e0.elapsed_time(e1), backward_update_ms=e1.elapsed_time(e2),
+                        peak_gib=rec["peak_bytes"] / 2 ** 30,
+                        held_before_gib=rec["start_bytes"] / 2 ** 30, launches=rec["launches"],
+                        ce=rec["metrics"]["ce"]))
+    return out
+
+
+def _profile_step(torch, trainer, batch) -> dict:
+    """One train step under torch.profiler: its device time, and that of the
+    operators and the kernels that took the most of it (an operator's own
+    kernels; the port's kernels appear under their own names only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_op, by_kernel = {}, {}
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if us > 0:
+            into = by_kernel if str(ev.device_type).endswith("CUDA") else by_op
+            into[ev.key] = into.get(ev.key, 0) + us
+    top = lambda d, n: {k[:60]: v / 1e3 for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:n]}
+    return dict(L=int(batch.tokens.shape[2]), wall_ms=wall * 1e3,
+                device_ms=sum(by_kernel.values()) / 1e3,
+                device_ms_by_operator=top(by_op, 15), device_ms_by_kernel=top(by_kernel, 10))
+
+
+def phase_train(torch, tmp: str) -> dict:
+    """``train --config r10`` through the CLI, then a seeded R10 trainer in
+    process. Returns the CLI run's launches."""
+    import pickle
+
+    from herro_tpu_torch import cli
+    from herro_tpu_torch.models.checkpoint import load_model, load_or_init
+    from herro_tpu_torch.models.model import R10_CONFIG
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.training.data import TRAIN_BUCKETS, collate_train
+    from herro_tpu_torch.training.train import (TrainState, Trainer, loss_fn,
+                                                make_optimizer, make_train_step)
+
+    want = _want_step_launches(R10_CONFIG)
+    cache = os.path.join(tmp, "train_windows.pkl")
+    out = os.path.join(tmp, "trained_r10")
+    steps: list = []
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    t0 = time.perf_counter()
+    with _timed_steps(torch, steps):
+        cli.main(["train", *TRAIN_ARGS, "--data-cache", cache, out])
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts.snapshot()
+    per_step = _step_times(steps)
+    timed = per_step[2:]  # from step 3 on
+    by_bucket = {}
+    for st in timed:
+        by_bucket.setdefault(st["L"], []).append(st)
+    buckets = {L: dict(steps=len(v), ms=sum(s["ms"] for s in v) / len(v),
+                       forward_ms=sum(s["forward_ms"] for s in v) / len(v),
+                       backward_update_ms=sum(s["backward_update_ms"] for s in v) / len(v),
+                       peak_gib=max(s["peak_gib"] for s in v))
+               for L, v in sorted(by_bucket.items())}
+    emit("train", run="cli", wall_s=wall, steps=len(steps), buckets=buckets,
+         per_step=per_step, want_step_launches=want, launches=launches)
+    bad = [st["step"] for st in per_step if st["launches"] != want]
+    cfg_out, _ = load_model(out)
+    if len(steps) < 6 or bad or cfg_out != R10_CONFIG:
+        raise RuntimeError(f"train cli: {len(steps)} steps, steps {bad} launched other "
+                           f"than {want}, saved config {cfg_out}")
+
+    # in process: the hazard (every parameter trains), every bucket, learning
+    with open(cache, "rb") as fh:
+        windows = pickle.load(fh)
+    cfg, params = load_or_init("r10")
+    trainer = Trainer(cfg, params, lr=1e-3, total_steps=40, device="cuda")
+    fixed = collate_train(windows[:32], *TRAIN_BUCKETS[0])
+    loss, _ = loss_fn(trainer.model, *trainer.tensors(fixed), 0.1, 0.0)
+    grads = torch.autograd.grad(loss, list(trainer.state.params.values()))
+    bad_grads = [name for name, g in zip(trainer.state.params, grads)
+                 if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    del loss, grads
+    sweep: list = []
+    with _timed_steps(torch, sweep):
+        for L, S in TRAIN_BUCKETS:  # windows padded out to each bucket
+            batch = collate_train(windows[:32], L, S)
+            for _ in range(3):
+                trainer.train_step(batch)
+    sweep_times = _step_times(sweep)
+    ladder = {st["L"]: st for st in sweep_times[2::3]}  # the third step of each
+    profile = _profile_step(torch, trainer, collate_train(windows[:32], *TRAIN_BUCKETS[2]))
+    # learning: a fresh trainer whose optimiser warms up over 2 steps, not 100
+    trainer = Trainer(cfg, params, device="cuda")
+    opt = make_optimizer(1e-3, warmup=2, total_steps=40)
+    named = dict(trainer.model.named_parameters())
+    trainer.state = TrainState(named, opt.init(list(named.values())))
+    step = make_train_step(trainer.model, opt)
+    tensors = trainer.tensors(fixed)
+    history = [float(step(trainer.state, *tensors)["ce"]) for _ in range(20)]
+    ckpt = os.path.join(tmp, "trainer_save")
+    trainer.save(ckpt)
+    cfg_saved, sd = load_model(ckpt)
+    step_txt = open(os.path.join(ckpt, "step.txt")).read()
+    same = all(torch.equal(sd[k], v.detach().cpu()) for k, v in trainer.state.params.items())
+    emit("train", run="in process", n_params=len(trainer.state.params),
+         params_without_finite_nonzero_grad=bad_grads, bucket_ladder=ladder,
+         profiled_step=profile,
+         ce_first=history[0], ce_last=history[-1], ce_history=history,
+         saved_step=step_txt, saved_params_equal=same)
+    if bad_grads or not history[-1] < 0.7 * history[0] or step_txt != "20" or not same \
+            or cfg_saved != cfg:
+        raise RuntimeError(
+            f"train: parameters without a finite nonzero gradient {bad_grads}; CE "
+            f"{history[0]} -> {history[-1]}; saved step {step_txt!r}, params equal {same}"
+        )
+    return launches
+
+
+def phase_distill(torch, tmp: str) -> None:
+    """``distill`` through the CLI over the ``features`` phase's tree: teacher
+    ``model_r10_sim``, student ``r9``, batch 8. The teacher's labelling
+    launches K1-K5, the student's steps K1-K4 at d 256."""
+    from herro_tpu_torch import cli
+    from herro_tpu_torch.models.checkpoint import load_model
+    from herro_tpu_torch.models.model import R9_CONFIG
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.training import distill as distill_mod
+
+    n_steps = 4
+    label_fn = distill_mod.teacher_label_windows
+    teacher = {}
+
+    def teacher_label_windows(*args, **kwargs):
+        before = kernels.launch_counts.snapshot()
+        res = label_fn(*args, **kwargs)
+        after = kernels.launch_counts.snapshot()
+        teacher.update({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return res
+
+    out = os.path.join(tmp, "student_r9")
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    t0 = time.perf_counter()
+    distill_mod.teacher_label_windows = teacher_label_windows
+    try:
+        with contextlib.redirect_stderr(err):
+            cli.main(["distill", os.path.join(tmp, "features"), out, "--teacher", CKPT,
+                      "--student", "r9", "--steps", str(n_steps), "--batch-size", "8"])
+    finally:
+        distill_mod.teacher_label_windows = label_fn
+    wall = time.perf_counter() - t0
+    total = kernels.launch_counts.snapshot()
+    student = {k: total[k] - teacher.get(k, 0) for k in total if total[k] != teacher.get(k, 0)}
+    want = {k: n * n_steps for k, n in _want_step_launches(R9_CONFIG).items()}
+    cfg, _ = load_model(out)
+    summary = err.getvalue().strip().splitlines()[-1]
+    emit("distill", wall_s=wall, teacher_launches=teacher, student_launches=student,
+         want_student_launches=want, student_config=cfg.__dict__, summary=summary)
+    missing = [k for k in E2E_KERNELS if not teacher.get(k)]
+    if missing or student != want or cfg != R9_CONFIG:
+        raise RuntimeError(f"distill: teacher kernels never launched {missing}; student "
+                           f"launches {student}, expected {want}; student config {cfg}")
+
+
 STUB_MM2 = """#!{python}
 import os, sys
 # a stand-in for minimap2: replays the simulated PAF rows whose target is in
@@ -1293,8 +1617,9 @@ def main() -> int:
     from herro_tpu_torch import native
     from herro_tpu_torch.ops import cuda as kernels
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from herro_tpu_torch.pipeline.infer import keep_float32_exact
+
+    keep_float32_exact(torch.device("cuda"))
     smi = nvidia_smi()
     t0 = time.perf_counter()
     build_s = kernels.build_all()
@@ -1315,6 +1640,9 @@ def main() -> int:
         phase_features(tmp, e2e, n_procs)
         int8_launches = phase_int8(torch, tmp, e2e, evals, bf16_logits)
         split_launches = phase_rope_split(torch, tmp, e2e)
+        phase_grad(torch)
+        phase_train(torch, tmp)
+        phase_distill(torch, tmp)
     attention_launches = phase_attention(torch)
 
     # launches, each counted from 0 over the run that drives the kernel: K1-K5

@@ -7,10 +7,15 @@
         [--device cuda|cpu] READS OUTPUT
     python -m herro_tpu_torch.cli eval MODEL [--mode model|counting|oracle] \\
         [--with-baseline] [--device cuda|cpu] ...
+    python -m herro_tpu_torch.cli train [--config NAME|DIR] [--steps N] \\
+        [--batch-size B] [--curriculum] [--max-len L] [--device cuda|cpu] ... OUTPUT
+    python -m herro_tpu_torch.cli distill FEATURES_DIR OUTPUT --teacher CKPT \\
+        [--student NAME|DIR] [--device cuda|cpu] ...
 
-The ``features``, ``inference`` and ``eval`` subcommands of ``herro_tpu`` on
-one device, with their flags. ``inference`` and ``eval`` run on the card
-unless ``--device cpu`` is given; ``features`` runs on the host alone.
+The ``features``, ``inference``, ``eval``, ``train`` and ``distill``
+subcommands of ``herro_tpu`` on one device, with their flags. All but
+``features`` run on the card unless ``--device cpu`` is given; ``features``
+runs on the host alone.
 ``--int8`` / ``--no-int8`` override the checkpoint's ``config.json``. The
 reference's multi-device and multi-host flags are accepted but raise until
 the port carries them.
@@ -65,11 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
         "-b", "--batch-size", type=int, default=32, help="windows per device batch"
     )
     pi.add_argument("-c", "--cluster", default="", help="path to a cluster .part file")
-    pi.add_argument(
-        "--device", default="cuda",
-        help="torch device to run on: cuda (default, the current card), "
-        "cuda:N, or cpu",
-    )
+    _add_device(pi)
     pi.add_argument(
         "--devices", default="1",
         help="data-parallel device count (only 1 is ported yet)",
@@ -154,12 +155,79 @@ def build_parser() -> argparse.ArgumentParser:
         "before correction — the matched-seed gap vs a normal run is the "
         "quality channel's contribution",
     )
-    pe.add_argument(
+    _add_device(pe)
+
+    pt = sub.add_parser("train", help="train a correction model (synthetic pretraining)")
+    pt.add_argument("--config", default="r10", help="model config name or ckpt dir")
+    pt.add_argument("--steps", type=int, default=2000)
+    pt.add_argument("--batch-size", type=int, default=32)
+    pt.add_argument("--lr", type=float, default=3e-4)
+    pt.add_argument("-w", "--window-size", type=int, default=DEFAULT_WINDOW_SIZE)
+    pt.add_argument("--genome-len", type=int, default=200_000)
+    pt.add_argument("--n-reads", type=int, default=400)
+    pt.add_argument("--sub-rate", type=float, default=0.03)
+    pt.add_argument("--indel-rate", type=float, default=0.04)
+    pt.add_argument("--het-rate", type=float, default=0.005)
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument(
+        "--data-cache", default="",
+        help="cache path for the simulated labelled windows (featgen on one "
+        "core takes minutes; restarts reuse the cache). A pickle file for "
+        "the single-profile path, a directory with --curriculum. The pickles "
+        "hold the port's LabelledWindow: herro_tpu's do not load here",
+    )
+    pt.add_argument(
+        "--curriculum", action="store_true",
+        help="train on the pooled multi-regime curriculum (coverage 15-60x, "
+        "R10/R9 error profiles, haploid/het shards) instead of one profile",
+    )
+    pt.add_argument(
+        "--hard-weight", type=float, default=3.0,
+        help="extra cross-entropy weight on columns where truth != target "
+        "(0 = unweighted)",
+    )
+    pt.add_argument(
+        "--max-len", type=int, default=0,
+        help="pad every batch to one fixed window length instead of the "
+        "(5120/8192/9216/10240) production-width bucket ladder",
+    )
+    pt.add_argument(
+        "--max-sup", type=int, default=640,
+        help="padded supported count (only with --max-len)",
+    )
+    pt.add_argument(
+        "--devices", default="0",
+        help="data-parallel device count (only 1 is ported yet; 0 means one)",
+    )
+    pt.add_argument(
+        "--tp", type=int, default=1, help="tensor-parallel degree (only 1 is ported yet)"
+    )
+    _add_device(pt)
+    pt.add_argument("output", help="checkpoint output directory")
+
+    pd = sub.add_parser(
+        "distill", help="train a student model on teacher-labelled `features` dumps"
+    )
+    pd.add_argument("features_dir", help="output tree of the features subcommand")
+    pd.add_argument("output", help="student checkpoint output directory")
+    pd.add_argument("--teacher", required=True, help="teacher ckpt dir or config")
+    pd.add_argument("--student", default="tiny", help="student config or ckpt dir")
+    pd.add_argument("--steps", type=int, default=500)
+    pd.add_argument("--batch-size", type=int, default=16)
+    pd.add_argument("--lr", type=float, default=3e-4)
+    pd.add_argument("--max-len", type=int, default=5120)
+    pd.add_argument("--max-sup", type=int, default=640)
+    pd.add_argument("--seed", type=int, default=0)
+    _add_device(pd)
+    return ap
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
         "--device", default="cuda",
         help="torch device to run on: cuda (default, the current card), "
         "cuda:N, or cpu",
     )
-    return ap
 
 
 def _check_ported(args) -> None:
@@ -172,7 +240,8 @@ def _check_ported(args) -> None:
         )
     if args.tp != 1:
         raise SystemExit("--tp: tensor parallelism is not ported yet")
-    if args.coordinator or args.num_processes or args.process_id:
+    if (getattr(args, "coordinator", "") or getattr(args, "num_processes", 0)
+            or getattr(args, "process_id", 0)):
         raise SystemExit("multi-host flags are not ported yet")
 
 
@@ -370,14 +439,123 @@ def cmd_eval(args) -> None:
     print(json.dumps(res.as_dict(), indent=1))
 
 
+def cmd_train(args) -> None:
+    import tempfile
+
+    from .models.checkpoint import load_or_init, save_model
+    from .training.data import (
+        batch_iterator,
+        bucketed_batch_iterator,
+        curriculum_windows,
+        simulated_windows,
+    )
+    from .training.simulate import simulate
+    from .training.train import Trainer
+
+    _check_ported(args)
+    cfg, params = load_or_init(args.config)
+
+    windows = None
+    if args.curriculum:
+        windows = curriculum_windows(args.window_size, cache_dir=args.data_cache or None)
+    if windows is None and args.data_cache:
+        import pickle
+
+        try:
+            with open(args.data_cache, "rb") as fh:
+                windows = pickle.load(fh)
+            print(
+                f"Loaded {len(windows)} cached windows from {args.data_cache}.",
+                file=sys.stderr,
+            )
+        except FileNotFoundError:
+            pass
+    if windows is None:
+        print("Simulating training data...", file=sys.stderr)
+        ds = simulate(
+            genome_len=args.genome_len,
+            n_reads=args.n_reads,
+            read_len=(4 * args.window_size, 12 * args.window_size),
+            sub_rate=args.sub_rate,
+            ins_rate=args.indel_rate / 2,
+            del_rate=args.indel_rate / 2,
+            het_rate=args.het_rate,
+            seed=args.seed,
+        )
+        with tempfile.TemporaryDirectory() as tmp:
+            windows = simulated_windows(ds, f"{tmp}/reads.fastq", args.window_size)
+        if args.data_cache:
+            import pickle
+
+            with open(args.data_cache, "wb") as fh:
+                pickle.dump(windows, fh)
+    print(f"{len(windows)} labelled windows.", file=sys.stderr)
+
+    trainer = Trainer(
+        cfg, params, lr=args.lr, total_steps=args.steps, hard_weight=args.hard_weight,
+        device=args.device,
+    )
+    if args.max_len:
+        it = batch_iterator(
+            windows, args.batch_size, L=args.max_len, S=args.max_sup, n_epochs=10_000,
+            seed=args.seed,
+        )
+    else:
+        it = bucketed_batch_iterator(
+            windows, args.batch_size, n_epochs=10_000, seed=args.seed
+        )
+    for batch in it:
+        metrics = trainer.train_step(batch)
+        if trainer.state.step % 50 == 0:
+            print(
+                f"step {trainer.state.step}: "
+                + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
+                file=sys.stderr,
+            )
+        if trainer.state.step % 250 == 0:
+            trainer.save(args.output)
+        if trainer.state.step >= args.steps:
+            break
+
+    save_model(args.output, cfg, trainer.state.params)
+    print(f"Saved checkpoint to {args.output}", file=sys.stderr)
+
+
+def cmd_distill(args) -> None:
+    from .training.distill import distill_from_dump
+
+    res = distill_from_dump(
+        args.features_dir,
+        args.teacher,
+        args.student,
+        args.output,
+        steps=args.steps,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        max_len=args.max_len,
+        max_sup=args.max_sup,
+        seed=args.seed,
+        device=args.device,
+    )
+    print(
+        f"Distilled {res['n_windows']} windows -> {args.output} "
+        f"(final {res['final']})",
+        file=sys.stderr,
+    )
+
+
+COMMANDS = {
+    "features": cmd_features,
+    "inference": cmd_inference,
+    "eval": cmd_eval,
+    "train": cmd_train,
+    "distill": cmd_distill,
+}
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.command == "features":
-        cmd_features(args)
-    elif args.command == "eval":
-        cmd_eval(args)
-    else:
-        cmd_inference(args)
+    COMMANDS[args.command](args)
 
 
 if __name__ == "__main__":

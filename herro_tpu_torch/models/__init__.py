@@ -6,7 +6,7 @@ from .model import (
     R10_CONFIG,
     TINY_CONFIG,
 )
-from .checkpoint import load_model, load_or_init, params_from_jax
+from .checkpoint import load_model, load_or_init, params_from_jax, params_to_jax, save_model
 
 __all__ = [
     "CONFIGS",
@@ -18,4 +18,6 @@ __all__ = [
     "load_model",
     "load_or_init",
     "params_from_jax",
+    "params_to_jax",
+    "save_model",
 ]

@@ -1,17 +1,19 @@
-"""Model checkpoint load.
+"""Model checkpoint load and save.
 
 A checkpoint is a directory holding ``config.json`` (the ModelConfig) and
-``params.msgpack`` — the parameter tree as flax serialises it, written by
-``herro_tpu``. This module reads it with a small msgpack reader of its own,
-so neither flax nor msgpack is needed: flax stores each array as msgpack
-ext type 1 holding ``packb((shape, dtype_name, C-order bytes))``.
+``params.msgpack`` — the parameter tree as flax serialises it, as
+``herro_tpu`` reads and writes it. This module reads and writes it with a
+small msgpack reader and writer of its own, so neither flax nor msgpack is
+needed: flax stores each array as msgpack ext type 1 holding
+``packb((shape, dtype_name, C-order bytes))``.
 
 :func:`params_from_jax` is the one place where the JAX parameter tree becomes
-the port's ``state_dict``.
+the port's ``state_dict``, and :func:`params_to_jax` its exact inverse.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -108,6 +110,75 @@ def read_msgpack_tree(data: bytes) -> dict:
     return _Reader(data).value()
 
 
+class _Writer:
+    """Encoder for what a parameter tree holds (maps, strings, bytes,
+    non-negative ints, lists, arrays), byte for byte as msgpack-python packs
+    it for flax (``use_bin_type``: str8 for short strings, bin for bytes; the
+    smallest formats; dicts in the order given)."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def head(self, n: int, fix: int | None, fix_max: int, codes) -> None:
+        """A length or value header: ``fix | n`` when it fits, else the
+        first of ``codes`` whose field holds n."""
+        if fix is not None and n <= fix_max:
+            self.out.append(fix | n)
+            return
+        for code, fmt in codes:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                self.out += struct.pack(">B" + fmt, code, n)
+                return
+        raise ValueError(f"{n} does not fit msgpack")
+
+    def value(self, v) -> None:
+        if isinstance(v, int) and v >= 0:
+            self.head(v, 0x00, 0x7F, ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q")))
+        elif isinstance(v, str):
+            b = v.encode()
+            self.head(len(b), 0xA0, 31, ((0xD9, "B"), (0xDA, "H"), (0xDB, "I")))
+            self.out += b
+        elif isinstance(v, bytes):
+            self.head(len(v), None, 0, ((0xC4, "B"), (0xC5, "H"), (0xC6, "I")))
+            self.out += v
+        elif isinstance(v, (list, tuple)):
+            self.head(len(v), 0x90, 15, ((0xDC, "H"), (0xDD, "I")))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, dict):
+            self.head(len(v), 0x80, 15, ((0xDE, "H"), (0xDF, "I")))
+            for k, x in v.items():
+                self.value(k)
+                self.value(x)
+        elif isinstance(v, np.ndarray):
+            self.ndarray(v)
+        else:
+            raise TypeError(f"cannot pack {v!r} into a parameter tree")
+
+    def ndarray(self, a: np.ndarray) -> None:
+        inner = _Writer()
+        inner.value((list(a.shape), a.dtype.name, a.tobytes("C")))
+        n = len(inner.out)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            self.out.append(fixext[n])
+        else:
+            self.head(n, None, 0, ((0xC7, "B"), (0xC8, "H"), (0xC9, "I")))
+        self.out += struct.pack(">b", _EXT_NDARRAY) + inner.out
+
+
+def write_msgpack_tree(tree: dict) -> bytes:
+    """Encode nested dicts of numpy arrays as flax ``serialization.to_bytes``
+    does: every map's keys in sorted order, each array as ext type 1."""
+
+    def sort(t):
+        return {k: sort(t[k]) for k in sorted(t)} if isinstance(t, dict) else t
+
+    w = _Writer()
+    w.value(sort(tree))
+    return bytes(w.out)
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """The JAX parameter tree (nested dicts of numpy arrays, as
     ``herro_tpu.models.model.init_params`` or a checkpoint holds it) ->
@@ -155,6 +226,58 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         sd[f"{name}.kernel"] = t(p[name]["kernel"])
         sd[f"{name}.bias"] = t(p[name]["bias"])
     return sd
+
+
+def params_to_jax(sd: dict[str, torch.Tensor]) -> dict:
+    """The port's ``state_dict`` -> the JAX parameter tree under
+    ``"params"``, as ``herro_tpu.models.model.init_params`` gives it (float32
+    numpy arrays): the exact inverse of :func:`params_from_jax`. col_proj
+    [R*(V+1), d] is rebuilt from w_embT and w_qT, qkv becomes [d, 3, H, D]
+    with its bias [3, H, D], out [H*D, d]."""
+    a = lambda name: sd[name].detach().cpu().float().numpy().copy()
+    R, V = N_ROWS, VOCAB_SIZE
+    w_embT, w_qT = a("col_proj.w_embT"), a("col_proj.w_qT")
+    d = w_qT.shape[0]
+    ck = np.empty((R, V + 1, d), dtype=np.float32)
+    ck[:, :V] = w_embT.T.reshape(R, V, d)
+    ck[:, V] = w_qT.T
+    p = {"col_proj": {"kernel": ck.reshape(R * (V + 1), d), "bias": a("col_proj.bias")}}
+    n_layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    for i in range(n_layers):
+        pre = f"blocks.{i}."
+        out = a(pre + "attn.out_kernel")  # [H, D, d]
+        h, dh, _ = out.shape
+        dense = lambda name: {"kernel": a(pre + name + ".kernel"), "bias": a(pre + name + ".bias")}
+        ln = lambda name: {"scale": a(pre + name + ".scale"), "bias": a(pre + name + ".bias")}
+        p[f"block_{i}"] = {
+            "ln1": ln("ln1"),
+            "attn": {
+                "qkv": {
+                    "kernel": a(pre + "attn.qkv_kernel").reshape(d, 3, h, dh),
+                    "bias": a(pre + "attn.qkv_bias").reshape(3, h, dh),
+                },
+                "out": {"kernel": out.reshape(h * dh, d), "bias": a(pre + "attn.out_bias")},
+            },
+            "ln2": ln("ln2"),
+            "ff1": dense("ff1"),
+            "ff2": dense("ff2"),
+        }
+    p["ln_f"] = {"scale": a("ln_f.scale"), "bias": a("ln_f.bias")}
+    for name in ("bases_head", "info_head"):
+        p[name] = {"kernel": a(f"{name}.kernel"), "bias": a(f"{name}.bias")}
+    return {"params": p}
+
+
+def save_model(path: str, cfg: ModelConfig, sd: dict[str, torch.Tensor]) -> None:
+    """Write a checkpoint directory that ``herro_tpu`` and :func:`load_model`
+    both read: ``config.json`` from the config and ``params.msgpack`` from
+    the state_dict, as ``herro_tpu/models/checkpoint.py:save_model`` writes
+    them."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(dataclasses.asdict(cfg), fh, indent=1)
+    with open(os.path.join(path, "params.msgpack"), "wb") as fh:
+        fh.write(write_msgpack_tree(params_to_jax(sd)))
 
 
 def load_model(path: str) -> tuple[ModelConfig, dict[str, torch.Tensor]]:

@@ -15,6 +15,12 @@ columns. Parameters are float32; the stack computes in ``cfg.dtype``
 (bfloat16 on the card) through the ops of ``ops/fused.py``, whose CUDA
 kernels run on the card and whose plain versions run on the CPU. With
 ``cfg.int8`` the qkv projection and the FFN run their int8 variants.
+
+Under autograd the entry, attention and FFN ops run their kernels forward
+and differentiate their plain versions backward (``ops/fused.py``), and with
+``cfg.remat`` each block is a ``torch.utils.checkpoint`` region, as
+``nn.remat(Block)`` in the reference: its forward, so each of its kernels,
+runs twice a training step.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import N_ROWS, TOKEN_PAD, VOCAB_SIZE
 from ..ops.fused import (
@@ -50,11 +57,17 @@ class ModelConfig:
     # Kept for checkpoint-config compatibility with herro_tpu.
     attn_impl: str = "auto"
     dtype: str = "bfloat16"
+    # Rematerialise each block in the backward pass (training only): saved
+    # activations drop to one residual per layer, for a second forward of
+    # every block.
     remat: bool = True
     # Inference-time int8: dynamic per-row activation and per-channel weight
     # quantization of the qkv projection and the two FFN products. Weights
     # stay float32 in the checkpoint and are quantized when the ops' weights
     # are built. Entry, attention, out projection and heads keep their types.
+    # Training on the CPU differentiates the quantized forward as the
+    # reference does (the scales carry the gradient, the rounding none); on
+    # the card the int8 ops raise under autograd.
     int8: bool = False
 
     @property
@@ -140,7 +153,8 @@ class Block(nn.Module):
         dtype, or under ``cfg.int8`` quantized (LayerNorm parameters stay
         float32). As the reference, int8 quantizes the qkv kernel after its
         cast to the compute dtype and the FFN kernels from the float32
-        parameters, and hands the FFN biases over in float32."""
+        parameters, and hands the FFN biases over in float32; under autograd
+        the scales stay in the graph, as in the reference's jitted step."""
         dt = self.cfg.compute_dtype
         a = self.attn
         w = dict(b_qkv=a.qkv_bias.to(dt), wo=a.out_kernel.to(dt), bo=a.out_bias.to(dt))
@@ -152,9 +166,9 @@ class Block(nn.Module):
             )
         for name, kernel in (("qkv", a.qkv_kernel.to(dt)), ("1", self.ff1.kernel),
                              ("2", self.ff2.kernel)):
-            w_i8, s = quantize_weight(kernel.detach())
+            w_i8, s = quantize_weight(kernel)
             w[f"w{name}_i8"], w[f"s{name}"] = k_major(w_i8), s
-        return dict(w, b1=self.ff1.bias.detach(), b2=self.ff2.bias.detach())
+        return dict(w, b1=self.ff1.bias, b2=self.ff2.bias)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, w: dict) -> torch.Tensor:
         """``w`` is this block's ``compute_weights()``."""
@@ -245,8 +259,12 @@ class CorrectionModel(nn.Module):
 
         # Padding is always a suffix, so a per-example length suffices.
         lengths = (bases[:, 0, :] != TOKEN_PAD).sum(dim=1, dtype=torch.int32)
+        remat = cfg.remat and torch.is_grad_enabled()
         for block, bw in zip(self.blocks, w["blocks"]):
-            x = block(x, lengths, bw)
+            if remat:
+                x = checkpoint(block, x, lengths, bw, use_reentrant=False)
+            else:
+                x = block(x, lengths, bw)
 
         # Gather supported columns first: the final LayerNorm is per-token,
         # so it commutes with the gather (herro_tpu/models/model.py:269-275).

@@ -13,6 +13,13 @@ layouts, and comes as a pair:
 The public op launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors, and does nothing else: there is no fallback.
 
+Three ops are differentiable, as their counterparts carry a ``custom_vjp`` in
+the reference: ``entry_embed``, ``ln_ffn`` and ``attention_block``. With
+grad mode on and an input that requires grad, each runs through
+:class:`_RecomputePlain`: the forward is the op as above (the kernel on the
+card), the backward re-runs the plain version on the saved inputs and
+differentiates it. No op has a backward kernel: nor has the reference.
+
 * ``entry_embed`` (K4) — tokens + quals -> [B, L, d] stream;
 * ``ln_qkv_rope`` (K1, K8) — LN + qkv projection + rope -> per-head q, k, v,
   the rope tables handed to the kernel (K1) or built inside it (K8, chosen by
@@ -23,7 +30,7 @@ version for CPU tensors, and does nothing else: there is no fallback.
 * ``ln_qkv_rope_q`` (K10), ``ln_ffn_q`` (K11) — the int8 variants of K1 and
   K3: activations quantized per row, weights per output column
   (``quantize_weight``), int8 x int8 -> int32 products, float32
-  dequantization. Inference only.
+  dequantization. Inference only: on the card they raise under autograd.
 
 Positions for the rope are the absolute column index: padding is a suffix.
 """
@@ -83,6 +90,37 @@ def _rope_tables_cached(L: int, D: int, device):
         return _rope_cache[key]
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _RecomputePlain(torch.autograd.Function):
+    """A differentiable op: the forward is ``op`` (its kernel on the card, its
+    plain version on the CPU, launches counted as without autograd), the
+    backward re-runs ``plain`` on the saved inputs under grad and returns its
+    gradients: the reference's ``custom_vjp`` whose backward recomputes
+    through the jnp twin. ``static`` holds the op's trailing arguments that
+    are no tensors; integer inputs (tokens, lengths) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, op, plain, static, *tensors):
+        ctx.plain, ctx.static = plain, static
+        ctx.save_for_backward(*tensors)
+        return op(*tensors, *static)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            inputs = [
+                t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)
+            ]
+            out = ctx.plain(*inputs, *ctx.static)
+            wrt = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        return (None, None, None, *(next(grads) if n else None for n in need))
+
+
 # ---------------------------------------------------------------------------
 # K4 entry_embed: tokens u8 [B, R, L] + quals f32 [B, R, L] -> x [B, L, d]
 # ---------------------------------------------------------------------------
@@ -123,7 +161,9 @@ def _entry_embed_plain(bases, quals, wc, cb, out_dtype):
     x = torch.zeros(B, L, d, dtype=torch.float32, device=bases.device)
     for r in range(R):
         t = bases[:, r, :].long()
-        x += table[torch.where(t < V, r * V + t, R * V)]
+        # F.embedding gathers what table[idx] gathers; its backward sums the
+        # many repeats of each of the R*V+1 rows as sorted segments
+        x += F.embedding(torch.where(t < V, r * V + t, R * V), table)
     q = quals.to(out_dtype).float()  # quals meet the weights as bf16
     x = x + torch.einsum("brl,rd->bld", q, tab[:, V])
     return (x + cb.float()).to(out_dtype)
@@ -155,7 +195,16 @@ def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
 def entry_embed(bases, quals, wc, cb, out_dtype):
     """Column embedding: tokens u8 [B, R, L] + quals f32 [B, R, L] ->
     x [B, L, d]. wc [kp, d] is ``col_proj_table(w_embT, w_qT)``: the
-    one-hot rows and the qual row of each pileup row; cb [d] the bias."""
+    one-hot rows and the qual row of each pileup row; cb [d] the bias.
+    Differentiable in quals, wc and cb."""
+    if _needs_grad(quals, wc, cb):
+        return _RecomputePlain.apply(
+            _entry_embed_op, _entry_embed_plain, (out_dtype,), bases, quals, wc, cb
+        )
+    return _entry_embed_op(bases, quals, wc, cb, out_dtype)
+
+
+def _entry_embed_op(bases, quals, wc, cb, out_dtype):
     if bases.is_cuda:
         return _entry_embed_cuda(bases, quals, wc, cb, out_dtype)
     return _entry_embed_plain(bases, quals, wc, cb, out_dtype)
@@ -355,7 +404,15 @@ def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
 
 
 def ln_ffn(x, scale, bias, w1, b1, w2, b2):
-    """Pre-norm FFN block with residual: x + FF2(gelu_tanh(FF1(LN(x))))."""
+    """Pre-norm FFN block with residual: x + FF2(gelu_tanh(FF1(LN(x)))).
+    Differentiable in every input."""
+    args = (x, scale, bias, w1, b1, w2, b2)
+    if _needs_grad(*args):
+        return _RecomputePlain.apply(_ln_ffn_op, _ln_ffn_plain, (), *args)
+    return _ln_ffn_op(*args)
+
+
+def _ln_ffn_op(x, scale, bias, w1, b1, w2, b2):
     if x.is_cuda:
         return _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2)
     return _ln_ffn_plain(x, scale, bias, w1, b1, w2, b2)
@@ -511,9 +568,23 @@ def _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
     return out
 
 
+def _refuse_grad_on_card(op: str, x, *tensors) -> None:
+    """The int8 kernels have no backward. On the CPU the plain int8 ops are
+    differentiated as the reference's jnp twins are (the rounding to int8
+    passes no gradient, the scales do); on the card a forward under autograd
+    would leave a hole in the graph, so it raises instead."""
+    if x.is_cuda and _needs_grad(x, *tensors):
+        raise ValueError(
+            f"{op}: the int8 kernels have no backward; train with int8 off, or "
+            "run the int8 forward under torch.no_grad() or torch.inference_mode()"
+        )
+
+
 def ln_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
     """int8 pre-norm FFN block with residual; b1, b2 float32. On the card the
-    weights must be ``k_major``. Inference only."""
+    weights must be ``k_major``. Inference only: on the card it raises under
+    autograd."""
+    _refuse_grad_on_card("ln_ffn_q", x, scale, bias, s1, b1, s2, b2)
     if x.is_cuda:
         return _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
     return _ln_ffn_q_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
@@ -525,13 +596,32 @@ def attention_block_q(x, ln_s, ln_b, w_i8, s_col, b_qkv, wo, bo, lengths, n_head
     attention itself and the out projection stay in the compute dtype. Takes
     the qkv weight already quantized (``quantize_weight`` of the weight in the
     compute dtype, which the reference does inside the call; the model does
-    it once per parameter state)."""
+    it once per parameter state). On the card it raises under autograd."""
+    _refuse_grad_on_card("attention_block_q", x, ln_s, ln_b, s_col, b_qkv, wo, bo)
     q, k, v = ln_qkv_rope_q(x, ln_s, ln_b, w_i8, s_col, b_qkv, n_heads)
     return flash_outproj(q, k, v, x, wo, bo, lengths, local_window)
 
 
 def attention_block(x, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,
                     local_window):
-    """Pre-norm attention block: x + MHA(rope(LN(x) Wqkv)) Wo + bo."""
+    """Pre-norm attention block: x + MHA(rope(LN(x) Wqkv)) Wo + bo.
+    Differentiable in every input but lengths; one Function covers both
+    kernels, as the reference's custom_vjp does."""
+    args = (x, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths)
+    if _needs_grad(*args[:-1]):
+        return _RecomputePlain.apply(
+            _attention_block_op, _attention_block_plain, (n_heads, local_window), *args
+        )
+    return _attention_block_op(*args, n_heads, local_window)
+
+
+def _attention_block_op(x, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,
+                        local_window):
     q, k, v = ln_qkv_rope(x, ln_s, ln_b, w_qkv, b_qkv, n_heads)
     return flash_outproj(q, k, v, x, wo, bo, lengths, local_window)
+
+
+def _attention_block_plain(x, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,
+                           local_window):
+    q, k, v = _ln_qkv_rope_plain(x, ln_s, ln_b, w_qkv, b_qkv, n_heads)
+    return _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window)

@@ -103,6 +103,15 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
+def keep_float32_exact(device: torch.device) -> None:
+    """On the card, keep TF32 out of every float32 product (the heads, the
+    plain backward). The flags are process-wide, so the runner, the trainer
+    and ``chip_smoke.py`` all set them here."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 class CorrectionRunner:
     """Owns the model on its device, the device stream and the step."""
 
@@ -130,10 +139,8 @@ class CorrectionRunner:
         self.model = model.to(self.device).eval()
         self._step = make_correct_step_packed(self.model)
         self.stream = None
+        keep_float32_exact(self.device)
         if self.device.type == "cuda":
-            # The heads run in float32: keep TF32 out of every f32 product.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
             self.stream = torch.cuda.Stream(device=self.device)
 
     def _inputs(self, batch: Batch) -> tuple[np.ndarray, ...]:

@@ -7,8 +7,8 @@
   equal herro_tpu's on one batch (float32);
 * the port's CLI on the CPU with ``--read-alns`` writes what a direct
   ``run_correction`` writes;
-* importing every module of the port leaves jax, flax, msgpack, zstandard
-  and herro_tpu out of ``sys.modules``;
+* importing every module of the port leaves jax, flax, optax, msgpack,
+  zstandard and herro_tpu out of ``sys.modules``;
 * a runner asked for no device raises without a card instead of falling
   back to the CPU.
 """
@@ -214,7 +214,7 @@ def test_port_imports_no_jax():
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'msgpack', 'zstandard', 'herro_tpu')]\n"
+        "('jax', 'flax', 'optax', 'msgpack', 'zstandard', 'herro_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -224,7 +224,8 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert "herro_tpu_torch.cli" in names and "herro_tpu_torch.ops.fused" in names
     for new in ("utils.edist", "utils.align", "training.labels", "training.eval",
-                "features.npy", "pipeline.procpool", "ops.attention", "ops.cuda"):
+                "features.npy", "pipeline.procpool", "ops.attention", "ops.cuda",
+                "training.train", "training.data", "training.distill"):
         assert f"herro_tpu_torch.{new}" in names
     demo = open(os.path.join(ROOT, "demo", "run_demo_torch.py")).read()
     for mod in ("jax", "flax", "herro_tpu.", "herro_tpu import"):
@@ -233,7 +234,7 @@ def test_port_imports_no_jax():
 
 def test_chip_smoke_imports_no_jax():
     src = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    for mod in ("jax", "flax", "herro_tpu.", "herro_tpu import", "msgpack"):
+    for mod in ("jax", "flax", "optax", "herro_tpu.", "herro_tpu import", "msgpack"):
         assert f"import {mod}" not in src and f"from {mod}" not in src
 
 
