@@ -13,7 +13,9 @@ each print one JSON line:
    the plain version, a PyTorch library call and the card's bound (and the
    bound's share of the time); K1-K4, K6-K8, K10 and K11 also at L=5120,
    the bucket most windows of the demo-size run take, and K8, K10 and K11
-   at the r9 width (d 256, H 2, d_ff 1536). The
+   at the r9 width (d 256, H 2, d_ff 1536), and K1, K2 and K3 at the
+   widths of one tensor-parallel shard (r10 at tp 2 and 4, r10deep at tp
+   2: H 2 and 1, d_ff 512 and 256). The
    attention kernel runs under all three masks: band 512 (K2), full
    attention with mixed lengths, one of them 0 (K7), and the general band
    at 384 and at 40 (K6). The split-rope kernel (K8) must equal the
@@ -32,16 +34,27 @@ each print one JSON line:
    that run; ``trace`` — the same run under torch.profiler (device busy
    share, device time by kernel); ``cli`` — the CLI with ``--read-alns`` when
    zstandard is present;
-5. ``eval``    — the ``eval`` subcommand for the flagship weights under
+5. ``parallel`` — ``CorrectionRunner(mesh=...)`` with every device ``cuda:0``
+   (one card holds every layout): data parallelism over a 2 x 1
+   mesh must write the e2e run's FASTA records byte for byte; tensor
+   parallelism at tp 2 and 4 on the golden batch and the e2e dataset must
+   agree with the single-device step on at least 0.99 of the supported
+   columns with equal decisions, launching a batch K4 x tp, K1-K3 x 3 x tp
+   and K5 once; each layout's step at B=32, L=9216 beside the single
+   device's; ``multihost`` — two ``inference`` CLI processes on the card
+   under a coordinator on 127.0.0.1 (``--num-processes 2``) over two
+   target-partitioned alignment batches: their ``.shard000`` and
+   ``.shard001`` must not overlap and together equal one process's FASTA;
+6. ``eval``    — the ``eval`` subcommand for the flagship weights under
    ``local_window`` 512 at the demo size, and under none and 384 on 60 reads
    (each must launch its own attention kernel and no other), and for
    ``model_r9_sim`` on 60 reads;
-6. ``procpool`` — ``inference`` in a subprocess, serial and with
+7. ``procpool`` — ``inference`` in a subprocess, serial and with
    ``--feat-gen-procs N`` (the pool forks before the card is opened, which
    this process cannot do any more), alignments from a stub ``minimap2`` that
    replays the simulated PAF; ``features`` — the ``features`` subcommand the
    same way, loaded back through ``load_window_features``;
-7. ``int8``    — the golden forward, the e2e run through
+8. ``int8``    — the golden forward, the e2e run through
    ``CorrectionRunner(int8=True)`` and ``eval --int8`` (flagship weights at the
    demo size, ``model_r9_sim`` on 60 reads; each corrected identity within
    1e-4 of ``EVAL_IDENTITY_INT8``): every run must launch n_layers x
@@ -51,12 +64,12 @@ each print one JSON line:
    kernel not); ``attention`` — ``attention(impl="auto")`` on CUDA tensors at
    L=9216 (must launch ``flash_attention``) and its gradient at a small size
    against autograd through ``naive_attention``;
-8. ``grad``    — the three differentiable ops (``entry_embed``, ``ln_ffn``,
+9. ``grad``    — the three differentiable ops (``entry_embed``, ``ln_ffn``,
    ``attention_block``) under autograd on CUDA tensors at the R10 widths, B 2,
    L 1024: the forward is the op's direct output bit for bit with one launch
    of each of its kernels, every gradient autograd's through the plain
    version on the same inputs, finite and nonzero;
-9. ``train``   — ``train --config r10`` through the CLI at batch 32 on the
+10. ``train``   — ``train --config r10`` through the CLI at batch 32 on the
    bucket ladder (demo-size simulated data): ms a step by CUDA events from
    step 3 on, the forward/backward split, the peak of allocated memory and
    the launches of every step (K4 once, K1-K3 n_layers x 2 under remat, no
@@ -64,7 +77,7 @@ each print one JSON line:
    finite nonzero gradient, one step at each bucket of the ladder, 20 steps
    on one fixed batch bringing CE below 0.7 x its first value, and
    ``Trainer.save`` loading back through ``load_model``;
-10. ``distill`` — ``distill`` through the CLI over the ``features`` phase's
+11. ``distill`` — ``distill`` through the CLI over the ``features`` phase's
    tree, teacher ``model_r10_sim`` (its labelling launches K1-K5), student
    ``r9`` (K1-K4 at d 256), batch 8, whose checkpoint loads.
 
@@ -594,6 +607,12 @@ def phase_kernels(torch, results: dict) -> None:
             lengths_full5, lengths_full5_np, None, pairs_full5, "the length mask",
             (q5, k5, v5)),
     }
+    cases.update(shard_cases(
+        torch, dict(x=x, x9=x9, ln_s=ln_s, ln_b=ln_b, ln_s9=ln_s9, ln_b9=ln_b9, q=q, k=k,
+                    v=v, w_qkv=w_qkv, b_qkv=b_qkv, wo=wo, bo=bo, w1=w1, b1=b1, w2=w2,
+                    b2=b2, w_qkv9=w_qkv9, b_qkv9=b_qkv9, lengths=lengths,
+                    lengths_np=lengths_np, pairs=pairs, k_spans=k_spans,
+                    q_blocks=q_blocks), qkv_case, g))
     report = []
     for case, c in cases.items():
         name = c.get("name", case)
@@ -605,7 +624,7 @@ def phase_kernels(torch, results: dict) -> None:
             n_rows = got.shape[1] if got.dim() == 3 else got.shape[2]
             keep = torch.arange(n_rows, device=dev)[None, :] < rows[:, None]
             if got.dim() == 4:  # [B, H, L, D]: the same rows of every head
-                keep = keep[:, None, :].expand(B, H, n_rows)
+                keep = keep[:, None, :].expand(B, got.shape[1], n_rows)
                 empty = rows == 0  # K9 walks no key there and leaves 0
                 if bool(empty.any()) and bool(got[empty].any()):
                     raise RuntimeError(f"{case}: a length-0 example is not all 0")
@@ -672,6 +691,93 @@ def phase_kernels(torch, results: dict) -> None:
     del q, k, v, kpad, k_spans, q_blocks, q5, k5, v5, x5, k5_spans, q5_blocks
     del cases, tokens5, quals5, x9, w19_i8, w29_i8, w_qkv9, wq9_i8
     torch.cuda.empty_cache()
+
+
+# (tp, d_model): the tensor-parallel shards the kernels phase holds K1, K2 and
+# K3 at: r10 (d 512, H 4, d_ff 1024) at tp 2 and 4, r10deep (d 256, H 2,
+# d_ff 1024) at tp 2
+SHARDS = ((2, 512), (4, 512), (2, 256))
+
+
+def shard_cases(torch, t: dict, qkv_case, g) -> dict:
+    """K1, K2 and K3 at the widths one shard of a tensor-parallel run takes
+    (``parallel/tensor.py``), on shard 0 of the kernels phase's weights (and
+    its d 256 ones, with a d_ff 1024 FFN drawn here); K2 on the stream and
+    biases a shard is fed (x / tp, bo / tp) and that shard's heads of q, k
+    and v. The tolerances are those of the full-width cases."""
+    from herro_tpu_torch.parallel.tensor import shard_weights
+
+    bf = torch.bfloat16
+    w = 512
+    cases = {}
+    for tp, d in SHARDS:
+        full = d == 512
+        xs = t["x"] if full else t["x9"]
+        s, b = (t["ln_s"], t["ln_b"]) if full else (t["ln_s9"], t["ln_b9"])
+        H = 4 if full else 2
+        if full:
+            w1, b1, w2, b2 = t["w1"], t["b1"], t["w2"], t["b2"]
+        else:
+            f = 1024
+            w1 = (torch.randn(d, f, generator=g, device=xs.device) * d ** -0.5).to(bf)
+            b1 = (torch.randn(f, generator=g, device=xs.device) * 0.25).to(bf)
+            w2 = (torch.randn(f, d, generator=g, device=xs.device) * f ** -0.5).to(bf)
+            b2 = (torch.randn(d, generator=g, device=xs.device) * 0.25).to(bf)
+        wo = t["wo"] if full else t["wo"][:H, :, :d].contiguous()
+        sh = shard_weights(
+            dict(w_qkv=t["w_qkv"] if full else t["w_qkv9"], b_qkv=t["b_qkv"] if full
+                 else t["b_qkv9"], wo=wo, bo=t["bo"][:d], w1=w1, b1=b1, w2=w2, b2=b2),
+            tp, 0)
+        h, f_loc = H // tp, sh["w1"].shape[1]
+        tag = f"d={d}, " if not full else ""
+        cases[f"ln_qkv_rope[{tag}H={h}]"] = qkv_case(xs, "ln_qkv_rope", s, b, sh["w_qkv"],
+                                                      sh["b_qkv"], h)
+        cases[f"flash_outproj[{tag}H={h}]"] = shard_attention_case(
+            torch, t, xs * (1.0 / tp), sh["wo"], sh["bo"], h, w)
+        cases[f"ln_ffn[{tag}f={f_loc}]"] = ffn_case(
+            torch, xs * (1.0 / tp), s, b, sh["w1"], sh["b1"], sh["w2"], sh["b2"])
+    return cases
+
+
+def shard_attention_case(torch, t: dict, xs, wo, bo, h: int, w: int) -> dict:
+    """K2 at band ``w`` on the first ``h`` heads of the phase's q, k, v."""
+    import numpy as np
+
+    from herro_tpu_torch.ops import fused
+
+    q, k, v = (t[n][:, :h].contiguous() for n in "qkv")
+    lengths, lengths_np = t["lengths"], t["lengths_np"]
+    d, D = xs.shape[-1], q.shape[-1]
+    n_rows = int(lengths_np.astype(np.int64).sum())
+    spans, blocks = t["k_spans"][:, :h], t["q_blocks"][:, :h]
+    return dict(
+        name="flash_outproj", replaces="herro_tpu/ops/fused.py:993",
+        kernel=lambda: fused._flash_outproj_cuda(q, k, v, xs, wo, bo, lengths, w),
+        plain=lambda: fused._flash_outproj_plain(q, k, v, xs, wo, bo, lengths, w),
+        library=("torch.matmul banded QK^T (64-row blocks x 1088-key spans) bf16, "
+                 "the dominant product", lambda: torch.matmul(blocks, spans)),
+        bound=bound(3 * q.numel() * 2 + 2 * xs.numel() * 2 + wo.numel() * 2,
+                    4 * h * D * t["pairs"] + 2 * n_rows * h * D * d, PEAK_BF16),
+        rows=lengths_np, residual=xs,
+    )
+
+
+def ffn_case(torch, xs, s, b, w1, b1, w2, b2) -> dict:
+    """K3 on these rows and weights."""
+    from herro_tpu_torch.ops import fused
+
+    d, f = xs.shape[-1], w1.shape[1]
+    T = xs.numel() // d
+    args = (xs, s, b, w1, b1, w2, b2)
+    return dict(
+        name="ln_ffn", replaces="herro_tpu/ops/fused.py:286",
+        kernel=lambda: fused._ln_ffn_cuda(*args),
+        plain=lambda: fused._ln_ffn_plain(*args),
+        library=("torch.matmul LN(x)[T,d] @ W1[d,f] bf16, half the FLOPs",
+                 lambda: torch.matmul(xs.view(T, d), w1)),
+        bound=bound(2 * T * d * 2 + 2 * d * f * 2, 4 * T * d * f, PEAK_BF16),
+        residual=xs,
+    )
 
 
 def phase_golden(torch, phase: str = "golden", int8: bool = False, min_agree=0.995):
@@ -874,6 +980,247 @@ def phase_cli(torch, tmp: str, ds, rows) -> None:
     emit("cli", records=n, wall_s=time.perf_counter() - t0)
     if n == 0:
         raise RuntimeError("cli: no corrected records")
+
+
+# (tag, data replicas, tensor-parallel degree) of the parallel phase, every
+# device cuda:0, so that one card runs every layout
+PARALLEL_LAYOUTS = (("dp2", 2, 1), ("tp2", 1, 2), ("tp4", 1, 4))
+TP_MIN_AGREE = 0.99  # the bar of tests/test_parallel.py for bf16 at tp=2
+
+
+def _step_batch(S: int = 1152):
+    """A batch at the main-path shape (B=32, L=9216) for the step times:
+    pileups as the kernels phase draws them, S supported columns."""
+    import numpy as np
+
+    from herro_tpu_torch.constants import N_ROWS, TOKEN_PAD
+    from herro_tpu_torch.pipeline.batching import Batch, pack_tokens
+
+    rng = np.random.default_rng(4321)
+    lengths = rng.integers(int(0.7 * L), L + 1, size=B)
+    n_alns = rng.integers(2, N_ROWS, size=B).astype(np.int32)
+    tok = rng.integers(0, 11, size=(B, L, N_ROWS), dtype=np.uint8)
+    tok[:, :, 0] = rng.integers(0, 5, size=(B, L), dtype=np.uint8)
+    for b in range(B):
+        tok[b, :, n_alns[b] + 1:] = TOKEN_PAD
+        tok[b, lengths[b]:] = TOKEN_PAD
+    sidx = np.sort(rng.integers(0, int(0.7 * L), size=(B, S)), axis=1).astype(np.int32)
+    return Batch(np.ascontiguousarray(pack_tokens(tok).transpose(0, 2, 1)),
+                 rng.integers(33, 127, size=(B, N_ROWS, L), dtype=np.uint8), sidx,
+                 np.ones((B, S), dtype=bool), n_alns, windows=[])
+
+
+def _agreement(got, ref, smask) -> tuple[float, bool]:
+    """(share of supported columns whose class agrees, decisions equal) of
+    two packed step results, decisions‖classes [B, L+S]."""
+    S = smask.shape[1]
+    agree = float((got[:, -S:] == ref[:, -S:])[smask].mean()) if smask.any() else 1.0
+    return agree, bool((got[:, :-S] == ref[:, :-S]).all())
+
+
+def _layout_step_ms(torch, runner, batch, iters: int = 5) -> dict:
+    """The layout's step on a resident batch by CUDA events (every replica's
+    step on the current stream in turn), and dispatch to fetched result
+    (the copies both ways included) by the host clock."""
+    import numpy as np
+
+    dev = runner.device
+    arrays = runner._inputs(batch)
+    n = len(runner.replicas)
+    parts = [[torch.from_numpy(np.split(a, n)[i]).to(dev) for a in arrays] for i in range(n)]
+
+    def steps():
+        for r, part in zip(runner.replicas, parts):
+            r.step(*part)
+
+    with torch.inference_mode():
+        step_ms = time_ms(torch, steps, iters)
+    runner._fetch(runner.dispatch(batch))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        runner._fetch(runner.dispatch(batch))
+    return dict(step_ms=step_ms, round_trip_ms=(time.perf_counter() - t0) * 1e3 / iters)
+
+
+def phase_parallel(torch, tmp: str, e2e: dict) -> None:
+    """Data and tensor parallelism through ``CorrectionRunner(mesh=...)``, every
+    device ``cuda:0``: a 2 x 1 mesh must write the single-device run's FASTA
+    records byte for byte; tp=2 and tp=4 on the golden batch and the e2e
+    dataset must agree with the single-device step on at least
+    ``TP_MIN_AGREE`` of the supported columns with equal decisions, and
+    launch, a batch, K4 x tp, K1-K3 x n_layers x tp and K5 once (a data
+    replica each). Then the step's time at B=32, L=9216 under each layout
+    beside the single device's."""
+    import numpy as np
+
+    from herro_tpu_torch.models.checkpoint import load_model
+    from herro_tpu_torch.parallel import make_mesh_2d
+    from herro_tpu_torch.pipeline.batching import Batch
+    from herro_tpu_torch.pipeline.infer import CorrectionRunner
+
+    cfg, params = load_model(CKPT)
+    single = e2e["runner"]
+    dev = single.device
+    fx = np.load(GOLDEN)
+    golden = Batch(fx["tokens_packed"], fx["quals"], fx["support_idx"], fx["support_mask"],
+                   fx["n_alns"], windows=[])
+    golden_ref = single._fetch(single.dispatch(golden))[1]
+    step_batch = _step_batch()
+    times = {"single": _layout_step_ms(torch, single, step_batch)}
+    want_records = _fasta_records(e2e["fasta"])
+    failed = []
+    for tag, n_data, tp in PARALLEL_LAYOUTS:
+        runner = CorrectionRunner(cfg, params, device=dev,
+                                  mesh=make_mesh_2d(n_data, tp, [dev] * (n_data * tp)))
+        g_agree, g_dec = _agreement(runner._fetch(runner.dispatch(golden))[1], golden_ref,
+                                    fx["support_mask"])
+        recorded = []  # (batch, packed) of every batch the e2e run fetched
+        fetch = runner._fetch
+
+        def recording_fetch(inflight, fetch=fetch, recorded=recorded):
+            info, packed = fetch(inflight)
+            recorded.append((inflight.batch, packed))
+            return info, packed
+
+        runner._fetch = recording_fetch
+        out = os.path.join(tmp, f"corrected_{tag}.fasta")
+        res = _counted_run(torch, e2e["reads"], e2e["grouped"], runner, out)
+        del runner._fetch
+        n_sup = n_agree = 0
+        dec_equal = True
+        for batch, packed in recorded:
+            ref = single._fetch(single.dispatch(batch))[1]
+            agree, dec = _agreement(packed, ref, batch.support_mask)
+            k = int(batch.support_mask.sum())
+            n_sup, n_agree = n_sup + k, n_agree + agree * k
+            dec_equal = dec_equal and dec
+        e2e_agree = n_agree / max(n_sup, 1)
+        n_b = len(recorded)
+        launches = res["launches"]
+        per_batch = {"entry_embed": n_data * tp, "count_decisions": n_data,
+                     **{k: cfg.n_layers * n_data * tp
+                        for k in ("ln_qkv_rope", "flash_outproj", "ln_ffn")}}
+        want_launches = {k: per_batch.get(k, 0) * n_b for k in launches}
+        records_equal = _fasta_records(out) == want_records
+        times[tag] = _layout_step_ms(torch, runner, step_batch)
+        emit("parallel", layout=tag, data=n_data, tp=tp, tp_fast_path=runner.tp_fast_path,
+             golden_class_agreement=g_agree, golden_decisions_equal=g_dec,
+             e2e_class_agreement=e2e_agree, e2e_supported_columns=n_sup,
+             e2e_decisions_equal=dec_equal, batches=n_b, launches=launches,
+             records_identical=_share_identical(out, e2e["fasta"]),
+             records_equal=records_equal,
+             file_bytes_identical=open(out, "rb").read() == open(e2e["fasta"], "rb").read(),
+             reads_written=res["reads_written"], windows_per_s=res["windows_per_s"],
+             **times[tag])
+        ok = (n_b > 0 and launches == want_launches and g_dec and dec_equal
+              and res["reads_written"] == e2e["reads_written"])
+        if tp == 1:
+            ok = ok and records_equal
+        else:
+            ok = ok and runner.tp_fast_path and min(g_agree, e2e_agree) >= TP_MIN_AGREE
+        if not ok:
+            failed.append(f"{tag} (launches {launches}, want {want_launches})")
+        del runner, recorded
+        torch.cuda.empty_cache()
+    emit("parallel", run="step at B=32, L=9216", card=nvidia_smi(), **{
+        f"{tag}_{k}": v for tag, t in times.items() for k, v in t.items()})
+    if failed:
+        raise RuntimeError("parallel: " + "; ".join(failed))
+
+
+# A stand-in for zstandard that stores the batch files' bytes as they are, so
+# that the phase runs where zstandard is not installed; --read-alns is where
+# the reference partitions alignment batches by target (overlaps/batches.py)
+ZSTD_STUB = """class _Writer:
+    def __init__(self, fh):
+        self._fh = fh
+
+    def write(self, data):
+        return self._fh.write(data)
+
+    def close(self):
+        self._fh.close()
+
+
+class ZstdCompressor:
+    def stream_writer(self, fh):
+        return _Writer(fh)
+
+
+class ZstdDecompressor:
+    def stream_reader(self, fh):
+        return fh
+"""
+
+
+def _multihost_cli(env, fastq, alns, out, extra):
+    cmd = [sys.executable, "-m", "herro_tpu_torch.cli", "inference", "--read-alns", alns,
+           "-m", CKPT, "-w", "4096", "-b", "32", *extra, fastq, out]
+    return cmd, subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def phase_multihost(tmp: str, e2e: dict) -> None:
+    """Two ``inference`` CLI processes on the card under one coordinator on
+    127.0.0.1, over the e2e reads' alignments in two target-partitioned
+    batches (tests/test_multihost.py's layout): their ``.shard000`` and
+    ``.shard001`` must not overlap and together must equal one process's
+    FASTA over the same batches."""
+    import socket
+
+    stub = os.path.join(tmp, "zstd_stub")
+    os.makedirs(stub)
+    with open(os.path.join(stub, "zstandard.py"), "w") as fh:
+        fh.write(ZSTD_STUB)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([stub, ROOT]))
+    rows = [r if r.endswith(b"\n") else r + b"\n" for r in e2e["rows"]]
+    targets = sorted({r.split(b"\t")[5] for r in rows})
+    halves = (set(targets[: len(targets) // 2]), set(targets[len(targets) // 2:]))
+    alns = os.path.join(tmp, "alns_mh")
+    os.makedirs(alns)
+    for k, ids in enumerate(halves):
+        with open(os.path.join(alns, f"{k}.oec.zst"), "wb") as fh:
+            fh.write(b"%d\n" % len(ids) + b"".join(i + b"\n" for i in sorted(ids)))
+            fh.writelines(r for r in rows if r.split(b"\t")[5] in ids)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    single = os.path.join(tmp, "mh_single.fasta")
+    sharded = os.path.join(tmp, "mh.fasta")
+    runs, errs, wall = [], [], []
+    for group in ([(single, [])],
+                  [(sharded, ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                              "--process-id", str(i)]) for i in range(2)]):
+        t0 = time.perf_counter()
+        procs = [_multihost_cli(env, e2e["fastq"], alns, out, extra) for out, extra in group]
+        runs += procs
+        try:
+            errs += [proc.communicate(timeout=600)[1] for _, proc in procs]
+        finally:
+            for _, proc in procs:
+                proc.kill()
+        wall.append(time.perf_counter() - t0)
+    single_s, shards_s = wall
+    for (cmd, proc), err in zip(runs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"multihost: {' '.join(cmd)} failed:\n{err[-4000:]}")
+    shards = [_fasta_records(f"{sharded}.shard{i:03d}") for i in range(2)]
+    names = [{r.split(b"\n")[0] for r in shard} for shard in shards]
+    overlap = len(names[0] & names[1])
+    want = _fasta_records(single)
+    emit("multihost", processes=2, single_s=single_s, two_processes_s=shards_s,
+         records=[len(x) for x in shards], single_records=len(want), overlap=overlap,
+         combined_equal=sorted(shards[0] + shards[1]) == want,
+         single_equals_e2e=want == _fasta_records(e2e["fasta"]),
+         summaries=[SUMMARY_RE.search(e).group(0) if SUMMARY_RE.search(e) else None
+                    for e in errs])
+    if (overlap or not all(shards) or sorted(shards[0] + shards[1]) != want
+            or os.path.exists(sharded)):
+        raise RuntimeError(
+            f"multihost: shards of {[len(x) for x in shards]} records overlap on {overlap} "
+            f"or differ from the single process's {len(want)}"
+        )
 
 
 EVAL_ARGS = ["--with-baseline", "-w", "4096", "-b", "32", "--sub-rate", "0.02",
@@ -1635,6 +1982,8 @@ def main() -> int:
         e2e = phase_e2e(torch, tmp)
         phase_trace(torch, tmp, e2e)
         phase_cli(torch, tmp, e2e["ds"], e2e["rows"])
+        phase_parallel(torch, tmp, e2e)
+        phase_multihost(tmp, e2e)
         evals = phase_eval(torch, tmp)
         n_procs = phase_procpool(tmp, e2e)
         phase_features(tmp, e2e, n_procs)

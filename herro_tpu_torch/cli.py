@@ -4,7 +4,8 @@
         [-w W] [-t N] [--feat-gen-procs N] READS OUTPUT_DIR
     python -m herro_tpu_torch.cli inference [--read-alns D | --write-alns D] \\
         [-w W] [-t N] [--feat-gen-procs N] -m MODEL [-b B] [-c CLUSTER] \\
-        [--device cuda|cpu] READS OUTPUT
+        [--device cuda|cpu] [--devices N|I,J,..] [--tp N] [--coordinator H:P \\
+        --num-processes N --process-id I] READS OUTPUT
     python -m herro_tpu_torch.cli eval MODEL [--mode model|counting|oracle] \\
         [--with-baseline] [--device cuda|cpu] ...
     python -m herro_tpu_torch.cli train [--config NAME|DIR] [--steps N] \\
@@ -13,12 +14,16 @@
         [--student NAME|DIR] [--device cuda|cpu] ...
 
 The ``features``, ``inference``, ``eval``, ``train`` and ``distill``
-subcommands of ``herro_tpu`` on one device, with their flags. All but
-``features`` run on the card unless ``--device cpu`` is given; ``features``
-runs on the host alone.
-``--int8`` / ``--no-int8`` override the checkpoint's ``config.json``. The
-reference's multi-device and multi-host flags are accepted but raise until
-the port carries them.
+subcommands of ``herro_tpu``, with their flags. All but ``features`` run on
+the card unless ``--device cpu`` is given; ``features`` runs on the host
+alone. ``inference`` takes the reference's multi-device and multi-host flags:
+``--devices`` (a count of local cards or an index list like '0,1,3', data
+parallel; default all), ``--tp N`` (Megatron tensor parallelism over a 2-D
+data x model mesh), and ``--coordinator`` / ``--num-processes`` /
+``--process-id`` (processes that each correct every n-th alignment batch
+into ``OUTPUT.shardNNN``). ``train`` runs on one device yet and refuses
+``--devices``/``--tp``; ``--int8`` takes ``--tp 1``.
+``--int8`` / ``--no-int8`` override the checkpoint's ``config.json``.
 """
 
 from __future__ import annotations
@@ -72,11 +77,17 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("-c", "--cluster", default="", help="path to a cluster .part file")
     _add_device(pi)
     pi.add_argument(
-        "--devices", default="1",
-        help="data-parallel device count (only 1 is ported yet)",
+        "--devices", default="0",
+        help="local devices for data parallelism: a count, or an explicit index "
+        "list like '0,1,3' (reference -d, src/main.rs:86-92); 0 = all cards "
+        "(the card --device cuda:N names, if it names one); with --device cpu "
+        "the number of CPU replicas, 0 = one",
     )
     pi.add_argument(
-        "--tp", type=int, default=1, help="tensor-parallel degree (only 1 is ported yet)"
+        "--tp", type=int, default=1,
+        help="tensor-parallel degree (heads and the FFN hidden shard over a 2-D "
+        "data x model mesh; must divide the device count); each shard runs the "
+        "same kernels at its own widths. bf16 only: --int8 takes --tp 1",
     )
     pi.add_argument(
         "--int8", action=argparse.BooleanOptionalAction, default=None,
@@ -101,12 +112,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--profile-dir", default="",
         help="write a torch.profiler trace (Chrome JSON) of the run to this directory",
     )
-    pi.add_argument("--coordinator", default="", help="multi-host (not ported yet)")
     pi.add_argument(
-        "--num-processes", type=int, default=0, help="multi-host (not ported yet)"
+        "--coordinator", default="",
+        help="multi-host: coordinator address host:port (torch.distributed, gloo "
+        "over TCP, served by process 0)",
     )
     pi.add_argument(
-        "--process-id", type=int, default=0, help="multi-host (not ported yet)"
+        "--num-processes", type=int, default=0, help="multi-host: process count"
+    )
+    pi.add_argument(
+        "--process-id", type=int, default=0, help="multi-host: this process's index"
     )
     pi.add_argument("output", help="corrected reads FASTA path")
 
@@ -197,10 +212,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pt.add_argument(
         "--devices", default="0",
-        help="data-parallel device count (only 1 is ported yet; 0 means one)",
+        help="data-parallel device count (train runs on one device yet; 0 means one)",
     )
     pt.add_argument(
-        "--tp", type=int, default=1, help="tensor-parallel degree (only 1 is ported yet)"
+        "--tp", type=int, default=1,
+        help="tensor-parallel degree (train runs on one device yet: only 1)",
     )
     _add_device(pt)
     pt.add_argument("output", help="checkpoint output directory")
@@ -231,18 +247,42 @@ def _add_device(p: argparse.ArgumentParser) -> None:
 
 
 def _check_ported(args) -> None:
-    """Raise a clear error for the reference flags a later slice carries."""
-    devices = str(args.devices)
-    if "," in devices or int(devices) not in (0, 1):
+    """Raise a clear error for the reference flags a later slice carries:
+    ``train --devices/--tp`` and ``inference --int8 --tp N`` with N > 1."""
+    if args.command == "train":
+        devices = str(args.devices)
+        if "," in devices or int(devices) not in (0, 1):
+            raise SystemExit(
+                f"train --devices {devices}: training on several devices is not ported "
+                "yet; pick the card with --device cuda:N"
+            )
+        if args.tp != 1:
+            raise SystemExit("train --tp: tensor-parallel training is not ported yet")
+    elif args.tp > 1 and args.int8:
         raise SystemExit(
-            f"--devices {devices}: only one device is ported yet; pick the card "
-            "with --device cuda:N"
+            f"--int8 with --tp {args.tp}: the int8 kernels take no shard widths yet "
+            "(ROADMAP.md queue 2b); run int8 with --tp 1, or bf16 with --tp > 1"
         )
-    if args.tp != 1:
-        raise SystemExit("--tp: tensor parallelism is not ported yet")
-    if (getattr(args, "coordinator", "") or getattr(args, "num_processes", 0)
-            or getattr(args, "process_id", 0)):
-        raise SystemExit("multi-host flags are not ported yet")
+
+
+def _build_mesh(devices: list, explicit: bool, tp: int):
+    """The reference's mesh rules (herro_tpu/cli.py:272-290): a 1-D data mesh,
+    or a 2-D (data, model) mesh when tp > 1; None for one device."""
+    from .parallel.mesh import make_mesh, make_mesh_2d
+
+    if tp < 1:
+        raise SystemExit(f"--tp {tp}: the degree is at least 1")
+    if explicit:
+        if tp > 1:
+            raise SystemExit("--tp with an explicit device list is unsupported")
+        return make_mesh(devices)
+    if tp > 1:
+        if len(devices) % tp:
+            raise SystemExit(f"--tp {tp} does not divide {len(devices)} devices")
+        return make_mesh_2d(len(devices) // tp, tp, devices)
+    if len(devices) > 1:
+        return make_mesh(devices)
+    return None
 
 
 def _load(args, core=None, neighbour=None):
@@ -309,6 +349,7 @@ def cmd_features(args) -> None:
 
 def cmd_inference(args) -> None:
     from .io.fastx import read_cluster
+    from .parallel.mesh import init_distributed, shutdown_distributed
 
     _check_ported(args)
     core, neighbour = read_cluster(args.cluster)
@@ -323,28 +364,52 @@ def cmd_inference(args) -> None:
         from .pipeline.procpool import FeatgenPool
 
         featgen_pool = FeatgenPool(reads, args.window_size, args.feat_gen_procs)
+    failed = True
     try:
+        # the process group (a TCP store and gloo's threads) joins after the fork
+        try:
+            init_distributed(args.coordinator, args.num_processes, args.process_id)
+        except ValueError as e:  # no coordinator, or an id past the count
+            raise SystemExit(str(e)) from None
         _run_inference(args, reads, core, featgen_pool)
+        failed = False
     finally:
         # Always tear the pool down: leaked worker queues wedge interpreter
         # shutdown on their feeder-thread join (see procpool.close).
         if featgen_pool is not None:
-            featgen_pool.close(terminate=sys.exc_info()[0] is not None)
+            featgen_pool.close(terminate=failed)
+        shutdown_distributed(wait=not failed)
 
 
 def _run_inference(args, reads, core, featgen_pool) -> None:
     from .models.checkpoint import load_or_init
     from .overlaps.paf import ParseStats
+    from .parallel.mesh import local_devices, parse_devices, process_count, process_index
     from .pipeline.engine import AlnMode, StageTimers, alignment_stream, run_correction
     from .pipeline.infer import CorrectionRunner
     from .pipeline.progress import Progress
 
     cfg, params = load_or_init(args.model)
-    runner = CorrectionRunner(cfg, params, int8=args.int8, device=args.device)
+    try:
+        devices = local_devices(args.devices, args.device)
+    except ValueError as e:  # more cards than the host has, or a bad spec
+        raise SystemExit(str(e)) from None
+    mesh = _build_mesh(devices, isinstance(parse_devices(args.devices), list), args.tp)
+    if mesh is not None and args.batch_size % mesh.n_data:
+        raise SystemExit(
+            f"batch size {args.batch_size} not divisible by data size {mesh.n_data}"
+        )
+    runner = CorrectionRunner(cfg, params, int8=args.int8, device=devices[0], mesh=mesh)
 
     progress = Progress()
     mode = AlnMode(read_path=args.read_alns, write_path=args.write_alns)
     paf_stats = ParseStats()
+    # Multi-host: each process takes every k-th target-partitioned alignment
+    # batch and writes its own shard output.
+    stride = (process_index(), process_count())
+    output_path = args.output
+    if stride[1] > 1:
+        output_path = f"{args.output}.shard{stride[0]:03d}"
     source = alignment_stream(
         reads,
         args.reads,
@@ -352,6 +417,7 @@ def _run_inference(args, reads, core, featgen_pool) -> None:
         args.feat_gen_threads,
         core=core,
         on_batch=progress.add_batch,
+        stride=stride,
         stats=paf_stats,
     )
     if args.shard:
@@ -379,7 +445,7 @@ def _run_inference(args, reads, core, featgen_pool) -> None:
             reads,
             source,
             runner,
-            args.output,
+            output_path,
             args.window_size,
             args.batch_size,
             feat_threads=args.feat_gen_threads,

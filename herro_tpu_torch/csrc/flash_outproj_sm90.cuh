@@ -78,8 +78,12 @@
 //   waits until the store has read them before it frees attn for the next
 //   tile's Q. A tile past the length (kMaskFull) stores zeros, so an example
 //   of length 0 comes out all 0. Every difference is behind `if constexpr`.
-// Shapes: D 128, (H, d) = (4, 512) or (2, 256), any L, lengths 0..L; DM 0:
-// any H.
+// - One head (H 1, the shards of tensor parallelism): a pass of the out
+//   projection takes two Wo stages, fewer than the ring holds; the ring's
+//   slot and phase run on across passes, heads and tiles, so no place
+//   assumes a whole ring a pass.
+// Shapes: D 128, (H, d) = (4, 512), (2, 256), (2, 512), (1, 512) or (1, 256),
+// any L, lengths 0..L; DM 0: any H.
 #pragma once
 
 #include "common.cuh"
@@ -648,7 +652,9 @@ inline int launch(const void* q, const void* k, const void* v, const void* x, co
   return (int)cudaGetLastError();
 }
 
-// The widths the kernels are built for: (H, d) = (4, 512) or (2, 256), D 128.
+// The widths the kernels are built for, D 128: (H, d) = (4, 512) (r10) and
+// (2, 256) (r9, r10deep), and the tensor-parallel shards of those, (2, 512)
+// and (1, 512) (r10 at tp 2 and 4) and (1, 256) (r10deep at tp 2).
 template <int kMask>
 inline int launch_widths(const void* q, const void* k, const void* v, const void* x,
                          const void* wo, const void* bo, const int* lengths, void* out, int B,
@@ -658,6 +664,12 @@ inline int launch_widths(const void* q, const void* k, const void* v, const void
     return launch<4, 512, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
   if (H == 2 && d == 256)
     return launch<2, 256, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
+  if (H == 2 && d == 512)
+    return launch<2, 512, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
+  if (H == 1 && d == 512)
+    return launch<1, 512, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
+  if (H == 1 && d == 256)
+    return launch<1, 256, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -266,11 +266,16 @@ class CorrectionModel(nn.Module):
             else:
                 x = block(x, lengths, bw)
 
+        return self.head(x, support_idx, support_mask)
+
+    def head(self, x, support_idx, support_mask):
+        """The tail on the stream x [B, L, d] after the last block: gather the
+        supported columns, the final LayerNorm, the two heads, the mask."""
         # Gather supported columns first: the final LayerNorm is per-token,
         # so it commutes with the gather (herro_tpu/models/model.py:269-275).
         idx = support_idx.long()[..., None].expand(-1, -1, x.shape[-1])
         g = torch.gather(x, 1, idx)
-        g = flax_layernorm(g, self.ln_f.scale, self.ln_f.bias, dt).float()
+        g = flax_layernorm(g, self.ln_f.scale, self.ln_f.bias, self.cfg.compute_dtype).float()
 
         bases_logits = g @ self.bases_head.kernel + self.bases_head.bias
         info_logits = (g @ self.info_head.kernel + self.info_head.bias)[..., 0]

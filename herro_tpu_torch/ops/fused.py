@@ -323,8 +323,9 @@ def flash_kernel_name(local_window) -> str:
 
 
 # (n_heads, d_model) of the attention kernels' instantiations
-# (csrc/flash_outproj_sm90.cuh): every shipped checkpoint's
-ATTENTION_WIDTHS = ((4, 512), (2, 256))
+# (csrc/flash_outproj_sm90.cuh): every shipped checkpoint's, and their
+# tensor-parallel shards (r10 at tp 2 and 4, r10deep at tp 2)
+ATTENTION_WIDTHS = ((4, 512), (2, 256), (2, 512), (1, 512), (1, 256))
 
 
 def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):

@@ -9,17 +9,21 @@ One ``correct_step`` runs, per batch:
 * the counting-rule consensus decision for every column
   (src/consensus.rs:177-218) — so the host only stitches bytes.
 
-On the card the runner owns one CUDA stream. ``dispatch`` copies a batch from
-pinned host buffers with ``non_blocking=True`` on that stream, enqueues the
-step, copies the packed result back into a pinned buffer and records an
-event; it returns without waiting. ``finalize`` waits on that batch's event.
-The engine calls ``dispatch`` from two uploader threads and ``finalize`` from
-two fetcher threads: every stream and event is explicit, and each batch's
-pinned buffers stay referenced by its ``InFlight`` until its event completes.
+On the card the runner owns one CUDA stream per device of each data replica
+(one replica, one device, one stream without a mesh). ``dispatch`` copies
+each replica's rows of a batch from pinned host buffers with
+``non_blocking=True`` on its stream, enqueues the step, copies the packed
+result back into a pinned buffer and records an event; it returns without
+waiting. ``finalize`` waits on that batch's events and joins the parts in
+batch order. The engine calls ``dispatch`` from two uploader threads and
+``finalize`` from two fetcher threads: every stream and event is explicit,
+and each batch's pinned buffers stay referenced by its ``InFlight`` until its
+events complete.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -29,18 +33,21 @@ import torch
 from ..constants import N_ROWS, QUAL_OFFSET, QUAL_SCALE
 from ..models.model import CorrectionModel, ModelConfig
 from ..ops.consensus import count_decisions
+from ..parallel.mesh import Mesh
+from ..parallel.tensor import TensorParallelModel
 from .batching import Batch, unpack_tokens_torch
 
 
 @dataclass
 class InFlight:
-    """A dispatched-but-unfetched batch: host-side results (pinned on the
-    card's path) that are valid once ``event`` has completed, and the pinned
-    input buffers kept alive until then."""
+    """A dispatched-but-unfetched batch: per data replica, its host-side
+    results (info, packed), pinned on the card's path and valid once its
+    event has completed, and its pinned input buffers, kept alive until
+    then."""
 
     batch: Batch
     outputs: tuple
-    event: torch.cuda.Event | None = None
+    events: tuple = ()
     inputs: tuple = ()
 
 
@@ -112,8 +119,55 @@ def keep_float32_exact(device: torch.device) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
+class _Replica:
+    """One data replica: a step on its device (a model, or a model sharded
+    over a mesh row), and on the card a stream on each device it runs on."""
+
+    def __init__(self, step, device: torch.device, devices=()):
+        self.step = step
+        self.device = device
+        self.streams = []
+        if device.type == "cuda":
+            for dev in dict.fromkeys((device, *devices)):  # the first is the step's
+                self.streams.append(torch.cuda.Stream(device=dev))
+
+    def dispatch(self, arrays, collect_info: bool):
+        """Enqueue the step on these host arrays; returns ((info, packed),
+        event, pinned inputs) with the results on the host once the event
+        has completed (no event on the CPU)."""
+        if not self.streams:
+            with torch.inference_mode():
+                info, packed = self.step(*(torch.from_numpy(a) for a in arrays))
+            return (info if collect_info else None, packed), None, ()
+        with contextlib.ExitStack() as ctx:
+            ctx.enter_context(torch.inference_mode())
+            for stream in reversed(self.streams):  # the step's device current last
+                ctx.enter_context(torch.cuda.stream(stream))
+            pinned = tuple(torch.from_numpy(a).pin_memory() for a in arrays)
+            dev_in = [p.to(self.device, non_blocking=True) for p in pinned]
+            info, packed = self.step(*dev_in)
+            packed_host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            packed_host.copy_(packed, non_blocking=True)
+            info_host = None
+            if collect_info:
+                info_host = torch.empty(info.shape, dtype=info.dtype, pin_memory=True)
+                info_host.copy_(info, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.streams[0])
+        return (info_host, packed_host), event, pinned
+
+
 class CorrectionRunner:
-    """Owns the model on its device, the device stream and the step."""
+    """Owns the model on its devices, their streams and the step.
+
+    With no ``mesh`` the model runs on ``device``. With a :class:`Mesh` each
+    row is a data replica and each batch splits over the rows in batch order,
+    as the reference's ``shard_map`` over ``P("data")`` splits it
+    (herro_tpu/pipeline/infer.py:135-152): with one column every replica is
+    the whole model on its device (data parallelism); with ``tp`` columns
+    each replica is the model sharded over its row (Megatron tensor
+    parallelism, ``parallel/tensor.py``), and ``tp_fast_path`` is True as in
+    the reference. The parts are joined on the host in batch order."""
 
     def __init__(
         self,
@@ -124,24 +178,35 @@ class CorrectionRunner:
         collect_counting: bool = False,
         int8: bool | None = None,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
         if int8 is not None and int8 != cfg.int8:
             cfg = dataclasses.replace(cfg, int8=int8)  # overrides the checkpoint's
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
         self.collect_info = collect_info
         # Also surface the pure counting decode per window.
         self.collect_counting = collect_counting
         # Diagnostic: skip the model override at supported columns.
         self.counting_only = counting_only
-        model = CorrectionModel(cfg)
-        model.load_state_dict(params)
-        self.model = model.to(self.device).eval()
-        self._step = make_correct_step_packed(self.model)
-        self.stream = None
-        keep_float32_exact(self.device)
-        if self.device.type == "cuda":
-            self.stream = torch.cuda.Stream(device=self.device)
+        self.tp_fast_path = mesh is not None and mesh.tp > 1
+        rows = mesh.devices if mesh is not None else ((device,),)
+        rows = [tuple(resolve_device(d) for d in row) for row in rows]
+        self.replicas, models = [], []
+        for row in rows:
+            keep_float32_exact(row[0])
+            if len(row) == 1:
+                model = CorrectionModel(cfg)
+                model.load_state_dict(params)
+                model = model.to(row[0]).eval()
+            else:
+                model = TensorParallelModel(cfg, params, row)
+            models.append(model)
+            self.replicas.append(_Replica(make_correct_step_packed(model), row[0], row))
+        # the first replica's, as the single-device runner has them
+        self.model = models[0]
+        self.device = rows[0][0]
+        self.stream = self.replicas[0].streams[0] if self.replicas[0].streams else None
 
     def _inputs(self, batch: Batch) -> tuple[np.ndarray, ...]:
         return (
@@ -156,35 +221,35 @@ class CorrectionRunner:
         """Enqueue the step without waiting and return at once. Pair with
         ``finalize``; keeping several batches in flight overlaps the
         host<->device copies and featgen with compute (the reference gets the
-        same overlap from its inference thread, src/lib.rs:189-196)."""
+        same overlap from its inference thread, src/lib.rs:189-196). Under a
+        mesh each replica takes its rows of the batch."""
         arrays = self._inputs(batch)
-        if self.stream is None:
-            with torch.inference_mode():
-                info, packed = self._step(*(torch.from_numpy(a) for a in arrays))
-            return InFlight(batch, (info if self.collect_info else None, packed))
-        with torch.inference_mode(), torch.cuda.device(self.device), \
-                torch.cuda.stream(self.stream):
-            pinned = tuple(torch.from_numpy(a).pin_memory() for a in arrays)
-            dev_in = [p.to(self.device, non_blocking=True) for p in pinned]
-            info, packed = self._step(*dev_in)
-            packed_host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            packed_host.copy_(packed, non_blocking=True)
-            info_host = None
-            if self.collect_info:
-                info_host = torch.empty(info.shape, dtype=info.dtype, pin_memory=True)
-                info_host.copy_(info, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self.stream)
-        return InFlight(batch, (info_host, packed_host), event, pinned)
+        n = len(self.replicas)
+        if arrays[0].shape[0] % n:
+            raise ValueError(
+                f"batch size {arrays[0].shape[0]} is not divisible by the data axis ({n})"
+            )
+        splits = [np.split(a, n) for a in arrays]
+        parts = [r.dispatch([s[i] for s in splits], self.collect_info)
+                 for i, r in enumerate(self.replicas)]
+        outputs, events, pinned = zip(*parts)
+        return InFlight(batch, outputs, events, pinned)
 
     def finalize(self, inflight: InFlight) -> list[WindowResult]:
         """Wait for a dispatched batch's results and unpack them."""
-        if inflight.event is not None:
-            inflight.event.synchronize()
-        info, packed = inflight.outputs
-        return self._unpack(
-            inflight.batch, None if info is None else info.numpy(), packed.numpy()
-        )
+        return self._unpack(inflight.batch, *self._fetch(inflight))
+
+    def _fetch(self, inflight: InFlight) -> tuple[np.ndarray | None, np.ndarray]:
+        """Wait for a dispatched batch; (info or None, decisions‖classes), the
+        replicas' parts joined in batch order."""
+        for event in inflight.events:
+            if event is not None:
+                event.synchronize()
+        infos, packed = zip(*inflight.outputs)
+        info = None
+        if self.collect_info:
+            info = np.concatenate([i.numpy() for i in infos])
+        return info, np.concatenate([p.numpy() for p in packed])
 
     def run_batch(self, batch: Batch) -> list[WindowResult]:
         return self.finalize(self.dispatch(batch))

@@ -7,8 +7,9 @@
   equal herro_tpu's on one batch (float32);
 * the port's CLI on the CPU with ``--read-alns`` writes what a direct
   ``run_correction`` writes;
-* importing every module of the port leaves jax, flax, optax, msgpack,
-  zstandard and herro_tpu out of ``sys.modules``;
+* importing every module of the port (``herro_tpu_torch.parallel`` too)
+  leaves jax, flax, optax, msgpack, zstandard and herro_tpu out of
+  ``sys.modules``;
 * a runner asked for no device raises without a card instead of falling
   back to the CPU.
 """
@@ -173,33 +174,54 @@ def test_cli_read_alns_on_cpu(dataset):
      ["--num-processes", "2"]],
 )
 def test_cli_unported_flags_raise(flags, tmp_path, dataset):
-    """The multi-device and multi-host flags raise; ``--int8`` is ported and
-    must not: it parses on ``inference`` and ``eval``, passes ``_check_ported``,
-    and corrects through the CLI on the CPU."""
+    """What the port does not carry yet raises: ``train --tp/--devices`` and
+    ``inference --int8 --tp N`` with N > 1, and ``--num-processes 2`` with no
+    coordinator to meet at. The rest of the reference's flags are ported:
+    ``inference`` takes ``--tp`` and ``--devices`` (through
+    ``_check_ported``), a ``--coordinator`` that one process ignores, as the
+    reference's CLI does, and ``--int8``, which parses on ``inference`` and
+    ``eval`` and corrects through the CLI on the CPU."""
     from herro_tpu_torch import cli
+    from herro_tpu_torch.overlaps.batches import BatchWriter
+
+    parser = cli.build_parser()
+    _, fastq, rows = dataset
+    aln_dir = str(tmp_path / "alns")
+    with BatchWriter(aln_dir, 0, sorted({r.split(b"\t")[5] for r in rows})) as bw:
+        for r in rows:
+            bw.write(r)
+
+    def corrects(*extra):
+        out = tmp_path / "out.fasta"
+        cli.main(["inference", "--device", "cpu", "--read-alns", aln_dir, "-m", "tiny",
+                  *extra, "-w", str(WINDOW), "-b", "4", fastq, str(out)])
+        assert out.read_bytes().count(b">") > 0
 
     if flags == ["--int8"]:
-        parser = cli.build_parser()
         for sub, rest in (("inference", ["-m", "tiny", "r.fastq", "o.fasta"]),
                           ("eval", ["tiny"])):
             assert parser.parse_args([sub, *rest]).int8 is None  # follows the config
             assert parser.parse_args([sub, *rest, "--int8"]).int8 is True
             assert parser.parse_args([sub, *rest, "--no-int8"]).int8 is False
-        _, fastq, rows = dataset
-        from herro_tpu_torch.overlaps.batches import BatchWriter
-
-        aln_dir = str(tmp_path / "alns")
-        with BatchWriter(aln_dir, 0, sorted({r.split(b"\t")[5] for r in rows})) as bw:
-            for r in rows:
-                bw.write(r)
-        out = tmp_path / "int8.fasta"
-        cli.main(["inference", "--device", "cpu", "--read-alns", aln_dir, "-m", "tiny",
-                  "--int8", "-w", str(WINDOW), "-b", "4", fastq, str(out)])
-        assert out.read_bytes().count(b">") > 0
+        corrects("--int8")
         return
-    with pytest.raises(SystemExit, match="not ported yet|only one device"):
-        cli.main(["inference", "--device", "cpu", "-m", "tiny", *flags,
-                  str(tmp_path / "r.fastq"), str(tmp_path / "o.fasta")])
+    if flags[0] == "--coordinator":
+        assert parser.parse_args(["inference", "-m", "tiny", *flags, "r", "o"]).coordinator \
+            == "host:1"
+        corrects(*flags)  # one process: no group to join
+        return
+    if flags[0] == "--num-processes":
+        with pytest.raises(SystemExit, match="need a coordinator"):
+            corrects(*flags)
+        return
+    # --tp 2, --devices 2: ported for inference, not for train
+    cli._check_ported(parser.parse_args(["inference", "-m", "tiny", *flags, "r", "o"]))
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli._check_ported(parser.parse_args(["train", *flags, "ckpt"]))
+    if flags[0] == "--tp":
+        with pytest.raises(SystemExit, match="--int8 with --tp 2"):
+            cli._check_ported(parser.parse_args(
+                ["inference", "-m", "tiny", *flags, "--int8", "r", "o"]))
 
 
 def test_port_imports_no_jax():
@@ -225,7 +247,8 @@ def test_port_imports_no_jax():
     assert "herro_tpu_torch.cli" in names and "herro_tpu_torch.ops.fused" in names
     for new in ("utils.edist", "utils.align", "training.labels", "training.eval",
                 "features.npy", "pipeline.procpool", "ops.attention", "ops.cuda",
-                "training.train", "training.data", "training.distill"):
+                "training.train", "training.data", "training.distill", "parallel",
+                "parallel.mesh", "parallel.tensor"):
         assert f"herro_tpu_torch.{new}" in names
     demo = open(os.path.join(ROOT, "demo", "run_demo_torch.py")).read()
     for mod in ("jax", "flax", "herro_tpu.", "herro_tpu import"):

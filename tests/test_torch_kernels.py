@@ -431,9 +431,12 @@ def test_count_decisions_kernel_reads_no_row_past_n_alns_on_card(rows, gl):
 
 
 # K2 and K3 at every width a shipped checkpoint takes: (H, d) 2/256 (r9,
-# r10deep) and 4/512 (r10); (d, f) 512/1024, 256/1024 and 256/1536
-K2_WIDTHS = [(2, 256), (4, 512)]
-K3_WIDTHS = [(512, 1024), (256, 1024), (256, 1536)]
+# r10deep) and 4/512 (r10); (d, f) 512/1024, 256/1024 and 256/1536; and at
+# the tensor-parallel shards of r10 (tp 2: H 2, d_ff 512; tp 4: H 1, d_ff
+# 256) and r10deep (tp 2: H 1, d 256, d_ff 512)
+K2_SHARD_WIDTHS = [(2, 512), (1, 512), (1, 256)]
+K2_WIDTHS = [(2, 256), (4, 512), *K2_SHARD_WIDTHS]
+K3_WIDTHS = [(512, 1024), (256, 1024), (256, 1536), (512, 512), (512, 256)]
 
 
 def _launches(name):
@@ -445,7 +448,7 @@ def _launches(name):
 @pytest.mark.parametrize(
     "op,mask,heads,width,f",
     [("flash_outproj", mask, heads, width, None)
-     for mask in (None, 384, 512) for heads, width in [(3, 384), (4, 256), (2, 512)]]
+     for mask in (None, 384, 512) for heads, width in [(3, 384), (4, 256), (8, 512)]]
     + [("ln_ffn", None, None, width, f) for width, f in [(384, 1024), (128, 512), (256, 64)]]
     + [(op, None, heads, width, None)
        for op in ("ln_qkv_rope", "ln_qkv_rope_split", "ln_qkv_rope_q")
@@ -453,8 +456,9 @@ def _launches(name):
     + [("count_decisions", None, None, rows, None) for rows in (0, 64, 100)],
 )
 def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f):
-    """The Hopper kernels are built for (H, d) = (4, 512) or (2, 256)
-    (attention, all three masks), d 256 or 512 with d_ff a multiple of 128
+    """The Hopper kernels are built for (H, d) = (4, 512), (2, 256) and the
+    tensor-parallel shards (2, 512), (1, 512), (1, 256) (attention, all three
+    masks), d 256 or 512 with d_ff a multiple of 128
     (ln_ffn), d 256 or 512 with any H (the qkv kernels K1, K8 and K10), and
     1 to 63 pileup rows (count_decisions, ``width`` here: 6-bit counts); the
     wrapper names any other width in a ValueError before it looks at the
@@ -523,6 +527,32 @@ def test_flash_outproj_k2_kernel_matches_plain_on_card(heads, width, band):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads,width", K2_SHARD_WIDTHS)
+@pytest.mark.parametrize("band", [None, 384])
+def test_flash_outproj_k6_k7_shard_widths_match_plain_on_card(heads, width, band):
+    """K7 (no band) and K6 (band 384) share K2's device code and its
+    instantiations: the tensor-parallel shard widths, lengths as K2's test."""
+    dev = _card()
+    name = fused.flash_kernel_name(band)
+    gl = 1024
+    rng = np.random.default_rng(31)
+    bf = torch.bfloat16
+    lengths = np.array([gl, gl - 300, 383, 937, 0], dtype=np.int32)
+    nb = len(lengths)
+    q, k, v = (_cuda(rng.normal(size=(nb, heads, gl, 128)), dev, bf) for _ in range(3))
+    x = _cuda(rng.normal(size=(nb, gl, width)), dev, bf)
+    wo = _cuda(rng.normal(0, (heads * 128) ** -0.5, size=(heads, 128, width)), dev, bf)
+    bo = _cuda(rng.normal(0, 0.25, size=(width,)), dev, bf)
+    args = (q, k, v, x, wo, bo, _cuda(lengths, dev), band)
+    before = _launches(name)
+    got = fused._flash_outproj_cuda(*args)
+    torch.cuda.synchronize()
+    assert _launches(name) == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    _bf16_close(got, fused._flash_outproj_plain(*args), rows=lengths)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d_model,f", K3_WIDTHS)
 @pytest.mark.parametrize("rows", [1, 37, 32 * 1000, 32 * 1024])
 def test_ln_ffn_k3_widths_match_plain_on_card(d_model, f, rows):
@@ -540,9 +570,11 @@ def test_ln_ffn_k3_widths_match_plain_on_card(d_model, f, rows):
 
 
 # K1 and K4 at every width a shipped checkpoint takes: (H, d) 2/256 and
-# 4/512; rows B * L of 1 x 1, 1 x 37 (a ragged tile, fewer tiles than SMs),
+# 4/512, K1 also at the tensor-parallel shards (N = 3 * H * 128 of 768 and
+# 384 columns, fewer head blocks than the cluster's W multicast sees at 4/512);
+# rows B * L of 1 x 1, 1 x 37 (a ragged tile, fewer tiles than SMs),
 # 32 x 1000 (L not a multiple of the tile) and 32 x 1024 (many tiles per SM)
-K1_WIDTHS = [(2, 256), (4, 512)]
+K1_WIDTHS = [(2, 256), (4, 512), *K2_SHARD_WIDTHS]
 ROW_SHAPES = [(1, 1), (1, 37), (32, 1000), (32, 1024)]
 
 
