@@ -77,12 +77,35 @@ each print one JSON line:
    finite nonzero gradient, one step at each bucket of the ladder, 20 steps
    on one fixed batch bringing CE below 0.7 x its first value, and
    ``Trainer.save`` loading back through ``load_model``;
-11. ``distill`` — ``distill`` through the CLI over the ``features`` phase's
+11. ``train_parallel`` — a seeded ``r10`` trainer at B=32 on a bucket-9216
+   batch of the ``train`` phase's windows, every device ``cuda:0``: one
+   device, DP 2 x 1, TP 1 x 2 and DP x TP 2 x 2, 10 steps each. Each mesh's
+   first step is held against its base layout's (DP 2 and TP 2 against one
+   device, 2 x 2 against TP 2) by the bars of the axis it adds: loss, ce and
+   info_bce within 1e-6 relative along a data axis and 1e-4 along a model
+   axis, acc and hard_acc within 1e-6 along a data axis and within the
+   share of flipped classes along a model axis, the summed gradient (Adam's
+   first moment after the step) within 1e-2 and 2e-2; every step's CE
+   within 1e-2 of the base's and falling; launches a step K4 n_data x tp and
+   K1-K3 2 x n_layers x tp x n_data (no other kernel); the data replicas'
+   parameters and moments bit-identical after 3 steps and at the end; ms a
+   step by CUDA events from step 3 on and peak allocated memory; the
+   forward's classes on the trained ``model_r10_sim`` agreeing with the
+   base's on at least 0.999 of the supported columns, and on the seeded
+   weights the flipped columns reported with their logit margins;
+   ``Trainer.save`` of the TP 2 run loading back as the gathered
+   parameters; two faults planted in a DP 2 step (replica 1's gradient
+   dropped, a mean of per-replica means), each of which the bars must
+   reject; then ``dryrun_multichip(4)`` over ``cuda:0`` four times
+   (``herro_tpu_torch/parallel/dryrun.py``);
+12. ``distill`` — ``distill`` through the CLI over the ``features`` phase's
    tree, teacher ``model_r10_sim`` (its labelling launches K1-K5), student
    ``r9`` (K1-K4 at d 256), batch 8, whose checkpoint loads.
 
 Any failed phase exits nonzero. The last lines are the card line of
-nvidia-smi, the per-kernel JSON summary and ``{"ok": true, "device": ...}``.
+nvidia-smi, the per-kernel JSON summary (K1-K4 also with their launches in
+``train_parallel``, counted from 0 over its layouts' steps) and
+``{"ok": true, "device": ...}``.
 Imports nothing of JAX or herro_tpu.
 """
 
@@ -1575,18 +1598,19 @@ def _want_step_launches(cfg) -> dict:
 @contextlib.contextmanager
 def _timed_steps(torch, steps: list):
     """Record each ``Trainer.train_step`` into ``steps``: its bucket, CUDA
-    events at its start, between the forward and the backward, and at its
-    end, its peak of allocated memory (with what was allocated before it:
-    the model, the optimiser state, and what earlier phases still hold) and
-    its launches."""
+    events at its start, between the forward and the backward (at the call
+    of ``gradients``; one replica's step calls it once), and at its end, its
+    peak of allocated memory (with what was allocated before it: the model,
+    the optimiser state, and what earlier phases still hold) and its
+    launches."""
     from herro_tpu_torch.ops import cuda as kernels
     from herro_tpu_torch.training import train as train_mod
 
-    step_fn, apply_fn = train_mod.Trainer.train_step, train_mod.apply_gradients
+    step_fn, grad_fn = train_mod.Trainer.train_step, train_mod.gradients
 
-    def apply_gradients(*args, **kwargs):
+    def gradients(*args, **kwargs):  # the backward of a replica's loss
         steps[-1]["events"][1].record()
-        return apply_fn(*args, **kwargs)
+        return grad_fn(*args, **kwargs)
 
     def train_step(self, batch):
         events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -1606,11 +1630,11 @@ def _timed_steps(torch, steps: list):
                    launches={k: after[k] - before[k] for k in after if after[k] != before[k]})
         return out
 
-    train_mod.Trainer.train_step, train_mod.apply_gradients = train_step, apply_gradients
+    train_mod.Trainer.train_step, train_mod.gradients = train_step, gradients
     try:
         yield
     finally:
-        train_mod.Trainer.train_step, train_mod.apply_gradients = step_fn, apply_fn
+        train_mod.Trainer.train_step, train_mod.gradients = step_fn, grad_fn
 
 
 def _step_times(steps: list) -> list:
@@ -1714,9 +1738,9 @@ def phase_train(torch, tmp: str) -> dict:
     # learning: a fresh trainer whose optimiser warms up over 2 steps, not 100
     trainer = Trainer(cfg, params, device="cuda")
     opt = make_optimizer(1e-3, warmup=2, total_steps=40)
-    named = dict(trainer.model.named_parameters())
-    trainer.state = TrainState(named, opt.init(list(named.values())))
-    step = make_train_step(trainer.model, opt)
+    replicas = trainer.state.replicas
+    trainer.state = TrainState(replicas, [opt.init(list(r.parameters())) for r in replicas])
+    step = make_train_step(replicas, opt)
     tensors = trainer.tensors(fixed)
     history = [float(step(trainer.state, *tensors)["ce"]) for _ in range(20)]
     ckpt = os.path.join(tmp, "trainer_save")
@@ -1735,6 +1759,267 @@ def phase_train(torch, tmp: str) -> dict:
             f"train: parameters without a finite nonzero gradient {bad_grads}; CE "
             f"{history[0]} -> {history[-1]}; saved step {step_txt!r}, params equal {same}"
         )
+    return launches
+
+
+# (tag, data replicas, tensor-parallel degree, the layout it is held against,
+# the mesh axis it adds to that one), every device cuda:0; "single" is the
+# trainer on one device
+TRAIN_LAYOUTS = (("single", 1, 1, None, None), ("dp2", 2, 1, "single", "data"),
+                 ("tp2", 1, 2, "single", "model"), ("dp2_tp2", 2, 2, "tp2", "data"))
+# a layout's first step against its base's on the same seeded weights and
+# batch (bf16): loss, ce and info_bce within TRAIN_PARALLEL_LOSS_RTOL of the
+# axis, relative; along a data axis acc and hard_acc within it too,
+# absolute, while along a model axis they may move by the share of the
+# (hard) supported columns whose class flips; the summed gradient, read
+# through Adam's first moment after the step (learning rate 0), within
+# dryrun.GRAD_RTOL of the axis. A data axis reorders float32 sums only; a
+# model axis rounds each shard's partial to bf16 before the sum.
+TRAIN_PARALLEL_LOSS_RTOL = {"data": 1e-6, "model": 1e-4}
+# every step's CE within this of the base's, relative: a coarse bound on the
+# trajectory (the first step's gradient is the sharp check)
+TRAIN_PARALLEL_CE_RTOL = 1e-2
+# each layout's classes against its base's on the trained model_r10_sim
+TRAIN_PARALLEL_MIN_AGREE = 0.999
+TRAIN_PARALLEL_STEPS = 10
+# faults planted in the dp2 step, each of which the bars must reject
+TRAIN_PARALLEL_FAULTS = ("replica 1's gradient dropped", "mean of per-replica means")
+
+
+def _mesh_logits(torch, replicas, tensors):
+    """The bases logits [B, S, 5] of the train forward under no_grad, each
+    data replica on its rows of the batch, joined in batch order."""
+    from herro_tpu_torch.constants import QUAL_OFFSET, QUAL_SCALE
+
+    tok, quals, sidx, smask = tensors[:4]
+    n = len(replicas)
+    out = []
+    with torch.no_grad():
+        for r, replica in enumerate(replicas):
+            part = [t.chunk(n)[r] for t in (tok, quals, sidx, smask)]
+            q = QUAL_SCALE * part[1].float() - QUAL_OFFSET
+            out.append(replica(part[0], q, part[2], part[3])[1].float())
+    return torch.cat(out)
+
+
+def _flips(torch, logits, base, smask, hard) -> dict:
+    """Where the classes of ``logits`` differ from ``base``'s on the
+    supported columns: the share of them and of the hard ones, and the
+    witness that they are near-ties: the largest logit gap, and the base's
+    top-two margins at the flipped columns beside the share of all columns
+    whose margin is within twice that gap."""
+    flip = (logits.argmax(-1) != base.argmax(-1)) & smask
+    gap = float((logits - base).abs().amax(-1)[smask].max())
+    top2 = base.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])[smask]
+    at_flips = (top2[..., 0] - top2[..., 1])[flip]
+    return dict(share=float(flip.sum() / smask.sum()),
+                hard_share=float((flip & hard).sum() / (smask & hard).sum().clamp_min(1)),
+                max_logit_gap=gap, max_abs_logit=float(base.abs().amax(-1)[smask].max()),
+                max_margin_at_flips=float(at_flips.max()) if flip.any() else 0.0,
+                median_margin=float(margin.median()),
+                near_tie_share=float((margin <= 2 * gap).float().mean()))
+
+
+def _first_step_check(first, base_first, grad_gap, axis, flips) -> tuple[dict, bool]:
+    """A layout's first step against its base's, by the axis's bars."""
+    from herro_tpu_torch.parallel.dryrun import GRAD_RTOL
+
+    rtol = TRAIN_PARALLEL_LOSS_RTOL[axis]
+    dev = {k: abs(first[k] - base_first[k]) / (abs(base_first[k]) if k in
+                                                ("loss", "ce", "info_bce") else 1.0)
+           for k in first}
+    bars = {k: rtol for k in ("loss", "ce", "info_bce")}
+    if axis == "data":
+        bars.update(acc=rtol, hard_acc=rtol)
+    else:  # only columns whose class flips can move them
+        bars.update(acc=flips["share"] + 1e-6, hard_acc=flips["hard_share"] + 1e-6)
+    dev["grad"], bars["grad"] = grad_gap, GRAD_RTOL[axis]
+    return dev, all(dev[k] <= bars[k] for k in bars)
+
+
+@contextlib.contextmanager
+def _planted_fault(fault: str, n_data: int):
+    """One of ``TRAIN_PARALLEL_FAULTS`` planted in ``make_train_step``'s
+    step over ``n_data`` replicas: every replica after the first hands back
+    a zero gradient, or each replica's loss and metrics take its own rows'
+    denominators and 1 / n_data of them is summed (DDP's mean of means)."""
+    from herro_tpu_torch.training import train as train_mod
+
+    gradients, loss_fn = train_mod.gradients, train_mod.loss_fn
+    calls = []
+
+    def dropped(loss, params):
+        grads = gradients(loss, params)
+        calls.append(1)
+        return grads if len(calls) % n_data == 1 else [g * 0 for g in grads]
+
+    def mean_of_means(model, *args):
+        loss, metrics = loss_fn(model, *args[:-1])  # its own denominators
+        return loss / n_data, {k: v / n_data for k, v in metrics.items()}
+
+    if fault == TRAIN_PARALLEL_FAULTS[0]:
+        train_mod.gradients = dropped
+    else:
+        train_mod.loss_fn = mean_of_means
+    try:
+        yield
+    finally:
+        train_mod.gradients, train_mod.loss_fn = gradients, loss_fn
+
+
+def phase_train_parallel(torch, tmp: str) -> dict:
+    """A seeded ``r10`` trainer at B=32 on a bucket-9216 batch of the
+    ``train`` phase's windows, every device ``cuda:0``: one device, then
+    ``TRAIN_LAYOUTS``' meshes, ``TRAIN_PARALLEL_STEPS`` steps each (an
+    optimiser warmed up over 2 steps, as the ``train`` phase's). Each mesh's
+    first step, its loss, metrics and summed gradient, is held against its
+    base layout's by the bars of the axis it adds; every step's CE within
+    ``TRAIN_PARALLEL_CE_RTOL`` of the base's, and falling over the steps;
+    launches a step K4 n_data x tp and K1-K3 2 x n_layers x tp x n_data
+    (remat), no other kernel; the data replicas' parameters and moments
+    bit-identical after 3 steps and at the end; ms a step by CUDA events
+    from step 3 on and the peak of allocated memory. The forward's classes
+    on the trained ``model_r10_sim`` agree with the base's on at least
+    ``TRAIN_PARALLEL_MIN_AGREE`` of the supported columns; on the seeded
+    weights the flipped columns are reported with their logit margins.
+    ``Trainer.save`` of the TP 2 run loads back equal to the gathered
+    parameters. Each of ``TRAIN_PARALLEL_FAULTS``, planted in a DP 2 step,
+    must fail the bars. Then ``dryrun_multichip(4)`` over ``cuda:0`` four
+    times. Returns the launches of the meshes' steps, counted from 0 (the
+    counters are reset at the start)."""
+    import pickle
+
+    import numpy as np
+
+    from herro_tpu_torch.models.checkpoint import load_model, load_or_init
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.parallel import make_mesh_2d
+    from herro_tpu_torch.parallel.dryrun import (dryrun_multichip, first_moments,
+                                                 relative_gap, replicas_equal)
+    from herro_tpu_torch.training.data import TRAIN_BUCKETS, collate_train
+    from herro_tpu_torch.training.train import (TrainState, Trainer, make_optimizer,
+                                                make_train_step)
+
+    with open(os.path.join(tmp, "train_windows.pkl"), "rb") as fh:
+        windows = pickle.load(fh)
+    cfg, params = load_or_init("r10", rng_seed=13)
+    ckpt_cfg, ckpt_params = load_model(CKPT)
+    batch = collate_train(windows[:B], *TRAIN_BUCKETS[2])  # L 9216, S 1152
+    dev = torch.device("cuda", 0)
+
+    def fresh(tag):
+        n_data, tp = next((n, t) for name, n, t, *_ in TRAIN_LAYOUTS if name == tag)
+        where = dict(device=dev) if tag == "single" else dict(
+            mesh=make_mesh_2d(n_data, tp, [dev] * (n_data * tp)))
+        trainer = Trainer(cfg, params, **where)
+        replicas = trainer.state.replicas
+        opt = make_optimizer(1e-3, warmup=2, total_steps=40)
+        trainer.state = TrainState(replicas, [opt.init(list(r.parameters())) for r in replicas])
+        return trainer, make_train_step(replicas, opt)
+
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    failed, rows, refs, launches = [], {}, {}, {}
+    for tag, n_data, tp, base, axis in TRAIN_LAYOUTS:
+        trainer, step = fresh(tag)
+        state, tensors = trainer.state, trainer.tensors(batch)
+        smask, hard = tensors[3], tensors[3] & (tensors[5] > 0)
+        trained = Trainer(ckpt_cfg, ckpt_params, **(
+            dict(device=dev) if trainer.mesh is None else dict(mesh=trainer.mesh)))
+        logits = (_mesh_logits(torch, trained.state.replicas, tensors),
+                  _mesh_logits(torch, state.replicas, tensors))
+        del trained
+        want = {"entry_embed": n_data * tp, **{
+            k: 2 * cfg.n_layers * tp * n_data for k in ("ln_qkv_rope", "flash_outproj", "ln_ffn")}}
+        history, ms, bad_launches, same_after_3 = [], [], [], True
+        torch.cuda.synchronize()
+        for i in range(TRAIN_PARALLEL_STEPS):
+            if i == 2:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            before = kernels.launch_counts.snapshot()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            metrics = step(state, *tensors)
+            e1.record()
+            torch.cuda.synchronize()
+            after = kernels.launch_counts.snapshot()
+            launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            if launched != want:
+                bad_launches.append((i + 1, launched))
+            for k, n in launched.items():  # the meshes' steps, not the forward checks'
+                launches[k] = launches.get(k, 0) + n * (base is not None)
+            history.append({k: float(v) for k, v in metrics.items()})
+            if i == 0:
+                mu = {k: v.clone() for k, v in first_moments(state).items()}
+            if i >= 2:
+                ms.append(e0.elapsed_time(e1))
+            if i == 2:
+                same_after_3 = replicas_equal(state)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        same_end = replicas_equal(state)
+        ce = [h["ce"] for h in history]
+        refs[tag] = dict(first=history[0], mu=mu, ce=ce, logits=logits)
+        ok = (not bad_launches and same_after_3 and same_end and ce[-1] < ce[0]
+              and all(np.isfinite(v) for h in history for v in h.values()))
+        dev_first = agree = flips = ce_dev = None
+        if base is not None:
+            ref = refs[base]
+            flips = _flips(torch, logits[1], ref["logits"][1], smask, hard)
+            agree = float((logits[0].argmax(-1) == ref["logits"][0].argmax(-1))[smask]
+                          .float().mean())
+            dev_first, first_ok = _first_step_check(history[0], ref["first"],
+                                                    relative_gap(mu, ref["mu"]), axis, flips)
+            ce_dev = max(abs(a - b) / b for a, b in zip(ce, ref["ce"]))
+            ok = (ok and first_ok and ce_dev <= TRAIN_PARALLEL_CE_RTOL
+                  and agree >= TRAIN_PARALLEL_MIN_AGREE)
+        saved = None
+        if tag == "tp2":
+            ckpt = os.path.join(tmp, "train_parallel_tp2")
+            trainer.save(ckpt)
+            cfg_saved, sd = load_model(ckpt)
+            logical = state.params
+            saved = cfg_saved == cfg and list(sd) == list(logical) and all(
+                torch.equal(sd[k], v.cpu()) for k, v in logical.items())
+            ok = ok and saved
+        rows[tag] = dict(data=n_data, tp=tp, base=base, axis=axis, ms=sum(ms) / len(ms),
+                         ms_each=ms, peak_gib=peak_gib, held_before_gib=held / 2 ** 30,
+                         first_step=history[0], deviation_from_base=dev_first,
+                         ce_deviation_from_base=ce_dev, trained_class_agreement=agree,
+                         seeded_flips=flips, replicas_equal_after_3=same_after_3,
+                         replicas_equal_at_end=same_end, ce_history=ce,
+                         want_step_launches=want, saved_equal=saved)
+        emit("train_parallel", layout=tag, card=nvidia_smi(), **rows[tag],
+             bad_launches=bad_launches)
+        if not ok:
+            failed.append(f"{tag}: {rows[tag]}, launches {bad_launches}")
+        del trainer, state, step, logits
+        torch.cuda.empty_cache()
+
+    # the bars' power: each planted fault in the dp2 step must fail them
+    for fault in TRAIN_PARALLEL_FAULTS:
+        trainer, step = fresh("dp2")
+        with _planted_fault(fault, 2):
+            first = {k: float(v) for k, v in step(trainer.state, *trainer.tensors(batch)).items()}
+        dev_first, first_ok = _first_step_check(
+            first, refs["single"]["first"],
+            relative_gap(first_moments(trainer.state), refs["single"]["mu"]), "data", None)
+        emit("train_parallel", planted_fault=fault, deviation_from_base=dev_first,
+             rejected=not first_ok)
+        if first_ok:
+            failed.append(f"the bars passed a step with {fault}: {dev_first}")
+        del trainer, step
+    refs.clear()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device="cuda:0")
+    emit("train_parallel", run="dryrun_multichip(4) over cuda:0", wall_s=time.perf_counter() - t0,
+         **dry)
+    missing = [k for k in TRAIN_KERNELS if not launches.get(k)]
+    if failed or missing:
+        raise RuntimeError(f"train_parallel: {failed}; kernels never launched {missing}")
     return launches
 
 
@@ -1991,6 +2276,7 @@ def main() -> int:
         split_launches = phase_rope_split(torch, tmp, e2e)
         phase_grad(torch)
         phase_train(torch, tmp)
+        train_parallel_launches = phase_train_parallel(torch, tmp)
         phase_distill(torch, tmp)
     attention_launches = phase_attention(torch)
 
@@ -2018,6 +2304,8 @@ def main() -> int:
             )
             continue
         summary.append({key: k[key] for key in keys} | {"launches": launches[k["name"]]})
+        if k["name"] in TRAIN_KERNELS:  # and on this slice's path, a train step over a mesh
+            summary[-1]["train_parallel_launches"] = train_parallel_launches[k["name"]]
     missing = [e["name"] for e in summary if not e["launches"]]
     if missing or len(summary) != len(launches) or len(summary) != len(kernels.KERNELS):
         raise RuntimeError(f"kernels never launched on their path: {missing}")

@@ -9,20 +9,22 @@
     python -m herro_tpu_torch.cli eval MODEL [--mode model|counting|oracle] \\
         [--with-baseline] [--device cuda|cpu] ...
     python -m herro_tpu_torch.cli train [--config NAME|DIR] [--steps N] \\
-        [--batch-size B] [--curriculum] [--max-len L] [--device cuda|cpu] ... OUTPUT
+        [--batch-size B] [--curriculum] [--max-len L] [--device cuda|cpu] \\
+        [--devices N|I,J,..] [--tp N] ... OUTPUT
     python -m herro_tpu_torch.cli distill FEATURES_DIR OUTPUT --teacher CKPT \\
         [--student NAME|DIR] [--device cuda|cpu] ...
 
 The ``features``, ``inference``, ``eval``, ``train`` and ``distill``
 subcommands of ``herro_tpu``, with their flags. All but ``features`` run on
 the card unless ``--device cpu`` is given; ``features`` runs on the host
-alone. ``inference`` takes the reference's multi-device and multi-host flags:
+alone. ``inference`` and ``train`` take the reference's multi-device flags:
 ``--devices`` (a count of local cards or an index list like '0,1,3', data
-parallel; default all), ``--tp N`` (Megatron tensor parallelism over a 2-D
-data x model mesh), and ``--coordinator`` / ``--num-processes`` /
-``--process-id`` (processes that each correct every n-th alignment batch
-into ``OUTPUT.shardNNN``). ``train`` runs on one device yet and refuses
-``--devices``/``--tp``; ``--int8`` takes ``--tp 1``.
+parallel; default all) and ``--tp N`` (Megatron tensor parallelism over a
+2-D data x model mesh); ``train`` then sums the replicas' gradients into one
+global step. ``inference`` also takes the multi-host flags
+``--coordinator`` / ``--num-processes`` / ``--process-id`` (processes that
+each correct every n-th alignment batch into ``OUTPUT.shardNNN``); the
+reference's ``train`` has none. ``--int8`` takes ``--tp 1``.
 ``--int8`` / ``--no-int8`` override the checkpoint's ``config.json``.
 """
 
@@ -212,11 +214,16 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pt.add_argument(
         "--devices", default="0",
-        help="data-parallel device count (train runs on one device yet; 0 means one)",
+        help="local devices for data parallelism: a count, or an index list like "
+        "'0,1,3'; 0 = all cards (the card --device cuda:N names, if it names one); "
+        "with --device cpu the number of CPU replicas, 0 = one. The batch size "
+        "must divide by the data axis",
     )
     pt.add_argument(
         "--tp", type=int, default=1,
-        help="tensor-parallel degree (train runs on one device yet: only 1)",
+        help="tensor-parallel degree (heads and the FFN hidden shard over a 2-D "
+        "data x model mesh; must divide the device count). bf16 or float32 "
+        "configs: an int8 config takes --tp 1",
     )
     _add_device(pt)
     pt.add_argument("output", help="checkpoint output directory")
@@ -246,23 +253,33 @@ def _add_device(p: argparse.ArgumentParser) -> None:
     )
 
 
-def _check_ported(args) -> None:
-    """Raise a clear error for the reference flags a later slice carries:
-    ``train --devices/--tp`` and ``inference --int8 --tp N`` with N > 1."""
-    if args.command == "train":
-        devices = str(args.devices)
-        if "," in devices or int(devices) not in (0, 1):
-            raise SystemExit(
-                f"train --devices {devices}: training on several devices is not ported "
-                "yet; pick the card with --device cuda:N"
-            )
-        if args.tp != 1:
-            raise SystemExit("train --tp: tensor-parallel training is not ported yet")
-    elif args.tp > 1 and args.int8:
+def _check_ported(args, int8: bool | None = None) -> None:
+    """Raise a clear error for the layout a later slice carries: int8 with
+    ``--tp N``, N > 1 (``int8``: the run's, by default ``args.int8``)."""
+    int8 = args.int8 if int8 is None else int8
+    if args.tp > 1 and int8:
         raise SystemExit(
             f"--int8 with --tp {args.tp}: the int8 kernels take no shard widths yet "
             "(ROADMAP.md queue 2b); run int8 with --tp 1, or bf16 with --tp > 1"
         )
+
+
+def _device_mesh(args):
+    """(the devices ``--devices`` names, the mesh over them or None) by the
+    reference's rules; a bad spec, a card the host lacks or a degree that
+    does not divide the devices exits with the reason."""
+    from .parallel.mesh import local_devices, parse_devices
+
+    try:
+        devices = local_devices(args.devices, args.device)
+    except ValueError as e:  # more cards than the host has, or a bad spec
+        raise SystemExit(str(e)) from None
+    mesh = _build_mesh(devices, isinstance(parse_devices(args.devices), list), args.tp)
+    if mesh is not None and args.batch_size % mesh.n_data:
+        raise SystemExit(
+            f"batch size {args.batch_size} not divisible by data size {mesh.n_data}"
+        )
+    return devices, mesh
 
 
 def _build_mesh(devices: list, explicit: bool, tp: int):
@@ -384,21 +401,13 @@ def cmd_inference(args) -> None:
 def _run_inference(args, reads, core, featgen_pool) -> None:
     from .models.checkpoint import load_or_init
     from .overlaps.paf import ParseStats
-    from .parallel.mesh import local_devices, parse_devices, process_count, process_index
+    from .parallel.mesh import process_count, process_index
     from .pipeline.engine import AlnMode, StageTimers, alignment_stream, run_correction
     from .pipeline.infer import CorrectionRunner
     from .pipeline.progress import Progress
 
     cfg, params = load_or_init(args.model)
-    try:
-        devices = local_devices(args.devices, args.device)
-    except ValueError as e:  # more cards than the host has, or a bad spec
-        raise SystemExit(str(e)) from None
-    mesh = _build_mesh(devices, isinstance(parse_devices(args.devices), list), args.tp)
-    if mesh is not None and args.batch_size % mesh.n_data:
-        raise SystemExit(
-            f"batch size {args.batch_size} not divisible by data size {mesh.n_data}"
-        )
+    devices, mesh = _device_mesh(args)
     runner = CorrectionRunner(cfg, params, int8=args.int8, device=devices[0], mesh=mesh)
 
     progress = Progress()
@@ -516,10 +525,12 @@ def cmd_train(args) -> None:
         simulated_windows,
     )
     from .training.simulate import simulate
+    from .parallel.mesh import make_mesh
     from .training.train import Trainer
 
-    _check_ported(args)
     cfg, params = load_or_init(args.config)
+    _check_ported(args, cfg.int8)
+    devices, mesh = _device_mesh(args)
 
     windows = None
     if args.curriculum:
@@ -559,7 +570,7 @@ def cmd_train(args) -> None:
 
     trainer = Trainer(
         cfg, params, lr=args.lr, total_steps=args.steps, hard_weight=args.hard_weight,
-        device=args.device,
+        mesh=mesh if mesh is not None else make_mesh(devices),
     )
     if args.max_len:
         it = batch_iterator(

@@ -222,6 +222,15 @@ class CorrectionModel(nn.Module):
         self.info_head = Dense(d, 1, generator)
         self._weights = None  # (key, parameters' storages, weights)
 
+    def gather(self, values=None) -> dict:
+        """``values`` (one tensor a parameter, in :meth:`parameters`' order;
+        the parameters themselves by default) under the parameters' names:
+        what ``TensorParallelModel.gather`` gives for a sharded replica, so
+        the trainer reads either kind of replica's logical parameters,
+        gradients or moments alike."""
+        values = self.parameters() if values is None else values
+        return {name: v for (name, _), v in zip(self.named_parameters(), values)}
+
     def _build_weights(self) -> dict:
         cp = self.col_proj
         dt = self.cfg.compute_dtype

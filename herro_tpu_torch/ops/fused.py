@@ -14,7 +14,9 @@ The public op launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors, and does nothing else: there is no fallback.
 
 Three ops are differentiable, as their counterparts carry a ``custom_vjp`` in
-the reference: ``entry_embed``, ``ln_ffn`` and ``attention_block``. With
+the reference: ``entry_embed``, ``ln_ffn`` and ``attention_block``, and a
+fourth, ``attention_shard``, is ``attention_block`` with the residual taken
+apart, for a tensor-parallel shard under autograd. With
 grad mode on and an input that requires grad, each runs through
 :class:`_RecomputePlain`: the forward is the op as above (the kernel on the
 card), the backward re-runs the plain version on the saved inputs and
@@ -626,3 +628,30 @@ def _attention_block_plain(x, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads
                            local_window):
     q, k, v = _ln_qkv_rope_plain(x, ln_s, ln_b, w_qkv, b_qkv, n_heads)
     return _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window)
+
+
+def attention_shard(x, residual, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,
+                    local_window):
+    """One tensor-parallel shard's attention block: ``residual`` + MHA(rope(
+    LN(x) Wqkv)) Wo + bo over the shard's heads. The stream x feeds the
+    LayerNorm and ``residual`` (x / tp on a shard) the kernel's residual
+    add, the inference path's two kernels (``parallel/tensor.py``).
+    Differentiable in every input but lengths, through the plain versions."""
+    args = (x, residual, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths)
+    if _needs_grad(*args[:-1]):
+        return _RecomputePlain.apply(
+            _attention_shard_op, _attention_shard_plain, (n_heads, local_window), *args
+        )
+    return _attention_shard_op(*args, n_heads, local_window)
+
+
+def _attention_shard_op(x, residual, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,
+                        local_window):
+    q, k, v = ln_qkv_rope(x, ln_s, ln_b, w_qkv, b_qkv, n_heads)
+    return flash_outproj(q, k, v, residual, wo, bo, lengths, local_window)
+
+
+def _attention_shard_plain(x, residual, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,
+                           local_window):
+    q, k, v = _ln_qkv_rope_plain(x, ln_s, ln_b, w_qkv, b_qkv, n_heads)
+    return _flash_outproj_plain(q, k, v, residual, wo, bo, lengths, local_window)

@@ -1,5 +1,7 @@
-"""Multi-device and multi-host inference: the device mesh and the
-multi-process runtime (``mesh``), Megatron tensor parallelism (``tensor``)."""
+"""Multi-device and multi-host inference and multi-device training: the
+device mesh and the multi-process runtime (``mesh``), Megatron tensor
+parallelism (``tensor``), and a train step over a mesh with sharded
+inference against one device (``dryrun``, run as a module)."""
 
 from .mesh import (
     Mesh,
@@ -11,12 +13,19 @@ from .mesh import (
     process_index,
     shutdown_distributed,
 )
-from .tensor import TensorParallelModel, all_reduce, make_tp_correct_step, shard_weights
+from .tensor import (
+    TensorParallelModel,
+    all_reduce,
+    gather_weights,
+    make_tp_correct_step,
+    shard_weights,
+)
 
 __all__ = [
     "Mesh",
     "TensorParallelModel",
     "all_reduce",
+    "gather_weights",
     "init_distributed",
     "local_devices",
     "make_mesh",

@@ -5,7 +5,10 @@ FFN hidden axis split over the ``model`` axis (the column-parallel qkv and
 ff1, the row-parallel out projection and ff2); everything else replicates.
 Each shard runs the same hand-written kernels as one device, at its own
 widths (``h_loc = H / tp`` heads, ``d_ff / tp`` hidden columns), and one
-:func:`all_reduce` per half-block recombines the stream.
+:func:`all_reduce` per half-block recombines the stream. The same forward
+serves inference and training: under autograd the attention and FFN ops are
+the ``_RecomputePlain`` Functions of ``ops/fused.py`` (kernel forward, plain
+backward), and the sum hands its gradient to every shard.
 
 Layout of shard j (the port's layouts, ``models/model.py``):
 
@@ -14,7 +17,8 @@ Layout of shard j (the port's layouts, ``models/model.py``):
 * ``wo [H, D, d]``: the same heads;
 * ``w1 [d, d_ff]``, ``b1``: columns ``j*f_loc .. (j+1)*f_loc - 1``;
   ``w2 [d_ff, d]``: the same rows;
-* ``bo``, ``b2``: scaled by 1/tp.
+* ``bo``, ``b2``: scaled by 1/tp (``shard_weights``; the model keeps them
+  unscaled and scales them in the forward).
 
 The fused kernels add the residual (and the row-parallel bias) into their
 output, so each shard is fed the stream and the bias scaled by 1/tp; the sum
@@ -26,10 +30,11 @@ FFN shards normalise the scaled stream.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import TOKEN_PAD
 from ..models.model import CorrectionModel, ModelConfig
-from ..ops.fused import col_proj_table, entry_embed, flash_outproj, ln_ffn, ln_qkv_rope
+from ..ops.fused import attention_shard, col_proj_table, entry_embed, ln_ffn
 
 def block_params(block) -> dict:
     """A block's float32 matmul parameters under the names the ops take."""
@@ -67,13 +72,43 @@ def shard_weights(block_weights: dict, tp: int, j: int) -> dict:
     )
 
 
+def gather_weights(shards: list[dict]) -> dict:
+    """The inverse of :func:`shard_weights` on the sharded keys (``w_qkv``,
+    ``b_qkv``, ``wo``, ``w1``, ``b1``, ``w2``): the shards of one block put
+    back together on shard 0's device. Differentiable."""
+    dev = shards[0]["wo"].device
+    h, D, d = shards[0]["wo"].shape
+    cat = lambda key, dim, *shape: torch.cat(
+        [s[key].to(dev).reshape(*shape) if shape else s[key].to(dev) for s in shards], dim
+    )
+    return dict(
+        w_qkv=cat("w_qkv", 2, d, 3, h, D).reshape(d, -1),
+        b_qkv=cat("b_qkv", 1, 3, h, D).reshape(-1),
+        wo=cat("wo", 0),
+        w1=cat("w1", 1),
+        b1=cat("b1", 0),
+        w2=cat("w2", 0),
+    )
+
+
+# the keys of block_params that shard_weights splits; bo and b2 replicate
+SHARDED = ("w_qkv", "b_qkv", "wo", "w1", "b1", "w2")
+# block_params key -> the parameter's name within its block
+BLOCK_NAMES = {
+    "w_qkv": "attn.qkv_kernel", "b_qkv": "attn.qkv_bias", "wo": "attn.out_kernel",
+    "w1": "ff1.kernel", "b1": "ff1.bias", "w2": "ff2.kernel",
+}
+
+
 def all_reduce(partials: list[torch.Tensor]) -> list[torch.Tensor]:
     """The sum over shards (``jax.lax.psum`` over the model axis), one
     tensor per shard on its device. The sum is taken once, on shard 0's
     device, in float32 in shard order and rounded to the partials' dtype
     once, then copied to the other shards' devices (peer to peer between
     cards), so every shard holds the same bits. Shards on one device share
-    the one tensor."""
+    the one tensor. Differentiable as it stands, through the copies and the
+    in-place sum: the backward hands the sum of the outputs' gradients to
+    every partial (Megatron's g operator)."""
     if len(partials) == 1:
         return list(partials)
     dev0 = partials[0].device
@@ -84,30 +119,20 @@ def all_reduce(partials: list[torch.Tensor]) -> list[torch.Tensor]:
     return [total if p.device == dev0 else total.to(p.device) for p in partials]
 
 
-class _Shard:
-    """Shard j on its device: a replica of the model's parameters, of which
-    it reads the entry, the LayerNorms and (shard 0) the tail, and its part
-    of each block's matmul weights in the compute dtype."""
-
-    def __init__(self, cfg: ModelConfig, params: dict, tp: int, j: int, device):
-        model = CorrectionModel(cfg)
-        model.load_state_dict(params)
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        dt = cfg.compute_dtype
-        with torch.no_grad():
-            cp = self.model.col_proj
-            self.wc = col_proj_table(cp.w_embT.to(dt), cp.w_qT.to(dt))
-            self.blocks = [
-                {k: v.to(dt) for k, v in shard_weights(block_params(b), tp, j).items()}
-                for b in self.model.blocks
-            ]
-
-
 class TensorParallelModel:
     """One data replica of the model, sharded over ``devices`` (one row of a
-    mesh; a device may repeat). Inference only, bf16 or float32; int8 has no
-    kernel at the shard widths."""
+    mesh; a device may repeat), for inference and for training.
+
+    Its float32 parameters are leaves: the replicated ones (entry, the
+    LayerNorms, ``bo``, ``b2``, the tail) once, in a copy of the model on
+    shard 0's device from which the sharded weights are removed; shard j's
+    part of each block's ``w_qkv``, ``b_qkv``, ``wo``, ``w1``, ``b1`` and
+    ``w2`` on its device. Every shard reads a replicated parameter through
+    ``.to(its device)``, so autograd sums the shards' parts of its gradient,
+    on one card or across cards. ``bo`` and ``b2`` stay unscaled: the
+    forward scales them by 1/tp. :meth:`gather` gives the parameters under
+    the single-device names (the checkpoint's). bf16 or float32; int8 has
+    no kernel at the shard widths."""
 
     def __init__(self, cfg: ModelConfig, params: dict, devices):
         if cfg.int8:
@@ -116,42 +141,122 @@ class TensorParallelModel:
                 "yet; see ROADMAP.md queue 2b. Run int8 with --tp 1, or bf16 with --tp > 1"
             )
         self.cfg = cfg
-        self.tp = len(devices)
-        self.shards = [_Shard(cfg, params, self.tp, j, dev) for j, dev in enumerate(devices)]
-        self.device = self.shards[0].device
+        self.devices = [torch.device(d) for d in devices]
+        self.tp = len(self.devices)
+        self.device = self.devices[0]
+        model = CorrectionModel(cfg)
+        model.load_state_dict(params)
+        self.names = list(model.state_dict())  # the single-device order
+        with torch.no_grad():
+            blocks = [block_params(b) for b in model.blocks]
+            self.shards = [  # float32 leaves of their own on the shard's device
+                [{k: v.to(dev, torch.float32, copy=True).requires_grad_()
+                  for k, v in shard_weights(w, self.tp, j).items() if k in SHARDED}
+                 for w in blocks]
+                for j, dev in enumerate(self.devices)
+            ]
+        for b in model.blocks:
+            for key in SHARDED:
+                module, name = BLOCK_NAMES[key].split(".")
+                delattr(getattr(b, module), name)
+        self.model = model.to(self.device)  # the replicated parameters
+        self._weights = None  # (key, weights) built without grad
+
+    def parameters(self) -> list[torch.Tensor]:
+        """Every float32 leaf: the replicated ones, then shard by shard,
+        block by block, the keys of ``SHARDED``."""
+        return list(self.model.parameters()) + [
+            w[k] for shard in self.shards for w in shard for k in SHARDED
+        ]
+
+    def gather(self, values=None) -> dict:
+        """``values`` (one tensor a leaf, in :meth:`parameters`' order; the
+        leaves themselves by default) under the single-device names, the
+        shards put back together on shard 0's device, detached: the
+        logical parameters, gradients or optimiser moments."""
+        values = self.parameters() if values is None else list(values)
+        n_rep = len(list(self.model.parameters()))
+        out = dict(zip((n for n, _ in self.model.named_parameters()), values[:n_rep]))
+        it = iter(values[n_rep:])
+        parts = [[{k: next(it) for k in SHARDED} for _ in self.model.blocks]
+                 for _ in self.devices]
+        with torch.no_grad():
+            for i in range(len(self.model.blocks)):
+                whole = gather_weights([shard[i] for shard in parts])
+                out.update({f"blocks.{i}.{BLOCK_NAMES[k]}": whole[k] for k in SHARDED})
+            return {name: out[name].detach() for name in self.names}
+
+    def _build_weights(self) -> list[dict]:
+        """Shard by shard, what its ops take: the col_proj table and bias and,
+        block by block, the LayerNorm parameters (float32), its matmul
+        weights and 1/tp of the row-parallel biases in the compute dtype."""
+        dt = self.cfg.compute_dtype
+        inv = 1.0 / self.tp
+        m = self.model
+        out = []
+        for dev, shard in zip(self.devices, self.shards):
+            rep = lambda t: t.to(dev)
+            blocks = []
+            for b, w in zip(m.blocks, shard):
+                blocks.append(dict(
+                    ln1_s=rep(b.ln1.scale), ln1_b=rep(b.ln1.bias),
+                    ln2_s=rep(b.ln2.scale), ln2_b=rep(b.ln2.bias),
+                    bo=(rep(b.attn.out_bias) * inv).to(dt), b2=(rep(b.ff2.bias) * inv).to(dt),
+                    **{k: w[k].to(dt) for k in SHARDED},
+                ))
+            cp = m.col_proj
+            out.append(dict(wc=col_proj_table(rep(cp.w_embT).to(dt), rep(cp.w_qT).to(dt)),
+                            cb=rep(cp.bias), blocks=blocks))
+        return out
+
+    def compute_weights(self) -> list[dict]:
+        """The shards' weights, built once per parameter state without
+        gradients and afresh with them (``CorrectionModel.compute_weights``)."""
+        if torch.is_grad_enabled():
+            return self._build_weights()
+        key = (torch.is_inference_mode_enabled(),
+               tuple((p.data_ptr(), p._version) for p in self.parameters()))
+        if self._weights is None or self._weights[0] != key:
+            self._weights = (key, self._build_weights())
+        return self._weights[1]
 
     def forward(self, bases, quals, support_idx, support_mask):
         """``CorrectionModel.forward`` over the shards: inputs on shard 0's
         device, (info [B, S], bases logits [B, S, 5]) there. The entry embed
         runs on every shard, as the reference recomputes it; the tail runs
-        once, on shard 0, whose stream after the last sum is every shard's."""
+        once, on shard 0, whose stream after the last sum is every shard's.
+        Under autograd with ``cfg.remat`` each shard's half-block is a
+        ``torch.utils.checkpoint`` region, as the block is on one device."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         inv = 1.0 / self.tp
         h_loc = cfg.n_heads // self.tp
+        remat = cfg.remat and torch.is_grad_enabled()
+        weights = self.compute_weights()
         inputs = {}  # the batch on each shard's device, once per device
-        for s in self.shards:
-            if s.device not in inputs:
-                tok = bases.to(s.device)
+        for dev in self.devices:
+            if dev not in inputs:
+                tok = bases.to(dev)
                 lengths = (tok[:, 0, :] != TOKEN_PAD).sum(dim=1, dtype=torch.int32)
-                inputs[s.device] = (tok, quals.to(s.device).float(), lengths)
-        xs = [entry_embed(*inputs[s.device][:2], s.wc, s.model.col_proj.bias, dt)
-              for s in self.shards]
+                inputs[dev] = (tok, quals.to(dev).float(), lengths)
+
+        def attn_half(x, lengths, w):
+            return attention_shard(x, x * inv, w["ln1_s"], w["ln1_b"], w["w_qkv"], w["b_qkv"],
+                                   w["wo"], w["bo"], lengths, h_loc, cfg.local_window)
+
+        def ffn_half(x, w):
+            return ln_ffn(x * inv, w["ln2_s"], w["ln2_b"], w["w1"], w["b1"], w["w2"], w["b2"])
+
+        run = (lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) if remat else \
+            (lambda fn, *a: fn(*a))
+        xs = [entry_embed(*inputs[dev][:2], w["wc"], w["cb"], dt)
+              for dev, w in zip(self.devices, weights)]
         for i in range(cfg.n_layers):
-            ys = []
-            for s, x in zip(self.shards, xs):
-                ln, w = s.model.blocks[i].ln1, s.blocks[i]
-                q, k, v = ln_qkv_rope(x, ln.scale, ln.bias, w["w_qkv"], w["b_qkv"], h_loc)
-                ys.append(flash_outproj(q, k, v, x * inv, w["wo"], w["bo"],
-                                        inputs[s.device][2], cfg.local_window))
-            xs = all_reduce(ys)
-            ys = []
-            for s, x in zip(self.shards, xs):
-                ln, w = s.model.blocks[i].ln2, s.blocks[i]
-                ys.append(ln_ffn(x * inv, ln.scale, ln.bias, w["w1"], w["b1"], w["w2"],
-                                 w["b2"]))
-            xs = all_reduce(ys)
-        return self.shards[0].model.head(xs[0], support_idx, support_mask)
+            xs = all_reduce([run(attn_half, x, inputs[dev][2], w["blocks"][i])
+                             for dev, x, w in zip(self.devices, xs, weights)])
+            xs = all_reduce([run(ffn_half, x, w["blocks"][i])
+                             for x, w in zip(xs, weights)])
+        return self.model.head(xs[0], support_idx, support_mask)
 
     __call__ = forward
 

@@ -8,9 +8,9 @@ column labels, and the normal Trainer fits a (typically smaller/faster)
 student. Public precedent: "Knowledge distillation for fast and accurate DNA
 sequence correction" (arXiv:2211.09862).
 
-The port of ``herro_tpu/training/distill.py`` on one device: the teacher runs
-the inference step (the card's kernels, the counting rule's included), the
-student trains through :class:`Trainer`.
+The port of ``herro_tpu/training/distill.py``: the teacher runs the inference
+step (the card's kernels, the counting rule's included), the student trains
+through :class:`Trainer`, on one device or, given a mesh, both over it.
 """
 
 from __future__ import annotations
@@ -53,19 +53,21 @@ def teacher_label_windows(
     dumped: list[tuple[np.ndarray, np.ndarray, np.ndarray]],
     batch_size: int = 16,
     device=None,
+    mesh=None,
 ) -> list[LabelledWindow]:
     """Run the teacher over dumped windows; emit hard labels + info flags.
 
     Uses the production CorrectionRunner machinery (bucketed static shapes,
     pipelined dispatch) with ``collect_info`` on, on ``device`` (the card
-    unless the caller asks for the CPU).
+    unless the caller asks for the CPU) or over ``mesh`` (whose data axis
+    must divide ``batch_size``).
     """
     from ..pipeline.batching import BucketBatcher
     from ..pipeline.infer import CorrectionRunner
     from ..pipeline.batching import WindowTensors
 
     runner = CorrectionRunner(
-        teacher_cfg, teacher_params, collect_info=True, device=device
+        teacher_cfg, teacher_params, collect_info=True, device=device, mesh=mesh
     )
     batcher = BucketBatcher(BucketSpec(), batch_size)
 
@@ -123,22 +125,26 @@ def distill_from_dump(
     max_sup: int = 640,
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> dict:
-    """features-dump -> teacher labels -> student training -> checkpoint."""
+    """features-dump -> teacher labels -> student training -> checkpoint,
+    on ``device`` or over ``mesh`` (``Trainer(mesh=...)``)."""
     from ..models.checkpoint import load_or_init, save_model
     from .data import batch_iterator
     from .train import Trainer
 
+    if device is not None and mesh is not None:
+        raise ValueError("distill_from_dump takes a device or a mesh, not both")
     tcfg, tparams = load_or_init(teacher)
     dumped = windows_from_dump(dump_dir)
     labelled = teacher_label_windows(
-        tcfg, tparams, dumped, batch_size=batch_size, device=device
+        tcfg, tparams, dumped, batch_size=batch_size, device=device, mesh=mesh
     )
     if not labelled:
         raise ValueError(f"no labelled windows produced from {dump_dir}")
 
     scfg, sparams = load_or_init(student_cfg_name)
-    trainer = Trainer(scfg, sparams, lr=lr, total_steps=steps, device=device)
+    trainer = Trainer(scfg, sparams, lr=lr, total_steps=steps, device=device, mesh=mesh)
     it = batch_iterator(
         labelled, batch_size, L=max_len, S=max_sup, n_epochs=10_000, seed=seed
     )

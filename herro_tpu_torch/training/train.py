@@ -1,8 +1,8 @@
-"""Training loop on one device.
+"""Training loop, on one device or over a device mesh.
 
-The port of ``herro_tpu/training/train.py`` without the mesh. The loss is
-masked cross-entropy over supported columns (the model's only scored
-outputs), weighted up where the truth differs from the target read, plus a
+The port of ``herro_tpu/training/train.py``. The loss is masked
+cross-entropy over supported columns (the model's only scored outputs),
+weighted up where the truth differs from the target read, plus a
 small-weight BCE on the info head. The optimiser is optax's
 ``chain(clip_by_global_norm(1.0), adamw(warmup_cosine_decay_schedule(...),
 weight_decay=1e-4))`` written out in torch with optax's semantics, which
@@ -13,6 +13,16 @@ value for a count of 0.
 
 On the card the forward runs the entry, qkv, attention and FFN kernels; the
 backward is plain PyTorch, as the reference's backward is plain XLA.
+
+Over a :class:`~herro_tpu_torch.parallel.mesh.Mesh` each row is a data
+replica (the model on its device, or sharded over its row by Megatron
+tensor parallelism, ``parallel/tensor.py``) and takes its contiguous rows of
+the batch, as ``P("data")`` splits it. The loss's denominators are the whole
+batch's, so the replicas' gradients sum to the single-device gradient; the
+sum is taken once, in float32 in replica order, and every replica applies
+the same clipped update to its own copy of the parameters and moments, which
+therefore stay bit-identical: the reference's jitted step, whose gradient
+all-reduce XLA inserts. One device is one replica of the same step.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ import torch.nn.functional as F
 
 from ..constants import QUAL_OFFSET, QUAL_SCALE
 from ..models.model import CorrectionModel, ModelConfig
+from ..parallel.mesh import Mesh
+from ..parallel.tensor import TensorParallelModel
 from ..pipeline.infer import keep_float32_exact, resolve_device
 
 
@@ -50,9 +62,24 @@ class AdamState:
 
 @dataclass
 class TrainState:
-    params: dict  # name -> the model's live float32 Parameter
-    opt_state: AdamState
+    """The data replicas (one model on one device, or one a row of a mesh)
+    and an optimiser state beside each, bit-identical across replicas.
+    ``params`` are replica 0's logical parameters under the single-device
+    names, what a checkpoint holds (``gather``: one device's live leaves, a
+    sharded replica's put back together and detached); ``opt_state`` is
+    replica 0's."""
+
+    replicas: list  # one model a data replica
+    opt_states: list  # one AdamState a data replica
     step: int = 0
+
+    @property
+    def params(self) -> dict:
+        return self.replicas[0].gather()
+
+    @property
+    def opt_state(self) -> AdamState:
+        return self.opt_states[0]
 
 
 class Optimizer:
@@ -84,18 +111,24 @@ class Optimizer:
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                state: AdamState) -> None:
-        """One step, in place on ``params`` and ``state``."""
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        """One step, in place on ``params`` and ``state``. Parameters may lie
+        on several devices (a tensor-parallel replica's shards): the norm is
+        summed on the first gradient's device."""
+        dev = grads[0].device
+        norm = torch.sqrt(sum((g.float() ** 2).sum().to(dev) for g in grads))
         # optax rescales only from norm >= max_norm on, by t / norm * max_norm
         clip = norm >= self.max_norm
         lr = self.learning_rate(state.count)
         state.count += 1
-        dev = norm.device
         one = torch.ones((), dtype=torch.float32, device=dev)
         c1 = one - torch.tensor(self.b1, device=dev) ** state.count
         c2 = one - torch.tensor(self.b2, device=dev) ** state.count
         step = torch.tensor(-lr, dtype=torch.float32, device=dev)
+        scalars = {dev: (norm, clip, c1, c2, step)}
         for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+            if p.device not in scalars:
+                scalars[p.device] = tuple(t.to(p.device) for t in scalars[dev])
+            norm, clip, c1, c2, step = scalars[p.device]
             g = torch.where(clip, g / norm * self.max_norm, g)
             mu.mul_(self.b1).add_((1.0 - self.b1) * g)
             nu.mul_(self.b2).add_((1.0 - self.b2) * (g * g))
@@ -107,20 +140,34 @@ def make_optimizer(lr: float = 3e-4, warmup: int = 100, total_steps: int = 10_00
     return Optimizer(lr, warmup, max(total_steps, warmup + 1))
 
 
+def loss_denominators(smask, info_labels, hard_weight: float = 0.0):
+    """The loss's and metrics' denominators, which depend on the inputs
+    alone: the supported columns, their cross-entropy weights and the hard
+    columns, each at least 1 (``train.py:67-83`` of the reference)."""
+    m = smask.float()
+    w = m * (1.0 + hard_weight * info_labels)
+    return m.sum().clamp_min(1.0), w.sum().clamp_min(1.0), (m * info_labels).sum().clamp_min(1.0)
+
+
 def loss_fn(model: CorrectionModel, tokens, quals_u8, sidx, smask, labels, info_labels,
-            info_weight: float = 0.1, hard_weight: float = 0.0):
+            info_weight: float = 0.1, hard_weight: float = 0.0, denominators=None):
     """(loss, metrics) of one batch on its device (``train.py:54-91`` of the
     reference). ``hard_weight`` > 0 up-weights the cross-entropy at columns
-    whose truth differs from the target read's symbol (the info label)."""
+    whose truth differs from the target read's symbol (the info label).
+    ``denominators`` (``loss_denominators`` of a whole batch) make this the
+    share of that batch's loss and metrics from these rows of it: the shares
+    of a batch's parts sum to the whole batch's."""
     quals = QUAL_SCALE * quals_u8.float() - QUAL_OFFSET
     info, logits = model(tokens, quals, sidx, smask)
     m = smask.float()
-    denom = m.sum().clamp_min(1.0)
+    if denominators is None:
+        denominators = loss_denominators(smask, info_labels, hard_weight)
+    denom, w_sum, hard_sum = denominators
 
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long(),
                          reduction="none").view_as(m)
     w = m * (1.0 + hard_weight * info_labels)
-    ce = (ce * w).sum() / w.sum().clamp_min(1.0)
+    ce = (ce * w).sum() / w_sum
 
     # optax.sigmoid_binary_cross_entropy
     bce = -info_labels * F.logsigmoid(info) - (1.0 - info_labels) * F.logsigmoid(-info)
@@ -129,45 +176,82 @@ def loss_fn(model: CorrectionModel, tokens, quals_u8, sidx, smask, labels, info_
     with torch.no_grad():
         hit = (logits.argmax(dim=-1) == labels).float()
         acc = (hit * m).sum() / denom
-        hm = m * info_labels
-        hard_acc = (hit * hm).sum() / hm.sum().clamp_min(1.0)
+        hard_acc = (hit * (m * info_labels)).sum() / hard_sum
     loss = ce + info_weight * bce
     return loss, {"loss": loss.detach(), "ce": ce.detach(), "info_bce": bce.detach(),
                   "acc": acc, "hard_acc": hard_acc}
 
 
-def apply_gradients(optimizer: Optimizer, state: TrainState, loss: torch.Tensor) -> None:
-    """The backward of ``loss`` and one optimiser update of ``state``'s
-    parameters, in place; a parameter the loss does not reach gets a zero
+def gradients(loss: torch.Tensor, params: list) -> list:
+    """d loss / d params; a parameter the loss does not reach gets a zero
     gradient, as under jax.grad."""
-    params = list(state.params.values())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    optimizer.update(params, grads, state.opt_state)
-    state.step += 1
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
-def make_train_step(model: CorrectionModel, optimizer: Optimizer, info_weight: float = 0.1,
+def make_train_step(replicas: list, optimizer: Optimizer, info_weight: float = 0.1,
                     hard_weight: float = 0.0):
     """``step(state, tokens, quals_u8, sidx, smask, labels, info_labels)`` on
-    device tensors -> metrics (device scalars): the forward through
-    :func:`loss_fn`, then :func:`apply_gradients`. The reference's jitted
-    step takes and returns params and opt_state; here ``state`` holds the
-    model's own parameters and is updated in place."""
+    replica 0's device -> the whole batch's metrics (device scalars), for
+    ``state`` a :class:`TrainState` over ``replicas`` (the data replicas'
+    models), updated in place. The reference's jitted step takes and
+    returns params and opt_state.
+
+    The batch splits over the replicas in contiguous rows. Each replica's
+    forward (:func:`loss_fn` over the whole batch's denominators) and
+    backward run in turn, so one replica's activations live at a time. The
+    gradients are summed once, in float32 in replica order on replica 0's
+    devices, and every replica applies the same update from those bits. One
+    replica is the single-device step: its rows are the batch and its
+    gradient the sum. Every device's work goes to its current stream, and
+    PyTorch orders each copy between cards after the work queued on both
+    cards' current streams, so the sum reads finished gradients and every
+    update reads the finished sum without events of the step's own."""
 
     def step(state: TrainState, *tensors) -> dict[str, torch.Tensor]:
-        loss, metrics = loss_fn(model, *tensors, info_weight, hard_weight)
-        apply_gradients(optimizer, state, loss)
+        n = len(replicas)
+        if tensors[0].shape[0] % n:
+            raise ValueError(
+                f"batch size {tensors[0].shape[0]} is not divisible by the data axis ({n})"
+            )
+        denominators = loss_denominators(tensors[3], tensors[5], hard_weight)
+        parts = [t.chunk(n) for t in tensors]
+        total, metrics = None, None
+        for r, replica in enumerate(replicas):
+            params = list(replica.parameters())
+            dev = params[0].device  # the replica's first (or only) device
+            loss, m = loss_fn(replica, *(p[r].to(dev) for p in parts), info_weight,
+                              hard_weight, tuple(d.to(dev) for d in denominators))
+            grads = gradients(loss, params)
+            del loss
+            if total is None:
+                total, metrics = grads, m
+            else:  # float32, in replica order, on replica 0's devices
+                total = [a + g.to(a.device) for a, g in zip(total, grads)]
+                metrics = {k: v + m[k].to(v.device) for k, v in metrics.items()}
+        # every replica takes the same bits and applies the same update
+        for replica, opt_state in zip(replicas, state.opt_states):
+            params = list(replica.parameters())
+            optimizer.update(params, [g.to(p.device) for g, p in zip(total, params)],
+                             opt_state)
+        state.step += 1
         return metrics
 
     return step
 
 
 class Trainer:
-    """The model on ``device`` (the card unless the caller asks for the CPU),
-    its optimiser state, and the step. The trainer draws no random numbers:
-    the weights come in as ``params`` (``load_or_init`` draws them from a
-    seeded ``torch.Generator``) and the batches' order is the iterator's."""
+    """The model, its optimiser state and the step, on ``device`` (the card
+    unless the caller asks for the CPU) or over ``mesh``. The trainer draws
+    no random numbers: the weights come in as ``params`` (``load_or_init``
+    draws them from a seeded ``torch.Generator``) and the batches' order is
+    the iterator's.
+
+    Over a mesh each row holds a data replica: the model on the row's
+    device, or with ``mesh.tp`` > 1 a ``TensorParallelModel`` over the row,
+    whose forward runs the same kernels at each shard's widths. The batch
+    size must divide by ``mesh.n_data``. ``state.params`` and :meth:`save`
+    give the logical parameters, under the single-device names."""
 
     def __init__(
         self,
@@ -178,17 +262,31 @@ class Trainer:
         info_weight: float = 0.1,
         hard_weight: float = 0.0,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
+        if device is not None and mesh is not None:
+            raise ValueError("Trainer takes a device or a mesh, not both")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        keep_float32_exact(self.device)
-        model = CorrectionModel(cfg)
-        model.load_state_dict(params)
-        self.model = model.to(self.device)
+        self.mesh = mesh
         self.optimizer = make_optimizer(lr, total_steps=total_steps)
-        named = dict(self.model.named_parameters())
-        self.state = TrainState(named, self.optimizer.init(list(named.values())))
-        self._step = make_train_step(self.model, self.optimizer, info_weight, hard_weight)
+        rows = mesh.devices if mesh is not None else ((device,),)
+        rows = [tuple(resolve_device(d) for d in row) for row in rows]
+        replicas = []
+        for row in rows:
+            for dev in row:
+                keep_float32_exact(dev)
+            if len(row) > 1:
+                replicas.append(TensorParallelModel(cfg, params, row))
+                continue
+            model = CorrectionModel(cfg)
+            model.load_state_dict(params)
+            replicas.append(model.to(row[0]))
+        self.device = rows[0][0]
+        self.model = replicas[0]
+        self.state = TrainState(
+            replicas, [self.optimizer.init(list(r.parameters())) for r in replicas]
+        )
+        self._step = make_train_step(replicas, self.optimizer, info_weight, hard_weight)
 
     def tensors(self, batch: TrainBatch) -> tuple[torch.Tensor, ...]:
         """The batch's arrays on the device, in the step's order."""
@@ -222,7 +320,8 @@ class Trainer:
         return history
 
     def save(self, path: str) -> None:
-        """Durable mid-run checkpoint (params + step marker)."""
+        """Durable mid-run checkpoint (params + step marker): the logical
+        parameters, as one device holds them."""
         from ..models.checkpoint import save_model
 
         save_model(path, self.cfg, self.state.params)

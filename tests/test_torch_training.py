@@ -27,7 +27,10 @@ On the same numpy inputs:
   within 2e-4 of the port's; ``resources/model_r10_sim`` read and rewritten
   by the port is the same file, byte for byte; ``Trainer.save`` writes
   ``step.txt``;
-* the ``train`` CLI on the CPU, and its refusal of ``--tp 2``/``--devices 2``.
+* the ``train`` CLI on the CPU, over two CPU replicas (``--devices 2``) and
+  two replicas of two shards (``--devices 2 --tp 2``), whose checkpoints
+  load in both packages, and its refusal of a degree that does not divide
+  the devices and of ``--tp`` with an explicit device list.
 
 Every test runs under a time limit of its own (``SIGALRM``). The ``gpu`` tests
 hold the three Functions on the card (kernel forward, plain backward) and the
@@ -473,11 +476,41 @@ def test_cli_train_tiny_cpu(tmp_path):
     main(args)  # again, from the cache
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--devices", "2"]])
-def test_cli_train_refuses_multi_device(flag, tmp_path):
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--devices", "2", "--tp", "2"]])
+@time_limit(180)
+def test_cli_train_multi_device(flag, tmp_path):
+    """``train`` over CPU replicas (data parallelism, and 2 x 2 with tensor
+    parallelism): a few steps, then a checkpoint of the logical parameters
+    that both packages load."""
+    from herro_tpu.models.checkpoint import load_model as jax_load_model
     from herro_tpu_torch.cli import main
 
-    with pytest.raises(SystemExit, match="not ported|only one device"):
+    out = str(tmp_path / "ckpt")
+    main(["train", "--config", "tiny", "--device", "cpu", *flag, "--steps", "2",
+          "--batch-size", "4", "-w", "128", "--genome-len", "3000", "--n-reads", "20",
+          "--max-len", "256", "--max-sup", "64", out])
+    jcfg, jparams = jax_load_model(out)
+    cfg, sd = load_model(out)
+    assert jcfg.d_model == cfg.d_model == 32
+    from herro_tpu_torch.models.checkpoint import load_or_init
+
+    start = _flat(params_to_jax(load_or_init("tiny")[1]))  # the weights train starts from
+    got = _flat(params_to_jax(sd))
+    want = _flat(jparams)
+    assert set(got) == set(want) == set(start)
+    assert all(np.array_equal(want[k], got[k]) for k in want)
+    assert all(np.isfinite(v).all() for v in got.values())
+    assert any(not np.array_equal(got[k], start[k]) for k in got)  # the steps trained
+
+
+@pytest.mark.parametrize("flag", [["--devices", "2", "--tp", "3"],
+                                  ["--devices", "0,1", "--tp", "2"]])
+def test_cli_train_refuses_multi_device(flag, tmp_path):
+    """The layouts the reference's mesh rules refuse: a degree that does not
+    divide the devices, ``--tp`` with an explicit device list."""
+    from herro_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit, match="does not divide 2 devices|explicit device list"):
         main(["train", "--config", "tiny", "--device", "cpu", *flag, str(tmp_path / "o")])
 
 
