@@ -26,7 +26,8 @@ each print one JSON line:
    sets); the standalone flash attention (K9) runs under band 512 and 40 and
    under no band with mixed lengths, one of them 0 (which must come out 0),
    band 512 and no band also at L=5120; the counting rule (K5) at both
-   lengths must equal its plain version;
+   lengths must equal its plain version; K1-K4 also at the d384x5L shape of
+   ``tools/variant_step_time_torch.py`` (d 384, H 3, d_ff 1280);
 3. ``golden``  — the port's bf16 forward of the flagship checkpoint on
    ``tests/golden/logits_r10.npz`` against the JAX logits frozen there;
 4. ``e2e``     — ``run_correction`` with ``CorrectionRunner(device="cuda")``
@@ -48,7 +49,15 @@ each print one JSON line:
 6. ``eval``    — the ``eval`` subcommand for the flagship weights under
    ``local_window`` 512 at the demo size, and under none and 384 on 60 reads
    (each must launch its own attention kernel and no other), and for
-   ``model_r9_sim`` on 60 reads;
+   ``model_r9_sim`` on 60 reads; ``battery`` — the ``standard`` regime of
+   ``tools/eval_battery_torch.py`` for the flagship at the battery's own
+   size and seed, through ``tools/merge_battery.py``'s gate against the
+   committed ``resources/eval_battery.json`` (within 0.2 dB, het >= 0.99),
+   its counting baseline compared field for field; ``demo`` — the demo run
+   (seed 777) through ``tools/demo_record_torch.py``, every corrected record
+   held by name and sha256 against the JAX package's record
+   (``tests/torch_data/demo_seed777_herro_tpu.json``): the share of
+   byte-identical records and both Qs, the port's at most 0.2 dB below;
 7. ``procpool`` — ``inference`` in a subprocess, serial and with
    ``--feat-gen-procs N`` (the pool forks before the card is opened, which
    this process cannot do any more), alignments from a stub ``minimap2`` that
@@ -79,7 +88,7 @@ each print one JSON line:
    ``Trainer.save`` loading back through ``load_model``;
 11. ``train_parallel`` — a seeded ``r10`` trainer at B=32 on a bucket-9216
    batch of the ``train`` phase's windows, every device ``cuda:0``: one
-   device, DP 2 x 1, TP 1 x 2 and DP x TP 2 x 2, 10 steps each. Each mesh's
+   device, DP 2 x 1, TP 1 x 2 and DP x TP 2 x 2, 6 steps each. Each mesh's
    first step is held against its base layout's (DP 2 and TP 2 against one
    device, 2 x 2 against TP 2) by the bars of the axis it adds: loss, ce and
    info_bce within 1e-6 relative along a data axis and 1e-4 along a model
@@ -100,11 +109,17 @@ each print one JSON line:
    (``herro_tpu_torch/parallel/dryrun.py``);
 12. ``distill`` — ``distill`` through the CLI over the ``features`` phase's
    tree, teacher ``model_r10_sim`` (its labelling launches K1-K5), student
-   ``r9`` (K1-K4 at d 256), batch 8, whose checkpoint loads.
+   ``r9`` (K1-K4 at d 256), batch 8, whose checkpoint loads;
+13. ``tools`` — each ported tool once at a reduced size, its launches
+   counted: the soup, 4 fine-tune steps on the ``train`` phase's windows,
+   the systematic audit and the e2e profile on 40 reads, the step-time
+   probe at B=32, L=9216 for r10 and d384x5L (K1-K4's d 384 instances), and
+   the ablation's variants and standalone ops at B=8, L=2048.
 
 Any failed phase exits nonzero. The last lines are the card line of
 nvidia-smi, the per-kernel JSON summary (K1-K4 also with their launches in
-``train_parallel``, counted from 0 over its layouts' steps) and
+``train_parallel``, counted from 0 over its layouts' steps; K1-K5 with
+theirs in ``battery``, ``demo`` and ``tools``) and
 ``{"ok": true, "device": ...}``.
 Imports nothing of JAX or herro_tpu.
 """
@@ -144,11 +159,10 @@ def emit(phase: str, **kw) -> None:
 
 
 def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit (``pipeline/steptime.py:card``)."""
+    from herro_tpu_torch.pipeline.steptime import card
+
+    return card()
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -636,6 +650,9 @@ def phase_kernels(torch, results: dict) -> None:
                     b2=b2, w_qkv9=w_qkv9, b_qkv9=b_qkv9, lengths=lengths,
                     lengths_np=lengths_np, pairs=pairs, k_spans=k_spans,
                     q_blocks=q_blocks), qkv_case, g))
+    cases.update(d384_cases(
+        torch, dict(tokens=tokens, quals=quals, lengths=lengths, lengths_np=lengths_np,
+                    pairs=pairs), qkv_case, g))
     report = []
     for case, c in cases.items():
         name = c.get("name", case)
@@ -760,6 +777,71 @@ def shard_cases(torch, t: dict, qkv_case, g) -> dict:
         cases[f"ln_ffn[{tag}f={f_loc}]"] = ffn_case(
             torch, xs * (1.0 / tp), s, b, sh["w1"], sh["b1"], sh["w2"], sh["b2"])
     return cases
+
+
+def d384_cases(torch, t: dict, qkv_case, g) -> dict:
+    """K1-K4 at the d384x5L shape of tools/variant_step_time_torch.py (d 384,
+    H 3 x D 128, d_ff 1280), B=32, L=9216, on the kernels phase's pileups and
+    lengths with weights of that width drawn here, at the d 512 cases'
+    scales; K2 on K1's q, k, v. The tolerances, bounds and library calls are
+    those of the d 512 cases."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from herro_tpu_torch.constants import N_ROWS, VOCAB_SIZE
+    from herro_tpu_torch.ops import fused
+
+    bf = torch.bfloat16
+    dev = t["tokens"].device
+    d, H, D, f, R, V, w = 384, 3, 128, 1280, N_ROWS, VOCAB_SIZE, 512
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    fan = R * (V + 1)
+    w_embT, w_qT = randn(d, R * V, std=fan ** -0.5), randn(d, R, std=fan ** -0.5)
+    wc = fused.col_proj_table(w_embT, w_qT)
+    cb = randn(d, std=0.25, dtype=torch.float32)
+    x = randn(B, L, d)
+    s = 1.0 + randn(d, std=0.1, dtype=torch.float32)
+    b = randn(d, std=0.1, dtype=torch.float32)
+    w_qkv, b_qkv = randn(d, 3 * H * D, std=d ** -0.5), randn(3 * H * D, std=0.25)
+    wo, bo = randn(H, D, d, std=(H * D) ** -0.5), randn(d, std=0.25)
+    w1, b1 = randn(d, f, std=d ** -0.5), randn(f, std=0.25)
+    w2, b2 = randn(f, d, std=f ** -0.5), randn(d, std=0.25)
+    q, k, v = fused._ln_qkv_rope_cuda(x, s, b, w_qkv, b_qkv, H, kernel="ln_qkv_rope")
+    toks, qs = t["tokens"], t["quals"]
+    nnz = int((toks < V).sum()) + int((qs.to(bf) != 0).sum())
+    idx = (toks.long() + torch.arange(R, device=dev)[None, :, None] * V).permute(0, 2, 1)
+    idx = idx.reshape(-1, R)
+    emb_table = w_embT.t().contiguous()
+    lengths, lengths_np = t["lengths"], t["lengths_np"]
+    k_spans = F.pad(k, (0, 0, w, w)).unfold(2, 64 + 2 * w, 64)
+    q_blocks = q.view(B, H, L // 64, 64, D)
+    n_rows = int(lengths_np.astype(np.int64).sum())
+    return {
+        "entry_embed[d=384]": dict(
+            name="entry_embed", replaces="herro_tpu/ops/fused.py:89",
+            kernel=lambda: fused._entry_embed_cuda(toks, qs, wc, cb, bf),
+            plain=lambda: fused._entry_embed_plain(toks, qs, wc, cb, bf),
+            library=("F.embedding_bag(mode=sum) of the token rows, no qual term",
+                     lambda: F.embedding_bag(idx, emb_table, mode="sum")),
+            bound=bound(toks.numel() * 5 + toks.numel() // R * d * 2 + wc.numel() * 2
+                        + d * 4, 2 * d * nnz, PEAK_BF16),
+        ),
+        "ln_qkv_rope[d=384, H=3]": qkv_case(x, "ln_qkv_rope", s, b, w_qkv, b_qkv, H),
+        "flash_outproj[d=384, H=3]": dict(
+            name="flash_outproj", replaces="herro_tpu/ops/fused.py:993",
+            kernel=lambda: fused._flash_outproj_cuda(q, k, v, x, wo, bo, lengths, w),
+            plain=lambda: fused._flash_outproj_plain(q, k, v, x, wo, bo, lengths, w),
+            library=("torch.matmul banded QK^T (64-row blocks x 1088-key spans) bf16, "
+                     "the dominant product", lambda: torch.matmul(q_blocks, k_spans)),
+            bound=bound(3 * q.numel() * 2 + 2 * x.numel() * 2 + wo.numel() * 2,
+                        4 * H * D * t["pairs"] + 2 * n_rows * H * D * d, PEAK_BF16),
+            rows=lengths_np, residual=x,
+        ),
+        "ln_ffn[d=384, f=1280]": ffn_case(torch, x, s, b, w1, b1, w2, b2),
+    }
 
 
 def shard_attention_case(torch, t: dict, xs, wo, bo, h: int, w: int) -> dict:
@@ -1011,7 +1093,7 @@ PARALLEL_LAYOUTS = (("dp2", 2, 1), ("tp2", 1, 2), ("tp4", 1, 4))
 TP_MIN_AGREE = 0.99  # the bar of tests/test_parallel.py for bf16 at tp=2
 
 
-def _step_batch(S: int = 1152):
+def _step_batch(seed: int = 4321, S: int = 1152):
     """A batch at the main-path shape (B=32, L=9216) for the step times:
     pileups as the kernels phase draws them, S supported columns."""
     import numpy as np
@@ -1019,7 +1101,7 @@ def _step_batch(S: int = 1152):
     from herro_tpu_torch.constants import N_ROWS, TOKEN_PAD
     from herro_tpu_torch.pipeline.batching import Batch, pack_tokens
 
-    rng = np.random.default_rng(4321)
+    rng = np.random.default_rng(seed)
     lengths = rng.integers(int(0.7 * L), L + 1, size=B)
     n_alns = rng.integers(2, N_ROWS, size=B).astype(np.int32)
     tok = rng.integers(0, 11, size=(B, L, N_ROWS), dtype=np.uint8)
@@ -1041,27 +1123,32 @@ def _agreement(got, ref, smask) -> tuple[float, bool]:
     return agree, bool((got[:, :-S] == ref[:, :-S]).all())
 
 
-def _layout_step_ms(torch, runner, batch, iters: int = 5) -> dict:
-    """The layout's step on a resident batch by CUDA events (every replica's
-    step on the current stream in turn), and dispatch to fetched result
-    (the copies both ways included) by the host clock."""
+def _layout_step_ms(torch, runner, batches, iters: int = 5) -> dict:
+    """The layout's step on resident batches by the port's step timer
+    (``pipeline/steptime.py``: every replica's step on the current stream in
+    turn, the batches cycled, every output folded in), and dispatch to
+    fetched result (the copies both ways included) by the host clock."""
     import numpy as np
 
+    from herro_tpu_torch.pipeline.steptime import time_step
+
     dev = runner.device
-    arrays = runner._inputs(batch)
     n = len(runner.replicas)
-    parts = [[torch.from_numpy(np.split(a, n)[i]).to(dev) for a in arrays] for i in range(n)]
 
-    def steps():
-        for r, part in zip(runner.replicas, parts):
-            r.step(*part)
+    def parts(batch):
+        arrays = runner._inputs(batch)
+        return [torch.from_numpy(np.split(a, n)[i]).to(dev) for i in range(n) for a in arrays]
 
-    with torch.inference_mode():
-        step_ms = time_ms(torch, steps, iters)
-    runner._fetch(runner.dispatch(batch))
+    k = len(runner._inputs(batches[0]))
+
+    def steps(*flat):
+        return [r.step(*flat[i * k:(i + 1) * k]) for i, r in enumerate(runner.replicas)]
+
+    step_ms = time_step(steps, [parts(b) for b in batches], B, iters=iters)["ms"]
+    runner._fetch(runner.dispatch(batches[0]))
     t0 = time.perf_counter()
     for _ in range(iters):
-        runner._fetch(runner.dispatch(batch))
+        runner._fetch(runner.dispatch(batches[0]))
     return dict(step_ms=step_ms, round_trip_ms=(time.perf_counter() - t0) * 1e3 / iters)
 
 
@@ -1088,8 +1175,8 @@ def phase_parallel(torch, tmp: str, e2e: dict) -> None:
     golden = Batch(fx["tokens_packed"], fx["quals"], fx["support_idx"], fx["support_mask"],
                    fx["n_alns"], windows=[])
     golden_ref = single._fetch(single.dispatch(golden))[1]
-    step_batch = _step_batch()
-    times = {"single": _layout_step_ms(torch, single, step_batch)}
+    step_batches = [_step_batch(seed) for seed in (4321, 4322)]
+    times = {"single": _layout_step_ms(torch, single, step_batches)}
     want_records = _fasta_records(e2e["fasta"])
     failed = []
     for tag, n_data, tp in PARALLEL_LAYOUTS:
@@ -1125,7 +1212,7 @@ def phase_parallel(torch, tmp: str, e2e: dict) -> None:
                         for k in ("ln_qkv_rope", "flash_outproj", "ln_ffn")}}
         want_launches = {k: per_batch.get(k, 0) * n_b for k in launches}
         records_equal = _fasta_records(out) == want_records
-        times[tag] = _layout_step_ms(torch, runner, step_batch)
+        times[tag] = _layout_step_ms(torch, runner, step_batches)
         emit("parallel", layout=tag, data=n_data, tp=tp, tp_fast_path=runner.tp_fast_path,
              golden_class_agreement=g_agree, golden_decisions_equal=g_dec,
              e2e_class_agreement=e2e_agree, e2e_supported_columns=n_sup,
@@ -1781,7 +1868,7 @@ TRAIN_PARALLEL_LOSS_RTOL = {"data": 1e-6, "model": 1e-4}
 TRAIN_PARALLEL_CE_RTOL = 1e-2
 # each layout's classes against its base's on the trained model_r10_sim
 TRAIN_PARALLEL_MIN_AGREE = 0.999
-TRAIN_PARALLEL_STEPS = 10
+TRAIN_PARALLEL_STEPS = 6
 # faults planted in the dp2 step, each of which the bars must reject
 TRAIN_PARALLEL_FAULTS = ("replica 1's gradient dropped", "mean of per-replica means")
 
@@ -2084,6 +2171,220 @@ with open({paf!r}, "rb") as fh:
 """
 
 
+# the committed battery of the JAX package and its key for the flagship; the
+# port's standard-regime run joins it under its own key for the gate
+BATTERY = os.path.join(ROOT, "resources", "eval_battery.json")
+BATTERY_INCUMBENT = "resources/model_r10_sim"
+BATTERY_CANDIDATE = "herro_tpu_torch:resources/model_r10_sim"
+
+
+def _tools_on_path() -> None:
+    """The tools directory on ``sys.path``: the ported tools import as modules."""
+    tools = os.path.join(ROOT, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+
+
+@contextlib.contextmanager
+def _counted(torch, into: dict):
+    """Every kernel's launches over the block, counted from 0, into ``into``."""
+    from herro_tpu_torch.ops import cuda as kernels
+
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        into.update(kernels.launch_counts.snapshot())
+
+
+def phase_battery(torch) -> dict:
+    """The ``standard`` regime of tools/eval_battery_torch.py for the flagship
+    (no oracle), at the battery's own size and seed (120 kb, 120 reads,
+    batch 16), through tools/merge_battery.py's gate against the committed
+    battery's ``model_r10_sim`` entry: Q within 0.2 dB, het accuracy >= 0.99.
+    Its counting baseline is compared with the committed one field for
+    field. Returns the run's launches."""
+    _tools_on_path()
+    import eval_battery_torch
+    from merge_battery import gate_table
+
+    from herro_tpu_torch.models.checkpoint import load_model
+
+    launches: dict = {}
+    t0 = time.perf_counter()
+    with _counted(torch, launches):
+        res = eval_battery_torch.run_battery([CKPT], ["standard"], with_oracle=False,
+                                             device="cuda")
+    wall = time.perf_counter() - t0
+    with open(BATTERY) as fh:
+        bat = json.load(fh)
+    entry = bat["regimes"]["standard"]
+    got, ref = res["regimes"]["standard"][CKPT], entry[BATTERY_INCUMBENT]
+    entry[BATTERY_CANDIDATE] = got
+    lines = gate_table(bat, BATTERY_INCUMBENT, BATTERY_CANDIDATE)
+    same_params = res["regimes"]["standard"]["params"] == entry["params"]
+    counting = got["counting_baseline"]
+    counting_equal = counting == ref["counting_baseline"]
+    emit("battery", regime="standard", card=nvidia_smi(), wall_s=wall,
+         corrected_infix_q=got["corrected_infix_q"],
+         reference_corrected_infix_q=ref["corrected_infix_q"],
+         delta_db=got["corrected_infix_q"] - ref["corrected_infix_q"],
+         het_accuracy=(got.get("het") or {}).get("accuracy"),
+         reference_het_accuracy=(ref.get("het") or {}).get("accuracy"),
+         model_gain_db=got["model_gain_db"], counting_infix_q=counting["corrected_infix_q"],
+         reference_counting_infix_q=ref["counting_baseline"]["corrected_infix_q"],
+         counting_baseline_equal=counting_equal, params_equal=same_params, gate=lines,
+         launches=launches, result=got)
+    cfg, _ = load_model(CKPT)
+    _check_block_launches("battery", launches, cfg.n_layers, "flash_outproj", False)
+    if not same_params or not lines[-1].startswith("gate: PASS"):
+        raise RuntimeError(f"battery: params equal {same_params}; {lines}")
+    return launches
+
+
+def phase_demo(torch) -> dict:
+    """tools/demo_record_torch.py: the demo run (seed 777, 150 kb, 160 reads,
+    window 4096, batch 16) on the card, every corrected record held by name
+    and sha256 against the JAX package's record
+    (``tests/torch_data/demo_seed777_herro_tpu.json``): the share of
+    byte-identical records and both corrected Qs; the port's may be at most
+    0.2 dB below the reference's. Returns the run's launches."""
+    _tools_on_path()
+    import demo_record_torch
+
+    launches: dict = {}
+    with _counted(torch, launches):
+        r = demo_record_torch.compare(CKPT, device="cuda")
+    emit("demo", card=nvidia_smi(), **r, launches=launches)
+    missing = [k for k in E2E_KERNELS if not launches[k]]
+    if missing or r["records"] == 0 or r["corrected_q_gap_db"] < -0.2:
+        raise RuntimeError(f"demo: kernels never launched {missing}, {r['records']} "
+                           f"records, corrected Q {r['corrected_q_gap_db']:+.3f} dB "
+                           f"against the reference")
+    return launches
+
+
+def phase_tools(torch, tmp: str) -> dict:
+    """Each ported tool once at a reduced size on the card, its launches
+    counted from 0: the soup (host only), 4 fine-tune steps at batch 8 on the
+    ``train`` phase's windows (K4 once and K1-K3 2 x n_layers a step), the
+    systematic audit on 40 reads, the e2e profile on 40 reads, the step-time
+    probe at B=32, L=9216 for both shapes (d 384 runs K1-K4's new instances),
+    and the ablation's seven variants and three standalone ops at B=8,
+    L=2048. Returns the launches summed over the tools."""
+    import pickle
+
+    import numpy as np
+
+    _tools_on_path()
+    import ablate_fused_torch
+    import diag_systematic_torch
+    import finetune_sys_torch
+    import profile_e2e_torch
+    import soup_ckpt_torch
+    import variant_step_time_torch
+
+    from herro_tpu_torch.models.checkpoint import load_model
+    from herro_tpu_torch.ops import cuda as kernels
+
+    total = {k: 0 for k in kernels.KERNELS}
+    failed = []
+
+    def run(tool, fn, want=None, **report):
+        launches: dict = {}
+        t0 = time.perf_counter()
+        with _counted(torch, launches):
+            out = fn()
+        wall = time.perf_counter() - t0
+        for k, v in launches.items():
+            total[k] += v
+        ok = want is None or all(launches[k] == v for k, v in want.items())
+        emit("tools", tool=tool, wall_s=wall, launches={k: v for k, v in launches.items() if v},
+             **report, **(out if isinstance(out, dict) else {}))
+        if not ok:
+            failed.append(f"{tool}: launches {launches}, want {want}")
+        return out
+
+    cfg, params = load_model(CKPT)
+    soup_dir = os.path.join(tmp, "soup")
+    other = os.path.join(ROOT, "resources", "model_r10_sys")
+
+    def soup():
+        soup_ckpt_torch.soup(CKPT, other, soup_dir, 0.3)
+        cfg_s, got = load_model(soup_dir)
+        _, po = load_model(other)
+        exact = cfg_s == cfg and all(torch.equal(got[k], 0.7 * v + 0.3 * po[k])
+                                     for k, v in params.items())
+        if not exact:
+            failed.append("soup: the written checkpoint is not 0.7 base + 0.3 other")
+        return dict(leaves=len(got), equal_to_mix=exact)
+
+    run("soup_ckpt_torch", soup, want={k: 0 for k in kernels.KERNELS})
+
+    with open(os.path.join(tmp, "train_windows.pkl"), "rb") as fh:
+        windows = pickle.load(fh)
+    steps = 4
+    want_ft = {k: v * steps for k, v in _want_step_launches(cfg).items()}
+
+    def finetune():
+        trainer = finetune_sys_torch.finetune(
+            windows[:256], cfg, params, os.path.join(tmp, "finetuned"), steps=steps,
+            lr=1e-4, batch_size=8, device="cuda", log_every=1, save_every=2)
+        load_model(os.path.join(tmp, "finetuned"))
+        return dict(steps=trainer.state.step)
+
+    run("finetune_sys_torch", finetune, want=want_ft)
+
+    def diag():
+        rep = diag_systematic_torch.diagnose(
+            CKPT, "cuda", dict(diag_systematic_torch.SIM_KW, genome_len=40_000, n_reads=40))
+        if not rep["model"]["normal"]["covered"]:
+            failed.append("diag_systematic_torch: no column covered")
+        return dict(n_hotspots=rep["n_hotspots"], model=rep["model"]["normal"],
+                    counting=rep["counting"]["normal"])
+
+    run("diag_systematic_torch", diag)
+
+    def prof():
+        r = profile_e2e_torch.profile(40, 40_000, device="cuda")
+        return dict({k: r[k] for k in ("windows", "windows_per_s", "batches", "stages",
+                                       "featgen_s", "device_stall_s")}, run_s=r["wall_s"])
+
+    run("profile_e2e_torch", prof)
+
+    def variants():
+        out = {}
+        for name, c in variant_step_time_torch.SHAPES.items():
+            r = variant_step_time_torch.step_time(c, B, L, 256, iters=5)
+            out[name] = dict(r, n_params=variant_step_time_torch.n_params(c))
+            if not np.isfinite(r["checksum"]):
+                failed.append(f"variant_step_time_torch {name}: non-finite outputs")
+        return dict(card=nvidia_smi(), B=B, L=L, S=256, shapes=out)
+
+    # each shape's step 2 + 5 times (warm-up, then timed): K4 and K5 once a
+    # step, K1-K3 once a layer
+    n_steps = 7
+    layers = sum(c.n_layers for c in variant_step_time_torch.SHAPES.values())
+    run("variant_step_time_torch", variants, want={
+        "entry_embed": 2 * n_steps, "count_decisions": 2 * n_steps,
+        **{k: n_steps * layers for k in ("ln_qkv_rope", "flash_outproj", "ln_ffn")}})
+
+    def ablate():
+        with contextlib.redirect_stdout(sys.stderr):  # the tool prints its own table
+            v = ablate_fused_torch.ablate(8, 2048, 128)
+            ops = {op: ablate_fused_torch.op_standalone(op, 8, 2048, n=5)
+                   for op in ("attention_block", "ln_ffn", "counting")}
+        return dict(B=8, L=2048, S=128, variants_s=v, ops_s=ops)
+
+    run("ablate_fused_torch", ablate)
+    missing = [k for k in E2E_KERNELS if not total[k]]
+    if missing or failed:
+        raise RuntimeError(f"tools: kernels never launched {missing}; {failed}")
+    return total
+
+
 def _stub_minimap2(tmp: str, rows) -> dict:
     """An environment whose PATH holds the stub aligner; neither minimap2
     nor zstandard is needed to drive the CLI then."""
@@ -2270,6 +2571,8 @@ def main() -> int:
         phase_parallel(torch, tmp, e2e)
         phase_multihost(tmp, e2e)
         evals = phase_eval(torch, tmp)
+        battery_launches = phase_battery(torch)
+        demo_launches = phase_demo(torch)
         n_procs = phase_procpool(tmp, e2e)
         phase_features(tmp, e2e, n_procs)
         int8_launches = phase_int8(torch, tmp, e2e, evals, bf16_logits)
@@ -2278,6 +2581,7 @@ def main() -> int:
         phase_train(torch, tmp)
         train_parallel_launches = phase_train_parallel(torch, tmp)
         phase_distill(torch, tmp)
+        tools_launches = phase_tools(torch, tmp)
     attention_launches = phase_attention(torch)
 
     # launches, each counted from 0 over the run that drives the kernel: K1-K5
@@ -2306,6 +2610,10 @@ def main() -> int:
         summary.append({key: k[key] for key in keys} | {"launches": launches[k["name"]]})
         if k["name"] in TRAIN_KERNELS:  # and on this slice's path, a train step over a mesh
             summary[-1]["train_parallel_launches"] = train_parallel_launches[k["name"]]
+        if k["name"] in E2E_KERNELS:  # and on the paths of the tools that drive the model
+            summary[-1]["battery_launches"] = battery_launches[k["name"]]
+            summary[-1]["demo_launches"] = demo_launches[k["name"]]
+            summary[-1]["tools_launches"] = tools_launches[k["name"]]
     missing = [e["name"] for e in summary if not e["launches"]]
     if missing or len(summary) != len(launches) or len(summary) != len(kernels.KERNELS):
         raise RuntimeError(f"kernels never launched on their path: {missing}")

@@ -42,7 +42,9 @@
 //   well under their time.
 // - setmaxnreg gives the consumers 232 registers and the producer 40 (the
 //   block's 384 x 168 at launch, redistributed).
-// Shapes: d 256 or 512, V 12, R <= 32 (Kp 512), any B >= 1, L >= 1.
+// Shapes: d 256, 384 (the d384x5L shape of tools/variant_step_time_torch.py:
+// a pass of 256 columns and one of 128) or 512, V 12, R <= 32 (Kp 512), any
+// B >= 1, L >= 1.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -70,12 +72,18 @@ constexpr int kPairs = 64 * kSlots / 128;   // (row, slot) pairs a consumer thre
 constexpr size_t kSmem =
     1024 + kABytes + kStages * kStageBytes + 8 * 2 * kOutBlk + 2 * kStages * 8;
 
+// the [32 k][64 n] boxes of Wc in pass p over the output columns: at d 384
+// the second pass has two, and its product's upper 128 columns are not
+// stored (the stage's upper half holds no Wc of this pass)
+__device__ inline int pass_boxes(int D, int p) { return min(kBN, D - p * kBN) / 64; }
+
 template <int D>
 __global__ void __launch_bounds__(kThreadsEmbed, 1)
 entry_embed_kernel(const __grid_constant__ CUtensorMap w_map,
                    const __grid_constant__ CUtensorMap out_map, const uint8_t* __restrict__ tok,
                    const float* __restrict__ quals, const float* __restrict__ cb, int B, int R,
                    int L) {
+  constexpr int kPasses = (D + kBN - 1) / kBN;  // passes over the output columns
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* a = smem;
@@ -118,12 +126,13 @@ entry_embed_kernel(const __grid_constant__ CUtensorMap w_map,
       }
     };
     for (long it = 0; first_tile(it) < n_tiles; ++it)
-      for (int p = 0; p < D / kBN; ++p)
+      for (int p = 0; p < kPasses; ++p)
         for (int s = 0; s < kKp / kBK; ++s) {
+          const int boxes = pass_boxes(D, p);
           mbar_wait(&empty[slot], phase ^ 1);
-          mbar_expect_tx(&full[slot], kStageBytes);
+          mbar_expect_tx(&full[slot], boxes * kBox);
           unsigned char* dst = ring + slot * kStageBytes;
-          for (int bx = rank; bx < kBN / 64; bx += C)
+          for (int bx = rank; bx < boxes; bx += C)
             tma_load_2d_multicast(dst + bx * kBox, &w_map, &full[slot], p * kBN + bx * 64,
                                   s * kBK, (uint16_t)((1 << C) - 1));
           advance();
@@ -216,7 +225,7 @@ entry_embed_kernel(const __grid_constant__ CUtensorMap w_map,
     const int wrow0 = row0 + warp * 16;  // this warp's first row
     const bool live = tile < n_tiles && wrow0 < L;
 #pragma unroll 1
-    for (int p = 0; p < D / kBN; ++p) {
+    for (int p = 0; p < kPasses; ++p) {
       float acc[128];
       for (int s = 0; s < kKp / kBK; ++s) {
         mbar_wait(&full[slot], phase);
@@ -240,6 +249,7 @@ entry_embed_kernel(const __grid_constant__ CUtensorMap w_map,
       // staging boxes, each leaving by a TMA store of the warp's 16 rows
 #pragma unroll
       for (int n = 0; n < kBN / 64; ++n) {
+        if (D % kBN != 0 && n >= pass_boxes(D, p)) break;
         unsigned char* st = ob + (n & 1) * kOutBlk;
         if (lane == 0) bulk_wait_read<1>();  // the store before last has read `st`
         __syncwarp();
@@ -297,5 +307,6 @@ extern "C" int herro_entry_embed(const uint8_t* tok, const float* quals, const v
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 512) return launch<512>(tok, quals, wc, cb, out, B, R, L, s);
   if (d == 256) return launch<256>(tok, quals, wc, cb, out, B, R, L, s);
+  if (d == 384) return launch<384>(tok, quals, wc, cb, out, B, R, L, s);
   return (int)cudaErrorInvalidValue;
 }

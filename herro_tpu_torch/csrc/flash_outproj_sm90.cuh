@@ -82,8 +82,8 @@
 //   projection takes two Wo stages, fewer than the ring holds; the ring's
 //   slot and phase run on across passes, heads and tiles, so no place
 //   assumes a whole ring a pass.
-// Shapes: D 128, (H, d) = (4, 512), (2, 256), (2, 512), (1, 512) or (1, 256),
-// any L, lengths 0..L; DM 0: any H.
+// Shapes: D 128, (H, d) = (4, 512), (3, 384), (2, 256), (2, 512), (1, 512) or
+// (1, 256), any L, lengths 0..L; DM 0: any H.
 #pragma once
 
 #include "common.cuh"
@@ -192,7 +192,8 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           int window, float scale, int heads) {
   constexpr bool kFull = kMask == kMaskFull;
   constexpr bool kStore = DM == 0;         // K9: O leaves by TMA store, per head
-  constexpr int kPasses = DM / 256;        // out-projection passes of 256 columns
+  // out-projection passes of 256 columns; at d 384 the second pass has 128
+  constexpr int kPasses = (DM + 255) / 256;
   constexpr int kWoStages = H * kD / kWoRows;  // Wo stages per pass
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -242,9 +243,9 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     int slot = 0;
     uint32_t phase = 0, free_phase = 0;
-    auto acquire = [&]() {
+    auto acquire = [&](int bytes = kStageBytes) {
       mbar_wait(&empty[slot], phase ^ 1);
-      mbar_expect_tx(&full[slot], kStageBytes);
+      mbar_expect_tx(&full[slot], bytes);
       return ring + slot * kStageBytes;
     };
     auto advance = [&]() {
@@ -272,9 +273,10 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
         }
       }
       for (int p = 0; p < kPasses; ++p) {
+        const int boxes = min(4, (DM - p * 256) / 64);  // Wo columns of this pass / 64
         for (int s = 0; s < kWoStages; ++s) {
-          unsigned char* dst = acquire();
-          for (int c = 0; c < 4; ++c)
+          unsigned char* dst = acquire(boxes * kWoBox);
+          for (int c = 0; c < boxes; ++c)
             tma_load_2d(dst + c * kWoBox, &wo_map, &full[slot], p * 256 + c * 64,
                         s * kWoRows);
           advance();
@@ -565,7 +567,9 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     }
 
     // out = (x + bo) + attn @ Wo in passes of 256 columns; a stage is
-    // released one committed group behind
+    // released one committed group behind. A pass of 128 columns (d 384)
+    // runs the same n256 product: the stage's upper half holds no Wo of this
+    // pass, and the accumulator columns it gives are not stored.
 #pragma unroll 1
     for (int pass = 0; pass < kPasses; ++pass) {
       float acc[128];
@@ -594,6 +598,7 @@ flash_outproj_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const int c = pass * 256 + 8 * j + 2 * q;
+        if (DM % 256 != 0 && c >= DM) break;
         const float2 br = __bfloat1622float2(*reinterpret_cast<const bf162*>(bo + c));
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -654,7 +659,8 @@ inline int launch(const void* q, const void* k, const void* v, const void* x, co
 
 // The widths the kernels are built for, D 128: (H, d) = (4, 512) (r10) and
 // (2, 256) (r9, r10deep), and the tensor-parallel shards of those, (2, 512)
-// and (1, 512) (r10 at tp 2 and 4) and (1, 256) (r10deep at tp 2).
+// and (1, 512) (r10 at tp 2 and 4) and (1, 256) (r10deep at tp 2); and
+// (3, 384), the d384x5L shape of tools/variant_step_time_torch.py.
 template <int kMask>
 inline int launch_widths(const void* q, const void* k, const void* v, const void* x,
                          const void* wo, const void* bo, const int* lengths, void* out, int B,
@@ -670,6 +676,8 @@ inline int launch_widths(const void* q, const void* k, const void* v, const void
     return launch<1, 512, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
   if (H == 1 && d == 256)
     return launch<1, 256, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
+  if (H == 3 && d == 384)
+    return launch<3, 384, kMask>(q, k, v, x, wo, bo, lengths, out, B, L, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

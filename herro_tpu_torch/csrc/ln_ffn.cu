@@ -38,8 +38,11 @@
 //   block's 384 x 168 at launch, redistributed (asking for more than that
 //   never returns). The accumulators are not zeroed by hand: writing them
 //   while a product is in flight makes ptxas serialise every wgmma.
-// Shapes: d 256 or 512, f a multiple of 128, any T >= 1 (rows past T read
-// as zeros and are not stored).
+// - d 384 (the d384x5L shape of tools/variant_step_time_torch.py): each
+//   consumer's output half is 192 columns, one m64n192 product; a W2 stage
+//   holds 32 rows (24 KB of the 32 KB slot), as 42 would not divide a chunk.
+// Shapes: d 256, 384 or 512, f a multiple of 128, any T >= 1 (rows past T
+// read as zeros and are not stored).
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -60,7 +63,10 @@ constexpr int kCluster = 2;        // blocks sharing one weight stream
 
 template <int D>
 struct Shape {
-  static constexpr int kW2Rows = kStageBytes / (2 * D);  // W2 rows per stage
+  // W2 rows per stage: as many as fill it (d 256: 64, 512: 32); at d 384, 32
+  // of the 42 that fit, as the rows must divide a chunk's 128
+  static constexpr int kW2Rows = D == 384 ? 32 : kStageBytes / (2 * D);
+  static constexpr int kW2Bytes = kW2Rows * 2 * D;       // a W2 stage's bytes
   static constexpr int kW2Box = kW2Rows * 128;           // one [kW2Rows][64] box
   static constexpr int kS1 = D / kW1Rows;                // W1 stages per chunk
   static constexpr int kS2 = kFC / kW2Rows;              // W2 stages per chunk
@@ -82,15 +88,18 @@ __device__ inline float gelu_tanh(float v) {
 template <int D>
 __device__ inline void layernorm_tile(const float* __restrict__ scale,
                                       const float* __restrict__ bias, unsigned char* ln) {
-  constexpr int kCh = D / 256;  // 16-byte chunks a lane holds of a row
+  // 16-byte chunks a lane holds of a row; at d 384 the second is held by
+  // lanes 0-15 only (`has`)
+  constexpr int kCh = (D + 255) / 256;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto has = [&](int i) { return D % 256 == 0 || lane + 32 * i < D / 8; };
   float sc[kCh][8], bi[kCh][8];  // this lane's columns of the affine
 #pragma unroll
   for (int i = 0; i < kCh; ++i)
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      sc[i][e] = scale[(lane + 32 * i) * 8 + e];
-      bi[i][e] = bias[(lane + 32 * i) * 8 + e];
+      sc[i][e] = has(i) ? scale[(lane + 32 * i) * 8 + e] : 0.f;
+      bi[i][e] = has(i) ? bias[(lane + 32 * i) * 8 + e] : 0.f;
     }
 #pragma unroll 2
   for (int r = warp * 8; r < warp * 8 + 8; ++r) {
@@ -100,7 +109,7 @@ __device__ inline void layernorm_tile(const float* __restrict__ scale,
     for (int i = 0; i < kCh; ++i) {
       const int ch = lane + 32 * i;
       v[i] = reinterpret_cast<uint4*>(ln + (ch >> 3) * (kBM * 128) + swizzle128(r, ch & 7));
-      xv[i] = *v[i];
+      xv[i] = has(i) ? *v[i] : make_uint4(0, 0, 0, 0);  // zeros add nothing to the sums
     }
     float s = 0.f, ss = 0.f;
 #pragma unroll
@@ -132,7 +141,7 @@ __device__ inline void layernorm_tile(const float* __restrict__ scale,
         y[e] = __floats2bfloat162_rn((f2.x - mu) * rs * sc[i][2 * e] + bi[i][2 * e],
                                      (f2.y - mu) * rs * sc[i][2 * e + 1] + bi[i][2 * e + 1]);
       }
-      *v[i] = o;
+      if (has(i)) *v[i] = o;
     }
   }
 }
@@ -187,9 +196,9 @@ ln_ffn_kernel(const __grid_constant__ CUtensorMap x_map,
     prefetch_map(&w2_map);
     int slot = 0;
     uint32_t phase = 0, free_phase = 0;
-    auto acquire = [&]() {
+    auto acquire = [&](int bytes) {
       mbar_wait(&empty[slot], phase ^ 1);
-      mbar_expect_tx(&full[slot], kStageBytes);
+      mbar_expect_tx(&full[slot], bytes);
       return ring + slot * kStageBytes;
     };
     auto advance = [&]() {
@@ -211,13 +220,13 @@ ln_ffn_kernel(const __grid_constant__ CUtensorMap x_map,
                     (int)((first_tile(it) + rank) * kBM));
       for (int c = 0; c < n_chunks; ++c) {
         for (int s = 0; s < S::kS1; ++s) {
-          unsigned char* dst = acquire();
+          unsigned char* dst = acquire(kStageBytes);
           for (int b = rank; b < 2; b += C)
             load(dst + b * kW1Box, &w1_map, c * kFC + b * 64, s * kW1Rows);
           advance();
         }
         for (int s = 0; s < S::kS2; ++s) {
-          unsigned char* dst = acquire();
+          unsigned char* dst = acquire(S::kW2Bytes);
           for (int b = rank; b < D / 64; b += C)
             load(dst + b * S::kW2Box, &w2_map, b * 64, c * kFC + s * S::kW2Rows);
           advance();
@@ -318,6 +327,8 @@ ln_ffn_kernel(const __grid_constant__ CUtensorMap x_map,
           const uint64_t db = wgmma_desc(wb + kk * 16 * 128, S::kW2Box, 1024);
           if constexpr (S::kN2 == 256) {
             wgmma_ss_n256<1>(acc2, da, db, c > 0 || s > 0 || kk > 0);
+          } else if constexpr (S::kN2 == 192) {
+            wgmma_ss_n192<1>(acc2, da, db, c > 0 || s > 0 || kk > 0);
           } else {
             wgmma_ss_n128<1>(acc2, da, db, c > 0 || s > 0 || kk > 0);
           }
@@ -408,5 +419,6 @@ extern "C" int herro_ln_ffn(const void* x, const float* ln_s, const float* ln_b,
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 512) return launch<512>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, f, s);
   if (d == 256) return launch<256>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, f, s);
+  if (d == 384) return launch<384>(x, ln_s, ln_b, w1, b1, w2, b2, out, T, f, s);
   return (int)cudaErrorInvalidValue;
 }

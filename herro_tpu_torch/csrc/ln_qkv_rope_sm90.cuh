@@ -68,7 +68,9 @@
 // row r, which the same warp has read in full. That keeps K1's 128-row tile,
 // its ring and its epilogue; 64-row tiles (K11's choice) would stream every
 // W byte from L2 twice as often. The row scales take 512 bytes more.
-// Shapes: d 256 or 512, D 128, any H >= 1, B >= 1, L >= 1.
+// Shapes: d 256 or 512 (K1, K8 also 384: a lane of the LayerNorm then holds
+// one and a half 16-byte chunks of a row, six [128][64] blocks of x), D 128,
+// any H >= 1, B >= 1, L >= 1.
 #pragma once
 
 #include <type_traits>
@@ -117,15 +119,18 @@ struct Shape {
 template <int D>
 __device__ inline void layernorm_tile(const float* __restrict__ scale,
                                       const float* __restrict__ bias, unsigned char* ln) {
-  constexpr int kCh = D / 256;  // 16-byte chunks a lane holds of a row
+  // 16-byte chunks a lane holds of a row; at d 384 the second is held by
+  // lanes 0-15 only (`has`)
+  constexpr int kCh = (D + 255) / 256;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto has = [&](int i) { return D % 256 == 0 || lane + 32 * i < D / 8; };
   float sc[kCh][8], bi[kCh][8];
 #pragma unroll
   for (int i = 0; i < kCh; ++i)
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      sc[i][e] = scale[(lane + 32 * i) * 8 + e];
-      bi[i][e] = bias[(lane + 32 * i) * 8 + e];
+      sc[i][e] = has(i) ? scale[(lane + 32 * i) * 8 + e] : 0.f;
+      bi[i][e] = has(i) ? bias[(lane + 32 * i) * 8 + e] : 0.f;
     }
 #pragma unroll 2
   for (int r = warp * 16; r < warp * 16 + 16; ++r) {
@@ -135,7 +140,7 @@ __device__ inline void layernorm_tile(const float* __restrict__ scale,
     for (int i = 0; i < kCh; ++i) {
       const int ch = lane + 32 * i;
       v[i] = reinterpret_cast<uint4*>(ln + (ch >> 3) * (kBM * 128) + swizzle128(r, ch & 7));
-      xv[i] = *v[i];
+      xv[i] = has(i) ? *v[i] : make_uint4(0, 0, 0, 0);  // zeros add nothing to the sums
     }
     float s = 0.f, ss = 0.f;
 #pragma unroll
@@ -167,7 +172,7 @@ __device__ inline void layernorm_tile(const float* __restrict__ scale,
         y[e] = __floats2bfloat162_rn((f2.x - mu) * rs * sc[i][2 * e] + bi[i][2 * e],
                                      (f2.y - mu) * rs * sc[i][2 * e + 1] + bi[i][2 * e + 1]);
       }
-      *v[i] = o;
+      if (has(i)) *v[i] = o;
     }
   }
 }
@@ -482,7 +487,8 @@ int launch(const void* x, const float* ln_s, const float* ln_b, const void* w, c
                          (bf16*)v, B, L, H);
 }
 
-// the instantiation for width d (256 or 512), or cudaErrorInvalidValue
+// the instantiation for width d (256 or 512; K1 and K8 also 384, the
+// d384x5L shape of tools/variant_step_time_torch.py), or cudaErrorInvalidValue
 template <int V>
 int launch_widths(const void* x, const float* ln_s, const float* ln_b, const void* w,
                   const void* b, const float* cos_t, const float* sin_t, const float* s_col,
@@ -491,6 +497,8 @@ int launch_widths(const void* x, const float* ln_s, const float* ln_b, const voi
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 512) return launch<512, V>(x, ln_s, ln_b, w, b, cos_t, sin_t, s_col, q, k, v, B, L, H, s);
   if (d == 256) return launch<256, V>(x, ln_s, ln_b, w, b, cos_t, sin_t, s_col, q, k, v, B, L, H, s);
+  if constexpr (V != kInt8)
+    if (d == 384) return launch<384, V>(x, ln_s, ln_b, w, b, cos_t, sin_t, s_col, q, k, v, B, L, H, s);
   return (int)cudaErrorInvalidValue;
 }
 

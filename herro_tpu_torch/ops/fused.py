@@ -171,6 +171,11 @@ def _entry_embed_plain(bases, quals, wc, cb, out_dtype):
     return (x + cb.float()).to(out_dtype)
 
 
+# d_model of the entry kernel's instantiations (csrc/entry_embed.cu): every
+# shipped checkpoint's, and 384 (tools/variant_step_time_torch.py's d384x5L)
+EMBED_WIDTHS = (256, 384, 512)
+
+
 def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
     B, R, L = bases.shape
     kp, d = wc.shape
@@ -180,7 +185,7 @@ def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
                 f"col_proj table has {kp} rows for {R} pileup rows: the kernel takes "
                 f"col_proj_table's 512 (R 29-32)")
     _cuda.check(quals.shape == bases.shape and cb.shape == (d,), "input shapes")
-    _cuda.check(d in (256, 512), f"d_model {d}: the kernel takes 256 or 512")
+    _cuda.check(d in EMBED_WIDTHS, f"d_model {d}: the kernel takes {EMBED_WIDTHS}")
     _cuda.require_dtype(torch.uint8, bases=bases)
     _cuda.require_dtype(torch.float32, quals=quals, cb=cb)
     _cuda.require_dtype(torch.bfloat16, wc=wc)
@@ -255,9 +260,11 @@ def rope_kernel_name() -> str:
     return "ln_qkv_rope_split"
 
 
-# d_model of the qkv kernels' instantiations (K1, K8, K10;
-# csrc/ln_qkv_rope_sm90.cuh): every shipped checkpoint's
-QKV_WIDTHS = (256, 512)
+# d_model of the qkv kernels' instantiations (csrc/ln_qkv_rope_sm90.cuh):
+# every shipped checkpoint's, and for K1 and K8 also 384
+# (tools/variant_step_time_torch.py's d384x5L); K10 takes QKV_Q_WIDTHS
+QKV_WIDTHS = (256, 384, 512)
+QKV_Q_WIDTHS = (256, 512)
 
 
 def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = None):
@@ -325,9 +332,10 @@ def flash_kernel_name(local_window) -> str:
 
 
 # (n_heads, d_model) of the attention kernels' instantiations
-# (csrc/flash_outproj_sm90.cuh): every shipped checkpoint's, and their
-# tensor-parallel shards (r10 at tp 2 and 4, r10deep at tp 2)
-ATTENTION_WIDTHS = ((4, 512), (2, 256), (2, 512), (1, 512), (1, 256))
+# (csrc/flash_outproj_sm90.cuh): every shipped checkpoint's, their
+# tensor-parallel shards (r10 at tp 2 and 4, r10deep at tp 2), and (3, 384)
+# (tools/variant_step_time_torch.py's d384x5L)
+ATTENTION_WIDTHS = ((4, 512), (2, 256), (2, 512), (1, 512), (1, 256), (3, 384))
 
 
 def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
@@ -383,10 +391,15 @@ def _ln_ffn_plain(x, scale, bias, w1, b1, w2, b2):
     return (xf.float() + o).to(x.dtype).reshape(x.shape)
 
 
+# d_model of the FFN kernel's instantiations (csrc/ln_ffn.cu): every shipped
+# checkpoint's, and 384 (tools/variant_step_time_torch.py's d384x5L)
+FFN_WIDTHS = (256, 384, 512)
+
+
 def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
     d = x.shape[-1]
     f = w1.shape[1]
-    _cuda.check(d in (256, 512), f"d_model {d}: the kernel takes 256 or 512")
+    _cuda.check(d in FFN_WIDTHS, f"d_model {d}: the kernel takes {FFN_WIDTHS}")
     _cuda.check(f >= 128 and f % 128 == 0, f"d_ff {f}: the kernel takes a multiple of 128")
     _cuda.check(w1.shape == (d, f) and b1.shape == (f,), "ff1 shapes")
     _cuda.check(w2.shape == (f, d) and b2.shape == (d,), "ff2 shapes")
@@ -497,7 +510,7 @@ def _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads: int):
     D = w_i8.shape[1] // (3 * H)
     N = 3 * H * D
     _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
-    _cuda.check(d in QKV_WIDTHS, f"d_model {d}: the kernel takes {QKV_WIDTHS}")
+    _cuda.check(d in QKV_Q_WIDTHS, f"d_model {d}: the kernel takes {QKV_Q_WIDTHS}")
     _cuda.check(w_i8.shape == (d, N) and s_col.shape == (N,) and b.shape == (N,),
                 "qkv shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")

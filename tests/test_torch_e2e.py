@@ -15,6 +15,7 @@
 """
 
 import dataclasses
+import glob
 import os
 import pkgutil
 import subprocess
@@ -236,12 +237,19 @@ def test_port_imports_no_jax():
         m.name for m in pkgutil.walk_packages(herro_tpu_torch.__path__, "herro_tpu_torch.")
         if not m.name.rsplit(".", 1)[-1].startswith("lib")
     ]
+    # and every ported tool, tools/*_torch.py, imported by path
+    tools = sorted(os.path.basename(p)[:-3]
+                   for p in glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tools')!r})\n"
+        f"for name in {tools!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'msgpack', 'zstandard', 'herro_tpu')]\n"
+        "('jax', 'flax', 'optax', 'msgpack', 'zstandard', 'herro_tpu', 'bench', "
+        "'__graft_entry__')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -250,6 +258,11 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "herro_tpu_torch.cli" in names and "herro_tpu_torch.ops.fused" in names
+    for tool in ("eval_battery_torch", "merge_battery_torch", "soup_ckpt_torch",
+                 "finetune_sys_torch", "diag_systematic_torch", "profile_e2e_torch",
+                 "variant_step_time_torch", "ablate_fused_torch", "demo_record_torch",
+                 "micro_kernels_torch"):
+        assert tool in tools, tool
     for new in ("utils.edist", "utils.align", "training.labels", "training.eval",
                 "features.npy", "pipeline.procpool", "ops.attention", "ops.cuda",
                 "training.train", "training.data", "training.distill", "parallel",

@@ -20,6 +20,7 @@ run where only PyTorch is installed (``pytest --noconftest -m gpu``).
 """
 
 import functools
+import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -431,12 +432,13 @@ def test_count_decisions_kernel_reads_no_row_past_n_alns_on_card(rows, gl):
 
 
 # K2 and K3 at every width a shipped checkpoint takes: (H, d) 2/256 (r9,
-# r10deep) and 4/512 (r10); (d, f) 512/1024, 256/1024 and 256/1536; and at
+# r10deep) and 4/512 (r10); (d, f) 512/1024, 256/1024 and 256/1536; at
 # the tensor-parallel shards of r10 (tp 2: H 2, d_ff 512; tp 4: H 1, d_ff
-# 256) and r10deep (tp 2: H 1, d 256, d_ff 512)
-K2_SHARD_WIDTHS = [(2, 512), (1, 512), (1, 256)]
+# 256) and r10deep (tp 2: H 1, d 256, d_ff 512); and at the d384x5L shape of
+# tools/variant_step_time_torch.py (H 3, d 384, d_ff 1280)
+K2_SHARD_WIDTHS = [(2, 512), (1, 512), (1, 256), (3, 384)]
 K2_WIDTHS = [(2, 256), (4, 512), *K2_SHARD_WIDTHS]
-K3_WIDTHS = [(512, 1024), (256, 1024), (256, 1536), (512, 512), (512, 256)]
+K3_WIDTHS = [(512, 1024), (256, 1024), (256, 1536), (512, 512), (512, 256), (384, 1280)]
 
 
 def _launches(name):
@@ -448,20 +450,21 @@ def _launches(name):
 @pytest.mark.parametrize(
     "op,mask,heads,width,f",
     [("flash_outproj", mask, heads, width, None)
-     for mask in (None, 384, 512) for heads, width in [(3, 384), (4, 256), (8, 512)]]
-    + [("ln_ffn", None, None, width, f) for width, f in [(384, 1024), (128, 512), (256, 64)]]
+     for mask in (None, 384, 512) for heads, width in [(3, 640), (4, 256), (8, 512)]]
+    + [("ln_ffn", None, None, width, f) for width, f in [(640, 1024), (128, 512), (256, 64)]]
     + [(op, None, heads, width, None)
        for op in ("ln_qkv_rope", "ln_qkv_rope_split", "ln_qkv_rope_q")
-       for heads, width in [(1, 128), (3, 384), (4, 640), (2, 192)]]
+       for heads, width in [(1, 128), (3, 768), (4, 640), (2, 192)]]
+    + [("ln_qkv_rope_q", None, 3, 384, None)]
     + [("count_decisions", None, None, rows, None) for rows in (0, 64, 100)],
 )
 def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f):
-    """The Hopper kernels are built for (H, d) = (4, 512), (2, 256) and the
-    tensor-parallel shards (2, 512), (1, 512), (1, 256) (attention, all three
-    masks), d 256 or 512 with d_ff a multiple of 128
-    (ln_ffn), d 256 or 512 with any H (the qkv kernels K1, K8 and K10), and
-    1 to 63 pileup rows (count_decisions, ``width`` here: 6-bit counts); the
-    wrapper names any other width in a ValueError before it looks at the
+    """The Hopper kernels are built for (H, d) = (4, 512), (2, 256), the
+    tensor-parallel shards (2, 512), (1, 512), (1, 256) and (3, 384)
+    (attention, all three masks), d 256, 384 or 512 with d_ff a multiple of
+    128 (ln_ffn), d 256, 384 or 512 with any H (K1 and K8; K10 256 or 512),
+    and 1 to 63 pileup rows (count_decisions, ``width`` here: 6-bit counts);
+    the wrapper names any other width in a ValueError before it looks at the
     device (these are CPU tensors) and launches nothing."""
     rng = np.random.default_rng(30)
     bf = torch.bfloat16
@@ -475,11 +478,12 @@ def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f)
             w_i8, s_col = fused.quantize_weight(_t(w).to(bf))
             args = (_t(x).to(bf), _t(s), _t(b), fused.k_major(w_i8), s_col, _t(bias).to(bf),
                     heads)
-            call = fused._ln_qkv_rope_q_cuda
+            call, widths = fused._ln_qkv_rope_q_cuda, fused.QKV_Q_WIDTHS
         else:
             args = (_t(x).to(bf), _t(s), _t(b), _t(w).to(bf), _t(bias).to(bf), heads)
             call = functools.partial(fused._ln_qkv_rope_cuda, kernel=op)
-        match = rf"d_model {width}: the kernel takes \(256, 512\)"
+            widths = fused.QKV_WIDTHS
+        match = rf"d_model {width}: the kernel takes " + re.escape(str(widths))
     elif op == "flash_outproj":
         gl = 64
         q, k, v = (_t(rng.normal(size=(1, heads, gl, 128))).to(bf) for _ in range(3))
@@ -491,7 +495,8 @@ def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f)
         x, s, b, w1, b1, w2, b2 = _ffn_inputs(30, d=width, f=f, rows=64)
         args = (_t(x).to(bf), _t(s), _t(b), _t(w1).to(bf), _t(b1).to(bf), _t(w2).to(bf),
                 _t(b2).to(bf))
-        call, match = fused._ln_ffn_cuda, "d_model" if width not in (256, 512) else "d_ff"
+        call = fused._ln_ffn_cuda
+        match = "d_model" if width not in fused.FFN_WIDTHS else "d_ff"
     from herro_tpu_torch.ops import cuda as kernels
 
     before = kernels.launch_counts.snapshot()
@@ -599,7 +604,7 @@ def test_ln_qkv_rope_k1_widths_match_plain_on_card(heads, width, nb, gl):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [256, 512])
+@pytest.mark.parametrize("width", [256, 384, 512])
 @pytest.mark.parametrize("nb,gl", ROW_SHAPES)
 def test_entry_embed_k4_widths_match_plain_on_card(width, nb, gl):
     dev = _card()

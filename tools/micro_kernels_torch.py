@@ -3,6 +3,7 @@
     python3 tools/micro_kernels_torch.py                 # registers, then one pass
     python3 tools/micro_kernels_torch.py --spread 3      # three passes, for the spread
     python3 tools/micro_kernels_torch.py --spread 0      # registers only
+    python3 tools/micro_kernels_torch.py --spread 0 --step   # and the step times
 
 Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
 prints each kernel's registers, spills and ptxas's performance advisories
@@ -15,6 +16,13 @@ call after a kernel changes: what the compiler refuses, or a kernel that is
 wrong, shows here in about a minute and fails the command. Shapes the smoke run does not
 take (the r9 widths but K8's, K10's and K11's, ragged lengths) are held by
 the ``gpu`` tests.
+
+``--step`` then times the fused correct step of R10 (seeded random weights)
+at bench.py's two shapes, (B, L, S) = (64, 4608, 128) and (32, 9216, 256),
+with the port's step timer (``pipeline/steptime.py``). With the kernels
+phase this is the port of tools/parity_fused.py: its parity half is that
+phase (every kernel against its plain version on the card), its timing half
+bench.py's ``_chip_only`` at those shapes.
 
 Needs a CUDA card and nvcc; imports nothing of JAX.
 """
@@ -31,6 +39,7 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def print_registers(kernels) -> None:
@@ -56,6 +65,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--spread", type=int, default=1,
                     help="passes of chip_smoke.py's kernels phase (0: registers only)")
+    ap.add_argument("--step", action="store_true",
+                    help="also time the R10 correct step at bench.py's two shapes")
     args = ap.parse_args()
     import torch
 
@@ -63,13 +74,19 @@ def main() -> int:
         print("micro_kernels_torch: no CUDA device available", file=sys.stderr)
         return 2
     from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.pipeline.steptime import card
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi, flush=True)
+    print(card(), flush=True)
     print_registers(kernels)
+    if args.step:
+        from variant_step_time_torch import STEPS, step_time
+
+        from herro_tpu_torch.models.model import R10_CONFIG
+
+        for B, L, S in STEPS:
+            r = step_time(R10_CONFIG, B, L, S, iters=100)
+            print(f"step B={B} L={L} S={S}: {r['windows_per_s']:.1f} windows/s "
+                  f"({r['ms']:.3f} ms/step)", flush=True)
     if not args.spread:
         return 0
     import chip_smoke
