@@ -27,7 +27,11 @@ each print one JSON line:
    under no band with mixed lengths, one of them 0 (which must come out 0),
    band 512 and no band also at L=5120; the counting rule (K5) at both
    lengths must equal its plain version; K1-K4 also at the d384x5L shape of
-   ``tools/variant_step_time_torch.py`` (d 384, H 3, d_ff 1280);
+   ``tools/variant_step_time_torch.py`` (d 384, H 3, d_ff 1280); K10 at a
+   shard's head counts (H 2 and 1 at d 512, H 1 at d 256) and K11's two
+   tensor-parallel modes (``ln_ffn_q_rowmax``, ``ln_ffn_q_rowscale``) at
+   the four shard widths (d 512 with d_ff 512 and 256, d 256 with 768 and
+   512), each to the int8 bar above;
 3. ``golden``  — the port's bf16 forward of the flagship checkpoint on
    ``tests/golden/logits_r10.npz`` against the JAX logits frozen there;
 4. ``e2e``     — ``run_correction`` with ``CorrectionRunner(device="cuda")``
@@ -41,8 +45,10 @@ each print one JSON line:
    parallelism at tp 2 and 4 on the golden batch and the e2e dataset must
    agree with the single-device step on at least 0.99 of the supported
    columns with equal decisions, launching a batch K4 x tp, K1-K3 x 3 x tp
-   and K5 once; each layout's step at B=32, L=9216 beside the single
-   device's; ``multihost`` — two ``inference`` CLI processes on the card
+   and K5 once; int8 at tp 2 and 4 the same against the single device's
+   int8 step, launching K4 x tp, K10, K2 and each K11 mode x 3 x tp, K5
+   once and no K1, K3 or whole K11; each layout's step at B=32, L=9216
+   beside the single device's (bf16 and int8); ``multihost`` — two ``inference`` CLI processes on the card
    under a coordinator on 127.0.0.1 (``--num-processes 2``) over two
    target-partitioned alignment batches: their ``.shard000`` and
    ``.shard001`` must not overlap and together equal one process's FASTA;
@@ -74,18 +80,22 @@ each print one JSON line:
    L=9216 (must launch ``flash_attention``) and its gradient at a small size
    against autograd through ``naive_attention``;
 9. ``grad``    — the three differentiable ops (``entry_embed``, ``ln_ffn``,
-   ``attention_block``) under autograd on CUDA tensors at the R10 widths, B 2,
+   ``attention_block``) and the two int8 ones (``attention_block_q``,
+   ``ln_ffn_q``) under autograd on CUDA tensors at the R10 widths, B 2,
    L 1024: the forward is the op's direct output bit for bit with one launch
    of each of its kernels, every gradient autograd's through the plain
    version on the same inputs, finite and nonzero;
 10. ``train``   — ``train --config r10`` through the CLI at batch 32 on the
-   bucket ladder (demo-size simulated data): ms a step by CUDA events from
-   step 3 on, the forward/backward split, the peak of allocated memory and
+   bucket ladder (simulated, 100 kb and 100 reads): ms a step by CUDA events
+   from step 3 on, the forward/backward split, the peak of allocated memory and
    the launches of every step (K4 once, K1-K3 n_layers x 2 under remat, no
    other kernel); then in process a seeded R10 trainer: every parameter a
    finite nonzero gradient, one step at each bucket of the ladder, 20 steps
    on one fixed batch bringing CE below 0.7 x its first value, and
-   ``Trainer.save`` loading back through ``load_model``;
+   ``Trainer.save`` loading back through ``load_model``; then the same
+   trainer under int8 at B=32, L=9216: ms a step, the split, the peak,
+   launches K4 once and K10, K2, K11 x 6 a step, CE below 0.7 x over 20
+   steps;
 11. ``train_parallel`` — a seeded ``r10`` trainer at B=32 on a bucket-9216
    batch of the ``train`` phase's windows, every device ``cuda:0``: one
    device, DP 2 x 1, TP 1 x 2 and DP x TP 2 x 2, 6 steps each. Each mesh's
@@ -105,8 +115,10 @@ each print one JSON line:
    ``Trainer.save`` of the TP 2 run loading back as the gathered
    parameters; two faults planted in a DP 2 step (replica 1's gradient
    dropped, a mean of per-replica means), each of which the bars must
-   reject; then ``dryrun_multichip(4)`` over ``cuda:0`` four times
-   (``herro_tpu_torch/parallel/dryrun.py``);
+   reject; the int8 config on one device and at TP 1 x 2, 3 steps each,
+   TP held against one device by the model axis's bars (launches K10, K2
+   and each K11 mode 2 x 3 x tp a step); then ``dryrun_multichip(4)`` over
+   ``cuda:0`` four times (``herro_tpu_torch/parallel/dryrun.py``);
 12. ``distill`` — ``distill`` through the CLI over the ``features`` phase's
    tree, teacher ``model_r10_sim`` (its labelling launches K1-K5), student
    ``r9`` (K1-K4 at d 256), batch 8, whose checkpoint loads;
@@ -119,7 +131,8 @@ each print one JSON line:
 Any failed phase exits nonzero. The last lines are the card line of
 nvidia-smi, the per-kernel JSON summary (K1-K4 also with their launches in
 ``train_parallel``, counted from 0 over its layouts' steps; K1-K5 with
-theirs in ``battery``, ``demo`` and ``tools``) and
+theirs in ``battery``, ``demo`` and ``tools``; K10 and K11's modes with
+theirs in the int8 layouts of ``parallel`` and ``train_parallel``) and
 ``{"ok": true, "device": ...}``.
 Imports nothing of JAX or herro_tpu.
 """
@@ -127,6 +140,7 @@ Imports nothing of JAX or herro_tpu.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import importlib.util
 import io
@@ -154,8 +168,13 @@ PEAK_F32 = 67e12
 B, L = 32, 9216  # CLI default batch at the R10 bucket (pipeline/batching.py)
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started, where the
+    time of a phase shows."""
+    print(json.dumps({"phase": phase, **kw, "at_s": time.perf_counter() - START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -653,6 +672,10 @@ def phase_kernels(torch, results: dict) -> None:
     cases.update(d384_cases(
         torch, dict(tokens=tokens, quals=quals, lengths=lengths, lengths_np=lengths_np,
                     pairs=pairs), qkv_case, g))
+    cases.update(shard_q_cases(
+        torch, dict(x=x, x9=x9, ln_s=ln_s, ln_b=ln_b, ln_s9=ln_s9, ln_b9=ln_b9, w_qkv=w_qkv,
+                    b_qkv=b_qkv, w_qkv9=w_qkv9, b_qkv9=b_qkv9, w1=w1, b1=b1, w2=w2, b2=b2),
+        qkv_q_case, ln_rows_i8, g))
     report = []
     for case, c in cases.items():
         name = c.get("name", case)
@@ -681,7 +704,14 @@ def phase_kernels(torch, results: dict) -> None:
         if "floor" in c:  # the same share between two plain runs, LN's sums apart
             extra["share_differing_floor"] = floor = share_differing(c["floor"](), ref)
             # the kernel's LayerNorm sums in another order again: at most twice that
-            ok = ok and extra["share_differing"] <= 2 * floor
+            if "chain" not in c:
+                ok = ok and extra["share_differing"] <= 2 * floor
+        if "chain" in c:  # the same bar on the outputs of the pass the case feeds
+            k_out, p_out, f_out = (fn() for fn in c["chain"])
+            extra["chain_share_differing"] = share_differing(k_out, p_out)
+            extra["chain_share_differing_floor"] = floor = share_differing(f_out, p_out)
+            ok = ok and extra["chain_share_differing"] <= 2 * floor
+            del k_out, p_out, f_out
         if case == "ln_ffn_q":
             # rows whose scale max|y| / 127 differs when PyTorch divides by the
             # Python number 127.0 (a multiplication by its reciprocal on the card)
@@ -712,7 +742,7 @@ def phase_kernels(torch, results: dict) -> None:
         bound_ms, bound_by = c["bound"]
         entry = dict(
             name=name, case=case, route="cuda",
-            source=f"herro_tpu_torch/csrc/{name}.cu",
+            source=f"herro_tpu_torch/csrc/{name}.cu", mode=c.get("mode"),
             replaces=c["replaces"], max_abs_err=err, tol=tol,
             part_err=part_err, part_tol=part_tol, ok=ok, ms=ms,
             plain_ms=plain_ms, library=lib_label, library_ms=lib_ms,
@@ -777,6 +807,116 @@ def shard_cases(torch, t: dict, qkv_case, g) -> dict:
         cases[f"ln_ffn[{tag}f={f_loc}]"] = ffn_case(
             torch, xs * (1.0 / tp), s, b, sh["w1"], sh["b1"], sh["w2"], sh["b2"])
     return cases
+
+
+# int8 at the widths of one tensor-parallel shard: K10 at (tp, d_model) of
+# SHARDS (H 2 and 1 at d 512, H 1 at d 256), and K11's two modes at (d_model,
+# d_ff, tp): r10 (512, 1024) at tp 2 and 4, r9 (256, 1536) and r10deep (256,
+# 1024) at tp 2
+FFN_Q_SHARDS = ((512, 1024, 2), (512, 1024, 4), (256, 1536, 2), (256, 1024, 2))
+
+
+def shard_q_cases(torch, t: dict, qkv_q_case, ln_rows_i8, g) -> dict:
+    """K10 and K11's modes at one shard's widths, on shard 0 of the kernels
+    phase's weights (at d 256 the r9 qkv weight, FFN weights drawn here),
+    quantized as ``TensorParallelModel`` quantizes them (the whole W2's
+    column scales). K11's ``rowmax`` mode on LayerNorm of the whole stream;
+    its ``rowscale`` mode given the maxima of the whole width's hidden (what
+    the maximum over the shards gives) and x / tp. Each is held to the int8
+    bar of the full-width cases: at most twice the share of outputs by which
+    the plain version moves when LayerNorm sums in float64."""
+    from herro_tpu_torch.ops import fused
+
+    bf = torch.bfloat16
+    D = 128
+    cases = {}
+    for tp, d in SHARDS:
+        full = d == 512
+        H = 4 if full else 2
+        h = H // tp
+        w_qkv, b_qkv = (t["w_qkv"], t["b_qkv"]) if full else (t["w_qkv9"], t["b_qkv9"])
+        wq_i8, sq = fused.quantize_weight(
+            w_qkv.reshape(d, 3, H, D)[:, :, :h].reshape(d, 3 * h * D))
+        tag = "" if full else f"d={d}, "
+        cases[f"ln_qkv_rope_q[{tag}H={h}]"] = qkv_q_case(
+            t["x"] if full else t["x9"], t["ln_s"] if full else t["ln_s9"],
+            t["ln_b"] if full else t["ln_b9"], fused.k_major(wq_i8), sq,
+            b_qkv.reshape(3, H, D)[:, :h].reshape(-1).contiguous(), h)
+    for d, f, tp in FFN_Q_SHARDS:
+        full = d == 512
+        xs = t["x"] if full else t["x9"]
+        s, b = (t["ln_s"], t["ln_b"]) if full else (t["ln_s9"], t["ln_b9"])
+        if full:
+            w1, b1, w2, b2 = (v.float() for v in (t["w1"], t["b1"], t["w2"], t["b2"]))
+        else:
+            r = lambda *shape, std: torch.randn(*shape, generator=g, device=xs.device) * std
+            w1, b1, w2, b2 = r(d, f, std=d ** -0.5), r(f, std=0.25), r(f, d, std=f ** -0.5), \
+                r(d, std=0.25)
+        (q1, s1), (q2, s2) = fused.quantize_weight(w1), fused.quantize_weight(w2)
+        hmax = fused._ffn_q_hidden(xs, s, b, q1, s1, b1).abs().amax(dim=-1).view(xs.shape[:-1])
+        fl = f // tp
+        head = (xs, s, b, fused.k_major(q1[:, :fl]), s1[:fl].contiguous(),
+                b1[:fl].contiguous())
+        tail = (fused.k_major(q2[:fl]), s2, b2 / tp, hmax, 1.0 / tp)
+        tag = "" if full else f"d={d}, "
+        cases.update(ffn_q_mode_cases(torch, f"{tag}f={fl}", head, tail, ln_rows_i8))
+    return cases
+
+
+def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8) -> dict:
+    """K11's ``rowmax`` mode on ``head`` (x, LayerNorm, W1's shard) and its
+    ``rowscale`` mode on ``head + tail`` (W2's shard, s2, b2 / tp, the row
+    maxima, 1 / tp). A row maximum is a bf16 value of h, exact where the
+    plain version's is; a row whose LayerNorm rounds one int8 step apart
+    moves it only where that crosses a bf16 step of its largest element, so
+    few rows that a share of them is too noisy to hold against twice
+    another. So ``rowmax`` is held to the int8 bar through the pass it feeds: shard
+    0's ``rowscale`` on its maxima (``chain``: kernel then kernel, plain then
+    plain, and both plain with LayerNorm's sums in float64), its own share
+    and floor reported beside."""
+    from herro_tpu_torch.ops import fused
+
+    xs, s, b, w1q = head[:4]
+    T, d, fl = xs.numel() // xs.shape[-1], xs.shape[-1], w1q.shape[1]
+
+    def chained(x, s, b, w1, s1, b1, w2, s2, b2, res_scale):
+        """The two plain passes of one shard, the second on the first's maxima."""
+        hmax = fused._ln_ffn_q_rowmax_plain(x, s, b, w1, s1, b1)
+        return fused._ln_ffn_q_rowscale_plain(x, s, b, w1, s1, b1, w2, s2, b2, hmax,
+                                              res_scale)
+
+    library = lambda what: (
+        f"torch._int_mm quant(LN(x))[T,d] @ W1 shard[d,f/tp] int8 -> int32, {what}",
+        lambda y_i8: torch._int_mm(y_i8, w1q), lambda: ln_rows_i8(xs, s, b))
+    vectors = (2 * d + 2 * fl) * 4
+    return {
+        f"ln_ffn_q_rowmax[{tag}]": dict(
+            name="ln_ffn_q", mode="ln_ffn_q_rowmax", replaces="herro_tpu/ops/fused.py:420",
+            kernel=lambda: fused._ln_ffn_q_rowmax_cuda(*head),
+            plain=lambda: fused._ln_ffn_q_rowmax_plain(*head),
+            floor=lambda: float64_layernorm_sums(fused, fused._ln_ffn_q_rowmax_plain, *head),
+            library=library("the pass's product (partial: no LN, quantization, gelu, "
+                            "row maxima)"),
+            bound=bound(T * d * 2 + d * fl + T * 4 + vectors, 2 * T * d * fl, PEAK_INT8),
+            share_differing=True,
+            chain=(lambda: fused._ln_ffn_q_rowscale_cuda(
+                       *head, *tail[:3], fused._ln_ffn_q_rowmax_cuda(*head), tail[-1]),
+                   lambda: chained(*head, *tail[:3], tail[-1]),
+                   lambda: float64_layernorm_sums(fused, chained, *head, *tail[:3], tail[-1])),
+        ),
+        f"ln_ffn_q_rowscale[{tag}]": dict(
+            name="ln_ffn_q", mode="ln_ffn_q_rowscale", replaces="herro_tpu/ops/fused.py:420",
+            kernel=lambda: fused._ln_ffn_q_rowscale_cuda(*head, *tail),
+            plain=lambda: fused._ln_ffn_q_rowscale_plain(*head, *tail),
+            floor=lambda: float64_layernorm_sums(fused, fused._ln_ffn_q_rowscale_plain,
+                                                 *head, *tail),
+            library=library("half the pass's operations (partial: no LN, quantization, "
+                            "gelu, second product)"),
+            bound=bound(2 * T * d * 2 + 2 * d * fl + T * 4 + vectors + d * 8,
+                        4 * T * d * fl, PEAK_INT8),
+            residual=xs * tail[-1], share_differing=True,
+        ),
+    }
 
 
 def d384_cases(torch, t: dict, qkv_case, g) -> dict:
@@ -1089,7 +1229,10 @@ def phase_cli(torch, tmp: str, ds, rows) -> None:
 
 # (tag, data replicas, tensor-parallel degree) of the parallel phase, every
 # device cuda:0, so that one card runs every layout
-PARALLEL_LAYOUTS = (("dp2", 2, 1), ("tp2", 1, 2), ("tp4", 1, 4))
+# (tag, data replicas, tensor-parallel degree, int8); an int8 layout is held
+# against the single device's int8 step
+PARALLEL_LAYOUTS = (("dp2", 2, 1, False), ("tp2", 1, 2, False), ("tp4", 1, 4, False),
+                    ("tp2_int8", 1, 2, True), ("tp4_int8", 1, 4, True))
 TP_MIN_AGREE = 0.99  # the bar of tests/test_parallel.py for bf16 at tp=2
 
 
@@ -1152,15 +1295,18 @@ def _layout_step_ms(torch, runner, batches, iters: int = 5) -> dict:
     return dict(step_ms=step_ms, round_trip_ms=(time.perf_counter() - t0) * 1e3 / iters)
 
 
-def phase_parallel(torch, tmp: str, e2e: dict) -> None:
+def phase_parallel(torch, tmp: str, e2e: dict) -> dict:
     """Data and tensor parallelism through ``CorrectionRunner(mesh=...)``, every
     device ``cuda:0``: a 2 x 1 mesh must write the single-device run's FASTA
     records byte for byte; tp=2 and tp=4 on the golden batch and the e2e
     dataset must agree with the single-device step on at least
     ``TP_MIN_AGREE`` of the supported columns with equal decisions, and
     launch, a batch, K4 x tp, K1-K3 x n_layers x tp and K5 once (a data
-    replica each). Then the step's time at B=32, L=9216 under each layout
-    beside the single device's."""
+    replica each); int8 at tp=2 and tp=4 the same against the single
+    device's int8 step, launching K4 x tp, K10, K2 and each of K11's two
+    modes x n_layers x tp, K5 once, and no K1, K3 or whole K11. Then the
+    step's time at B=32, L=9216 under each layout beside the single
+    device's (bf16 and int8). Returns the int8 layouts' launches."""
     import numpy as np
 
     from herro_tpu_torch.models.checkpoint import load_model
@@ -1169,21 +1315,24 @@ def phase_parallel(torch, tmp: str, e2e: dict) -> None:
     from herro_tpu_torch.pipeline.infer import CorrectionRunner
 
     cfg, params = load_model(CKPT)
-    single = e2e["runner"]
-    dev = single.device
+    singles = {False: e2e["runner"]}
+    dev = singles[False].device
+    singles[True] = CorrectionRunner(cfg, params, int8=True, device=dev)
     fx = np.load(GOLDEN)
     golden = Batch(fx["tokens_packed"], fx["quals"], fx["support_idx"], fx["support_mask"],
                    fx["n_alns"], windows=[])
-    golden_ref = single._fetch(single.dispatch(golden))[1]
+    golden_refs = {k: r._fetch(r.dispatch(golden))[1] for k, r in singles.items()}
     step_batches = [_step_batch(seed) for seed in (4321, 4322)]
-    times = {"single": _layout_step_ms(torch, single, step_batches)}
+    times = {"single": _layout_step_ms(torch, singles[False], step_batches),
+             "single_int8": _layout_step_ms(torch, singles[True], step_batches)}
     want_records = _fasta_records(e2e["fasta"])
-    failed = []
-    for tag, n_data, tp in PARALLEL_LAYOUTS:
-        runner = CorrectionRunner(cfg, params, device=dev,
+    failed, int8_launches = [], {}
+    for tag, n_data, tp, int8 in PARALLEL_LAYOUTS:
+        single = singles[int8]
+        runner = CorrectionRunner(cfg, params, device=dev, int8=int8,
                                   mesh=make_mesh_2d(n_data, tp, [dev] * (n_data * tp)))
-        g_agree, g_dec = _agreement(runner._fetch(runner.dispatch(golden))[1], golden_ref,
-                                    fx["support_mask"])
+        g_agree, g_dec = _agreement(runner._fetch(runner.dispatch(golden))[1],
+                                    golden_refs[int8], fx["support_mask"])
         recorded = []  # (batch, packed) of every batch the e2e run fetched
         fetch = runner._fetch
 
@@ -1207,13 +1356,18 @@ def phase_parallel(torch, tmp: str, e2e: dict) -> None:
         e2e_agree = n_agree / max(n_sup, 1)
         n_b = len(recorded)
         launches = res["launches"]
+        block = ("ln_qkv_rope_q", "flash_outproj", "ln_ffn_q_rowmax", "ln_ffn_q_rowscale") \
+            if int8 else ("ln_qkv_rope", "flash_outproj", "ln_ffn")
         per_batch = {"entry_embed": n_data * tp, "count_decisions": n_data,
-                     **{k: cfg.n_layers * n_data * tp
-                        for k in ("ln_qkv_rope", "flash_outproj", "ln_ffn")}}
+                     **{k: cfg.n_layers * n_data * tp for k in block}}
         want_launches = {k: per_batch.get(k, 0) * n_b for k in launches}
+        if int8:
+            for k, n in launches.items():
+                int8_launches[k] = int8_launches.get(k, 0) + n
         records_equal = _fasta_records(out) == want_records
         times[tag] = _layout_step_ms(torch, runner, step_batches)
-        emit("parallel", layout=tag, data=n_data, tp=tp, tp_fast_path=runner.tp_fast_path,
+        emit("parallel", layout=tag, data=n_data, tp=tp, int8=int8,
+             tp_fast_path=runner.tp_fast_path,
              golden_class_agreement=g_agree, golden_decisions_equal=g_dec,
              e2e_class_agreement=e2e_agree, e2e_supported_columns=n_sup,
              e2e_decisions_equal=dec_equal, batches=n_b, launches=launches,
@@ -1232,10 +1386,12 @@ def phase_parallel(torch, tmp: str, e2e: dict) -> None:
             failed.append(f"{tag} (launches {launches}, want {want_launches})")
         del runner, recorded
         torch.cuda.empty_cache()
+    del singles[True]
     emit("parallel", run="step at B=32, L=9216", card=nvidia_smi(), **{
         f"{tag}_{k}": v for tag, t in times.items() for k, v in t.items()})
     if failed:
         raise RuntimeError("parallel: " + "; ".join(failed))
+    return int8_launches
 
 
 # A stand-in for zstandard that stores the batch files' bytes as they are, so
@@ -1589,7 +1745,9 @@ def phase_attention(torch) -> dict:
 
 def _grad_cases(torch):
     """(differentiable inputs, the op, its plain version, its launches) of
-    the three differentiable ops at the R10 widths, B 2, L 1024."""
+    the three differentiable ops and the two int8 ops at the R10 widths, B 2,
+    L 1024 (the int8 weights quantized as the model quantizes them, no
+    gradient; their scales and every float input take one)."""
     from herro_tpu_torch.ops import fused
 
     dev = torch.device("cuda")
@@ -1608,6 +1766,10 @@ def _grad_cases(torch):
                             p["cb"], bf)
 
     x = r(Bg, Lg, d)
+    w_qkv, w1, w2 = r(d, 3 * H * D, scale=d ** -0.5), r(d, F, scale=d ** -0.5, dt=f32), \
+        r(F, d, scale=F ** -0.5, dt=f32)
+    (wq_i8, sq), (w1_i8, s1), (w2_i8, s2) = (fused.quantize_weight(w) for w in (w_qkv, w1, w2))
+    wq_i8, w1_i8, w2_i8 = (fused.k_major(w) for w in (wq_i8, w1_i8, w2_i8))
     return {
         "entry_embed": (
             dict(quals=torch.rand(Bg, 31, Lg, generator=g, device=dev) * 2 - 1,
@@ -1627,15 +1789,33 @@ def _grad_cases(torch):
             lambda p: fused.attention_block(*p.values(), lengths, H, 512),
             lambda p: fused._attention_block_plain(*p.values(), lengths, H, 512),
             {"ln_qkv_rope": 1, "flash_outproj": 1}),
+        "attention_block_q": (
+            dict(x=x, ln_s=1 + r(d, scale=0.1, dt=f32), ln_b=r(d, scale=0.1, dt=f32), s_col=sq,
+                 b_qkv=r(3 * H * D, scale=0.1), wo=r(H, D, d, scale=(H * D) ** -0.5),
+                 bo=r(d, scale=0.1)),
+            lambda p: fused.attention_block_q(p["x"], p["ln_s"], p["ln_b"], wq_i8, p["s_col"],
+                                              p["b_qkv"], p["wo"], p["bo"], lengths, H, 512),
+            lambda p: fused._attention_shard_q_plain(p["x"], p["x"], p["ln_s"], p["ln_b"],
+                                                     wq_i8, p["s_col"], p["b_qkv"], p["wo"],
+                                                     p["bo"], lengths, H, 512),
+            {"ln_qkv_rope_q": 1, "flash_outproj": 1}),
+        "ln_ffn_q": (
+            dict(x=x, scale=1 + r(d, scale=0.1, dt=f32), bias=r(d, scale=0.1, dt=f32), s1=s1,
+                 b1=r(F, scale=0.1, dt=f32), s2=s2, b2=r(d, scale=0.1, dt=f32)),
+            lambda p: fused.ln_ffn_q(p["x"], p["scale"], p["bias"], w1_i8, p["s1"], p["b1"],
+                                     w2_i8, p["s2"], p["b2"]),
+            lambda p: fused._ln_ffn_q_plain(p["x"], p["scale"], p["bias"], w1_i8, p["s1"],
+                                            p["b1"], w2_i8, p["s2"], p["b2"]),
+            {"ln_ffn_q": 1}),
     }
 
 
 def phase_grad(torch) -> None:
-    """Each differentiable op's autograd Function on the card: the forward
-    equals the op's direct output bit for bit and launches each of its
-    kernels once; every gradient equals autograd's through the plain version
-    on the same inputs exactly (the Function's backward is the plain version),
-    finite and nonzero."""
+    """Each differentiable op's autograd Function on the card, int8 ones
+    included: the forward equals the op's direct output bit for bit and
+    launches each of its kernels once; every gradient equals autograd's
+    through the plain version on the same inputs exactly (the Function's
+    backward is the plain version), finite and nonzero."""
     from herro_tpu_torch.ops import cuda as kernels
 
     report, failed = {}, []
@@ -1670,7 +1850,7 @@ def phase_grad(torch) -> None:
 # the kernels of a training step's forward: K4 once, K1-K3 in every block
 TRAIN_KERNELS = ("entry_embed", "ln_qkv_rope", "flash_outproj", "ln_ffn")
 TRAIN_ARGS = ["--config", "r10", "--batch-size", "32", "--steps", "8", "-w", "4096",
-              "--genome-len", "150000", "--n-reads", "160", "--seed", "777"]
+              "--genome-len", "100000", "--n-reads", "100", "--seed", "777"]
 
 
 def _want_step_launches(cfg) -> dict:
@@ -1762,7 +1942,8 @@ def _profile_step(torch, trainer, batch) -> dict:
 
 def phase_train(torch, tmp: str) -> dict:
     """``train --config r10`` through the CLI, then a seeded R10 trainer in
-    process. Returns the CLI run's launches."""
+    process, then the same trainer under int8 at L=9216. Returns the CLI
+    run's launches."""
     import pickle
 
     from herro_tpu_torch import cli
@@ -1846,14 +2027,57 @@ def phase_train(torch, tmp: str) -> dict:
             f"train: parameters without a finite nonzero gradient {bad_grads}; CE "
             f"{history[0]} -> {history[-1]}; saved step {step_txt!r}, params equal {same}"
         )
+    phase_train_int8(torch, windows, cfg, params)
     return launches
+
+
+def phase_train_int8(torch, windows, cfg, params) -> None:
+    """The seeded R10 trainer under int8 (K10, K2 and K11 forward, their plain
+    versions backward) on one batch at B=32, L=9216, 20 steps of an
+    optimiser warmed up over 2: ms a step by CUDA events from step 3 on, the
+    forward/backward split, the peak of allocated memory; every step
+    launches K4 once and K10, K2, K11 n_layers x 2 (remat) and nothing
+    else; CE below 0.7 x its first value after the 20 steps, the bf16
+    trainer's bar."""
+    from herro_tpu_torch.training.data import TRAIN_BUCKETS, collate_train
+    from herro_tpu_torch.training.train import TrainState, Trainer, make_optimizer, \
+        make_train_step
+
+    icfg = dataclasses.replace(cfg, int8=True)
+    trainer = Trainer(icfg, params, device="cuda")
+    opt = make_optimizer(1e-3, warmup=2, total_steps=40)
+    replicas = trainer.state.replicas
+    trainer.state = TrainState(replicas, [opt.init(list(r.parameters())) for r in replicas])
+    trainer._step = make_train_step(replicas, opt)
+    batch = collate_train(windows[:B], *TRAIN_BUCKETS[2])  # L 9216, S 1152
+    per_block = 2 * icfg.n_layers
+    want = {"entry_embed": 1, "ln_qkv_rope_q": per_block, "flash_outproj": per_block,
+            "ln_ffn_q": per_block}
+    steps: list = []
+    with _timed_steps(torch, steps):
+        for _ in range(20):
+            trainer.train_step(batch)
+    per_step = _step_times(steps)
+    timed = per_step[2:]
+    ce = [st["ce"] for st in per_step]
+    bad = [st["step"] for st in per_step if st["launches"] != want]
+    emit("train", run="int8 in process", card=nvidia_smi(), L=per_step[0]["L"],
+         S=per_step[0]["S"], ms=sum(st["ms"] for st in timed) / len(timed),
+         forward_ms=sum(st["forward_ms"] for st in timed) / len(timed),
+         backward_update_ms=sum(st["backward_update_ms"] for st in timed) / len(timed),
+         peak_gib=max(st["peak_gib"] for st in timed), ms_each=[st["ms"] for st in per_step],
+         want_step_launches=want, ce_first=ce[0], ce_last=ce[-1], ce_history=ce)
+    if bad or not ce[-1] < 0.7 * ce[0]:
+        raise RuntimeError(f"train int8: steps {bad} launched other than {want}; CE "
+                           f"{ce[0]} -> {ce[-1]}")
 
 
 # (tag, data replicas, tensor-parallel degree, the layout it is held against,
 # the mesh axis it adds to that one), every device cuda:0; "single" is the
 # trainer on one device
 TRAIN_LAYOUTS = (("single", 1, 1, None, None), ("dp2", 2, 1, "single", "data"),
-                 ("tp2", 1, 2, "single", "model"), ("dp2_tp2", 2, 2, "tp2", "data"))
+                 ("tp2", 1, 2, "single", "model"), ("dp2_tp2", 2, 2, "tp2", "data"),
+                 ("single_int8", 1, 1, None, None), ("tp2_int8", 1, 2, "single_int8", "model"))
 # a layout's first step against its base's on the same seeded weights and
 # batch (bf16): loss, ce and info_bce within TRAIN_PARALLEL_LOSS_RTOL of the
 # axis, relative; along a data axis acc and hard_acc within it too,
@@ -1869,6 +2093,7 @@ TRAIN_PARALLEL_CE_RTOL = 1e-2
 # each layout's classes against its base's on the trained model_r10_sim
 TRAIN_PARALLEL_MIN_AGREE = 0.999
 TRAIN_PARALLEL_STEPS = 6
+TRAIN_PARALLEL_INT8_STEPS = 3  # the int8 layouts' (the plain backward's float64 products)
 # faults planted in the dp2 step, each of which the bars must reject
 TRAIN_PARALLEL_FAULTS = ("replica 1's gradient dropped", "mean of per-replica means")
 
@@ -1962,7 +2187,7 @@ def phase_train_parallel(torch, tmp: str) -> dict:
     optimiser warmed up over 2 steps, as the ``train`` phase's). Each mesh's
     first step, its loss, metrics and summed gradient, is held against its
     base layout's by the bars of the axis it adds; every step's CE within
-    ``TRAIN_PARALLEL_CE_RTOL`` of the base's, and falling over the steps;
+    ``TRAIN_PARALLEL_CE_RTOL`` of the base's, and falling over the steps (bf16);
     launches a step K4 n_data x tp and K1-K3 2 x n_layers x tp x n_data
     (remat), no other kernel; the data replicas' parameters and moments
     bit-identical after 3 steps and at the end; ms a step by CUDA events
@@ -1972,9 +2197,13 @@ def phase_train_parallel(torch, tmp: str) -> dict:
     weights the flipped columns are reported with their logit margins.
     ``Trainer.save`` of the TP 2 run loads back equal to the gathered
     parameters. Each of ``TRAIN_PARALLEL_FAULTS``, planted in a DP 2 step,
-    must fail the bars. Then ``dryrun_multichip(4)`` over ``cuda:0`` four
-    times. Returns the launches of the meshes' steps, counted from 0 (the
-    counters are reset at the start)."""
+    must fail the bars. The ``_int8`` layouts train the int8 config the same
+    way, ``TRAIN_PARALLEL_INT8_STEPS`` steps each, TP 1 x 2 held against one
+    device's int8 trainer, launching K4 x tp, K10 and K2 2 x n_layers x tp
+    and K11 2 x n_layers a step on one device, each of its two modes 2 x
+    n_layers x tp over the mesh. Then ``dryrun_multichip(4)`` over ``cuda:0``
+    four times. Returns the launches of the meshes' steps, counted from 0
+    (the counters are reset at the start)."""
     import pickle
 
     import numpy as np
@@ -1997,9 +2226,10 @@ def phase_train_parallel(torch, tmp: str) -> dict:
 
     def fresh(tag):
         n_data, tp = next((n, t) for name, n, t, *_ in TRAIN_LAYOUTS if name == tag)
-        where = dict(device=dev) if tag == "single" else dict(
+        where = dict(device=dev) if n_data * tp == 1 else dict(
             mesh=make_mesh_2d(n_data, tp, [dev] * (n_data * tp)))
-        trainer = Trainer(cfg, params, **where)
+        trainer = Trainer(dataclasses.replace(cfg, int8=tag.endswith("_int8")), params,
+                          **where)
         replicas = trainer.state.replicas
         opt = make_optimizer(1e-3, warmup=2, total_steps=40)
         trainer.state = TrainState(replicas, [opt.init(list(r.parameters())) for r in replicas])
@@ -2009,19 +2239,24 @@ def phase_train_parallel(torch, tmp: str) -> dict:
     kernels.launch_counts.reset()
     failed, rows, refs, launches = [], {}, {}, {}
     for tag, n_data, tp, base, axis in TRAIN_LAYOUTS:
+        int8 = tag.endswith("_int8")
         trainer, step = fresh(tag)
         state, tensors = trainer.state, trainer.tensors(batch)
         smask, hard = tensors[3], tensors[3] & (tensors[5] > 0)
-        trained = Trainer(ckpt_cfg, ckpt_params, **(
+        trained = Trainer(dataclasses.replace(ckpt_cfg, int8=int8), ckpt_params, **(
             dict(device=dev) if trainer.mesh is None else dict(mesh=trainer.mesh)))
         logits = (_mesh_logits(torch, trained.state.replicas, tensors),
                   _mesh_logits(torch, state.replicas, tensors))
         del trained
-        want = {"entry_embed": n_data * tp, **{
-            k: 2 * cfg.n_layers * tp * n_data for k in ("ln_qkv_rope", "flash_outproj", "ln_ffn")}}
+        block = ("ln_qkv_rope", "flash_outproj", "ln_ffn")
+        if int8:
+            block = ("ln_qkv_rope_q", "flash_outproj",
+                     *(("ln_ffn_q_rowmax", "ln_ffn_q_rowscale") if tp > 1 else ("ln_ffn_q",)))
+        want = {"entry_embed": n_data * tp,
+                **{k: 2 * cfg.n_layers * tp * n_data for k in block}}
         history, ms, bad_launches, same_after_3 = [], [], [], True
         torch.cuda.synchronize()
-        for i in range(TRAIN_PARALLEL_STEPS):
+        for i in range(TRAIN_PARALLEL_INT8_STEPS if int8 else TRAIN_PARALLEL_STEPS):
             if i == 2:
                 torch.cuda.reset_peak_memory_stats()
                 held = torch.cuda.memory_allocated()
@@ -2048,7 +2283,10 @@ def phase_train_parallel(torch, tmp: str) -> dict:
         same_end = replicas_equal(state)
         ce = [h["ce"] for h in history]
         refs[tag] = dict(first=history[0], mu=mu, ce=ce, logits=logits)
-        ok = (not bad_launches and same_after_3 and same_end and ce[-1] < ce[0]
+        # CE falls over the bf16 layouts' 6 steps; the int8 layouts' 3 end
+        # where a warmed-up step has just raised it (the train phase's int8
+        # trainer shows it falling over 20)
+        ok = (not bad_launches and same_after_3 and same_end and (int8 or ce[-1] < ce[0])
               and all(np.isfinite(v) for h in history for v in h.values()))
         dev_first = agree = flips = ce_dev = None
         if base is not None:
@@ -2289,7 +2527,7 @@ def phase_tools(torch, tmp: str) -> dict:
     from herro_tpu_torch.models.checkpoint import load_model
     from herro_tpu_torch.ops import cuda as kernels
 
-    total = {k: 0 for k in kernels.KERNELS}
+    total = {k: 0 for k in kernels.launch_counts.snapshot()}
     failed = []
 
     def run(tool, fn, want=None, **report):
@@ -2321,7 +2559,7 @@ def phase_tools(torch, tmp: str) -> dict:
             failed.append("soup: the written checkpoint is not 0.7 base + 0.3 other")
         return dict(leaves=len(got), equal_to_mix=exact)
 
-    run("soup_ckpt_torch", soup, want={k: 0 for k in kernels.KERNELS})
+    run("soup_ckpt_torch", soup, want={k: 0 for k in total})
 
     with open(os.path.join(tmp, "train_windows.pkl"), "rb") as fh:
         windows = pickle.load(fh)
@@ -2458,8 +2696,9 @@ def _run_inference_cli(env, tmp, tag, fastq, extra) -> dict:
 
 def phase_procpool(tmp: str, e2e: dict) -> int:
     """``inference`` through the CLI in subprocesses: serial featgen against
-    ``--feat-gen-procs N``, each once plain (for the times) and once with
-    ``--profile-dir`` (for the device's busy share). Returns N."""
+    ``--feat-gen-procs N``, each once plain (for the times), the pool once
+    more with ``--profile-dir`` (for the device's busy share; the serial
+    path's is the ``trace`` phase's). Returns N."""
     from herro_tpu_torch.pipeline.procpool import can_fork
 
     cores = os.cpu_count() or 1
@@ -2471,11 +2710,20 @@ def phase_procpool(tmp: str, e2e: dict) -> int:
     report = {}
     for tag, extra in (("serial", []), ("pool", ["--feat-gen-procs", str(n_procs)])):
         plain = _run_inference_cli(env, tmp, tag, e2e["fastq"], extra)
-        prof_dir = os.path.join(tmp, f"prof_{tag}")
-        traced = _run_inference_cli(env, tmp, tag + "_traced", e2e["fastq"],
-                                    [*extra, "--profile-dir", prof_dir])
-        device_s, span_s = _device_busy_s(prof_dir)
-        for run in (plain, traced):
+        runs, traced_report = [plain], {}
+        if tag == "pool":
+            prof_dir = os.path.join(tmp, f"prof_{tag}")
+            traced = _run_inference_cli(env, tmp, tag + "_traced", e2e["fastq"],
+                                        [*extra, "--profile-dir", prof_dir])
+            device_s, span_s = _device_busy_s(prof_dir)
+            runs.append(traced)
+            traced_report = dict(
+                traced_run_s=traced["run_s"], traced_device_s=device_s,
+                device_busy_share=device_s / traced["run_s"],
+                # from the first batch on the card to the last: leaves out what a
+                # short run spends before it (the aligner, CUDA start-up)
+                traced_device_span_s=span_s, device_busy_share_in_span=device_s / span_s)
+        for run in runs:
             got = _fasta_records(run["fasta"])
             if got != want or run["windows"] != e2e["windows_produced"]:
                 raise RuntimeError(
@@ -2488,12 +2736,7 @@ def phase_procpool(tmp: str, e2e: dict) -> int:
             {k: plain[k] for k in ("run_s", "windows", "windows_per_s", "featgen_s",
                                    "device_wait_s", "first_alns_s", "last_alns_s",
                                    "batches", "process_s", "workers_ran")},
-            traced_run_s=traced["run_s"], traced_device_s=device_s,
-            device_busy_share=device_s / traced["run_s"],
-            # from the first batch on the card to the last: leaves out what a
-            # short run spends before it (the aligner, CUDA start-up)
-            traced_device_span_s=span_s, device_busy_share_in_span=device_s / span_s,
-            records_identical=True, file_bytes_identical=same_order,
+            **traced_report, records_identical=True, file_bytes_identical=same_order,
         )
     emit("procpool", cores=cores, n_procs=n_procs, **report)
     if report["pool"]["workers_ran"] < n_procs:
@@ -2540,6 +2783,12 @@ def phase_features(tmp: str, e2e: dict, n_procs: int, n_targets: int = 16) -> No
         raise RuntimeError(f"features: {n_dirs} read directories, {n_windows} windows")
 
 
+# the int8 kernels and the counters of their launches over a mesh (K11 under
+# tensor parallelism launches its two modes, each counted under its own name)
+INT8_KERNELS = {"ln_qkv_rope_q": ("ln_qkv_rope_q",),
+                "ln_ffn_q": ("ln_ffn_q_rowmax", "ln_ffn_q_rowscale")}
+
+
 def main() -> int:
     import torch
 
@@ -2568,7 +2817,7 @@ def main() -> int:
         e2e = phase_e2e(torch, tmp)
         phase_trace(torch, tmp, e2e)
         phase_cli(torch, tmp, e2e["ds"], e2e["rows"])
-        phase_parallel(torch, tmp, e2e)
+        tp_int8_launches = phase_parallel(torch, tmp, e2e)
         phase_multihost(tmp, e2e)
         evals = phase_eval(torch, tmp)
         battery_launches = phase_battery(torch)
@@ -2610,6 +2859,11 @@ def main() -> int:
         summary.append({key: k[key] for key in keys} | {"launches": launches[k["name"]]})
         if k["name"] in TRAIN_KERNELS:  # and on this slice's path, a train step over a mesh
             summary[-1]["train_parallel_launches"] = train_parallel_launches[k["name"]]
+        if k["name"] in INT8_KERNELS:  # int8 over a mesh: K10, K11's modes by name
+            names = INT8_KERNELS[k["name"]]
+            summary[-1]["tp_int8_launches"] = {n: tp_int8_launches.get(n, 0) for n in names}
+            summary[-1]["train_parallel_launches"] = {
+                n: train_parallel_launches.get(n, 0) for n in names}
         if k["name"] in E2E_KERNELS:  # and on the paths of the tools that drive the model
             summary[-1]["battery_launches"] = battery_launches[k["name"]]
             summary[-1]["demo_launches"] = demo_launches[k["name"]]

@@ -24,8 +24,9 @@ parallel; default all) and ``--tp N`` (Megatron tensor parallelism over a
 global step. ``inference`` also takes the multi-host flags
 ``--coordinator`` / ``--num-processes`` / ``--process-id`` (processes that
 each correct every n-th alignment batch into ``OUTPUT.shardNNN``); the
-reference's ``train`` has none. ``--int8`` takes ``--tp 1``.
-``--int8`` / ``--no-int8`` override the checkpoint's ``config.json``.
+reference's ``train`` has none. ``--int8`` takes any ``--tp``, and an int8
+config trains on every layout. ``--int8`` / ``--no-int8`` override the
+checkpoint's ``config.json``.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--tp", type=int, default=1,
         help="tensor-parallel degree (heads and the FFN hidden shard over a 2-D "
         "data x model mesh; must divide the device count); each shard runs the "
-        "same kernels at its own widths. bf16 only: --int8 takes --tp 1",
+        "same kernels at its own widths, bf16 or --int8",
     )
     pi.add_argument(
         "--int8", action=argparse.BooleanOptionalAction, default=None,
@@ -222,8 +223,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument(
         "--tp", type=int, default=1,
         help="tensor-parallel degree (heads and the FFN hidden shard over a 2-D "
-        "data x model mesh; must divide the device count). bf16 or float32 "
-        "configs: an int8 config takes --tp 1",
+        "data x model mesh; must divide the device count); int8 configs too",
     )
     _add_device(pt)
     pt.add_argument("output", help="checkpoint output directory")
@@ -251,17 +251,6 @@ def _add_device(p: argparse.ArgumentParser) -> None:
         help="torch device to run on: cuda (default, the current card), "
         "cuda:N, or cpu",
     )
-
-
-def _check_ported(args, int8: bool | None = None) -> None:
-    """Raise a clear error for the layout a later slice carries: int8 with
-    ``--tp N``, N > 1 (``int8``: the run's, by default ``args.int8``)."""
-    int8 = args.int8 if int8 is None else int8
-    if args.tp > 1 and int8:
-        raise SystemExit(
-            f"--int8 with --tp {args.tp}: the int8 kernels take no shard widths yet "
-            "(ROADMAP.md queue 2b); run int8 with --tp 1, or bf16 with --tp > 1"
-        )
 
 
 def _device_mesh(args):
@@ -368,7 +357,6 @@ def cmd_inference(args) -> None:
     from .io.fastx import read_cluster
     from .parallel.mesh import init_distributed, shutdown_distributed
 
-    _check_ported(args)
     core, neighbour = read_cluster(args.cluster)
     reads = _load(args, core, neighbour)
 
@@ -529,7 +517,6 @@ def cmd_train(args) -> None:
     from .training.train import Trainer
 
     cfg, params = load_or_init(args.config)
-    _check_ported(args, cfg.int8)
     devices, mesh = _device_mesh(args)
 
     windows = None

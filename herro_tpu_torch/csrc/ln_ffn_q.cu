@@ -9,7 +9,23 @@
 // no transpose, so both of its operands are K-major. The scales and biases
 // are float32.
 //
-// Bound on the H100: operations, 4*T*d*f over the int8 tensor-core rate.
+// Two more modes (template flag M) serve a tensor-parallel shard, which
+// holds d_ff / tp columns of W1 and rows of W2 while h is quantized over the
+// whole row (herro_tpu_torch/parallel/tensor.py runs them around one
+// all-reduce of the row maxima):
+// - kRowMax (entry herro_ln_ffn_q_rowmax) stops after GEMM1's epilogue and
+//   stores each row's max|h| over the shard's columns, float32 [T];
+// - kRowScale (herro_ln_ffn_q_rowscale) runs GEMM1 again, quantizes h by the
+//   given row maxima instead of its own, and adds x * res_scale (x / tp,
+//   exact for tp 2 or 4) where the whole kernel adds x.
+// GEMM1 is recomputed rather than h stored between the passes: at B=32,
+// L=9216 and tp 2 the bf16 hidden would be written and read back (2 x 302
+// MB, about 0.18 ms at 3.35 TB/s) where the second GEMM1 costs 1.5e11 int8
+// operations, about 0.08 ms at the int8 tensor-core rate.
+//
+// Bound on the H100: operations, 4*T*d*f over the int8 tensor-core rate;
+// the two modes at the shard widths mostly bytes: x read (kRowMax), x read
+// and out written (kRowScale).
 //
 // Design (sm_90a), K3's (ln_ffn.cu) with int8 wgmma: a persistent grid, one
 // block per SM walking 64-row tiles, each block three warpgroups.
@@ -51,10 +67,13 @@
 // - setmaxnreg gives the consumers 232 registers and the producer 40; the
 //   accumulators are never written by hand (a write while a product is in
 //   flight serialises every wgmma).
-// Shapes: d 256 or 512; f a multiple of 128, at least 2d, as far as shared
-// memory holds the hidden and a ring of two slots (plan() below: f up to
-// 1536 at d 256, 1280 at d 512); any T >= 1 (rows past T read as zeros and
-// are not stored).
+// - Below f 2d (r10's shards: f 512 at tp 2, 256 at tp 4) x does not fit in
+//   the upper half of the hidden and takes a buffer of its own; nothing else
+//   changes.
+// Shapes: d 256 or 512; f a multiple of 128, as far as shared memory holds
+// the hidden and a ring of two slots (plan() below: f up to 1536 at d 256,
+// 1280 at d 512; the wrapper takes f from 512 at d 256 and from 256 at d
+// 512); any T >= 1 (rows past T read as zeros and are not stored).
 #include "int8.cuh"
 #include "sm90.cuh"
 
@@ -72,25 +91,34 @@ constexpr int kSmallBytes = 1024;    // row maxima, row scales, barriers
 constexpr int kThreadsFfnQ = 384;    // two consumer warpgroups and a producer
 constexpr int kCluster = 2;          // blocks sharing one weight stream
 
-// shared-memory plan for (d, f): [ring][hidden][y_i8 unless in the hidden][small]
+// modes (the head of the file)
+constexpr int kWhole = 0, kRowMax = 1, kRowScale = 2;
+
+// shared-memory plan for (d, f):
+// [ring][hidden][x if its own][y_i8 unless in the hidden][small]
 struct Plan {
   int slots;        // ring slots, 0 when (d, f) does not fit
   bool y_in_h;      // y_i8 in the last chunk's bf16 blocks of the hidden
+  bool x_own;       // x in a buffer of its own (f < 2d), not the hidden's upper half
   size_t h_off, x_off, y_off, small_off, bytes;
 };
 
 __host__ __device__ inline Plan plan(int d, int f) {
   Plan p;
   const size_t h_bytes = (size_t)kBM * f * 2;
+  const size_t x_bytes = (size_t)kBM * d * 2;
   p.y_in_h = kBM * d <= 2 * kBlock && f >= 3 * d;
-  const size_t fixed = h_bytes + (p.y_in_h ? 0 : (size_t)kBM * d) + kSmallBytes;
+  p.x_own = f < 2 * d;
+  const size_t fixed =
+      h_bytes + (p.x_own ? x_bytes : 0) + (p.y_in_h ? 0 : (size_t)kBM * d) + kSmallBytes;
   const long room = (long)kMaxSmem - 1024 - (long)fixed;
   p.slots = room < 0 ? 0 : (int)(room / kSlotBytes < kMaxSlots ? room / kSlotBytes : kMaxSlots);
-  if ((d != 256 && d != 512) || f % kFC || f < 2 * d || p.slots < 2) p.slots = 0;
+  if ((d != 256 && d != 512) || f < kFC || f % kFC || p.slots < 2) p.slots = 0;
   p.h_off = (size_t)p.slots * kSlotBytes;
-  p.x_off = p.h_off + (size_t)kBM * f;  // the upper half
-  p.y_off = p.y_in_h ? p.h_off + h_bytes - (size_t)kBM * d : p.h_off + h_bytes;
-  p.small_off = p.h_off + h_bytes + (p.y_in_h ? 0 : (size_t)kBM * d);
+  const size_t after_x = p.h_off + h_bytes + (p.x_own ? x_bytes : 0);
+  p.x_off = p.x_own ? p.h_off + h_bytes : p.h_off + (size_t)kBM * f;  // else the upper half
+  p.y_off = p.y_in_h ? p.h_off + h_bytes - (size_t)kBM * d : after_x;
+  p.small_off = after_x + (p.y_in_h ? 0 : (size_t)kBM * d);
   p.bytes = 1024 + p.small_off + kSmallBytes;
   return p;
 }
@@ -143,7 +171,9 @@ __device__ inline void quant_hidden(unsigned char* hbuf, const float* smax, int 
   }
 }
 
-template <int D>
+// hmax: the row maxima M stores (kRowMax) or reads (kRowScale); res_scale
+// multiplies the residual x (1 in kWhole)
+template <int D, int M>
 __global__ void __launch_bounds__(kThreadsFfnQ, 1)
 ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
                 const __grid_constant__ CUtensorMap w1_map,
@@ -151,7 +181,8 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
                 const float* __restrict__ ln_s, const float* __restrict__ ln_b,
                 const float* __restrict__ s1, const float* __restrict__ b1,
                 const float* __restrict__ s2, const float* __restrict__ b2,
-                bf16* __restrict__ out, long T, int f) {
+                float* __restrict__ hmax, float res_scale, bf16* __restrict__ out, long T,
+                int f) {
   constexpr int kN2 = D / 2;           // output columns per consumer
   constexpr int kW2Box = kN2 * 32;     // [kN2 rows][32 k]: a consumer's half of a W2 stage
   constexpr int kS1 = D / 128;         // W1 stages per chunk
@@ -198,7 +229,7 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
     if (threadIdx.x != 256) return;
     prefetch_map(&x_map);
     prefetch_map(&w1_map);
-    prefetch_map(&w2_map);
+    if constexpr (M != kRowMax) prefetch_map(&w2_map);
     int slot = 0;
     uint32_t phase = 0, free_phase = 0;
     auto acquire = [&](uint32_t bytes) {
@@ -231,7 +262,7 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
             load(dst + b * kBlock, &w1_map, s * 128, c * kFC + b * 64);
           advance();
         }
-      for (int s = 0; s < n_w2; ++s) {
+      for (int s = 0; s < (M == kRowMax ? 0 : n_w2); ++s) {
         unsigned char* dst = acquire(2 * kW2Box);
         for (int b = rank; b < 2; b += C) load(dst + b * kW2Box, &w2_map, s * 32, b * kN2);
         advance();
@@ -315,24 +346,44 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
           const bf162 hv = __floats2bfloat162_rn(
               gelu_tanh(bf16_round(dequant(acc1[4 * j + 2 * half], sr, sc0, bb0))),
               gelu_tanh(bf16_round(dequant(acc1[4 * j + 2 * half + 1], sr, sc1, bb1))));
-          const float2 hf = __bfloat1622float2(hv);
-          const float m = fmaxf(fabsf(hf.x), fabsf(hf.y));
-          if (half) mb = fmaxf(mb, m); else ma = fmaxf(ma, m);
-          *reinterpret_cast<bf162*>(hc + swizzle128(ra + 8 * half, j) + 4 * q) = hv;
+          if constexpr (M != kRowScale) {
+            const float2 hf = __bfloat1622float2(hv);
+            const float m = fmaxf(fabsf(hf.x), fabsf(hf.y));
+            if (half) mb = fmaxf(mb, m); else ma = fmaxf(ma, m);
+          }
+          if constexpr (M != kRowMax)  // kRowMax keeps no hidden
+            *reinterpret_cast<bf162*>(hc + swizzle128(ra + 8 * half, j) + 4 * q) = hv;
         }
       }
     }
-    // the row maxima over the row's four lanes, then over the warpgroups
+    if constexpr (M == kRowScale) {
+      // the given maxima, over every shard's columns (zero past T)
+      if (threadIdx.x < kBM) {
+        const long row = row0 + threadIdx.x;
+        smax[threadIdx.x] = row < T ? hmax[row] : 0.f;
+        smax[kBM + threadIdx.x] = 0.f;
+      }
+    } else {
+      // the row maxima over the row's four lanes, then over the warpgroups
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, o));
-      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
-    }
-    if (q == 0) {
-      smax[wg * kBM + ra] = ma;
-      smax[wg * kBM + rb] = mb;
+      for (int o = 1; o < 4; o <<= 1) {
+        ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, o));
+        mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
+      }
+      if (q == 0) {
+        smax[wg * kBM + ra] = ma;
+        smax[wg * kBM + rb] = mb;
+      }
     }
     named_bar_sync(3, 256);  // the bf16 hidden and both warpgroups' maxima are in place
+    if constexpr (M == kRowMax) {
+      // (the next tile writes smax only after its barrier 1, which these
+      // threads reach once they have read it)
+      if (threadIdx.x < kBM && row0 + threadIdx.x < T)
+        hmax[row0 + threadIdx.x] = fmaxf(smax[threadIdx.x], smax[kBM + threadIdx.x]);
+      if (threadIdx.x == 0) mbar_arrive(h_free);  // no hidden kept: x may land
+      continue;
+    }
     quant_hidden(hbuf, smax, n_chunks, wg, t);
     fence_proxy_async();
     named_bar_sync(4, 256);  // h_i8 complete
@@ -370,7 +421,9 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
         if (row >= T) continue;
         const float hs = half ? hsb : hsa;
         const size_t o = (size_t)row * D + col;
-        const float2 xr = __bfloat1622float2(*reinterpret_cast<const bf162*>(x + o));
+        float2 xr = __bfloat1622float2(*reinterpret_cast<const bf162*>(x + o));
+        xr.x = __fmul_rn(xr.x, res_scale);  // exact: 1, or 1 / tp at tp 2 or 4
+        xr.y = __fmul_rn(xr.y, res_scale);
         *reinterpret_cast<bf162*>(out + o) = __floats2bfloat162_rn(
             __fadd_rn(xr.x, dequant(acc2[4 * j + 2 * half], hs, sc0, bb0)),
             __fadd_rn(xr.y, dequant(acc2[4 * j + 2 * half + 1], hs, sc1, bb1)));
@@ -379,10 +432,11 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-template <int D>
+template <int D, int M>
 int launch(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
            const float* s1, const float* b1, const void* w2t, const float* s2,
-           const float* b2, void* out, long T, int f, cudaStream_t stream) {
+           const float* b2, float* hmax, float res_scale, void* out, long T, int f,
+           cudaStream_t stream) {
   const Plan p = plan(D, f);
   if (!p.slots) return (int)cudaErrorInvalidValue;
   CUtensorMap mx, m1, m2;
@@ -394,14 +448,30 @@ int launch(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
   const uint32_t box2[2] = {32, D / 2};
   int err = make_map_bf16(&mx, x, 2, dimsx, stridesx, boxx);
   if (!err) err = make_map_u8(&m1, w1t, dims1, strides1, box1, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!err) err = make_map_u8(&m2, w2t, dims2, strides2, box2, CU_TENSOR_MAP_SWIZZLE_32B);
+  if constexpr (M == kRowMax) {
+    m2 = m1;  // no second product: a valid map the kernel never reads
+  } else {
+    if (!err) err = make_map_u8(&m2, w2t, dims2, strides2, box2, CU_TENSOR_MAP_SWIZZLE_32B);
+  }
   if (err) return err;
-  auto kernel = ln_ffn_q_kernel<D>;
+  auto kernel = ln_ffn_q_kernel<D, M>;
   err = set_smem((const void*)kernel, p.bytes);
   if (err) return err;
   return launch_clusters(kernel, kCluster, kThreadsFfnQ, p.bytes, (T + kBM - 1) / kBM, stream,
-                         mx, m1, m2, (const bf16*)x, ln_s, ln_b, s1, b1, s2, b2, (bf16*)out,
-                         T, f);
+                         mx, m1, m2, (const bf16*)x, ln_s, ln_b, s1, b1, s2, b2, hmax,
+                         res_scale, (bf16*)out, T, f);
+}
+
+template <int M>
+int launch_widths(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
+                  const float* s1, const float* b1, const void* w2t, const float* s2,
+                  const float* b2, float* hmax, float res_scale, void* out, long T, int d,
+                  int f, void* stream) {
+  if (T < 1 || !plan(d, f).slots) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 512)
+    return launch<512, M>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, hmax, res_scale, out, T, f, s);
+  return launch<256, M>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, hmax, res_scale, out, T, f, s);
 }
 
 }  // namespace ffn_q
@@ -412,8 +482,26 @@ extern "C" int herro_ln_ffn_q(const void* x, const float* ln_s, const float* ln_
                               const void* w2t, const float* s2, const float* b2, void* out,
                               long T, int d, int f, void* stream) {
   using namespace herro::ffn_q;
-  if (T < 1 || !plan(d, f).slots) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 512) return launch<512>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, T, f, s);
-  return launch<256>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, T, f, s);
+  return launch_widths<kWhole>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, nullptr, 1.f, out, T,
+                               d, f, stream);
+}
+
+// the first pass of a tensor-parallel shard: hmax [T] = max|h| of each row
+extern "C" int herro_ln_ffn_q_rowmax(const void* x, const float* ln_s, const float* ln_b,
+                                     const void* w1t, const float* s1, const float* b1,
+                                     float* hmax, long T, int d, int f, void* stream) {
+  using namespace herro::ffn_q;
+  return launch_widths<kRowMax>(x, ln_s, ln_b, w1t, s1, b1, nullptr, nullptr, nullptr, hmax,
+                                1.f, nullptr, T, d, f, stream);
+}
+
+// the second pass: h quantized by the given hmax [T], x scaled by res_scale
+extern "C" int herro_ln_ffn_q_rowscale(const void* x, const float* ln_s, const float* ln_b,
+                                       const void* w1t, const float* s1, const float* b1,
+                                       const void* w2t, const float* s2, const float* b2,
+                                       const float* hmax, float res_scale, void* out,
+                                       long T, int d, int f, void* stream) {
+  using namespace herro::ffn_q;
+  return launch_widths<kRowScale>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2,
+                                  const_cast<float*>(hmax), res_scale, out, T, d, f, stream);
 }

@@ -65,9 +65,9 @@ class ModelConfig:
     # quantization of the qkv projection and the two FFN products. Weights
     # stay float32 in the checkpoint and are quantized when the ops' weights
     # are built. Entry, attention, out projection and heads keep their types.
-    # Training on the CPU differentiates the quantized forward as the
-    # reference does (the scales carry the gradient, the rounding none); on
-    # the card the int8 ops raise under autograd.
+    # Training differentiates the quantized forward as the reference does
+    # (the scales carry the gradient, the rounding none): on the card the
+    # int8 kernels run forward and their plain versions backward.
     int8: bool = False
 
     @property

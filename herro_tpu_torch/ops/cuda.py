@@ -12,7 +12,9 @@ freely.
 Every C entry point launches on the stream it is handed (the caller passes
 ``torch.cuda.current_stream()``), allocates nothing, and returns
 ``cudaGetLastError()``; :func:`call` raises when that is not 0.
-:data:`launch_counts` counts launches per kernel, one per successful call.
+:data:`launch_counts` counts launches per kernel, one per successful call,
+and per mode for a kernel whose source has more than one entry point
+(:data:`MODES`).
 """
 
 from __future__ import annotations
@@ -57,6 +59,16 @@ KERNELS = {
     "flash_attention": ("herro_flash_attention", [_P] * 5 + [_I] * 4 + [_F, _P]),
 }
 
+# further entry points of a kernel's source, each a mode of its device code
+# counted under its own name: mode -> (kernel, C function, argtypes). K11's
+# two passes of a tensor-parallel shard (parallel/tensor.py)
+MODES = {
+    "ln_ffn_q_rowmax": ("ln_ffn_q", "herro_ln_ffn_q_rowmax", [_P] * 7 + [_L, _I, _I, _P]),
+    "ln_ffn_q_rowscale": (
+        "ln_ffn_q", "herro_ln_ffn_q_rowscale", [_P] * 10 + [_F, _P, _L, _I, _I, _P],
+    ),
+}
+
 
 class LaunchCounts:
     """Per-kernel launch counters, safe to bump from several threads (the
@@ -80,7 +92,7 @@ class LaunchCounts:
             return dict(self._n)
 
 
-launch_counts = LaunchCounts(KERNELS)
+launch_counts = LaunchCounts([*KERNELS, *MODES])
 
 
 class _Libraries:
@@ -128,8 +140,9 @@ class _Libraries:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         fns = {}
-        for name, (cname, argtypes) in KERNELS.items():
-            f = getattr(ctypes.CDLL(targets[name]), cname)
+        entries = {name: (name, *entry) for name, entry in KERNELS.items()} | MODES
+        for name, (kernel, cname, argtypes) in entries.items():
+            f = getattr(ctypes.CDLL(targets[kernel]), cname)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
             fns[name] = f
@@ -162,8 +175,8 @@ def build_all() -> float:
 
 
 def call(name: str, *args) -> None:
-    """Launch kernel ``name`` through its C entry point and count it; raise
-    if the launch was refused."""
+    """Launch kernel (or mode) ``name`` through its C entry point and count
+    it; raise if the launch was refused."""
     err = _libs.fn(name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")

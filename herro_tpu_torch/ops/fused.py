@@ -16,7 +16,8 @@ version for CPU tensors, and does nothing else: there is no fallback.
 Three ops are differentiable, as their counterparts carry a ``custom_vjp`` in
 the reference: ``entry_embed``, ``ln_ffn`` and ``attention_block``, and a
 fourth, ``attention_shard``, is ``attention_block`` with the residual taken
-apart, for a tensor-parallel shard under autograd. With
+apart, for a tensor-parallel shard under autograd; so are the int8 ops
+below, which the reference differentiates through its jnp twins. With
 grad mode on and an input that requires grad, each runs through
 :class:`_RecomputePlain`: the forward is the op as above (the kernel on the
 card), the backward re-runs the plain version on the saved inputs and
@@ -32,7 +33,13 @@ differentiates it. No op has a backward kernel: nor has the reference.
 * ``ln_qkv_rope_q`` (K10), ``ln_ffn_q`` (K11) — the int8 variants of K1 and
   K3: activations quantized per row, weights per output column
   (``quantize_weight``), int8 x int8 -> int32 products, float32
-  dequantization. Inference only: on the card they raise under autograd.
+  dequantization. K11 has two more modes for a tensor-parallel shard, whose
+  hidden holds d_ff / tp columns of a row that is quantized as a whole:
+  ``ln_ffn_q_rowmax`` (the row maxima of |h| over the shard's columns) and
+  ``ln_ffn_q_rowscale`` (the hidden quantized by a given row maximum, the
+  residual scaled). ``attention_block_q``, ``attention_shard_q``,
+  ``ln_ffn_q`` and both modes are differentiable as the four above are: the
+  int8 roundings pass no gradient, the row and column scales do.
 
 Positions for the rope are the absolute column index: padding is a suffix.
 """
@@ -119,7 +126,9 @@ class _RecomputePlain(torch.autograd.Function):
             ]
             out = ctx.plain(*inputs, *ctx.static)
             wrt = [t for t, n in zip(inputs, need) if n]
-            grads = iter(torch.autograd.grad(out, wrt, g))
+            # an input may reach the output only through an int8 rounding
+            # (the second FFN pass's LayerNorm and W1 scales): no gradient
+            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
         return (None, None, None, *(next(grads) if n else None for n in need))
 
 
@@ -447,10 +456,14 @@ def _div127(t):
     return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
 
 
-def quantize_weight(w):
-    """Per-output-channel symmetric int8: w [d, f] -> (w_i8 [d, f], s [f])."""
+def quantize_weight(w, absmax=None):
+    """Per-output-channel symmetric int8: w [d, f] -> (w_i8 [d, f], s [f]).
+    ``absmax`` [f] stands in for the columns' max |w| (a row-split shard
+    holds some rows of each column; ``parallel/tensor.py`` hands it the
+    maximum over every shard)."""
     wf = w.float()
-    s = _div127(wf.abs().amax(dim=0)).clamp_min(1e-12)
+    absmax = wf.abs().amax(dim=0) if absmax is None else absmax
+    s = _div127(absmax).clamp_min(1e-12)
     w_i8 = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return w_i8, s
 
@@ -463,10 +476,12 @@ def k_major(w_i8):
     return w_i8.t().contiguous().t()
 
 
-def _quant_rows(y):
+def _quant_rows(y, absmax=None):
     """Per-row symmetric int8 of f32 y [T, d] -> (y_i8, s_row [T, 1]): a true
-    division, round half to even, clipped to +-127."""
-    s = _div127(y.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-12)
+    division, round half to even, clipped to +-127. ``absmax`` [T, 1] stands
+    in for the rows' max |y| (a shard's hidden holds part of each row)."""
+    absmax = y.abs().amax(dim=-1, keepdim=True) if absmax is None else absmax
+    s = _div127(absmax).clamp_min(1e-12)
     y_i8 = torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
     return y_i8, s
 
@@ -533,31 +548,61 @@ def _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads: int):
 def ln_qkv_rope_q(x, scale, bias, w_i8, s_col, b, n_heads: int):
     """int8 LN + qkv projection + rotary: x [B, L, d] -> (q, k, v)
     [B, H, L, D], with (w_i8 [d, 3*H*D], s_col) from ``quantize_weight``. On
-    the card w_i8 must be ``k_major``. Inference only."""
+    the card w_i8 must be ``k_major``. Not differentiable on its own: under
+    autograd it runs inside ``attention_block_q`` or ``attention_shard_q``."""
     if x.is_cuda:
         return _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads)
     return _ln_qkv_rope_q_plain(x, scale, bias, w_i8, s_col, b, n_heads)
 
 
-def _ln_ffn_q_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
+def _ffn_q_hidden(x, scale, bias, w1_i8, s1, b1):
+    """The int8 FFN's hidden, gelu(h) [T, f] in float32 (x's dtype rounded):
+    LN(x) quantized per row, the int8 product with W1, dequantized, + b1."""
     d = x.shape[-1]
-    xf = x.reshape(-1, d)
-    y = layernorm(xf, scale, bias).float()
+    y = layernorm(x.reshape(-1, d), scale, bias).float()
     y_i8, s_row = _quant_rows(y)
     h = (_int8_mm(y_i8, s_row, w1_i8, s1) + b1.float()).to(x.dtype)
-    h = F.gelu(h.float(), approximate="tanh").to(x.dtype).float()
-    h_i8, hs_row = _quant_rows(h)  # over the whole d_ff row
+    return F.gelu(h.float(), approximate="tanh").to(x.dtype).float()
+
+
+def _ffn_q_out(x, h, hmax, w2_i8, s2, b2, res_scale: float):
+    """x * res_scale + the second product of the hidden h quantized per row
+    by the row maxima hmax [T, 1], dequantized, + b2; in x's dtype."""
+    d = x.shape[-1]
+    h_i8, hs_row = _quant_rows(h, hmax)
     o = _int8_mm(h_i8, hs_row, w2_i8, s2) + b2.float()
-    return (xf.float() + o).to(x.dtype).reshape(x.shape)
+    xf = x.reshape(-1, d).float() * res_scale  # exact: 1, or 1 / tp at tp 2 or 4
+    return (xf + o).to(x.dtype).reshape(x.shape)
+
+
+def _ln_ffn_q_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
+    h = _ffn_q_hidden(x, scale, bias, w1_i8, s1, b1)
+    # the second quantization over the whole d_ff row
+    return _ffn_q_out(x, h, h.abs().amax(dim=-1, keepdim=True), w2_i8, s2, b2, 1.0)
+
+
+def _ln_ffn_q_rowmax_plain(x, scale, bias, w1_i8, s1, b1):
+    h = _ffn_q_hidden(x, scale, bias, w1_i8, s1, b1)
+    return h.abs().amax(dim=-1).reshape(x.shape[:-1])
+
+
+def _ln_ffn_q_rowscale_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
+                             res_scale: float):
+    h = _ffn_q_hidden(x, scale, bias, w1_i8, s1, b1)
+    return _ffn_q_out(x, h, hmax.reshape(-1, 1), w2_i8, s2, b2, res_scale)
 
 
 # d_model -> the d_ff range K11 takes (csrc/ln_ffn_q.cu, plan()): the hidden
 # of a 64-row tile, [64, d_ff] bf16, stays in shared memory beside a ring of
-# at least two weight stages, and the next tile's x fits in its upper half
-FFN_Q_D_FF = {256: (512, 1536), 512: (1024, 1280)}
+# at least two weight stages; the next tile's x lands in its upper half, or
+# in a buffer of its own below d_ff 2 * d_model (the tensor-parallel shards
+# of r10: d_ff 512 at tp 2, 256 at tp 4)
+FFN_Q_D_FF = {256: (512, 1536), 512: (256, 1280)}
 
 
-def _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
+def _check_ffn_q(x, scale, bias, w1_i8, s1, b1, *second):
+    """The checks of K11's three modes: (w2_i8, s2, b2) as ``second`` where
+    the mode runs the second product. Returns the device."""
     d = x.shape[-1]
     f = w1_i8.shape[1]
     lo, hi = FFN_Q_D_FF.get(d, (0, -1))
@@ -566,13 +611,24 @@ def _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
                 f"in {FFN_Q_D_FF} by d_model")
     _cuda.check(w1_i8.shape == (d, f) and s1.shape == (f,) and b1.shape == (f,),
                 "ff1 shapes")
-    _cuda.check(w2_i8.shape == (f, d) and s2.shape == (d,) and b2.shape == (d,),
-                "ff2 shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
     _cuda.require_dtype(torch.bfloat16, x=x)
-    _cuda.require_dtype(torch.float32, scale=scale, bias=bias, s1=s1, b1=b1, s2=s2, b2=b2)
-    dev = _cuda.require_operands(x=x, scale=scale, bias=bias, s1=s1, b1=b1, s2=s2, b2=b2,
-                                 **_require_k_major(w1_i8=w1_i8, w2_i8=w2_i8))
+    _cuda.require_dtype(torch.float32, scale=scale, bias=bias, s1=s1, b1=b1)
+    weights = dict(w1_i8=w1_i8)
+    vectors = {}
+    if second:
+        w2_i8, s2, b2 = second
+        _cuda.check(w2_i8.shape == (f, d) and s2.shape == (d,) and b2.shape == (d,),
+                    "ff2 shapes")
+        _cuda.require_dtype(torch.float32, s2=s2, b2=b2)
+        weights["w2_i8"], vectors = w2_i8, dict(s2=s2, b2=b2)
+    return _cuda.require_operands(x=x, scale=scale, bias=bias, s1=s1, b1=b1, **vectors,
+                                  **_require_k_major(**weights))
+
+
+def _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
+    dev = _check_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
+    d, f = x.shape[-1], w1_i8.shape[1]
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         _cuda.call(
@@ -584,38 +640,126 @@ def _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
     return out
 
 
-def _refuse_grad_on_card(op: str, x, *tensors) -> None:
-    """The int8 kernels have no backward. On the CPU the plain int8 ops are
-    differentiated as the reference's jnp twins are (the rounding to int8
-    passes no gradient, the scales do); on the card a forward under autograd
-    would leave a hole in the graph, so it raises instead."""
-    if x.is_cuda and _needs_grad(x, *tensors):
-        raise ValueError(
-            f"{op}: the int8 kernels have no backward; train with int8 off, or "
-            "run the int8 forward under torch.no_grad() or torch.inference_mode()"
+def _ln_ffn_q_rowmax_cuda(x, scale, bias, w1_i8, s1, b1):
+    dev = _check_ffn_q(x, scale, bias, w1_i8, s1, b1)
+    d, f = x.shape[-1], w1_i8.shape[1]
+    hmax = torch.empty(x.shape[:-1], dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_ffn_q_rowmax", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(), hmax.data_ptr(),
+            x.numel() // d, d, f, _cuda.stream_of(x),
         )
+    return hmax
+
+
+def _ln_ffn_q_rowscale_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
+                            res_scale: float):
+    dev = _check_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
+    d, f = x.shape[-1], w1_i8.shape[1]
+    _cuda.check(hmax.shape == x.shape[:-1], f"hmax {tuple(hmax.shape)}: one a row of x")
+    _cuda.require_dtype(torch.float32, hmax=hmax)
+    _cuda.require_operands(x=x, hmax=hmax)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_ffn_q_rowscale", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_i8.data_ptr(),
+            s2.data_ptr(), b2.data_ptr(), hmax.data_ptr(), float(res_scale),
+            out.data_ptr(), x.numel() // d, d, f, _cuda.stream_of(x),
+        )
+    return out
 
 
 def ln_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
-    """int8 pre-norm FFN block with residual; b1, b2 float32. On the card the
-    weights must be ``k_major``. Inference only: on the card it raises under
-    autograd."""
-    _refuse_grad_on_card("ln_ffn_q", x, scale, bias, s1, b1, s2, b2)
+    """int8 pre-norm FFN block with residual: x [..., d] + FF2(quant(gelu(
+    FF1(quant(LN(x)))))); (w1_i8, s1), (w2_i8, s2) from ``quantize_weight``,
+    b1 and b2 float32. On the card the weights must be ``k_major``.
+    Differentiable in every float input."""
+    args = (x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
+    if _needs_grad(*args):
+        return _RecomputePlain.apply(_ln_ffn_q_op, _ln_ffn_q_plain, (), *args)
+    return _ln_ffn_q_op(*args)
+
+
+def _ln_ffn_q_op(x, *rest):
     if x.is_cuda:
-        return _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
-    return _ln_ffn_q_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
+        return _ln_ffn_q_cuda(x, *rest)
+    return _ln_ffn_q_plain(x, *rest)
+
+
+def ln_ffn_q_rowmax(x, scale, bias, w1_i8, s1, b1):
+    """A tensor-parallel shard's first int8 FFN pass: the maximum of |gelu(h)|
+    over each row's d_ff / tp hidden columns, float32 of x's leading shape,
+    for ``all_reduce_max``; LayerNorm of the whole stream x. Differentiable
+    (the gradient goes to the maximum)."""
+    args = (x, scale, bias, w1_i8, s1, b1)
+    if _needs_grad(*args):
+        return _RecomputePlain.apply(_ln_ffn_q_rowmax_op, _ln_ffn_q_rowmax_plain, (), *args)
+    return _ln_ffn_q_rowmax_op(*args)
+
+
+def _ln_ffn_q_rowmax_op(x, *rest):
+    if x.is_cuda:
+        return _ln_ffn_q_rowmax_cuda(x, *rest)
+    return _ln_ffn_q_rowmax_plain(x, *rest)
+
+
+def ln_ffn_q_rowscale(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
+                      res_scale: float):
+    """A tensor-parallel shard's second int8 FFN pass: x * res_scale + FF2 of
+    the shard's hidden (recomputed as in the first pass), quantized per row
+    by ``hmax``, the maxima over every shard; b2 is the shard's part (b2 /
+    tp). Summed over the shards it is ``ln_ffn_q`` of x. Differentiable in
+    every float input, hmax included."""
+    args = (x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax)
+    if _needs_grad(*args):
+        return _RecomputePlain.apply(_ln_ffn_q_rowscale_op, _ln_ffn_q_rowscale_plain,
+                                     (res_scale,), *args)
+    return _ln_ffn_q_rowscale_op(*args, res_scale)
+
+
+def _ln_ffn_q_rowscale_op(x, *rest):
+    if x.is_cuda:
+        return _ln_ffn_q_rowscale_cuda(x, *rest)
+    return _ln_ffn_q_rowscale_plain(x, *rest)
+
+
+def _attention_shard_q_op(x, residual, ln_s, ln_b, w_i8, s_col, b_qkv, wo, bo, lengths,
+                          n_heads, local_window):
+    q, k, v = ln_qkv_rope_q(x, ln_s, ln_b, w_i8, s_col, b_qkv, n_heads)
+    return flash_outproj(q, k, v, residual, wo, bo, lengths, local_window)
+
+
+def _attention_shard_q_plain(x, residual, ln_s, ln_b, w_i8, s_col, b_qkv, wo, bo, lengths,
+                             n_heads, local_window):
+    q, k, v = _ln_qkv_rope_q_plain(x, ln_s, ln_b, w_i8, s_col, b_qkv, n_heads)
+    return _flash_outproj_plain(q, k, v, residual, wo, bo, lengths, local_window)
+
+
+def attention_shard_q(x, residual, ln_s, ln_b, w_i8, s_col, b_qkv, wo, bo, lengths,
+                      n_heads, local_window):
+    """int8 ``attention_shard``: ``residual`` + MHA(rope(quant(LN(x)) Wqkv_i8))
+    Wo + bo over the shard's heads; the qkv projection runs int8 (K10),
+    attention and the out projection (K2, K6, K7) in the compute dtype.
+    Differentiable in every float input."""
+    args = (x, residual, ln_s, ln_b, w_i8, s_col, b_qkv, wo, bo, lengths)
+    if _needs_grad(*args):
+        return _RecomputePlain.apply(_attention_shard_q_op, _attention_shard_q_plain,
+                                     (n_heads, local_window), *args)
+    return _attention_shard_q_op(*args, n_heads, local_window)
 
 
 def attention_block_q(x, ln_s, ln_b, w_i8, s_col, b_qkv, wo, bo, lengths, n_heads,
                       local_window):
-    """int8 attention block (inference only): the qkv projection runs int8;
-    attention itself and the out projection stay in the compute dtype. Takes
-    the qkv weight already quantized (``quantize_weight`` of the weight in the
-    compute dtype, which the reference does inside the call; the model does
-    it once per parameter state). On the card it raises under autograd."""
-    _refuse_grad_on_card("attention_block_q", x, ln_s, ln_b, s_col, b_qkv, wo, bo)
-    q, k, v = ln_qkv_rope_q(x, ln_s, ln_b, w_i8, s_col, b_qkv, n_heads)
-    return flash_outproj(q, k, v, x, wo, bo, lengths, local_window)
+    """int8 attention block: the qkv projection runs int8; attention itself
+    and the out projection stay in the compute dtype. Takes the qkv weight
+    already quantized (``quantize_weight`` of the weight in the compute
+    dtype, which the reference does inside the call; the model does it once
+    per parameter state). ``attention_shard_q`` with the stream as its own
+    residual."""
+    return attention_shard_q(x, x, ln_s, ln_b, w_i8, s_col, b_qkv, wo, bo, lengths,
+                             n_heads, local_window)
 
 
 def attention_block(x, ln_s, ln_b, w_qkv, b_qkv, wo, bo, lengths, n_heads,

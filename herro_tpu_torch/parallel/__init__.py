@@ -16,6 +16,7 @@ from .mesh import (
 from .tensor import (
     TensorParallelModel,
     all_reduce,
+    all_reduce_max,
     gather_weights,
     make_tp_correct_step,
     shard_weights,
@@ -25,6 +26,7 @@ __all__ = [
     "Mesh",
     "TensorParallelModel",
     "all_reduce",
+    "all_reduce_max",
     "gather_weights",
     "init_distributed",
     "local_devices",

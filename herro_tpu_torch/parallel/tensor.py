@@ -24,7 +24,19 @@ The fused kernels add the residual (and the row-parallel bias) into their
 output, so each shard is fed the stream and the bias scaled by 1/tp; the sum
 over shards rebuilds ``x + sum of partials + bias`` (herro_tpu/parallel/
 tensor.py:82-165). LayerNorm is scale-invariant up to its 1e-6 eps, so the
-FFN shards normalise the scaled stream.
+bf16 FFN shards normalise the scaled stream.
+
+int8 (``cfg.int8``) runs the same layout on the int8 ops, and its sum over
+shards is the one-device int8 function, as the reference's GSPMD partition
+of its jnp twins is (herro_tpu/pipeline/infer.py:153-163): the weights are
+quantized as one device quantizes them (the per-column scales of the
+column-split qkv and W1 are the shard's own; W2's, the maximum of each
+column over every row, come from :func:`all_reduce_max` over the shards),
+every shard normalises the stream x itself (an int8 rounding can turn the
+eps of LN(x / tp) into a whole step), and the FFN's hidden, quantized per
+row over all d_ff columns, takes two passes around one row maximum:
+``ln_ffn_q_rowmax`` on every shard, :func:`all_reduce_max`, then
+``ln_ffn_q_rowscale`` with x / tp and b2 / tp, and the sum.
 """
 
 from __future__ import annotations
@@ -34,7 +46,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..constants import TOKEN_PAD
 from ..models.model import CorrectionModel, ModelConfig
-from ..ops.fused import attention_shard, col_proj_table, entry_embed, ln_ffn
+from ..ops.fused import (
+    attention_shard,
+    attention_shard_q,
+    col_proj_table,
+    entry_embed,
+    k_major,
+    ln_ffn,
+    ln_ffn_q_rowmax,
+    ln_ffn_q_rowscale,
+    quantize_weight,
+)
 
 def block_params(block) -> dict:
     """A block's float32 matmul parameters under the names the ops take."""
@@ -119,6 +141,21 @@ def all_reduce(partials: list[torch.Tensor]) -> list[torch.Tensor]:
     return [total if p.device == dev0 else total.to(p.device) for p in partials]
 
 
+def all_reduce_max(partials: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The elementwise maximum over shards (``jax.lax.pmax``), as
+    :func:`all_reduce` takes its sum: on shard 0's device, one result copied
+    to every shard. Differentiable: the gradient goes to the shards that
+    hold the maximum, split evenly between tied shards (``amax``'s rule;
+    the reference's maximum over the whole row splits it evenly between the
+    tied elements, which differs only when tied shards hold unequal numbers
+    of tied elements)."""
+    if len(partials) == 1:
+        return list(partials)
+    dev0 = partials[0].device
+    top = torch.stack([p.to(dev0) for p in partials]).amax(dim=0)
+    return [top if p.device == dev0 else top.to(p.device) for p in partials]
+
+
 class TensorParallelModel:
     """One data replica of the model, sharded over ``devices`` (one row of a
     mesh; a device may repeat), for inference and for training.
@@ -131,15 +168,10 @@ class TensorParallelModel:
     ``.to(its device)``, so autograd sums the shards' parts of its gradient,
     on one card or across cards. ``bo`` and ``b2`` stay unscaled: the
     forward scales them by 1/tp. :meth:`gather` gives the parameters under
-    the single-device names (the checkpoint's). bf16 or float32; int8 has
-    no kernel at the shard widths."""
+    the single-device names (the checkpoint's). bf16, float32, and either
+    under ``cfg.int8``."""
 
     def __init__(self, cfg: ModelConfig, params: dict, devices):
-        if cfg.int8:
-            raise ValueError(
-                "int8 with tp > 1: the int8 kernels (K10, K11) take no shard widths "
-                "yet; see ROADMAP.md queue 2b. Run int8 with --tp 1, or bf16 with --tp > 1"
-            )
         self.cfg = cfg
         self.devices = [torch.device(d) for d in devices]
         self.tp = len(self.devices)
@@ -189,24 +221,51 @@ class TensorParallelModel:
     def _build_weights(self) -> list[dict]:
         """Shard by shard, what its ops take: the col_proj table and bias and,
         block by block, the LayerNorm parameters (float32), its matmul
-        weights and 1/tp of the row-parallel biases in the compute dtype."""
+        weights and 1/tp of the row-parallel biases in the compute dtype;
+        under ``cfg.int8`` the matmul weights quantized as
+        ``Block.compute_weights`` quantizes them and the FFN biases float32."""
         dt = self.cfg.compute_dtype
         inv = 1.0 / self.tp
         m = self.model
+        quantized = [self._quantize(i) for i in range(len(m.blocks))] if self.cfg.int8 \
+            else None
         out = []
-        for dev, shard in zip(self.devices, self.shards):
+        for j, (dev, shard) in enumerate(zip(self.devices, self.shards)):
             rep = lambda t: t.to(dev)
             blocks = []
-            for b, w in zip(m.blocks, shard):
-                blocks.append(dict(
-                    ln1_s=rep(b.ln1.scale), ln1_b=rep(b.ln1.bias),
-                    ln2_s=rep(b.ln2.scale), ln2_b=rep(b.ln2.bias),
-                    bo=(rep(b.attn.out_bias) * inv).to(dt), b2=(rep(b.ff2.bias) * inv).to(dt),
-                    **{k: w[k].to(dt) for k in SHARDED},
-                ))
+            for i, (b, w) in enumerate(zip(m.blocks, shard)):
+                block = dict(ln1_s=rep(b.ln1.scale), ln1_b=rep(b.ln1.bias),
+                             ln2_s=rep(b.ln2.scale), ln2_b=rep(b.ln2.bias),
+                             bo=(rep(b.attn.out_bias) * inv).to(dt))
+                if quantized is None:
+                    block.update(b2=(rep(b.ff2.bias) * inv).to(dt),
+                                 **{k: w[k].to(dt) for k in SHARDED})
+                else:
+                    block.update(quantized[i][j], b_qkv=w["b_qkv"].to(dt), wo=w["wo"].to(dt),
+                                 b1=w["b1"], b2=rep(b.ff2.bias) * inv)
+                blocks.append(block)
             cp = m.col_proj
             out.append(dict(wc=col_proj_table(rep(cp.w_embT).to(dt), rep(cp.w_qT).to(dt)),
                             cb=rep(cp.bias), blocks=blocks))
+        return out
+
+    def _quantize(self, i: int) -> list[dict]:
+        """Block i's int8 weights, shard by shard: the qkv weight after its
+        cast to the compute dtype and W1 from float32, each column by its own
+        maximum; W2 from float32, each column by its maximum over every
+        shard's rows. Bit for bit the slices of one device's
+        ``quantize_weight``; on the card k-major, as the kernels read them."""
+        dt = self.cfg.compute_dtype
+        parts = [shard[i] for shard in self.shards]
+        col_max = all_reduce_max([w["w2"].abs().amax(dim=0) for w in parts])
+        out = []
+        for w, m2 in zip(parts, col_max):
+            q = {}
+            for name, kernel, absmax in (("qkv", w["w_qkv"].to(dt), None),
+                                         ("1", w["w1"], None), ("2", w["w2"], m2)):
+                w_i8, s = quantize_weight(kernel, absmax)
+                q[f"w{name}_i8"], q[f"s{name}"] = k_major(w_i8), s
+            out.append(q)
         return out
 
     def compute_weights(self) -> list[dict]:
@@ -226,7 +285,9 @@ class TensorParallelModel:
         runs on every shard, as the reference recomputes it; the tail runs
         once, on shard 0, whose stream after the last sum is every shard's.
         Under autograd with ``cfg.remat`` each shard's half-block is a
-        ``torch.utils.checkpoint`` region, as the block is on one device."""
+        ``torch.utils.checkpoint`` region, as the block is on one device;
+        the int8 FFN half, whose row maximum crosses the shards, is two: each
+        shard's first pass, and each shard's second."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         inv = 1.0 / self.tp
@@ -241,21 +302,36 @@ class TensorParallelModel:
                 inputs[dev] = (tok, quals.to(dev).float(), lengths)
 
         def attn_half(x, lengths, w):
+            if cfg.int8:
+                return attention_shard_q(x, x * inv, w["ln1_s"], w["ln1_b"], w["wqkv_i8"],
+                                         w["sqkv"], w["b_qkv"], w["wo"], w["bo"], lengths,
+                                         h_loc, cfg.local_window)
             return attention_shard(x, x * inv, w["ln1_s"], w["ln1_b"], w["w_qkv"], w["b_qkv"],
                                    w["wo"], w["bo"], lengths, h_loc, cfg.local_window)
 
         def ffn_half(x, w):
             return ln_ffn(x * inv, w["ln2_s"], w["ln2_b"], w["w1"], w["b1"], w["w2"], w["b2"])
 
+        def ffn_rowmax(x, w):
+            return ln_ffn_q_rowmax(x, w["ln2_s"], w["ln2_b"], w["w1_i8"], w["s1"], w["b1"])
+
+        def ffn_rowscale(x, hmax, w):
+            return ln_ffn_q_rowscale(x, w["ln2_s"], w["ln2_b"], w["w1_i8"], w["s1"], w["b1"],
+                                     w["w2_i8"], w["s2"], w["b2"], hmax, inv)
+
         run = (lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) if remat else \
             (lambda fn, *a: fn(*a))
         xs = [entry_embed(*inputs[dev][:2], w["wc"], w["cb"], dt)
               for dev, w in zip(self.devices, weights)]
         for i in range(cfg.n_layers):
-            xs = all_reduce([run(attn_half, x, inputs[dev][2], w["blocks"][i])
-                             for dev, x, w in zip(self.devices, xs, weights)])
-            xs = all_reduce([run(ffn_half, x, w["blocks"][i])
-                             for x, w in zip(xs, weights)])
+            ws = [w["blocks"][i] for w in weights]
+            xs = all_reduce([run(attn_half, x, inputs[dev][2], w)
+                             for dev, x, w in zip(self.devices, xs, ws)])
+            if cfg.int8:
+                hmax = all_reduce_max([run(ffn_rowmax, x, w) for x, w in zip(xs, ws)])
+                xs = all_reduce([run(ffn_rowscale, x, m, w) for x, m, w in zip(xs, hmax, ws)])
+            else:
+                xs = all_reduce([run(ffn_half, x, w) for x, w in zip(xs, ws)])
         return self.model.head(xs[0], support_idx, support_mask)
 
     __call__ = forward

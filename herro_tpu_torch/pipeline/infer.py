@@ -166,8 +166,12 @@ class CorrectionRunner:
     (herro_tpu/pipeline/infer.py:135-152): with one column every replica is
     the whole model on its device (data parallelism); with ``tp`` columns
     each replica is the model sharded over its row (Megatron tensor
-    parallelism, ``parallel/tensor.py``), and ``tp_fast_path`` is True as in
-    the reference. The parts are joined on the host in batch order."""
+    parallelism, ``parallel/tensor.py``), and ``tp_fast_path`` is True. The
+    port keeps the flag's meaning "each shard runs the fused kernels at its
+    own widths", which holds for int8 too; the reference's flag is False for
+    int8, whose tensor parallelism partitions the jnp twins by GSPMD
+    (herro_tpu/pipeline/infer.py:153-163). The parts are joined on the host
+    in batch order."""
 
     def __init__(
         self,

@@ -175,14 +175,13 @@ def test_cli_read_alns_on_cpu(dataset):
      ["--num-processes", "2"]],
 )
 def test_cli_unported_flags_raise(flags, tmp_path, dataset):
-    """What the port does not carry yet raises: int8 with ``--tp N``, N > 1
-    (``inference --int8``, or ``train`` on an int8 config), and
-    ``--num-processes 2`` with no coordinator to meet at. The rest of the
-    reference's flags are ported: ``inference`` and ``train`` take ``--tp``
-    and ``--devices`` (through ``_check_ported``), ``inference`` a
-    ``--coordinator`` that one process ignores, as the reference's CLI does,
-    and ``--int8``, which parses on ``inference`` and ``eval`` and corrects
-    through the CLI on the CPU."""
+    """What the port does not carry raises: ``--num-processes 2`` with no
+    coordinator to meet at. The rest of the reference's flags are ported:
+    ``inference`` and ``train`` take ``--tp`` and ``--devices``, int8
+    included (``inference --int8 --tp 2 --devices 2`` corrects on two CPU
+    shards), ``inference`` a ``--coordinator`` that one process ignores, as
+    the reference's CLI does, and ``--int8``, which parses on ``inference``
+    and ``eval`` and corrects through the CLI on the CPU."""
     from herro_tpu_torch import cli
     from herro_tpu_torch.overlaps.batches import BatchWriter
 
@@ -216,18 +215,11 @@ def test_cli_unported_flags_raise(flags, tmp_path, dataset):
         with pytest.raises(SystemExit, match="need a coordinator"):
             corrects(*flags)
         return
-    # --tp 2, --devices 2: ported for inference and train, not with int8 at tp > 1
-    cli._check_ported(parser.parse_args(["inference", "-m", "tiny", *flags, "r", "o"]))
-    train_args = parser.parse_args(["train", *flags, "ckpt"])
-    cli._check_ported(train_args, int8=False)
-    if flags[0] == "--tp":
-        with pytest.raises(SystemExit, match="--int8 with --tp 2"):
-            cli._check_ported(parser.parse_args(
-                ["inference", "-m", "tiny", *flags, "--int8", "r", "o"]))
-        with pytest.raises(SystemExit, match="queue 2b"):
-            cli._check_ported(train_args, int8=True)
-    else:
-        cli._check_ported(train_args, int8=True)  # int8 data parallelism trains
+    # --tp 2, --devices 2: ported for inference and train, int8 included
+    layout = [*flags, "--devices", "2"] if flags[0] == "--tp" else flags
+    corrects(*layout, "--int8")
+    train_args = parser.parse_args(["train", *layout, "ckpt"])
+    assert (train_args.devices, train_args.tp) == ("2", 2 if flags[0] == "--tp" else 1)
 
 
 def test_port_imports_no_jax():

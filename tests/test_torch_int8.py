@@ -28,7 +28,8 @@ the two sides may differ by 4 bf16 ulps at the largest magnitude
 argmax equal.
 
 The ``gpu`` tests hold the three CUDA kernels against their plain versions on
-the card at the kernels' own widths (D = 128, bf16) and skip without a card.
+the card at the kernels' own widths (D = 128, bf16), K11's two modes and K10
+at the widths of a tensor-parallel shard, and skip without a card.
 """
 
 import dataclasses
@@ -389,7 +390,7 @@ def test_split_rope_cuda_wrapper_never_runs_on_cpu_tensors(monkeypatch):
     assert kernels.launch_counts.snapshot() == before
 
 
-@pytest.mark.parametrize("d_model,d_ff", [(128, 512), (384, 1024), (512, 512), (512, 1536),
+@pytest.mark.parametrize("d_model,d_ff", [(128, 512), (384, 1024), (512, 128), (512, 1536),
                                            (256, 384), (256, 1664), (512, 1088)])
 def test_ln_ffn_q_cuda_wrapper_names_a_refused_width(d_model, d_ff):
     """K11 takes d_model 256 or 512 and a d_ff range for each (the hidden of
@@ -794,3 +795,66 @@ def test_ln_ffn_q_kernel_matches_plain_on_card(d_model, f, rows, zero_rows):
     if zero_rows:
         zero = (args[0][::7].float() + args[-1].float()).to(torch.bfloat16)
         assert torch.equal(got[::7], zero) and torch.equal(want[::7], zero)
+
+
+# K11's two modes at the widths of a tensor-parallel shard, K10 at a shard's
+# head counts (parallel/tensor.py)
+# (d_model, d_ff / tp, tp): r10 at tp 2 and 4, r9 at tp 2, r10deep at tp 2
+FFN_SHARDS = [(512, 512, 2), (512, 256, 4), (256, 768, 2), (256, 512, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,f_loc,tp", FFN_SHARDS)
+@pytest.mark.parametrize("rows", [2000, 130])
+def test_ffn_q_modes_match_plain_on_card(d_model, f_loc, tp, rows):
+    """Mode A's row maxima equal the plain version's but where LayerNorm's
+    summation order moves a row (at most 2, or 1 in 500 rows); mode B, fed
+    the plain maxima, matches its plain version within 2^-6 of the largest
+    output, and so does the whole kernel at these widths (below d_ff 2 x
+    d_model at d 512: x in a buffer of its own)."""
+    dev = _card()
+    x, s, b, w1, b1, w2, b2 = _ffn_inputs(52, d=d_model, f=f_loc, rows=rows)
+    (q1, s1), (q2, s2) = (fused.quantize_weight(torch.from_numpy(w).to(dev)) for w in (w1, w2))
+    t = lambda a: torch.from_numpy(a).to(dev)
+    xs = t(x).to(torch.bfloat16)
+    head = (xs, t(s), t(b), fused.k_major(q1), s1, t(b1))
+    before = kernels.launch_counts.snapshot()
+    hmax = fused._ln_ffn_q_rowmax_cuda(*head)
+    got = fused._ln_ffn_q_rowscale_cuda(*head, fused.k_major(q2), s2, t(b2) / tp,
+                                        fused._ln_ffn_q_rowmax_plain(*head), 1.0 / tp)
+    whole = fused._ln_ffn_q_cuda(*head, fused.k_major(q2), s2, t(b2))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts.snapshot()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "ln_ffn_q_rowmax": 1, "ln_ffn_q_rowscale": 1, "ln_ffn_q": 1}
+    want_max = fused._ln_ffn_q_rowmax_plain(*head)
+    assert int((hmax != want_max).sum()) <= max(2, rows // 500)
+    want = fused._ln_ffn_q_rowscale_plain(*head, fused.k_major(q2), s2, t(b2) / tp,
+                                          want_max, 1.0 / tp)
+    for a, r in ((got, want), (whole, fused._ln_ffn_q_plain(*head, fused.k_major(q2), s2,
+                                                            t(b2)))):
+        a, r = a.float(), r.float()
+        assert bool(torch.isfinite(a).all())
+        assert float((a - r).abs().max()) <= float(r.abs().max()) * 2.0 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,width", [(2, 512), (1, 512), (1, 256)])
+def test_ln_qkv_rope_q_kernel_at_shard_heads_on_card(heads, width):
+    """K10 at the head counts of a shard (r10 at tp 2 and 4, r10deep at tp 2)
+    against its plain version, within 2^-6 of the largest output."""
+    dev = _card()
+    rng = np.random.default_rng(54)
+    x = torch.from_numpy(rng.normal(size=(2, 1000, width)).astype(np.float32))
+    s = torch.from_numpy((1 + rng.normal(0, 0.1, size=(width,))).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, size=(width,)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, width ** -0.5, size=(width, 3 * heads * 128))
+                         .astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.25, size=(3 * heads * 128,)).astype(np.float32))
+    w_i8, s_col = fused.quantize_weight(w.to(dev, torch.bfloat16))
+    args = (x.to(dev, torch.bfloat16), s.to(dev), b.to(dev), fused.k_major(w_i8), s_col,
+            bias.to(dev, torch.bfloat16), heads)
+    for g, r in zip(fused._ln_qkv_rope_q_cuda(*args), fused._ln_qkv_rope_q_plain(*args)):
+        g, r = g.float(), r.float()
+        assert bool(torch.isfinite(g).all())
+        assert float((g - r).abs().max()) <= float(r.abs().max()) * 2.0 ** -6

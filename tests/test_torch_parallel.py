@@ -11,9 +11,10 @@
   than 0.99 of the supported columns, the decisions are equal;
 * ``shard_weights``: the Megatron layout, and the shards put back together
   give the whole weights;
-* data parallelism over two CPU replicas equals one device, and the runner
-  and the CLI refuse ``--int8`` with tp > 1 and a batch the data axis does
-  not divide. (The reference's TP train step has no counterpart: ``train``
+* data parallelism over two CPU replicas equals one device; the runner
+  and the CLI refuse a batch the data axis does not divide, and run
+  ``--int8`` with tp > 1 (held against herro_tpu in
+  ``tests/test_torch_int8_parallel.py``). (The reference's TP train step has no counterpart: ``train``
   runs on one device.)
 """
 
@@ -211,15 +212,19 @@ def test_dp_matches_single_device(setup):
 
 
 def test_mesh_refusals(setup, tmp_path):
-    """int8 with tp > 1 and a batch the data axis does not divide raise, in
-    the runner and in the CLI; so do a ragged mesh and more shards than
-    devices."""
+    """A batch the data axis does not divide raises, in the runner and in the
+    CLI; so do a ragged mesh and more shards than devices. int8 with tp > 1
+    runs: the runner over 1 x 2 gives one device's int8 decisions and
+    classes, and the CLI corrects with ``--int8 --tp 2``."""
     from herro_tpu_torch import cli
 
     _, sd, batch = setup
     mesh = make_mesh_2d(1, 2, [CPU, CPU])
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2b"):
-        CorrectionRunner(CFG, sd, device="cpu", int8=True, mesh=mesh)
+    tp8 = CorrectionRunner(CFG, sd, device="cpu", int8=True, mesh=mesh)
+    one8 = CorrectionRunner(CFG, sd, device="cpu", int8=True)
+    assert tp8.tp_fast_path and tp8.cfg.int8
+    for a, b in zip(_port_packed(tp8, batch)[1:], _port_packed(one8, batch)[1:]):
+        np.testing.assert_array_equal(a, b)
     dp = CorrectionRunner(CFG, sd, device="cpu", mesh=make_mesh([CPU] * 3))
     with pytest.raises(ValueError, match="not divisible by the data axis"):
         dp.dispatch(Batch(*batch, windows=[]))
@@ -230,9 +235,9 @@ def test_mesh_refusals(setup, tmp_path):
 
     args = ["inference", "--device", "cpu", "-m", "tiny", str(tmp_path / "r.fastq"),
             str(tmp_path / "o.fasta")]
-    with pytest.raises(SystemExit, match="--int8 with --tp 2"):
-        cli.main([*args[:-2], "--devices", "2", "--tp", "2", "--int8", *args[-2:]])
     (tmp_path / "r.fastq").write_text("@r\nACGT\n+\nIIII\n")
+    cli.main([*args[:-2], "--devices", "2", "--tp", "2", "--int8", *args[-2:]])
+    assert (tmp_path / "o.fasta").exists()
     with pytest.raises(SystemExit, match="batch size 3 not divisible by data size 2"):
         cli.main([*args[:-2], "--devices", "2", "-b", "3", *args[-2:]])
     with pytest.raises(SystemExit, match="--tp 2 does not divide 3 devices"):

@@ -20,7 +20,8 @@ replicas (a mesh may name the CPU more than once; the reference runs on the
 * ``attention_shard`` (the TP attention op under autograd) against
   ``jax.vjp`` through herro_tpu's ``ln_qkv_rope`` and ``flash_outproj`` with
   the residual apart; ``all_reduce``'s gradient; ``gather_weights`` against
-  ``shard_weights``; remat under TP; the refusals; int8 under DP.
+  ``shard_weights``; remat under TP; the refusals; int8 under DP and TP (and
+  against herro_tpu's int8 mesh trainers over 1 x 2 and 2 x 2).
 * ``distill_from_dump`` over ``make_mesh([cpu] * 2)`` against herro_tpu's over
   ``make_mesh(2)``; ``dryrun_multichip(4, device="cpu")``, and its bars
   rejecting two faults planted in a data-parallel step.
@@ -164,37 +165,73 @@ def one_device(batches):
     return _train(_port_cfg(jcfg), params_from_jax(params), batches)
 
 
-def _assert_metrics_close(got: list, want: list, rel: float = 1e-4):
+def _assert_metrics_close(got: list, want: list, rel: float = 1e-4, batches=None):
+    """Every metric within ``rel`` relative. With ``batches`` (int8 against
+    herro_tpu), acc and hard_acc may differ by one column of the step's
+    supported (hard) columns: the port's one-device int8 forward already
+    rounds a column to the next int8 step now and then where herro_tpu's does
+    not (torch and XLA sum LayerNorm and take tanh in other orders), and on
+    these batches one such column flips its class at step 3 at one device
+    as over a mesh."""
     for step, (g, w) in enumerate(zip(got, want)):
         assert set(g) == set(w) == {"loss", "ce", "info_bce", "acc", "hard_acc"}
+        one = {}
+        if batches is not None:  # one column's share of the step's batch
+            b = batches[step]
+            one = {"acc": 1.0 / b.support_mask.sum(),
+                   "hard_acc": 1.0 / (b.support_mask & (b.info_labels > 0)).sum()}
         for k in w:
-            assert abs(g[k] - w[k]) <= rel * max(abs(w[k]), 1e-3), (step, k, g[k], w[k])
+            tol = max(rel * max(abs(w[k]), 1e-3), one.get(k, 0.0) * 1.0001)
+            assert abs(g[k] - w[k]) <= tol, (step, k, g[k], w[k])
 
 
-@pytest.mark.parametrize("layout", list(LAYOUTS))
+# int8 against herro_tpu: the port's one-device int8 trainer already ends
+# 1.8e-4 from herro_tpu's after these three steps (one int8 step taken
+# otherwise in a forward moves that step's gradient, and Adam's early steps
+# turn a small gradient's change into a whole update), so the int8 cases hold
+# the first step's gradient (Adam's first moment) at the one-device bar of
+# tests/test_torch_training.py, 1e-5 of its largest magnitude, and the
+# parameters after three steps within INT8_PARAMS_ATOL
+INT8_PARAMS_ATOL = 5e-4
+
+
+@pytest.mark.parametrize("layout", [*LAYOUTS, "1x2-int8", "2x2-int8"])
 @time_limit(120)
 def test_mesh_trainer_matches_reference(layout, batches):
     """herro_tpu's and the port's trainers over the same mesh shape, three
     steps: metrics within 1e-4 relative, parameters within 1e-5, every
-    parameter moved (the steps move them by about 9e-3)."""
+    parameter moved (the steps move them by about 9e-3). ``-int8``: an int8
+    config, which herro_tpu trains by pjit over its jnp twins and the port
+    on the int8 ops with the FFN's row maximum across the shards; its bars
+    are ``_assert_metrics_close``'s and ``INT8_PARAMS_ATOL``'s."""
     import jax
 
     from herro_tpu.training.train import Trainer as JaxTrainer
 
-    jcfg, params = _jax_tiny()
+    layout, int8 = layout.removesuffix("-int8"), layout.endswith("-int8")
+    jcfg, params = _jax_tiny(int8)
     jt = JaxTrainer(jcfg, params, lr=0.3, total_steps=50, mesh=_jax_mesh(layout),
                     hard_weight=3.0)
-    want_metrics = [jt.train_step(b) for b in batches]
-    pt, got_metrics = _train(_port_cfg(jcfg), params_from_jax(params), batches,
-                             _port_mesh(layout))
-    _assert_metrics_close(got_metrics, want_metrics)
+    pt = Trainer(_port_cfg(jcfg), params_from_jax(params), lr=0.3, total_steps=50,
+                 hard_weight=3.0, mesh=_port_mesh(layout))
+    want_metrics, got_metrics = [jt.train_step(batches[0])], [pt.train_step(batches[0])]
+    if int8:  # the first step's summed gradient, through Adam's first moment
+        want_mu = _flat(jax.tree_util.tree_map(np.asarray, jt.state.opt_state[1][0].mu))
+        got_mu = _flat(params_to_jax(pt.state.replicas[0].gather(pt.state.opt_states[0].mu)))
+        for k in want_mu:
+            scale = np.abs(want_mu[k]).max()
+            assert scale > 0 and np.abs(got_mu[k] - want_mu[k]).max() <= 1e-5 * scale, k
+    want_metrics += [jt.train_step(b) for b in batches[1:]]
+    got_metrics += [pt.train_step(b) for b in batches[1:]]
+    _assert_metrics_close(got_metrics, want_metrics, batches=batches if int8 else None)
     assert pt.state.step == 3
     want = _flat(jax.tree_util.tree_map(np.asarray, jt.state.params))
     got = _flat(params_to_jax(pt.state.params))
     start = _flat(params)
     assert set(got) == set(want)
+    atol = INT8_PARAMS_ATOL if int8 else 1e-5
     for k in want:
-        assert np.abs(got[k] - want[k]).max() <= 1e-5, (layout, k)
+        assert np.abs(got[k] - want[k]).max() <= atol, (layout, k)
         assert np.abs(want[k] - start[k]).max() > 1e-3, (layout, k)  # every parameter moved
 
 
@@ -446,9 +483,8 @@ def test_tp_remat_gradients_bit_equal(batches):
 @time_limit(60)
 def test_mesh_refusals_and_int8_data_parallel(batches):
     """A device beside a mesh raises; a batch the data axis does not
-    divide raises; int8 with tp > 1
-    raises, naming queue 2b; an int8 config trains under DP 2 on the CPU as
-    on one device (the plain int8 ops; metrics within 1e-4 relative,
+    divide raises; an int8 config trains under DP 2 and TP 1 x 2 on the CPU
+    as on one device (the plain int8 ops; metrics within 1e-4 relative,
     parameters within 1e-5)."""
     jcfg, params = _jax_tiny()
     cfg, sd = _port_cfg(jcfg), params_from_jax(params)
@@ -458,13 +494,12 @@ def test_mesh_refusals_and_int8_data_parallel(batches):
     with pytest.raises(ValueError, match="batch size 8 is not divisible by the data axis"):
         dp3.train_step(batches[0])
     icfg = dataclasses.replace(cfg, int8=True)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2b"):
-        Trainer(icfg, sd, mesh=_port_mesh("1x2"))
     one, want = _train(icfg, sd, batches[:2])
-    dp, got = _train(icfg, sd, batches[:2], make_mesh([CPU, CPU]))
-    _assert_metrics_close(got, want)
-    for k, v in one.state.params.items():
-        assert float((dp.state.params[k] - v).abs().max()) <= 1e-5, k
+    for mesh in (make_mesh([CPU, CPU]), _port_mesh("1x2")):
+        layout, got = _train(icfg, sd, batches[:2], mesh)
+        _assert_metrics_close(got, want)
+        for k, v in one.state.params.items():
+            assert float((layout.state.params[k] - v).abs().max()) <= 1e-5, k
 
 
 @pytest.fixture(scope="module")

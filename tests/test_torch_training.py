@@ -33,8 +33,8 @@ On the same numpy inputs:
   the devices and of ``--tp`` with an explicit device list.
 
 Every test runs under a time limit of its own (``SIGALRM``). The ``gpu`` tests
-hold the three Functions on the card (kernel forward, plain backward) and the
-int8 ops' refusal under autograd there; they skip without a card.
+hold the three Functions on the card (kernel forward, plain backward) and an
+int8 step there (the int8 ops under autograd); they skip without a card.
 """
 
 import dataclasses
@@ -591,16 +591,64 @@ def test_functions_on_card(op):
 
 @pytest.mark.gpu
 def test_int8_training_refused_on_card():
+    """int8 is no longer refused under autograd on the card (the name is the
+    refusal this test held before): an int8 step of a one-layer R10 model
+    (remat off) launches K4, K10, K2 and K11 once each, its forward equals
+    the no-grad forward bit for bit, and every parameter gets a finite
+    gradient; ``attention_block_q`` and ``ln_ffn_q`` at the R10 widths give
+    the gradients of autograd through their plain versions, exactly."""
     dev = _card()
     cfg = ModelConfig(d_model=512, n_layers=1, n_heads=4, d_ff=1024, local_window=512,
-                      int8=True)
+                      int8=True, remat=False)
     model = CorrectionModel(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
-    bases = torch.zeros(1, 31, 512, dtype=torch.uint8, device=dev)
-    quals = torch.zeros(1, 31, 512, device=dev)
-    sidx = torch.zeros(1, 8, dtype=torch.int32, device=dev)
-    smask = torch.ones(1, 8, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="int8 kernels have no backward"):
-        model(bases, quals, sidx, smask)
+    g = torch.Generator(device=dev).manual_seed(6)
+    bases = torch.randint(0, 12, (2, 31, 512), generator=g, device=dev).to(torch.uint8)
+    quals = torch.rand(2, 31, 512, generator=g, device=dev) * 2 - 1
+    sidx = torch.randint(0, 512, (2, 8), generator=g, device=dev).sort(dim=1).values.int()
+    smask = torch.ones(2, 8, dtype=torch.bool, device=dev)
     with torch.no_grad():
-        info, logits = model(bases, quals, sidx, smask)
-    assert torch.isfinite(logits).all()
+        direct = model(bases, quals, sidx, smask)
+    kernels.launch_counts.reset()
+    info, logits = model(bases, quals, sidx, smask)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in kernels.launch_counts.snapshot().items() if n}
+    assert launched == {"entry_embed": 1, "ln_qkv_rope_q": 1, "flash_outproj": 1,
+                        "ln_ffn_q": 1}
+    assert torch.equal(info.detach(), direct[0]) and torch.equal(logits.detach(), direct[1])
+    grads = torch.autograd.grad(info.sum() + logits.square().sum(), list(model.parameters()))
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+
+    w = model.blocks[0].compute_weights()
+    blk = model.blocks[0]
+    x = (torch.randn(2, 1024, 512, generator=g, device=dev)).to(torch.bfloat16)
+    lengths = torch.tensor([1024, 700], dtype=torch.int32, device=dev)
+    ops = {  # (float leaves, the op, its plain version) on those leaves
+        "attention_block_q": (
+            dict(x=x, ln_s=blk.ln1.scale.detach(), ln_b=blk.ln1.bias.detach(),
+                 s=w["sqkv"].detach(), b=w["b_qkv"].detach(), wo=w["wo"].detach(),
+                 bo=w["bo"].detach() + 0.1),
+            lambda p: fused.attention_block_q(p["x"], p["ln_s"], p["ln_b"], w["wqkv_i8"],
+                                              p["s"], p["b"], p["wo"], p["bo"], lengths, 4,
+                                              512),
+            lambda p: fused._attention_shard_q_plain(p["x"], p["x"], p["ln_s"], p["ln_b"],
+                                                     w["wqkv_i8"], p["s"], p["b"], p["wo"],
+                                                     p["bo"], lengths, 4, 512)),
+        "ln_ffn_q": (
+            dict(x=x, scale=blk.ln2.scale.detach(), bias=blk.ln2.bias.detach(),
+                 s1=w["s1"].detach(), b1=w["b1"].detach() + 0.1, s2=w["s2"].detach(),
+                 b2=w["b2"].detach() + 0.1),
+            lambda p: fused.ln_ffn_q(p["x"], p["scale"], p["bias"], w["w1_i8"], p["s1"],
+                                     p["b1"], w["w2_i8"], p["s2"], p["b2"]),
+            lambda p: fused._ln_ffn_q_plain(p["x"], p["scale"], p["bias"], w["w1_i8"],
+                                            p["s1"], p["b1"], w["w2_i8"], p["s2"], p["b2"])),
+    }
+    for op, (inputs, fn, plain) in ops.items():
+        leaves = {k: v.clone().requires_grad_(True) for k, v in inputs.items()}
+        out = fn(leaves)
+        cot = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
+        got = torch.autograd.grad(out, list(leaves.values()), cot)
+        ref = {k: v.clone().requires_grad_(True) for k, v in inputs.items()}
+        want = torch.autograd.grad(plain(ref), list(ref.values()), cot)
+        for name, a, b in zip(inputs, got, want):
+            assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0, (op, name)
+            assert torch.equal(a, b), (op, name)
