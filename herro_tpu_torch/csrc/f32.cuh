@@ -1,0 +1,261 @@
+// Shared pieces of the float32 kernels (entry_embed_f32, ln_qkv_rope_f32,
+// flash_f32, ln_ffn_f32): SIMT FFMA, no tensor cores.
+//
+// Why not wgmma: it takes float32 operands only as TF32 (a 10-bit
+// mantissa), which cannot hold the float32 forward within 2e-4 of the JAX
+// package's logits. So every product here is a float32 FFMA on the CUDA
+// cores (67 TFLOP/s on an H100 SXM, against 495 for TF32), accumulated in
+// float32. The tile product (gemm_mainloop) has SGEMM's usual shape: a
+// block of 256 threads an output tile of 128 x 128, 8 x 8 outputs a thread
+// (four float4 reads of shared memory feed 64 FFMAs), k in stages of 16
+// through two shared buffers, the next stage's global loads in registers
+// while the current one is multiplied.
+//
+// The roundings the plain versions (ops/fused.py) make outside a product
+// are made here in the same order with the _rn intrinsics, so that nvcc
+// contracts no a * b + c of theirs into one FMA: LayerNorm's statistics
+// (flax's fast variance mean(x^2) - mean(x)^2, clamped at 0), the
+// normalisation, the bias and residual adds, and the rope's rotations. The
+// sums of the products run in another order than cuBLAS's: that and
+// rsqrtf/tanhf/expf against the host's are the difference the tests bound.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace herro {
+namespace f32 {
+
+constexpr int kThreads = 256;  // a 16 x 16 grid of threads over the output tile
+constexpr int kBM = 128;       // token rows per tile: 8 per thread
+constexpr int kBK = 16;        // k per shared-memory stage
+constexpr int kPad = kBM + 4;  // row stride of a stage's A part (float4 reads, fewer conflicts)
+
+// floats of one stage of a tile BN columns wide: A transposed, then W
+template <int BN>
+__host__ __device__ constexpr int stage_floats() {
+  return kBK * kPad + kBK * (BN + 4);
+}
+
+// the tile width for N output columns: 64 for the narrow products of
+// TINY_CONFIG (d 32, d_ff 64), 128 for the rest
+inline int tile_width(int N) { return N <= 64 ? 64 : 128; }
+
+// the tile's row of a thread's output i (i < 8) and column j (j < BN / 16):
+// groups of 4 a side, 64 apart, so a warp's float4 reads of a stage fall on
+// two addresses (A) or 256 consecutive bytes (W)
+__device__ inline int tile_row(int ty, int i) { return (i & 4) * 16 + 4 * ty + (i & 3); }
+__device__ inline int tile_col(int tx, int j) { return (j & 4) * 16 + 4 * tx + (j & 3); }
+
+// LayerNorm statistics of rows r0 .. r0 + kBM - 1 of x [T, d]: a warp a row,
+// mu = sum(x) / d and var = max(sum(x * x) / d - mu * mu, 0), float32
+__device__ inline void ln_stats(const float* __restrict__ x, long T, int d, long r0,
+                                float* mu, float* rstd) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kBM; r += kThreads / 32) {
+    const long row = r0 + r;
+    float s = 0.f, s2 = 0.f;
+    if (row < T) {
+      const float* xr = x + row * d;
+      for (int c = lane; c < d; c += 32) {
+        const float v = xr[c];
+        s = __fadd_rn(s, v);
+        s2 = __fadd_rn(s2, __fmul_rn(v, v));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
+    }
+    if (lane == 0) {
+      const float m = __fdiv_rn(s, (float)d);
+      const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, (float)d), __fmul_rn(m, m)), 0.f);
+      mu[r] = m;
+      rstd[r] = rsqrtf(__fadd_rn(var, 1e-6f));
+    }
+  }
+}
+
+// acc[i][j] = sum_k A[r0 + tile_row(ty, i), k] * W[k, n0 + tile_col(tx, j)]
+// over k < K, with (ty, tx) = (tid / 16, tid % 16), for a tile of kBM rows
+// and BN (64 or 128) columns. A [T, K] and W [K, N] are row-major float32;
+// K is a multiple of kBK, N of 4 (columns at or past N read 0, rows at or
+// past T read 0). With kLN, A is LayerNorm(x): ((x - mu) * rstd) * scale +
+// bias, the statistics of the tile's rows in mu/rstd (ln_stats). Two stages
+// in ``smem`` (2 stage_floats<BN>()): while one is multiplied, the next
+// one's global loads are in registers, stored to the other stage after the
+// products; one barrier a stage.
+template <int BN, bool kLN>
+__device__ inline void gemm_mainloop(float (&acc)[8][BN / 16], const float* __restrict__ A,
+                                     long T, int K, const float* __restrict__ W, int N,
+                                     long r0, int n0, float* smem, const float* mu,
+                                     const float* rstd, const float* __restrict__ scale,
+                                     const float* __restrict__ bias) {
+  constexpr int G = BN / 64;  // column groups of 4 a thread
+  constexpr int kStage = stage_floats<BN>();
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * G; ++j) acc[i][j] = 0.f;
+  float4 ra[2], rb[G];
+  // a thread's share of a stage: rows tid / 4 and tid / 4 + 64 of A at k
+  // (tid % 4) * 4, and G float4s of W
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tid / 4 + 64 * h, kk = (tid % 4) * 4;
+      const long row = r0 + r;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < T) {
+        a = *reinterpret_cast<const float4*>(A + row * K + k0 + kk);
+        if (kLN) {
+          const float m = mu[r], rs = rstd[r];
+          float* av = reinterpret_cast<float*>(&a);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            av[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(av[e], m), rs), scale[k0 + kk + e]),
+                              bias[k0 + kk + e]);
+        }
+      }
+      ra[h] = a;
+    }
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      const int e = tid + kThreads * h, kb = e / (BN / 4), c = (e % (BN / 4)) * 4;
+      rb[h] = n0 + c < N ? *reinterpret_cast<const float4*>(W + (long)(k0 + kb) * N + n0 + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store = [&](float* st) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = tid / 4 + 64 * h, kk = (tid % 4) * 4;
+      st[(kk + 0) * kPad + r] = ra[h].x;
+      st[(kk + 1) * kPad + r] = ra[h].y;
+      st[(kk + 2) * kPad + r] = ra[h].z;
+      st[(kk + 3) * kPad + r] = ra[h].w;
+    }
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      const int e = tid + kThreads * h, kb = e / (BN / 4), c = (e % (BN / 4)) * 4;
+      *reinterpret_cast<float4*>(st + kBK * kPad + kb * (BN + 4) + c) = rb[h];
+    }
+  };
+  load(0);
+  store(smem);
+  __syncthreads();
+  for (int k0 = 0, s = 0; k0 < K; k0 += kBK, s ^= 1) {
+    const bool next = k0 + kBK < K;
+    if (next) load(k0 + kBK);
+    const float* As = smem + s * kStage;
+    const float* Bs = As + kBK * kPad;
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float av[8], bv[4 * G];
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const float4 a = *reinterpret_cast<const float4*>(As + kk * kPad + 64 * g + 4 * ty);
+        av[4 * g] = a.x, av[4 * g + 1] = a.y, av[4 * g + 2] = a.z, av[4 * g + 3] = a.w;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 b = *reinterpret_cast<const float4*>(Bs + kk * (BN + 4) + 64 * g + 4 * tx);
+        bv[4 * g] = b.x, bv[4 * g + 1] = b.y, bv[4 * g + 2] = b.z, bv[4 * g + 3] = b.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * G; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (next) store(smem + (s ^ 1) * kStage);
+    __syncthreads();
+  }
+}
+
+// gelu(tanh) as PyTorch's CUDA kernel writes it (GeluCUDAKernelImpl)
+__device__ inline float gelu_tanh(float x) {
+  const float kBeta = 0.7978845608028654f;  // sqrt(2) * 2/sqrt(pi) * 0.5
+  const float kKappa = 0.044715f;
+  const float cube = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(kBeta, __fadd_rn(x, __fmul_rn(kKappa, cube)));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
+}
+
+// the epilogues of gemm_kernel
+constexpr int kEpiGelu = 0;      // y = gelu(A @ W + b)
+constexpr int kEpiResidual = 1;  // y = res + ((A @ W) + b)
+constexpr int kEpiResidualAfter = 2;  // y = (res + A @ W) + b
+
+// y [T, N] = A @ W + b through one of the epilogues above, A = LN(x)
+// under kLN; res [T, N] the residual. A tile of kBM x BN a block, grid
+// gemm_grid(T, N, BN); a thread stores its 8 rows as BN/64 float4s each.
+// Two blocks an SM: at most 128 registers a thread.
+template <bool kLN, int kEpi, int BN>
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                const float* __restrict__ b, const float* __restrict__ res,
+                const float* __restrict__ scale, const float* __restrict__ bias,
+                float* __restrict__ y, long T, int K, int N) {
+  __shared__ __align__(16) float smem[2 * stage_floats<BN>()];
+  __shared__ float mu[kBM], rstd[kBM];
+  const long r0 = (long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  if (kLN) {
+    ln_stats(A, T, K, r0, mu, rstd);
+    __syncthreads();
+  }
+  float acc[8][BN / 16];
+  gemm_mainloop<BN, kLN>(acc, A, T, K, W, N, r0, n0, smem, mu, rstd, scale, bias);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long row = r0 + tile_row(ty, i);
+    if (row >= T) continue;
+#pragma unroll
+    for (int g = 0; g < BN / 64; ++g) {
+      const int n = n0 + tile_col(tx, 4 * g);
+      if (n >= N) continue;  // N is a multiple of 4: the four columns are in or out
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float a = acc[i][4 * g + e];
+        if (kEpi == kEpiGelu) {
+          v[e] = gelu_tanh(__fadd_rn(a, b[n + e]));
+        } else if (kEpi == kEpiResidual) {
+          v[e] = __fadd_rn(res[row * N + n + e], __fadd_rn(a, b[n + e]));
+        } else {
+          v[e] = __fadd_rn(__fadd_rn(res[row * N + n + e], a), b[n + e]);
+        }
+      }
+      *reinterpret_cast<float4*>(y + row * N + n) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// grid of a kernel over T rows and N columns in tiles of kBM x BN
+inline dim3 gemm_grid(long T, int N, int BN) {
+  return dim3((unsigned)((T + kBM - 1) / kBM), (unsigned)((N + BN - 1) / BN));
+}
+
+// y = A @ W + b through epilogue kEpi, at the tile width for N
+template <bool kLN, int kEpi>
+void launch_gemm(const float* A, const float* W, const float* b, const float* res,
+                 const float* scale, const float* bias, float* y, long T, int K, int N,
+                 cudaStream_t stream) {
+  if (tile_width(N) == 64)
+    gemm_kernel<kLN, kEpi, 64><<<gemm_grid(T, N, 64), kThreads, 0, stream>>>(
+        A, W, b, res, scale, bias, y, T, K, N);
+  else
+    gemm_kernel<kLN, kEpi, 128><<<gemm_grid(T, N, 128), kThreads, 0, stream>>>(
+        A, W, b, res, scale, bias, y, T, K, N);
+}
+
+// the widths the float32 kernels take (ops/fused.py: F32_*)
+inline bool head_dim_ok(int D) { return D == 16 || D == 32 || D == 64 || D == 128; }
+inline bool d_model_ok(int d) { return d >= 32 && d <= 512 && d % 32 == 0; }
+inline bool d_ff_ok(int f) { return f >= 32 && f <= 2048 && f % 32 == 0; }
+
+}  // namespace f32
+}  // namespace herro

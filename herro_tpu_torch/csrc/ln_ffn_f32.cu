@@ -1,0 +1,32 @@
+// K3 in float32: x + gelu_tanh(LN(x) @ W1 + b1) @ W2 + b2.
+//
+// Replaces herro_tpu/ops/fused.py:_ln_ffn_kernel (via _ln_ffn_pallas) for
+// float32 configs and narrow widths (d a multiple of 32 up to 512, d_ff a
+// multiple of 32 up to 2048), which the bf16 Hopper kernel (ln_ffn.cu) does
+// not take.
+//
+// Bound on the H100: operations, 4 T d d_ff FFMA-operations against 67
+// TFLOP/s of float32 (at r10's widths in float32, 6.2e11: 9.2 ms at B=32,
+// L=9216).
+// Design: two launches of the SIMT tile product of f32.cuh on one stream.
+// The first takes its 128 rows' LayerNorm statistics (a warp a row),
+// normalises each stage of x as it stages it, and writes gelu(h + b1) to a
+// [T, d_ff] scratch the wrapper allocates (the TPU kernel keeps the hidden
+// in VMEM; here a tile of 128 rows' hidden at d_ff 2048 is 1 MB, over a
+// block's shared memory). The second reads it against W2 and adds b2 and
+// the residual, in the plain version's order: x + ((h @ W2) + b2).
+#include "f32.cuh"
+
+extern "C" int herro_ln_ffn_f32(const float* x, const float* scale, const float* bias,
+                                const float* w1, const float* b1, const float* w2,
+                                const float* b2, float* hidden, float* out, long T, int d,
+                                int f, void* stream) {
+  using namespace herro::f32;
+  if (T < 1 || !d_model_ok(d) || !d_ff_ok(f)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  launch_gemm<true, kEpiGelu>(x, w1, b1, nullptr, scale, bias, hidden, T, d, f, s);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  launch_gemm<false, kEpiResidual>(hidden, w2, b2, x, nullptr, nullptr, out, T, f, d, s);
+  return (int)cudaGetLastError();
+}

@@ -14,7 +14,12 @@
 // whole row (herro_tpu_torch/parallel/tensor.py runs them around one
 // all-reduce of the row maxima):
 // - kRowMax (entry herro_ln_ffn_q_rowmax) stops after GEMM1's epilogue and
-//   stores each row's max|h| over the shard's columns, float32 [T];
+//   stores each row's max|h| over the shard's columns, float32 [T]; asked
+//   for them (Ties, under autograd), also how many of those columns reach
+//   it, int32 [T], the share of the maximum's gradient that the shard's
+//   ties take (parallel/tensor.py:all_reduce_max). The count costs the
+//   epilogue a compare and a select a value, so inference takes the
+//   instance without it;
 // - kRowScale (herro_ln_ffn_q_rowscale) runs GEMM1 again, quantizes h by the
 //   given row maxima instead of its own, and adds x * res_scale (x / tp,
 //   exact for tp 2 or 4) where the whole kernel adds x.
@@ -123,6 +128,23 @@ __host__ __device__ inline Plan plan(int d, int f) {
   return p;
 }
 
+// a running maximum m and how many values c reached it (kRowMax's tied
+// count): a value above m restarts the count, one equal to m adds to it
+__device__ inline void tally(float& m, int& c, float v) {
+  if (v > m) {
+    m = v;
+    c = 1;
+  } else if (v == m) {
+    ++c;
+  }
+}
+
+// (m, c) and (m2, c2) of two sets of values as the pair of their union
+__device__ inline void merge_tally(float& m, int& c, float m2, int c2) {
+  c = m2 > m ? c2 : (m2 == m ? c + c2 : c);
+  m = fmaxf(m, m2);
+}
+
 // gelu_tanh as PyTorch's CUDA kernel computes it in float32 (the plain
 // version's F.gelu on the card): the cube (exact for a bf16 input), one
 // fused multiply-add, tanhf
@@ -171,9 +193,10 @@ __device__ inline void quant_hidden(unsigned char* hbuf, const float* smax, int 
   }
 }
 
-// hmax: the row maxima M stores (kRowMax) or reads (kRowScale); res_scale
-// multiplies the residual x (1 in kWhole)
-template <int D, int M>
+// hmax: the row maxima M stores (kRowMax) or reads (kRowScale); hcnt: the
+// tied counts kRowMax stores beside them when Ties; res_scale multiplies the
+// residual x (1 in kWhole)
+template <int D, int M, bool Ties>
 __global__ void __launch_bounds__(kThreadsFfnQ, 1)
 ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
                 const __grid_constant__ CUtensorMap w1_map,
@@ -181,8 +204,8 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
                 const float* __restrict__ ln_s, const float* __restrict__ ln_b,
                 const float* __restrict__ s1, const float* __restrict__ b1,
                 const float* __restrict__ s2, const float* __restrict__ b2,
-                float* __restrict__ hmax, float res_scale, bf16* __restrict__ out, long T,
-                int f) {
+                float* __restrict__ hmax, int* __restrict__ hcnt, float res_scale,
+                bf16* __restrict__ out, long T, int f) {
   constexpr int kN2 = D / 2;           // output columns per consumer
   constexpr int kW2Box = kN2 * 32;     // [kN2 rows][32 k]: a consumer's half of a W2 stage
   constexpr int kS1 = D / 128;         // W1 stages per chunk
@@ -195,6 +218,8 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
   unsigned char* yq = smem + p.y_off;
   float* smax = reinterpret_cast<float*>(smem + p.small_off);  // [2][64]: per warpgroup
   float* srow = smax + 2 * kBM;                                // [64]: y's row scales
+  // [2][64]: the tied counts per warpgroup, in the hidden kRowMax does not keep
+  int* scnt = reinterpret_cast<int*>(hbuf);
   uint64_t* full = reinterpret_cast<uint64_t*>(srow + kBM);
   uint64_t* empty = full + kMaxSlots;
   uint64_t* x_full = empty + kMaxSlots;  // the tile's x has landed in `xt`
@@ -314,6 +339,7 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
 
     const float sra = srow[ra], srb = srow[rb];
     float ma = 0.f, mb = 0.f;  // running max|h| of rows ra, rb over this thread's columns
+    int ca = 0, cb = 0;        // Ties: how many of those columns reach it
     for (int c = 0; c < n_chunks; ++c) {
       int acc1[32];
       for (int s = 0; s < kS1; ++s) {
@@ -346,7 +372,16 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
           const bf162 hv = __floats2bfloat162_rn(
               gelu_tanh(bf16_round(dequant(acc1[4 * j + 2 * half], sr, sc0, bb0))),
               gelu_tanh(bf16_round(dequant(acc1[4 * j + 2 * half + 1], sr, sc1, bb1))));
-          if constexpr (M != kRowScale) {
+          if constexpr (Ties) {
+            const float2 hf = __bfloat1622float2(hv);
+            if (half) {
+              tally(mb, cb, fabsf(hf.x));
+              tally(mb, cb, fabsf(hf.y));
+            } else {
+              tally(ma, ca, fabsf(hf.x));
+              tally(ma, ca, fabsf(hf.y));
+            }
+          } else if constexpr (M != kRowScale) {
             const float2 hf = __bfloat1622float2(hv);
             const float m = fmaxf(fabsf(hf.x), fabsf(hf.y));
             if (half) mb = fmaxf(mb, m); else ma = fmaxf(ma, m);
@@ -367,20 +402,42 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
       // the row maxima over the row's four lanes, then over the warpgroups
 #pragma unroll
       for (int o = 1; o < 4; o <<= 1) {
-        ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, o));
-        mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
+        const float oa = __shfl_xor_sync(0xffffffffu, ma, o);
+        const float ob = __shfl_xor_sync(0xffffffffu, mb, o);
+        if constexpr (Ties) {
+          const int na = __shfl_xor_sync(0xffffffffu, ca, o);
+          const int nb = __shfl_xor_sync(0xffffffffu, cb, o);
+          merge_tally(ma, ca, oa, na);
+          merge_tally(mb, cb, ob, nb);
+        } else {
+          ma = fmaxf(ma, oa);
+          mb = fmaxf(mb, ob);
+        }
       }
       if (q == 0) {
         smax[wg * kBM + ra] = ma;
         smax[wg * kBM + rb] = mb;
+        if constexpr (Ties) {
+          scnt[wg * kBM + ra] = ca;
+          scnt[wg * kBM + rb] = cb;
+        }
       }
     }
     named_bar_sync(3, 256);  // the bf16 hidden and both warpgroups' maxima are in place
     if constexpr (M == kRowMax) {
       // (the next tile writes smax only after its barrier 1, which these
       // threads reach once they have read it)
-      if (threadIdx.x < kBM && row0 + threadIdx.x < T)
-        hmax[row0 + threadIdx.x] = fmaxf(smax[threadIdx.x], smax[kBM + threadIdx.x]);
+      if (threadIdx.x < kBM && row0 + threadIdx.x < T) {
+        if constexpr (Ties) {
+          float m = smax[threadIdx.x];
+          int n = scnt[threadIdx.x];
+          merge_tally(m, n, smax[kBM + threadIdx.x], scnt[kBM + threadIdx.x]);
+          hmax[row0 + threadIdx.x] = m;
+          hcnt[row0 + threadIdx.x] = n;
+        } else {
+          hmax[row0 + threadIdx.x] = fmaxf(smax[threadIdx.x], smax[kBM + threadIdx.x]);
+        }
+      }
       if (threadIdx.x == 0) mbar_arrive(h_free);  // no hidden kept: x may land
       continue;
     }
@@ -432,11 +489,11 @@ ln_ffn_q_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-template <int D, int M>
+template <int D, int M, bool Ties>
 int launch(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
            const float* s1, const float* b1, const void* w2t, const float* s2,
-           const float* b2, float* hmax, float res_scale, void* out, long T, int f,
-           cudaStream_t stream) {
+           const float* b2, float* hmax, int* hcnt, float res_scale, void* out, long T,
+           int f, cudaStream_t stream) {
   const Plan p = plan(D, f);
   if (!p.slots) return (int)cudaErrorInvalidValue;
   CUtensorMap mx, m1, m2;
@@ -454,24 +511,35 @@ int launch(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
     if (!err) err = make_map_u8(&m2, w2t, dims2, strides2, box2, CU_TENSOR_MAP_SWIZZLE_32B);
   }
   if (err) return err;
-  auto kernel = ln_ffn_q_kernel<D, M>;
+  auto kernel = ln_ffn_q_kernel<D, M, Ties>;
   err = set_smem((const void*)kernel, p.bytes);
   if (err) return err;
   return launch_clusters(kernel, kCluster, kThreadsFfnQ, p.bytes, (T + kBM - 1) / kBM, stream,
                          mx, m1, m2, (const bf16*)x, ln_s, ln_b, s1, b1, s2, b2, hmax,
-                         res_scale, (bf16*)out, T, f);
+                         hcnt, res_scale, (bf16*)out, T, f);
 }
 
 template <int M>
 int launch_widths(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
                   const float* s1, const float* b1, const void* w2t, const float* s2,
-                  const float* b2, float* hmax, float res_scale, void* out, long T, int d,
-                  int f, void* stream) {
+                  const float* b2, float* hmax, int* hcnt, float res_scale, void* out,
+                  long T, int d, int f, void* stream) {
   if (T < 1 || !plan(d, f).slots) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (M == kRowMax) {
+    if (hcnt) {  // the tied counts asked for
+      if (d == 512)
+        return launch<512, M, true>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, hmax, hcnt,
+                                    res_scale, out, T, f, s);
+      return launch<256, M, true>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, hmax, hcnt,
+                                  res_scale, out, T, f, s);
+    }
+  }
   if (d == 512)
-    return launch<512, M>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, hmax, res_scale, out, T, f, s);
-  return launch<256, M>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, hmax, res_scale, out, T, f, s);
+    return launch<512, M, false>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, hmax, nullptr,
+                                 res_scale, out, T, f, s);
+  return launch<256, M, false>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, hmax, nullptr,
+                               res_scale, out, T, f, s);
 }
 
 }  // namespace ffn_q
@@ -482,17 +550,19 @@ extern "C" int herro_ln_ffn_q(const void* x, const float* ln_s, const float* ln_
                               const void* w2t, const float* s2, const float* b2, void* out,
                               long T, int d, int f, void* stream) {
   using namespace herro::ffn_q;
-  return launch_widths<kWhole>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, nullptr, 1.f, out, T,
-                               d, f, stream);
+  return launch_widths<kWhole>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, nullptr, nullptr, 1.f,
+                               out, T, d, f, stream);
 }
 
-// the first pass of a tensor-parallel shard: hmax [T] = max|h| of each row
+// the first pass of a tensor-parallel shard: hmax [T] = max|h| of each row,
+// and where hcnt is not null, hcnt [T] = how many of the row's columns reach it
 extern "C" int herro_ln_ffn_q_rowmax(const void* x, const float* ln_s, const float* ln_b,
                                      const void* w1t, const float* s1, const float* b1,
-                                     float* hmax, long T, int d, int f, void* stream) {
+                                     float* hmax, int* hcnt, long T, int d, int f,
+                                     void* stream) {
   using namespace herro::ffn_q;
   return launch_widths<kRowMax>(x, ln_s, ln_b, w1t, s1, b1, nullptr, nullptr, nullptr, hmax,
-                                1.f, nullptr, T, d, f, stream);
+                                hcnt, 1.f, nullptr, T, d, f, stream);
 }
 
 // the second pass: h quantized by the given hmax [T], x scaled by res_scale
@@ -503,5 +573,6 @@ extern "C" int herro_ln_ffn_q_rowscale(const void* x, const float* ln_s, const f
                                        long T, int d, int f, void* stream) {
   using namespace herro::ffn_q;
   return launch_widths<kRowScale>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2,
-                                  const_cast<float*>(hmax), res_scale, out, T, d, f, stream);
+                                  const_cast<float*>(hmax), nullptr, res_scale, out, T, d, f,
+                                  stream);
 }

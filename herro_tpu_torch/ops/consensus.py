@@ -80,8 +80,9 @@ def _count_decisions_cuda(tokens: torch.Tensor, n_alns: torch.Tensor) -> torch.T
 
 def count_decisions(tokens: torch.Tensor, n_alns: torch.Tensor) -> torch.Tensor:
     """Counting-rule class per column, tokens [B, R, L] uint8 -> [B, L]
-    uint8: the CUDA kernel for CUDA tensors, the plain version on the CPU."""
-    if tokens.is_cuda:
+    uint8: the CUDA kernel for CUDA tensors (refused under
+    ``HERRO_TPU_PALLAS=0``), the plain version on the CPU."""
+    if _cuda.on_card(tokens):
         return _count_decisions_cuda(tokens, n_alns)
     return _count_decisions_plain(tokens, n_alns)
 

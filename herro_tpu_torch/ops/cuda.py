@@ -15,6 +15,13 @@ Every C entry point launches on the stream it is handed (the caller passes
 :data:`launch_counts` counts launches per kernel, one per successful call,
 and per mode for a kernel whose source has more than one entry point
 (:data:`MODES`).
+
+The float32 kernels (``*_f32.cu``, SIMT FFMA over ``f32.cuh``) take the
+float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
+not; the wrappers in ``ops/fused.py`` and ``ops/attention.py`` choose
+between the two by the operands' dtype. :func:`on_card` reads
+``HERRO_TPU_PALLAS`` at every call, as the reference reads it, and refuses
+``0`` on the card.
 """
 
 from __future__ import annotations
@@ -35,6 +42,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# the head dims of the float32 kernels (csrc/*_f32.cu)
+F32_HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 
@@ -57,15 +67,30 @@ KERNELS = {
     "ln_qkv_rope_q": ("herro_ln_qkv_rope_q", [_P] * 9 + [_I] * 4 + [_P]),
     "ln_ffn_q": ("herro_ln_ffn_q", [_P] * 10 + [_L, _I, _I, _P]),
     "flash_attention": ("herro_flash_attention", [_P] * 5 + [_I] * 4 + [_F, _P]),
+    # float32 at any head dim in 16-128 (SIMT FFMA, f32.cuh)
+    "entry_embed_f32": ("herro_entry_embed_f32", [_P] * 5 + [_I] * 6 + [_P]),
+    "ln_qkv_rope_f32": ("herro_ln_qkv_rope_f32", [_P] * 10 + [_I] * 5 + [_P]),
+    "flash_f32": ("herro_flash_f32", [_P] * 9 + [_I] * 6 + [_F, _P]),
+    "ln_ffn_f32": ("herro_ln_ffn_f32", [_P] * 9 + [_L, _I, _I, _P]),
 }
 
 # further entry points of a kernel's source, each a mode of its device code
 # counted under its own name: mode -> (kernel, C function, argtypes). K11's
-# two passes of a tensor-parallel shard (parallel/tensor.py)
+# two passes of a tensor-parallel shard (parallel/tensor.py); the float32
+# qkv kernel's split route (the rope tables built in the kernel, K8's); the
+# float32 attention without a band (K7's) and without the out projection
+# (K9's)
 MODES = {
-    "ln_ffn_q_rowmax": ("ln_ffn_q", "herro_ln_ffn_q_rowmax", [_P] * 7 + [_L, _I, _I, _P]),
+    "ln_ffn_q_rowmax": ("ln_ffn_q", "herro_ln_ffn_q_rowmax", [_P] * 8 + [_L, _I, _I, _P]),
     "ln_ffn_q_rowscale": (
         "ln_ffn_q", "herro_ln_ffn_q_rowscale", [_P] * 10 + [_F, _P, _L, _I, _I, _P],
+    ),
+    "ln_qkv_rope_f32_split": (
+        "ln_qkv_rope_f32", "herro_ln_qkv_rope_f32_split", [_P] * 8 + [_I] * 5 + [_P],
+    ),
+    "flash_f32_full": ("flash_f32", "herro_flash_f32_full", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    "flash_f32_attention": (
+        "flash_f32", "herro_flash_f32_attention", [_P] * 5 + [_I] * 5 + [_F, _P],
     ),
 }
 
@@ -188,6 +213,22 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_card(t) -> bool:
+    """Whether an op takes its kernel for ``t``: True for a CUDA tensor,
+    False for a CPU one (the plain version). The reference's
+    ``HERRO_TPU_PALLAS=0`` (``herro_tpu/ops/fused.py:43-48``) forces its jnp
+    twins; the port has no plain route on the card, so the setting, read at
+    every call, makes a CUDA tensor raise a ValueError that names it. On the
+    CPU it changes nothing."""
+    if not t.is_cuda:
+        return False
+    check(os.environ.get("HERRO_TPU_PALLAS", "1") != "0",
+          "HERRO_TPU_PALLAS=0 asks for the plain versions, which the port runs "
+          "only on the CPU: unset it to run the kernels on the card, or pass "
+          "--device cpu")
+    return True
 
 
 def check(cond: bool, msg: str) -> None:

@@ -3,15 +3,20 @@
 Each op mirrors one function of ``herro_tpu/ops/fused.py`` at the same
 layouts, and comes as a pair:
 
-* a hand-written Hopper kernel (``csrc/*.cu``), reached through its wrapper
-  ``_<op>_cuda``, which checks devices, dtypes, shapes and contiguity and
-  raises on anything the kernel does not take;
+* a hand-written kernel (``csrc/*.cu``), reached through its wrapper
+  ``_<op>_cuda``, which chooses it by the operands' dtype (bf16: the Hopper
+  kernel, TMA and ``wgmma``; float32: the SIMT kernel of ``*_f32.cu``, at
+  any head dim in 16-128 and narrow widths; anything else raises), checks
+  devices, shapes and contiguity and raises on anything the kernel does not
+  take;
 * a plain PyTorch version ``_<op>_plain``, which computes the same function
   with the same roundings (bf16 operands, float32 accumulation, bf16 results
   where the TPU kernel rounds).
 
 The public op launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors, and does nothing else: there is no fallback.
+version for CPU tensors, and does nothing else: there is no fallback. The
+reference's ``HERRO_TPU_PALLAS=0``, which forces its jnp twins, makes a
+public op refuse CUDA tensors (``cuda.on_card``, read at every call).
 
 Three ops are differentiable, as their counterparts carry a ``custom_vjp`` in
 the reference: ``entry_embed``, ``ln_ffn`` and ``attention_block``, and a
@@ -35,7 +40,8 @@ differentiates it. No op has a backward kernel: nor has the reference.
   (``quantize_weight``), int8 x int8 -> int32 products, float32
   dequantization. K11 has two more modes for a tensor-parallel shard, whose
   hidden holds d_ff / tp columns of a row that is quantized as a whole:
-  ``ln_ffn_q_rowmax`` (the row maxima of |h| over the shard's columns) and
+  ``ln_ffn_q_rowmax`` (the row maxima of |h| over the shard's columns, and
+  how many of them reach it) and
   ``ln_ffn_q_rowscale`` (the hidden quantized by a given row maximum, the
   residual scaled). ``attention_block_q``, ``attention_shard_q``,
   ``ln_ffn_q`` and both modes are differentiable as the four above are: the
@@ -57,7 +63,28 @@ from ..constants import VOCAB_SIZE
 from . import cuda as _cuda
 from .attention import chunked_attention
 
-HEAD_DIM = 128  # the head dim the CUDA kernels take (every shipped checkpoint)
+HEAD_DIM = 128  # the head dim the bf16 Hopper kernels take (every shipped checkpoint)
+# the widths of the float32 kernels (csrc/*_f32.cu; their head dims in
+# cuda.F32_HEAD_DIMS): TINY_CONFIG (d 32, H 2 x D 16, d_ff 64), a float32
+# checkpoint, a tensor-parallel shard (any H)
+F32_MAX_D_MODEL = 512  # a multiple of 32
+F32_MAX_D_FF = 2048  # a multiple of 32
+F32_MAX_ROWS = 63  # pileup rows the float32 entry takes (K5's range)
+
+
+def _check_f32_widths(d: int, f: int | None = None, D: int | None = None) -> None:
+    """The widths the float32 kernels take, each named in a ValueError."""
+    _cuda.check(d % 32 == 0 and 32 <= d <= F32_MAX_D_MODEL,
+                f"d_model {d}: the float32 kernels take a multiple of 32 up to "
+                f"{F32_MAX_D_MODEL}")
+    if f is not None:
+        _cuda.check(f % 32 == 0 and 32 <= f <= F32_MAX_D_FF,
+                    f"d_ff {f}: the float32 kernel takes a multiple of 32 up to "
+                    f"{F32_MAX_D_FF}")
+    if D is not None:
+        _cuda.check(D in _cuda.F32_HEAD_DIMS,
+                    f"head dim {D}: the float32 kernels take {_cuda.F32_HEAD_DIMS}")
+
 
 _rope_cache: dict = {}
 _rope_lock = threading.Lock()
@@ -109,26 +136,32 @@ class _RecomputePlain(torch.autograd.Function):
     backward re-runs ``plain`` on the saved inputs under grad and returns its
     gradients: the reference's ``custom_vjp`` whose backward recomputes
     through the jnp twin. ``static`` holds the op's trailing arguments that
-    are no tensors; integer inputs (tokens, lengths) get no gradient."""
+    are no tensors; integer inputs (tokens, lengths) get no gradient, and
+    neither do integer outputs (``ln_ffn_q_rowmax``'s counts)."""
 
     @staticmethod
     def forward(ctx, op, plain, static, *tensors):
         ctx.plain, ctx.static = plain, static
         ctx.save_for_backward(*tensors)
-        return op(*tensors, *static)
+        out = op(*tensors, *static)
+        if isinstance(out, tuple):
+            ctx.mark_non_differentiable(*(o for o in out if not o.is_floating_point()))
+        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         need = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             inputs = [
                 t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)
             ]
             out = ctx.plain(*inputs, *ctx.static)
+            outs, gs = zip(*((o, g) for o, g in zip(
+                out if isinstance(out, tuple) else (out,), gs) if o.is_floating_point()))
             wrt = [t for t, n in zip(inputs, need) if n]
             # an input may reach the output only through an int8 rounding
             # (the second FFN pass's LayerNorm and W1 scales): no gradient
-            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+            grads = iter(torch.autograd.grad(outs, wrt, gs, allow_unused=True))
         return (None, None, None, *(next(grads) if n else None for n in need))
 
 
@@ -186,6 +219,8 @@ EMBED_WIDTHS = (256, 384, 512)
 
 
 def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
+    if wc.dtype == torch.float32:
+        return _entry_embed_f32_cuda(bases, quals, wc, cb, out_dtype)
     B, R, L = bases.shape
     kp, d = wc.shape
     V = VOCAB_SIZE
@@ -208,6 +243,28 @@ def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
     return out
 
 
+def _entry_embed_f32_cuda(bases, quals, wc, cb, out_dtype):
+    B, R, L = bases.shape
+    kp, d = wc.shape
+    _cuda.check(out_dtype == torch.float32,
+                f"entry_embed_f32 kernel emits float32, not {out_dtype}")
+    _cuda.check(1 <= R <= F32_MAX_ROWS and R * COL_SLOT <= kp,
+                f"R {R} pileup rows and a col_proj table of {kp} rows: the float32 "
+                f"kernel takes R 1 to {F32_MAX_ROWS} and col_proj_table's rows")
+    _cuda.check(quals.shape == bases.shape and cb.shape == (d,), "input shapes")
+    _check_f32_widths(d)
+    _cuda.require_dtype(torch.uint8, bases=bases)
+    _cuda.require_dtype(torch.float32, quals=quals, wc=wc, cb=cb)
+    dev = _cuda.require_operands(bases=bases, quals=quals, wc=wc, cb=cb)
+    out = torch.empty(B, L, d, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "entry_embed_f32", bases.data_ptr(), quals.data_ptr(), wc.data_ptr(),
+            cb.data_ptr(), out.data_ptr(), B, R, L, d, VOCAB_SIZE, kp, _cuda.stream_of(out),
+        )
+    return out
+
+
 def entry_embed(bases, quals, wc, cb, out_dtype):
     """Column embedding: tokens u8 [B, R, L] + quals f32 [B, R, L] ->
     x [B, L, d]. wc [kp, d] is ``col_proj_table(w_embT, w_qT)``: the
@@ -221,7 +278,7 @@ def entry_embed(bases, quals, wc, cb, out_dtype):
 
 
 def _entry_embed_op(bases, quals, wc, cb, out_dtype):
-    if bases.is_cuda:
+    if _cuda.on_card(bases):
         return _entry_embed_cuda(bases, quals, wc, cb, out_dtype)
     return _entry_embed_plain(bases, quals, wc, cb, out_dtype)
 
@@ -259,14 +316,18 @@ def _rope_split_heads(qkv):
     return q, k, v
 
 
-def rope_kernel_name() -> str:
-    """The kernel ``ln_qkv_rope`` takes on the card: ``ln_qkv_rope`` (K1, rope
-    tables as inputs) unless ``HERRO_TPU_ROPE`` is set to anything but ``tbl``,
-    then ``ln_qkv_rope_split`` (K8, tables built in the kernel). Read at every
-    call, where ``herro_tpu/ops/fused.py:_ln_qkv_rope_pallas`` reads it."""
-    if os.environ.get("HERRO_TPU_ROPE", "tbl") == "tbl":
-        return "ln_qkv_rope"
-    return "ln_qkv_rope_split"
+def rope_kernel_name(dtype=torch.bfloat16) -> str:
+    """The kernel ``ln_qkv_rope`` takes on the card for operands of ``dtype``:
+    ``ln_qkv_rope`` (K1, rope tables as inputs) unless ``HERRO_TPU_ROPE`` is
+    set to anything but ``tbl``, then ``ln_qkv_rope_split`` (K8, tables built
+    in the kernel); for float32 the routes of ``ln_qkv_rope_f32`` under the
+    same names with ``_f32``. Read at every call, where
+    ``herro_tpu/ops/fused.py:_ln_qkv_rope_pallas`` reads it."""
+    name = "ln_qkv_rope" if os.environ.get("HERRO_TPU_ROPE", "tbl") == "tbl" \
+        else "ln_qkv_rope_split"
+    if dtype == torch.float32:
+        return "ln_qkv_rope_f32" if name == "ln_qkv_rope" else "ln_qkv_rope_f32_split"
+    return name
 
 
 # d_model of the qkv kernels' instantiations (csrc/ln_qkv_rope_sm90.cuh):
@@ -277,8 +338,11 @@ QKV_Q_WIDTHS = (256, 512)
 
 
 def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = None):
-    """``kernel`` names K1 or K8; None takes ``rope_kernel_name()``."""
-    kernel = kernel or rope_kernel_name()
+    """``kernel`` names K1 or K8 (or a float32 route); None takes
+    ``rope_kernel_name(x.dtype)``."""
+    kernel = kernel or rope_kernel_name(x.dtype)
+    if kernel in ("ln_qkv_rope_f32", "ln_qkv_rope_f32_split"):
+        return _ln_qkv_rope_f32_cuda(x, scale, bias, w, b, n_heads, kernel)
     B, L, d = x.shape
     H = n_heads
     D = w.shape[1] // (3 * H)
@@ -304,11 +368,34 @@ def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = N
     return q, k, v
 
 
+def _ln_qkv_rope_f32_cuda(x, scale, bias, w, b, n_heads: int, kernel: str):
+    B, L, d = x.shape
+    H = n_heads
+    D = w.shape[1] // (3 * H)
+    _check_f32_widths(d, D=D)
+    _cuda.check(w.shape == (d, 3 * H * D) and b.shape == (3 * H * D,), "qkv shapes")
+    _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
+    _cuda.require_dtype(torch.float32, x=x, scale=scale, bias=bias, w=w, b=b)
+    dev = _cuda.require_operands(x=x, scale=scale, bias=bias, w=w, b=b)
+    q, k, v = (
+        torch.empty(B, H, L, D, dtype=torch.float32, device=dev) for _ in range(3)
+    )
+    head = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr())
+    tail = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H, D, _cuda.stream_of(x))
+    with torch.cuda.device(dev):
+        if kernel == "ln_qkv_rope_f32":
+            cos, sin = _rope_tables_cached(L, D, dev)
+            _cuda.call(kernel, *head, cos.data_ptr(), sin.data_ptr(), *tail)
+        else:
+            _cuda.call(kernel, *head, *tail)
+    return q, k, v
+
+
 def ln_qkv_rope(x, scale, bias, w, b, n_heads: int):
     """LN + qkv projection + rotary: x [B, L, d] -> (q, k, v) [B, H, L, D].
     w [d, 3*H*D] is the (3, H, D) c-major flattening: q of head i is column
     block i, k is H+i, v is 2H+i."""
-    if x.is_cuda:
+    if _cuda.on_card(x):
         return _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads)
     return _ln_qkv_rope_plain(x, scale, bias, w, b, n_heads)
 
@@ -327,12 +414,17 @@ def _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window):
     return (x.float() + out + bo.float()).to(x.dtype)
 
 
-def flash_kernel_name(local_window) -> str:
-    """The attention kernel a band takes on the card: none ->
-    ``flash_outproj_full`` (K7); a multiple of 256 -> ``flash_outproj`` (K2);
-    any other band -> ``flash_outproj_band`` (K6). The choice
-    ``herro_tpu/ops/fused.py:_flash_outproj_pallas`` makes, on the argument
-    alone."""
+def flash_kernel_name(local_window, dtype=torch.bfloat16) -> str:
+    """The attention kernel a band takes on the card for operands of
+    ``dtype``: none -> ``flash_outproj_full`` (K7); a multiple of 256 ->
+    ``flash_outproj`` (K2); any other band -> ``flash_outproj_band`` (K6).
+    The choice ``herro_tpu/ops/fused.py:_flash_outproj_pallas`` makes, on the
+    arguments alone. The reference's ``HERRO_TPU_FLASH=tile`` (its per-head
+    kernel for an aligned band) has no counterpart: K6 runs K2's instance
+    there. float32: ``flash_f32_full`` without a band, ``flash_f32`` with
+    any."""
+    if dtype == torch.float32:
+        return "flash_f32_full" if local_window is None else "flash_f32"
     if local_window is None:
         return "flash_outproj_full"
     if local_window % 256 == 0:
@@ -348,6 +440,8 @@ ATTENTION_WIDTHS = ((4, 512), (2, 256), (2, 512), (1, 512), (1, 256), (3, 384))
 
 
 def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
+    if x.dtype == torch.float32:
+        return _flash_outproj_f32_cuda(q, k, v, x, wo, bo, lengths, local_window)
     B, H, L, D = q.shape
     d = x.shape[-1]
     name = flash_kernel_name(local_window)
@@ -375,12 +469,39 @@ def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
     return out
 
 
+def _flash_outproj_f32_cuda(q, k, v, x, wo, bo, lengths, local_window):
+    B, H, L, D = q.shape
+    d = x.shape[-1]
+    name = flash_kernel_name(local_window, torch.float32)
+    _cuda.check(local_window is None or local_window >= 0,
+                f"local_window {local_window} is negative")
+    _check_f32_widths(d, D=D)
+    _cuda.check(k.shape == q.shape and v.shape == q.shape, "q/k/v shapes")
+    _cuda.check(x.shape == (B, L, d) and wo.shape == (H, D, d) and bo.shape == (d,),
+                "x/wo/bo shapes")
+    _cuda.check(lengths.shape == (B,), "lengths shape")
+    _cuda.require_dtype(torch.float32, q=q, k=k, v=v, x=x, wo=wo, bo=bo)
+    _cuda.require_dtype(torch.int32, lengths=lengths)
+    dev = _cuda.require_operands(q=q, k=k, v=v, x=x, wo=wo, bo=bo, lengths=lengths)
+    # the attention's output [B, L, H, D], the out projection's operand
+    scratch = torch.empty(B, L, H, D, dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    band = () if local_window is None else (int(local_window),)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            name, q.data_ptr(), k.data_ptr(), v.data_ptr(), x.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            B, H, L, d, D, *band, 1.0 / math.sqrt(D), _cuda.stream_of(x),
+        )
+    return out
+
+
 def flash_outproj(q, k, v, x, wo, bo, lengths, local_window):
     """Attention + out projection + residual: y = x + concat_h(attn_h) @ Wo
     + bo, with wo passed as [H, D, d_model] and the band |iq - ik| <=
     local_window (None: every key below the length). Rows at or past a
     batch element's length are padding: finite, and read by no later stage."""
-    if x.is_cuda:
+    if _cuda.on_card(x):
         return _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window)
     return _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window)
 
@@ -406,6 +527,8 @@ FFN_WIDTHS = (256, 384, 512)
 
 
 def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
+    if x.dtype == torch.float32:
+        return _ln_ffn_f32_cuda(x, scale, bias, w1, b1, w2, b2)
     d = x.shape[-1]
     f = w1.shape[1]
     _cuda.check(d in FFN_WIDTHS, f"d_model {d}: the kernel takes {FFN_WIDTHS}")
@@ -428,6 +551,29 @@ def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
     return out
 
 
+def _ln_ffn_f32_cuda(x, scale, bias, w1, b1, w2, b2):
+    d = x.shape[-1]
+    f = w1.shape[1]
+    _check_f32_widths(d, f)
+    _cuda.check(w1.shape == (d, f) and b1.shape == (f,), "ff1 shapes")
+    _cuda.check(w2.shape == (f, d) and b2.shape == (d,), "ff2 shapes")
+    _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
+    _cuda.require_dtype(torch.float32, x=x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2)
+    dev = _cuda.require_operands(
+        x=x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2
+    )
+    T = x.numel() // d
+    hidden = torch.empty(T, f, dtype=torch.float32, device=dev)  # gelu(LN(x) W1 + b1)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_ffn_f32", x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+            T, d, f, _cuda.stream_of(x),
+        )
+    return out
+
+
 def ln_ffn(x, scale, bias, w1, b1, w2, b2):
     """Pre-norm FFN block with residual: x + FF2(gelu_tanh(FF1(LN(x)))).
     Differentiable in every input."""
@@ -438,7 +584,7 @@ def ln_ffn(x, scale, bias, w1, b1, w2, b2):
 
 
 def _ln_ffn_op(x, scale, bias, w1, b1, w2, b2):
-    if x.is_cuda:
+    if _cuda.on_card(x):
         return _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2)
     return _ln_ffn_plain(x, scale, bias, w1, b1, w2, b2)
 
@@ -550,7 +696,7 @@ def ln_qkv_rope_q(x, scale, bias, w_i8, s_col, b, n_heads: int):
     [B, H, L, D], with (w_i8 [d, 3*H*D], s_col) from ``quantize_weight``. On
     the card w_i8 must be ``k_major``. Not differentiable on its own: under
     autograd it runs inside ``attention_block_q`` or ``attention_shard_q``."""
-    if x.is_cuda:
+    if _cuda.on_card(x):
         return _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads)
     return _ln_qkv_rope_q_plain(x, scale, bias, w_i8, s_col, b, n_heads)
 
@@ -581,9 +727,13 @@ def _ln_ffn_q_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
     return _ffn_q_out(x, h, h.abs().amax(dim=-1, keepdim=True), w2_i8, s2, b2, 1.0)
 
 
-def _ln_ffn_q_rowmax_plain(x, scale, bias, w1_i8, s1, b1):
-    h = _ffn_q_hidden(x, scale, bias, w1_i8, s1, b1)
-    return h.abs().amax(dim=-1).reshape(x.shape[:-1])
+def _ln_ffn_q_rowmax_plain(x, scale, bias, w1_i8, s1, b1, ties: bool = False):
+    a = _ffn_q_hidden(x, scale, bias, w1_i8, s1, b1).abs()
+    top = a.amax(dim=-1)
+    if not ties:
+        return top.reshape(x.shape[:-1]), None
+    count = (a == top[:, None]).sum(dim=-1, dtype=torch.int32)
+    return top.reshape(x.shape[:-1]), count.reshape(x.shape[:-1])
 
 
 def _ln_ffn_q_rowscale_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
@@ -640,17 +790,19 @@ def _ln_ffn_q_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
     return out
 
 
-def _ln_ffn_q_rowmax_cuda(x, scale, bias, w1_i8, s1, b1):
+def _ln_ffn_q_rowmax_cuda(x, scale, bias, w1_i8, s1, b1, ties: bool = False):
     dev = _check_ffn_q(x, scale, bias, w1_i8, s1, b1)
     d, f = x.shape[-1], w1_i8.shape[1]
     hmax = torch.empty(x.shape[:-1], dtype=torch.float32, device=dev)
+    count = torch.empty(x.shape[:-1], dtype=torch.int32, device=dev) if ties else None
     with torch.cuda.device(dev):
         _cuda.call(
             "ln_ffn_q_rowmax", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(), hmax.data_ptr(),
-            x.numel() // d, d, f, _cuda.stream_of(x),
+            None if count is None else count.data_ptr(), x.numel() // d, d, f,
+            _cuda.stream_of(x),
         )
-    return hmax
+    return hmax, count
 
 
 def _ln_ffn_q_rowscale_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
@@ -683,7 +835,7 @@ def ln_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
 
 
 def _ln_ffn_q_op(x, *rest):
-    if x.is_cuda:
+    if _cuda.on_card(x):
         return _ln_ffn_q_cuda(x, *rest)
     return _ln_ffn_q_plain(x, *rest)
 
@@ -691,16 +843,19 @@ def _ln_ffn_q_op(x, *rest):
 def ln_ffn_q_rowmax(x, scale, bias, w1_i8, s1, b1):
     """A tensor-parallel shard's first int8 FFN pass: the maximum of |gelu(h)|
     over each row's d_ff / tp hidden columns, float32 of x's leading shape,
-    for ``all_reduce_max``; LayerNorm of the whole stream x. Differentiable
-    (the gradient goes to the maximum)."""
+    and, under autograd, how many of those columns reach it, int32 of the
+    same shape (None otherwise), for ``all_reduce_max``; LayerNorm of the
+    whole stream x. Differentiable in the maximum (its gradient split evenly
+    between the tied columns)."""
     args = (x, scale, bias, w1_i8, s1, b1)
     if _needs_grad(*args):
-        return _RecomputePlain.apply(_ln_ffn_q_rowmax_op, _ln_ffn_q_rowmax_plain, (), *args)
-    return _ln_ffn_q_rowmax_op(*args)
+        return _RecomputePlain.apply(_ln_ffn_q_rowmax_op, _ln_ffn_q_rowmax_plain, (True,),
+                                     *args)
+    return _ln_ffn_q_rowmax_op(*args, False)
 
 
 def _ln_ffn_q_rowmax_op(x, *rest):
-    if x.is_cuda:
+    if _cuda.on_card(x):
         return _ln_ffn_q_rowmax_cuda(x, *rest)
     return _ln_ffn_q_rowmax_plain(x, *rest)
 
@@ -720,7 +875,7 @@ def ln_ffn_q_rowscale(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
 
 
 def _ln_ffn_q_rowscale_op(x, *rest):
-    if x.is_cuda:
+    if _cuda.on_card(x):
         return _ln_ffn_q_rowscale_cuda(x, *rest)
     return _ln_ffn_q_rowscale_plain(x, *rest)
 

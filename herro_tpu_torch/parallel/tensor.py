@@ -141,19 +141,57 @@ def all_reduce(partials: list[torch.Tensor]) -> list[torch.Tensor]:
     return [total if p.device == dev0 else total.to(p.device) for p in partials]
 
 
-def all_reduce_max(partials: list[torch.Tensor]) -> list[torch.Tensor]:
+class _MaxOverShards(torch.autograd.Function):
+    """The elementwise maximum of the shards' partials, on shard 0's device.
+    Its gradient goes to the shards that hold the maximum, shard j's share
+    (g / C) * c_j: c_j is the number of elements of the whole row that the
+    shard's partial stands for and that reach the maximum (``counts``; 1
+    each without them), C their sum over the tied shards. A shard's partial
+    is itself a maximum over its part of the row, whose backward splits its
+    share evenly between its own c_j (``amax``), so each tied element of the
+    row gets g / C: the gradient of the reference's maximum over the whole
+    row, exactly where c_j is a power of two."""
+
+    @staticmethod
+    def forward(ctx, counts, *partials):
+        dev0 = partials[0].device
+        stacked = torch.stack([p.to(dev0) for p in partials])
+        top = stacked.amax(dim=0)
+        tied = (stacked == top).to(torch.float32)
+        if counts is not None:
+            tied = tied * torch.stack([c.to(dev0, torch.float32) for c in counts])
+        ctx.save_for_backward(tied)
+        ctx.targets = [(p.device, p.dtype) for p in partials]
+        return top
+
+    @staticmethod
+    def backward(ctx, g):
+        (tied,) = ctx.saved_tensors
+        per_element = g.float() / tied.sum(dim=0)
+        return (None, *((per_element * c).to(dev, dt)
+                        for c, (dev, dt) in zip(tied, ctx.targets)))
+
+
+def all_reduce_max(partials: list[torch.Tensor], counts=None) -> list[torch.Tensor]:
     """The elementwise maximum over shards (``jax.lax.pmax``), as
     :func:`all_reduce` takes its sum: on shard 0's device, one result copied
-    to every shard. Differentiable: the gradient goes to the shards that
-    hold the maximum, split evenly between tied shards (``amax``'s rule;
-    the reference's maximum over the whole row splits it evenly between the
-    tied elements, which differs only when tied shards hold unequal numbers
-    of tied elements)."""
+    to every shard. Differentiable (:class:`_MaxOverShards`): where each
+    partial is a maximum over the shard's part of a row, ``counts`` (one
+    tensor of the partials' shape a shard) holds how many of the part's
+    elements reach it, so that the tied elements of the whole row share the
+    gradient evenly, as under the reference's maximum over the row; without
+    it, each partial counts as one element."""
     if len(partials) == 1:
         return list(partials)
+    top = _MaxOverShards.apply(counts, *partials)
     dev0 = partials[0].device
-    top = torch.stack([p.to(dev0) for p in partials]).amax(dim=0)
     return [top if p.device == dev0 else top.to(p.device) for p in partials]
+
+
+def _column_ties(w: torch.Tensor) -> torch.Tensor:
+    """How many rows of each column of a shard's weight reach its max |w|."""
+    a = w.detach().abs()
+    return (a == a.amax(dim=0)).sum(dim=0)
 
 
 class TensorParallelModel:
@@ -257,7 +295,8 @@ class TensorParallelModel:
         ``quantize_weight``; on the card k-major, as the kernels read them."""
         dt = self.cfg.compute_dtype
         parts = [shard[i] for shard in self.shards]
-        col_max = all_reduce_max([w["w2"].abs().amax(dim=0) for w in parts])
+        col_max = all_reduce_max([w["w2"].abs().amax(dim=0) for w in parts],
+                                 [_column_ties(w["w2"]) for w in parts])
         out = []
         for w, m2 in zip(parts, col_max):
             q = {}
@@ -328,7 +367,8 @@ class TensorParallelModel:
             xs = all_reduce([run(attn_half, x, inputs[dev][2], w)
                              for dev, x, w in zip(self.devices, xs, ws)])
             if cfg.int8:
-                hmax = all_reduce_max([run(ffn_rowmax, x, w) for x, w in zip(xs, ws)])
+                maxima, ties = zip(*(run(ffn_rowmax, x, w) for x, w in zip(xs, ws)))
+                hmax = all_reduce_max(list(maxima), None if ties[0] is None else list(ties))
                 xs = all_reduce([run(ffn_rowscale, x, m, w) for x, m, w in zip(xs, hmax, ws)])
             else:
                 xs = all_reduce([run(ffn_half, x, w) for x, w in zip(xs, ws)])

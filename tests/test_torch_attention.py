@@ -472,15 +472,18 @@ class _OnCard(torch.Tensor):
 
 @pytest.mark.parametrize(
     "dtype,D,message",
-    [(torch.float32, 128, "bfloat16"), (torch.float16, 128, "bfloat16"),
-     (torch.bfloat16, 32, "head dim"), (torch.bfloat16, 128, "not on the card")],
+    [(torch.float32, 128, "not on the card"), (torch.float32, 8, "head dim"),
+     (torch.float16, 128, "bfloat16"), (torch.bfloat16, 32, "head dim"),
+     (torch.bfloat16, 128, "not on the card")],
 )
 def test_attention_auto_never_gives_way_to_plain_on_the_card(dtype, D, message):
     """``auto`` on tensors that say they are CUDA tensors goes to the kernel's
-    wrapper, which raises on what the kernel does not take (and here, for the
-    shape it takes, on the lengths that are plainly on the CPU); it never
-    runs ``chunked`` there and launches nothing."""
-    q, k, v, lengths = (_t(a, dtype) for a in _qkv(53, L=64, lengths=(64, 50), D=D))
+    wrapper (bf16: the Hopper kernel, float32: the float32 one), which
+    raises on what the kernel does not take (and here, for the shape it
+    takes, on the lengths that are plainly on the CPU); it never runs
+    ``chunked`` there and launches nothing."""
+    # copies in torch's own (aligned) memory: the kernels take 32-byte aligned operands
+    q, k, v, lengths = (_t(a, dtype).clone() for a in _qkv(53, L=64, lengths=(64, 50), D=D))
     q, k, v = (t.as_subclass(_OnCard) for t in (q, k, v))
     before = kernels.launch_counts.snapshot()
     with pytest.raises(ValueError, match=message):
@@ -572,12 +575,15 @@ def test_flash_attention_gradient_on_card():
 
 @pytest.mark.gpu
 def test_attention_flash_raises_on_what_the_kernel_does_not_take():
+    """float16 is neither the Hopper kernel's bf16 nor the float32 kernel's
+    float32: both ``flash`` and ``auto`` raise on the card."""
     dev = _card()
-    args = [_t(a).to(dev) for a in _qkv(52, L=64, lengths=(64, 64), D=128)]  # float32
+    args = [_t(a).to(dev) for a in _qkv(52, L=64, lengths=(64, 64), D=128)]
+    args[:3] = [a.half() for a in args[:3]]
     with pytest.raises(ValueError, match="bfloat16"):
         tattn.attention(*args, impl="flash")
     before = kernels.launch_counts.snapshot()
     with pytest.raises(ValueError, match="bfloat16"):
         tattn.attention(*args, impl="auto")  # on the card auto is the kernel
     out = tattn.attention(*args, impl="chunked")  # plain only when asked by name
-    assert out.dtype == torch.float32 and kernels.launch_counts.snapshot() == before
+    assert out.dtype == torch.float16 and kernels.launch_counts.snapshot() == before

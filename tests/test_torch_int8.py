@@ -346,7 +346,10 @@ def test_kernel_has_its_own_entry_source_and_counter(name):
 
 
 def test_registry_holds_all_eleven_kernels():
-    assert len(kernels.KERNELS) == 11
+    """The eleven Hopper kernels, one a pallas_call site of the reference,
+    and beside them the four float32 kernels of the same functions."""
+    f32 = {"entry_embed_f32", "ln_qkv_rope_f32", "flash_f32", "ln_ffn_f32"}
+    assert len(set(kernels.KERNELS) - f32) == 11 and f32 <= set(kernels.KERNELS)
     sources = {f[:-3] for f in os.listdir(kernels.CSRC) if f.endswith(".cu")}
     assert sources == set(kernels.KERNELS)
 
@@ -807,7 +810,8 @@ FFN_SHARDS = [(512, 512, 2), (512, 256, 4), (256, 768, 2), (256, 512, 2)]
 @pytest.mark.parametrize("d_model,f_loc,tp", FFN_SHARDS)
 @pytest.mark.parametrize("rows", [2000, 130])
 def test_ffn_q_modes_match_plain_on_card(d_model, f_loc, tp, rows):
-    """Mode A's row maxima equal the plain version's but where LayerNorm's
+    """Mode A's row maxima and tied counts (asked for, or the maxima alone:
+    the same bits) equal the plain version's but where LayerNorm's
     summation order moves a row (at most 2, or 1 in 500 rows); mode B, fed
     the plain maxima, matches its plain version within 2^-6 of the largest
     output, and so does the whole kernel at these widths (below d_ff 2 x
@@ -819,16 +823,20 @@ def test_ffn_q_modes_match_plain_on_card(d_model, f_loc, tp, rows):
     xs = t(x).to(torch.bfloat16)
     head = (xs, t(s), t(b), fused.k_major(q1), s1, t(b1))
     before = kernels.launch_counts.snapshot()
-    hmax = fused._ln_ffn_q_rowmax_cuda(*head)
-    got = fused._ln_ffn_q_rowscale_cuda(*head, fused.k_major(q2), s2, t(b2) / tp,
-                                        fused._ln_ffn_q_rowmax_plain(*head), 1.0 / tp)
+    hmax, ties = fused._ln_ffn_q_rowmax_cuda(*head, ties=True)
+    hmax_alone, no_ties = fused._ln_ffn_q_rowmax_cuda(*head)
+    want_max, want_ties = fused._ln_ffn_q_rowmax_plain(*head, ties=True)
+    got = fused._ln_ffn_q_rowscale_cuda(*head, fused.k_major(q2), s2, t(b2) / tp, want_max,
+                                        1.0 / tp)
     whole = fused._ln_ffn_q_cuda(*head, fused.k_major(q2), s2, t(b2))
     torch.cuda.synchronize()
     after = kernels.launch_counts.snapshot()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
-        "ln_ffn_q_rowmax": 1, "ln_ffn_q_rowscale": 1, "ln_ffn_q": 1}
-    want_max = fused._ln_ffn_q_rowmax_plain(*head)
+        "ln_ffn_q_rowmax": 2, "ln_ffn_q_rowscale": 1, "ln_ffn_q": 1}
+    assert torch.equal(hmax, hmax_alone) and no_ties is None
     assert int((hmax != want_max).sum()) <= max(2, rows // 500)
+    assert ties.dtype == torch.int32 and int(ties.min()) >= 1
+    assert int((ties != want_ties).sum()) <= max(2, rows // 500)
     want = fused._ln_ffn_q_rowscale_plain(*head, fused.k_major(q2), s2, t(b2) / tp,
                                           want_max, 1.0 / tp)
     for a, r in ((got, want), (whole, fused._ln_ffn_q_plain(*head, fused.k_major(q2), s2,

@@ -33,6 +33,7 @@ import dataclasses
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -205,9 +206,10 @@ def _ffn_shards(tp, x, s, b, w1, b1, w2, b2, row_scale="global"):
     shard = [dict(w1_i8=q1[:, j * fl:(j + 1) * fl], s1=s1[j * fl:(j + 1) * fl],
                   b1=t(b1)[j * fl:(j + 1) * fl], w2_i8=q2[j * fl:(j + 1) * fl],
                   s2=s2, b2=t(b2) / tp) for j in range(tp)]
-    hmax = [fused.ln_ffn_q_rowmax(xs, *ln, w["w1_i8"], w["s1"], w["b1"]) for w in shard]
+    hmax, ties = zip(*(fused.ln_ffn_q_rowmax(xs, *ln, w["w1_i8"], w["s1"], w["b1"])
+                       for w in shard))
     if row_scale == "global":
-        hmax = all_reduce_max(hmax)
+        hmax = all_reduce_max(list(hmax), None if ties[0] is None else list(ties))
     parts = [fused.ln_ffn_q_rowscale(xs, *ln, w["w1_i8"], w["s1"], w["b1"], w["w2_i8"],
                                      w["s2"], w["b2"], m, 1.0 / tp)
              for w, m in zip(shard, hmax)]
@@ -283,6 +285,58 @@ def test_all_reduce_max_and_its_gradient():
     assert torch.equal(ga, torch.tensor([0.0, 1.0, 0.5, 0.5]))
     assert torch.equal(gb, torch.tensor([1.0, 0.0, 0.5, 0.5]))
     assert all_reduce_max([a])[0] is a
+
+
+@pytest.mark.parametrize("counts", [(2, 1), (1, 2), (2, 1, 0, 1), (1, 2, 2, 4), (4, 0, 2, 1)])
+def test_all_reduce_max_gradient_shares_ties_by_element(counts):
+    """Rows split into tp shards, shard j holding counts[j] elements equal to
+    the row's maximum (row 0's maximum alone in shard 0): each shard's
+    maximum (``amax``), its tied count, then ``all_reduce_max``. The gradient
+    must equal ``jax.vjp`` of the reference's maximum over the whole row,
+    which splits it evenly between the tied elements (not between the tied
+    shards)."""
+    tp, n, rows = len(counts), 8, 3
+    rng = np.random.default_rng(sum(counts) + tp)
+    x = rng.integers(0, 3, size=(rows, tp * n)).astype(np.float32)
+    for j, c in enumerate(counts):
+        x[:, j * n : j * n + c] = 9.0
+    x[0, 0] = 10.0
+    g = rng.normal(size=(rows,)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jnp.max(a, axis=-1), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).requires_grad_()
+    parts = xt.split(n, dim=-1)
+    maxima = [p.amax(dim=-1) for p in parts]
+    ties = [(p == m[:, None]).sum(dim=-1, dtype=torch.int32) for p, m in zip(parts, maxima)]
+    out = all_reduce_max(maxima, ties)
+    assert all(o is out[0] for o in out)
+    np.testing.assert_array_equal(out[0].detach().numpy(), x.max(axis=-1))
+    (gx,) = torch.autograd.grad((out[0] * torch.from_numpy(g)).sum(), [xt])
+    np.testing.assert_array_equal(gx.numpy(), want)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_rowmax_counts_its_ties(tp):
+    """``ln_ffn_q_rowmax`` gives each row's maximum |h| over the shard's
+    columns and, under autograd, how many of them reach it, as the plain
+    hidden shows them; the count takes no gradient and the maximum's goes
+    to the tied columns."""
+    d, f, rows = 256, 512, 64
+    x, s, b, w1, b1, _, _ = (np.asarray(a) for a in _ffn_inputs(90 + tp, d, f, rows))
+    q1, s1 = fused.quantize_weight(torch.from_numpy(w1))
+    fl = f // tp
+    xs = torch.from_numpy(x).requires_grad_()
+    args = (torch.from_numpy(s), torch.from_numpy(b), q1[:, :fl], s1[:fl],
+            torch.from_numpy(b1)[:fl])
+    assert fused.ln_ffn_q_rowmax(xs.detach(), *args)[1] is None  # asked under autograd only
+    top, ties = fused.ln_ffn_q_rowmax(xs, *args)
+    a = fused._ffn_q_hidden(xs.detach(), *args).abs()
+    assert torch.equal(top.detach(), a.amax(dim=-1))
+    assert ties.dtype == torch.int32 and not ties.requires_grad
+    assert torch.equal(ties, (a == a.amax(dim=-1, keepdim=True)).sum(dim=-1, dtype=torch.int32))
+    assert int(ties.min()) >= 1
+    (gx,) = torch.autograd.grad(top.sum(), [xs])
+    assert bool(torch.isfinite(gx).all()) and float(gx.abs().sum()) > 0
 
 
 def test_cli_int8_tp_fasta_identical_to_reference(tmp_path):

@@ -10,8 +10,9 @@ prints each kernel's registers, spills and ptxas's performance advisories
 (C75xx, such as serialised ``wgmma``), then runs ``chip_smoke.py``'s
 ``kernels`` phase (every kernel against its plain version at B=32, L=9216,
 with its tolerance; times by CUDA events, K5's by CUDA-graph replay with the
-eager loop's beside it) ``--spread`` times in one process and prints every
-kernel's time per pass, to four significant digits. It is the short first
+eager loop's beside it) and the float32 kernels' rows of its ``float32``
+phase ``--spread`` times in one process and prints every kernel's time per
+pass, to four significant digits. It is the short first
 call after a kernel changes: what the compiler refuses, or a kernel that is
 wrong, shows here in about a minute and fails the command. Shapes the smoke run does not
 take (the r9 widths but K8's, K10's and K11's, ragged lengths) are held by
@@ -96,6 +97,9 @@ def main() -> int:
         results: dict = {}
         with contextlib.redirect_stdout(io.StringIO()):
             chip_smoke.phase_kernels(torch, results)
+            # and the float32 kernels beside them (the float32 phase's rows)
+            results["kernels"] += chip_smoke.run_cases(torch, chip_smoke.float32_cases(torch),
+                                                       "float32")
         times = {}
         for k in results["kernels"]:
             times[k["case"]] = float(f"{k['ms']:.4g}")
