@@ -66,8 +66,9 @@ each print one JSON line:
    byte-identical records and both Qs, the port's at most 0.2 dB below;
 7. ``procpool`` — ``inference`` in a subprocess, serial and with
    ``--feat-gen-procs N`` (the pool forks before the card is opened, which
-   this process cannot do any more), alignments from a stub ``minimap2`` that
-   replays the simulated PAF; ``features`` — the ``features`` subcommand the
+   this process cannot do any more; the pool's one run traced, its times
+   read from it), alignments from a stub ``minimap2`` that replays the
+   simulated PAF; ``features`` — the ``features`` subcommand the
    same way, loaded back through ``load_window_features``;
 8. ``int8``    — the golden forward, the e2e run through
    ``CorrectionRunner(int8=True)`` and ``eval --int8`` (flagship weights at the
@@ -139,7 +140,22 @@ each print one JSON line:
    with ``--devices 2 --tp 2`` on ``cuda:0`` (the same records) and
    ``attention()`` in float32; then ``HERRO_TPU_PALLAS=0``: the tiny and
    bf16 goldens refuse it on the card with a ValueError and launch nothing;
-14. ``tools`` — each ported tool once at a reduced size, its launches
+14. ``int8_any`` — int8 at float32 and at every width, through the SIMT
+   int8 kernels (``csrc/*_q_simt.cu``): K10 and K11 against their plain
+   versions at B=32 (r10's widths in float32 and d384x5L's in bf16 at
+   L=9216, TINY_CONFIG's at 9216 and 1024; K10 at a tp 2 shard's heads and
+   K11's two modes at its d_ff, r10 and tiny), each to the int8 bar, timed
+   beside its bound (int8 operations at the CUDA cores' rate), its plain
+   version and ``torch._int_mm``; int8 at tp 2 against one device (tiny on
+   its golden batch and the e2e run, float32 r10 on its golden batch:
+   classes agree on >= 0.9999 of the supported columns); then the path,
+   launches counted from 0: the tiny and float32-r10 int8 forwards within
+   ``INT8_GOLDEN_BARS`` of herro_tpu's int8 logits frozen in
+   ``tests/torch_data``, ``inference --int8`` of the ``float32`` phase's tiny
+   checkpoint on one device and at ``--devices 2 --tp 2``, ``eval --int8`` of
+   it on 60 reads, one d384x5L int8 correct step (its ms) and one tiny int8
+   train step;
+15. ``tools`` — each ported tool once at a reduced size, its launches
    counted: the soup, 4 fine-tune steps on the ``train`` phase's windows,
    the systematic audit and the e2e profile on 24 reads, the step-time
    probe at B=32, L=9216 for r10 and d384x5L (K1-K4's d 384 instances), and
@@ -150,8 +166,9 @@ nvidia-smi, the per-kernel JSON summary (K1-K4 also with their launches in
 ``train_parallel``, counted from 0 over its layouts' steps; K1-K5 with
 theirs in ``battery``, ``demo`` and ``tools``; K10 and K11's modes with
 theirs in the int8 layouts of ``parallel`` and ``train_parallel``; the
-float32 kernels with their launches on the ``float32`` phase's path, by
-entry point) and ``{"ok": true, "device": ...}``.
+float32 kernels with their launches on the ``float32`` phase's path and the
+SIMT int8 ones on the ``int8_any`` phase's, by entry point) and
+``{"ok": true, "device": ...}``.
 Imports nothing of JAX or herro_tpu.
 """
 
@@ -182,6 +199,12 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
+# int8 on the CUDA cores (__dp4a, the SIMT int8 kernels): the CUDA C++
+# Programming Guide's table of arithmetic instruction throughput gives
+# compute capability 9.0 64 results a clock an SM for 32-bit integer
+# multiply-add, the pipe __dp4a issues on; one __dp4a result is 4
+# multiply-adds (8 operations); 132 SMs at the H100 SXM's 1.98 GHz boost
+PEAK_INT8_SIMT = 132 * 64 * 8 * 1.98e9
 
 B, L = 32, 9216  # CLI default batch at the R10 bucket (pipeline/batching.py)
 
@@ -906,28 +929,29 @@ def shard_q_cases(torch, t: dict, qkv_q_case, ln_rows_i8, g) -> dict:
     return cases
 
 
-def rowmax_ties(torch, fused, head: tuple) -> dict:
+def rowmax_ties(torch, fused, head: tuple, rowmax=None) -> dict:
     """K11's ``rowmax`` with the tied counts (the instance autograd takes)
     against the plain version's counts: they may differ only where the
     hidden does, in at most 1 row in 500 (2 at least), the bar of the
     ``gpu`` test on the maxima; its maxima equal the case's instance's bit
-    for bit. Raises past either; reports its ms."""
-    (top, ties), (want_top, want_ties) = (fused._ln_ffn_q_rowmax_cuda(*head, ties=True),
+    for bit. ``rowmax``: the wrapper (the Hopper instance's by default).
+    Raises past either; reports its ms."""
+    rowmax = rowmax or fused._ln_ffn_q_rowmax_cuda
+    (top, ties), (want_top, want_ties) = (rowmax(*head, ties=True),
                                           fused._ln_ffn_q_rowmax_plain(*head, ties=True))
     rows = ties.numel()
     out = dict(ties_differing_rows=int((ties != want_ties).sum()),
                maxima_differing_rows=int((top != want_top).sum()), rows=rows,
                max_ties=int(ties.max()),
-               maxima_equal_without_ties=bool(torch.equal(
-                   top, fused._ln_ffn_q_rowmax_cuda(*head)[0])),
-               ties_ms=time_ms(torch, lambda: fused._ln_ffn_q_rowmax_cuda(*head, ties=True),
-                               20))
+               maxima_equal_without_ties=bool(torch.equal(top, rowmax(*head)[0])),
+               ties_ms=time_ms(torch, lambda: rowmax(*head, ties=True), 20))
     if out["ties_differing_rows"] > max(2, rows // 500) or not out["maxima_equal_without_ties"]:
         raise RuntimeError(f"ln_ffn_q_rowmax's tied counts: {out}")
     return out
 
 
-def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8) -> dict:
+def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8,
+                     simt: bool = False) -> dict:
     """K11's ``rowmax`` mode on ``head`` (x, LayerNorm, W1's shard) and its
     ``rowscale`` mode on ``head + tail`` (W2's shard, s2, b2 / tp, the row
     maxima, 1 / tp). A row maximum is a bf16 value of h, exact where the
@@ -937,9 +961,13 @@ def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8) -> d
     another. So ``rowmax`` is held to the int8 bar through the pass it feeds: shard
     0's ``rowscale`` on its maxima (``chain``: kernel then kernel, plain then
     plain, and both plain with LayerNorm's sums in float64), its own share
-    and floor reported beside."""
+    and floor reported beside. ``simt``: the SIMT instance's modes, bounded
+    by the CUDA cores' int8 rate."""
     from herro_tpu_torch.ops import fused
 
+    name, peak = ("ln_ffn_q_simt", PEAK_INT8_SIMT) if simt else ("ln_ffn_q", PEAK_INT8)
+    rowmax = fused._ln_ffn_q_rowmax_simt_cuda if simt else fused._ln_ffn_q_rowmax_cuda
+    rowscale = fused._ln_ffn_q_rowscale_simt_cuda if simt else fused._ln_ffn_q_rowscale_cuda
     xs, s, b, w1q = head[:4]
     T, d, fl = xs.numel() // xs.shape[-1], xs.shape[-1], w1q.shape[1]
 
@@ -954,32 +982,32 @@ def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8) -> d
         lambda y_i8: torch._int_mm(y_i8, w1q), lambda: ln_rows_i8(xs, s, b))
     vectors = (2 * d + 2 * fl) * 4
     return {
-        f"ln_ffn_q_rowmax[{tag}]": dict(
-            name="ln_ffn_q", mode="ln_ffn_q_rowmax", replaces="herro_tpu/ops/fused.py:420",
-            kernel=lambda: fused._ln_ffn_q_rowmax_cuda(*head)[0],
+        f"{name}_rowmax[{tag}]": dict(
+            name=name, mode=f"{name}_rowmax", replaces="herro_tpu/ops/fused.py:420",
+            kernel=lambda: rowmax(*head)[0],
             plain=lambda: fused._ln_ffn_q_rowmax_plain(*head)[0],
             floor=lambda: float64_layernorm_sums(
                 fused, lambda *a: fused._ln_ffn_q_rowmax_plain(*a)[0], *head),
-            extra=lambda: rowmax_ties(torch, fused, head),
+            extra=lambda: rowmax_ties(torch, fused, head, rowmax),
             library=library("the pass's product (partial: no LN, quantization, gelu, "
                             "row maxima)"),
-            bound=bound(T * d * 2 + d * fl + T * 4 + vectors, 2 * T * d * fl, PEAK_INT8),
+            bound=bound(T * d * xs.element_size() + d * fl + T * 4 + vectors,
+                        2 * T * d * fl, peak),
             share_differing=True,
-            chain=(lambda: fused._ln_ffn_q_rowscale_cuda(
-                       *head, *tail[:3], fused._ln_ffn_q_rowmax_cuda(*head)[0], tail[-1]),
+            chain=(lambda: rowscale(*head, *tail[:3], rowmax(*head)[0], tail[-1]),
                    lambda: chained(*head, *tail[:3], tail[-1]),
                    lambda: float64_layernorm_sums(fused, chained, *head, *tail[:3], tail[-1])),
         ),
-        f"ln_ffn_q_rowscale[{tag}]": dict(
-            name="ln_ffn_q", mode="ln_ffn_q_rowscale", replaces="herro_tpu/ops/fused.py:420",
-            kernel=lambda: fused._ln_ffn_q_rowscale_cuda(*head, *tail),
+        f"{name}_rowscale[{tag}]": dict(
+            name=name, mode=f"{name}_rowscale", replaces="herro_tpu/ops/fused.py:420",
+            kernel=lambda: rowscale(*head, *tail),
             plain=lambda: fused._ln_ffn_q_rowscale_plain(*head, *tail),
             floor=lambda: float64_layernorm_sums(fused, fused._ln_ffn_q_rowscale_plain,
                                                  *head, *tail),
             library=library("half the pass's operations (partial: no LN, quantization, "
                             "gelu, second product)"),
-            bound=bound(2 * T * d * 2 + 2 * d * fl + T * 4 + vectors + d * 8,
-                        4 * T * d * fl, PEAK_INT8),
+            bound=bound(2 * T * d * xs.element_size() + 2 * d * fl + T * 4 + vectors + d * 8,
+                        4 * T * d * fl, peak),
             residual=xs * tail[-1], share_differing=True,
         ),
     }
@@ -2661,9 +2689,11 @@ def float32_cases(torch) -> dict:
     return cases
 
 
-def _golden_forward(torch, ckpt: str, fx, dtype: str | None = None) -> dict:
+def _golden_forward(torch, ckpt: str, fx, dtype: str | None = None,
+                    int8: bool = False) -> dict:
     """A checkpoint's forward on a golden batch's inputs (``fx``, the layout
-    of ``tests/golden/logits_r10.npz``) on the card, with its launches."""
+    of ``tests/golden/logits_r10.npz``) on the card, with its launches;
+    ``int8`` forces the int8 config."""
     import numpy as np
 
     from herro_tpu_torch.constants import N_ROWS, QUAL_OFFSET, QUAL_SCALE
@@ -2675,6 +2705,8 @@ def _golden_forward(torch, ckpt: str, fx, dtype: str | None = None) -> dict:
     cfg, sd = load_model(ckpt)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if int8:
+        cfg = dataclasses.replace(cfg, int8=True)
     model = CorrectionModel(cfg)
     model.load_state_dict(sd)
     model = model.cuda().eval()
@@ -2803,6 +2835,20 @@ def _f32_want_step(cfg) -> dict:
     return {names[k]: n for k, n in _want_step_launches(cfg).items()}
 
 
+def _tiny_block_launches(cfg, tp: int = 1, int8: bool = False) -> dict:
+    """A batch's launches of the float32 block kernels (int8: the SIMT int8
+    ones, K11's two modes on a shard), every layer on each of ``tp``
+    shards."""
+    attn = "flash_f32_full" if cfg.local_window is None else "flash_f32"
+    if not int8:
+        names = ("ln_qkv_rope_f32", attn, "ln_ffn_f32")
+    elif tp == 1:
+        names = ("ln_qkv_rope_q_simt", attn, "ln_ffn_q_simt")
+    else:
+        names = ("ln_qkv_rope_q_simt", attn, "ln_ffn_q_simt_rowmax", "ln_ffn_q_simt_rowscale")
+    return {k: cfg.n_layers * tp for k in names}
+
+
 def _f32_only(launches: dict) -> bool:
     """Some float32 kernel launched, and no other kernel."""
     f32 = {m for modes in F32_KERNELS.values() for m in modes}
@@ -2866,9 +2912,10 @@ def _f32_train(torch, tmp: str) -> tuple[dict, str]:
     return report, out
 
 
-def _f32_eval(torch, ckpt: str) -> dict:
-    """``eval`` of a tiny checkpoint on 60 reads through the CLI: every batch
-    runs K4's float32 kernel once and the block's n_layers times, K5 once,
+def _f32_eval(torch, ckpt: str, int8: bool = False) -> dict:
+    """``eval`` of a tiny checkpoint on 60 reads through the CLI (``int8``:
+    with ``--int8``): every batch runs K4's float32 kernel once and the
+    block's n_layers times (the SIMT int8 K10 and K11 under int8), K5 once,
     no bf16 kernel; the result is finite. A tiny model trained for 6 steps
     is no corrector: its identity is reported, not held to a bar."""
     import math
@@ -2883,7 +2930,7 @@ def _f32_eval(torch, ckpt: str) -> dict:
     before = kernels.launch_counts.snapshot()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        cli.main(["eval", ckpt, *EVAL_ARGS, *SMALL_SIZE])
+        cli.main(["eval", ckpt, *EVAL_ARGS, *SMALL_SIZE, *(["--int8"] if int8 else [])])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     after = kernels.launch_counts.snapshot()
@@ -2891,8 +2938,9 @@ def _f32_eval(torch, ckpt: str) -> dict:
     res = json.loads(buf.getvalue())
     n_b = launches.get("entry_embed_f32", 0)
     want = {"entry_embed_f32": n_b, "count_decisions": n_b,
-            **{k: cfg.n_layers * n_b for k in _f32_want_step(cfg) if k != "entry_embed_f32"}}
-    emit("float32", run="eval tiny", wall_s=wall, n_reads=res["n_reads"],
+            **{k: n * n_b for k, n in _tiny_block_launches(cfg, int8=int8).items()}}
+    emit("int8_any" if int8 else "float32", run="eval tiny" + (" --int8" if int8 else ""),
+         wall_s=wall, n_reads=res["n_reads"],
          raw_identity=res["raw_identity"], corrected_identity=res["corrected_identity"],
          launches=launches, want_launches=want)
     if n_b == 0 or launches != want or res["n_reads"] == 0 \
@@ -2902,23 +2950,27 @@ def _f32_eval(torch, ckpt: str) -> dict:
     return dict(res, launches=launches)
 
 
-def _f32_inference_tp(torch, tmp: str, e2e: dict, ckpt: str) -> dict:
+def _f32_inference_tp(torch, tmp: str, e2e: dict, ckpt: str, int8: bool = False) -> dict:
     """``inference -m <tiny checkpoint>`` through the CLI on the e2e reads
     (alignments of 16 targets from the stub aligner), on one device and with
     ``--devices 2 --tp 2``, both shards on ``cuda:0``: the same records, the
     float32 kernels launched (K4's once a shard and batch, the block's
-    n_layers times a shard and batch, K5 once a batch) and no bf16 kernel."""
+    n_layers times a shard and batch, K5 once a batch) and no bf16 kernel.
+    ``int8``: with ``--int8``, the SIMT int8 K10 and K11 (its two modes on a
+    shard) in the block; the share of records the two write alike is
+    reported (``phase_int8_any`` holds the classes to the bar)."""
     from herro_tpu_torch import cli
     from herro_tpu_torch.models.checkpoint import load_model
     from herro_tpu_torch.ops import cuda as kernels
     from herro_tpu_torch.parallel import mesh as mesh_mod
 
     cfg, _ = load_model(ckpt)
-    env = _stub_minimap2(os.path.join(tmp, "f32_stub"), e2e["rows"])
+    env = _stub_minimap2(os.path.join(tmp, "int8_stub" if int8 else "f32_stub"), e2e["rows"])
     runs = {}
     local_devices = mesh_mod.local_devices
+    flag = ["--int8"] if int8 else []
     for tag, extra in (("single", []), ("tp2", ["--devices", "2", "--tp", "2"])):
-        out = os.path.join(tmp, f"tiny_{tag}.fasta")
+        out = os.path.join(tmp, f"tiny_{tag}{'_int8' if int8 else ''}.fasta")
         err = io.StringIO()
         torch.cuda.synchronize()
         before = kernels.launch_counts.snapshot()
@@ -2929,7 +2981,7 @@ def _f32_inference_tp(torch, tmp: str, e2e: dict, ckpt: str) -> dict:
         try:
             with _env(PATH=env["PATH"], STUB_MAX_TARGETS="16"), \
                     contextlib.redirect_stderr(err):
-                cli.main(["inference", "-m", ckpt, "-w", "4096", "-b", "32", *extra,
+                cli.main(["inference", "-m", ckpt, "-w", "4096", "-b", "32", *extra, *flag,
                           e2e["fastq"], out])
         finally:
             mesh_mod.local_devices = local_devices
@@ -2939,20 +2991,22 @@ def _f32_inference_tp(torch, tmp: str, e2e: dict, ckpt: str) -> dict:
         tp = 2 if extra else 1
         n_b = launches.get("count_decisions", 0)
         want = {"entry_embed_f32": tp * n_b, "count_decisions": n_b,
-                **{k: cfg.n_layers * tp * n_b for k in _f32_want_step(cfg)
-                   if k != "entry_embed_f32"}}
+                **{k: n * n_b for k, n in _tiny_block_launches(cfg, tp, int8).items()}}
         runs[tag] = dict(wall_s=time.perf_counter() - t0, launches=launches,
                          want_launches=want, records=_fasta_records(out),
                          summary=err.getvalue().strip().splitlines()[-1])
     same = runs["tp2"]["records"] == runs["single"]["records"]
-    emit("float32", run="inference tiny --tp 2", records_equal=same,
-         n_records=len(runs["single"]["records"]),
+    alike = len(set(runs["tp2"]["records"]) & set(runs["single"]["records"])) / max(
+        len(runs["single"]["records"]), 1)
+    emit("int8_any" if int8 else "float32",
+         run="inference tiny --tp 2" + (" --int8" if int8 else ""), records_equal=same,
+         share_of_records_alike=alike, n_records=len(runs["single"]["records"]),
          **{tag: {k: v for k, v in r.items() if k != "records"} for tag, r in runs.items()})
     bad = [tag for tag, r in runs.items() if r["launches"] != r["want_launches"]
            or not r["launches"].get("count_decisions")]
-    if bad or not same or not runs["single"]["records"]:
-        raise RuntimeError(f"float32 inference: launches off in {bad}, records equal {same}, "
-                           f"{len(runs['single']['records'])} records")
+    if bad or not (same or int8) or not runs["single"]["records"]:
+        raise RuntimeError(f"float32 inference (int8 {int8}): launches off in {bad}, records "
+                           f"equal {same}, {len(runs['single']['records'])} records")
     return runs
 
 
@@ -2990,7 +3044,8 @@ def phase_float32(torch, tmp: str, e2e: dict, results: dict) -> dict:
     ``--student`` (the default tiny), ``train --config tiny``, ``eval`` of
     the tiny checkpoint it wrote, ``inference`` of it on one device and
     over TP 2, and ``attention()`` in float32; then ``HERRO_TPU_PALLAS=0``
-    refused on the card. Returns the path's launches."""
+    refused on the card. Returns the path's launches and the tiny
+    checkpoint ``train`` wrote."""
     from herro_tpu_torch.models.model import TINY_CONFIG
     from herro_tpu_torch.ops import cuda as kernels
 
@@ -3020,6 +3075,339 @@ def phase_float32(torch, tmp: str, e2e: dict, results: dict) -> dict:
     launches = kernels.launch_counts.snapshot()
     _f32_knob_runs(torch)
     emit("float32", run="phase", seconds=time.perf_counter() - t0, kernel_rows_s=rows_s,
+         path_launches={k: n for k, n in launches.items() if n})
+    return launches, tiny_ckpt
+
+
+# the SIMT int8 kernels (K10 and K11 for float32, or bf16 at widths the
+# Hopper instances lack; csrc/*_q_simt.cu) and their entry points
+SIMT8_KERNELS = {"ln_qkv_rope_q_simt": ("ln_qkv_rope_q_simt",),
+                 "ln_ffn_q_simt": ("ln_ffn_q_simt", "ln_ffn_q_simt_rowmax",
+                                   "ln_ffn_q_simt_rowscale")}
+# tag -> (d, H, D, d_ff, dtype): model_r10_sim's widths in float32,
+# TINY_CONFIG, and the d384x5L probe shape in bf16
+SIMT8_WIDTHS = {"r10": (512, 4, 128, 1024, "float32"), "tiny": (32, 2, 16, 64, "float32"),
+                "d384": (384, 3, 128, 1280, "bfloat16")}
+# The int8 forwards against herro_tpu's frozen int8 logits (tests/torch_data/
+# golden_*_int8.npz), over the supported columns: the largest |dlogit| and
+# |dinfo|, and the share of columns whose class differs. The port's plain
+# version on the CPU reads 0.0149 / 0.0145 and 0 of 417 (tiny), 0.0174 /
+# 0.0253 and 0 of 22 (r10 in float32); a column one int8 step apart moves by
+# about 0.02. Room for the card's own LayerNorm order: 0.05, and 1 column in
+# 40 (MAX_FLIPPED of tests/test_torch_int8_parallel.py).
+INT8_GOLDEN_BARS = dict(max_dlogit=0.05, max_dinfo=0.05, flipped_share=1 / 40)
+INT8_GOLDENS = {  # name -> (checkpoint, frozen int8 outputs, inputs, dtype forced)
+    "tiny": (F32_GOLDENS["tiny"][0], "golden_tiny_int8.npz",
+             os.path.join(F32_DATA, "golden_tiny_f32.npz"), None),
+    "r10_f32": (CKPT, "golden_r10_int8.npz", GOLDEN, "float32"),
+}
+TP_INT8_MIN_AGREE = 0.9999  # int8 at tp 2 against one device, classes
+
+
+def int8_simt_cases(torch) -> dict:
+    """The SIMT int8 kernels against their plain versions at B=32: K10 and
+    K11 at model_r10_sim's widths in float32 (L=9216), TINY_CONFIG's (L=9216
+    and 1024) and d384x5L's in bf16 (L=9216), K10 at the head count and K11's
+    two modes at the d_ff of a tp 2 shard (r10 and tiny, L=9216, the shard 0
+    weights quantized as ``TensorParallelModel`` quantizes them). Each is held
+    to the int8 rule: within 2^-6 of the largest output, and its share of
+    differing outputs at most twice the plain version's own when LayerNorm
+    sums in float64. Bound: bytes, or int8 operations at the CUDA cores'
+    rate; the library call is torch._int_mm of quant(LN(x)) @ W alone."""
+    from herro_tpu_torch.ops import fused
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4343)
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def ln_rows_i8(xs, s, b):
+        return fused._quant_rows(fused.layernorm(xs, s, b).float().view(-1, xs.shape[-1]))[0]
+
+    def qkv_case(xs, s, b, wq, sc, bq, heads):
+        ts, dd, n = xs.shape[0] * xs.shape[1], xs.shape[-1], wq.shape[1]
+        args = (xs, s, b, wq, sc, bq, heads)
+        return dict(
+            name="ln_qkv_rope_q_simt", replaces=QKV_REPLACES["ln_qkv_rope_q"],
+            kernel=lambda: fused._ln_qkv_rope_q_simt_cuda(*args),
+            plain=lambda: fused._ln_qkv_rope_q_plain(*args),
+            floor=lambda: float64_layernorm_sums(fused, fused._ln_qkv_rope_q_plain, *args),
+            library=("torch._int_mm quant(LN(x))[T,d] @ W_qkv[d,3HD] int8 -> int32, the "
+                     "dominant product only (partial: no LN, quantization, scales, rope)",
+                     lambda y_i8: torch._int_mm(y_i8, wq), lambda: ln_rows_i8(xs, s, b)),
+            bound=bound((ts * dd + ts * n) * xs.element_size() + dd * n + n * 8,
+                        2 * ts * dd * n, PEAK_INT8_SIMT),
+            share_differing=True, iters=10,
+        )
+
+    def ffn_case(xs, s, b, w1q, s1q, b1q, w2q, s2q, b2q):
+        ts, dd, ff = xs.shape[0] * xs.shape[1], xs.shape[-1], w1q.shape[1]
+        args = (xs, s, b, w1q, s1q, b1q, w2q, s2q, b2q)
+        return dict(
+            name="ln_ffn_q_simt", replaces="herro_tpu/ops/fused.py:420",
+            kernel=lambda: fused._ln_ffn_q_simt_cuda(*args),
+            plain=lambda: fused._ln_ffn_q_plain(*args),
+            floor=lambda: float64_layernorm_sums(fused, fused._ln_ffn_q_plain, *args),
+            library=("torch._int_mm quant(LN(x))[T,d] @ W1[d,f] int8 -> int32, half the "
+                     "operations (partial: no LN, quantization, gelu, second product)",
+                     lambda y_i8: torch._int_mm(y_i8, w1q), lambda: ln_rows_i8(xs, s, b)),
+            bound=bound(2 * ts * dd * xs.element_size() + 2 * dd * ff + (dd + ff) * 8,
+                        4 * ts * dd * ff, PEAK_INT8_SIMT),
+            residual=xs, share_differing=True, iters=10,
+        )
+
+    cases = {}
+    for tag, n in (("r10", L), ("tiny", L), ("tiny", 1024), ("d384", L)):
+        d, H, D, f, dt = SIMT8_WIDTHS[tag]
+        dt = getattr(torch, dt)
+        main = tag == "r10"  # the rows PERF.md keeps as each kernel's own
+
+        def key(name, *labels):
+            labels = [tag, *labels] + ([] if n == L else [f"L={n}"])
+            return f"{name}[{', '.join(labels)}]"
+
+        x = randn(B, n, d, dtype=dt)
+        ln_s, ln_b = 1.0 + randn(d, std=0.1), randn(d, std=0.1)
+        w_qkv, b_qkv = randn(d, 3 * H * D, std=d ** -0.5, dtype=dt), randn(3 * H * D, std=0.25,
+                                                                          dtype=dt)
+        w1, b1 = randn(d, f, std=d ** -0.5), randn(f, std=0.25)
+        w2, b2 = randn(f, d, std=f ** -0.5), randn(d, std=0.25)
+        wq, sq = fused.quantize_weight(w_qkv)
+        (q1, s1), (q2, s2) = fused.quantize_weight(w1), fused.quantize_weight(w2)
+        cases["ln_qkv_rope_q_simt" if main else key("ln_qkv_rope_q_simt")] = qkv_case(
+            x, ln_s, ln_b, fused.k_major(wq), sq, b_qkv, H)
+        cases["ln_ffn_q_simt" if main else key("ln_ffn_q_simt")] = ffn_case(
+            x, ln_s, ln_b, fused.k_major(q1), s1, b1, fused.k_major(q2), s2, b2)
+        if tag == "d384" or n != L:
+            continue
+        # a tp 2 shard: H / 2 heads of qkv, d_ff / 2 of W1's columns and W2's
+        # rows (W2's column scales over the whole width), b2 / 2, x / 2, the
+        # row maxima of the whole width's hidden
+        h, fl = H // 2, f // 2
+        wq_h, sq_h = fused.quantize_weight(
+            w_qkv.reshape(d, 3, H, D)[:, :, :h].reshape(d, 3 * h * D))
+        cases[key("ln_qkv_rope_q_simt", f"H={h}")] = qkv_case(
+            x, ln_s, ln_b, fused.k_major(wq_h), sq_h,
+            b_qkv.reshape(3, H, D)[:, :h].reshape(-1).contiguous(), h)
+        hmax = fused._ffn_q_hidden(x, ln_s, ln_b, q1, s1, b1).abs().amax(dim=-1).view(
+            x.shape[:-1])
+        head = (x, ln_s, ln_b, fused.k_major(q1[:, :fl]), s1[:fl].contiguous(),
+                b1[:fl].contiguous())
+        tail = (fused.k_major(q2[:fl]), s2, b2 / 2, hmax, 0.5)
+        for name, c in ffn_q_mode_cases(torch, f"{tag}, f={fl}", head, tail, ln_rows_i8,
+                                        simt=True).items():
+            cases[name] = dict(c, iters=10)
+    return cases
+
+
+def _int8_golden_runs(torch) -> dict:
+    """The tiny and float32-r10 int8 forwards on the frozen inputs against
+    herro_tpu's frozen int8 logits, within ``INT8_GOLDEN_BARS``, launching
+    the float32 entry and attention and the SIMT int8 K10 and K11, n_layers
+    times each, and nothing else."""
+    import numpy as np
+
+    out = {}
+    for name, (ckpt, frozen, inputs, dtype) in INT8_GOLDENS.items():
+        want = np.load(os.path.join(F32_DATA, frozen))
+        fx = np.load(inputs)
+        run = _golden_forward(torch, ckpt, fx, dtype, int8=True)
+        cfg, mask = run["cfg"], fx["support_mask"]
+        gap = dict(n=int(mask.sum()),
+                   flipped=int(((run["logits"].argmax(-1) != want["logits"].argmax(-1))
+                                & mask).sum()),
+                   max_dlogit=float(np.abs(run["logits"] - want["logits"])[mask].max()),
+                   max_dinfo=float(np.abs(run["info"] - want["info"])[mask].max()))
+        want_launches = {"entry_embed_f32": 1, **_tiny_block_launches(cfg, int8=True)}
+        emit("int8_any", run="golden", model=name, bars=INT8_GOLDEN_BARS, **gap,
+             launches=run["launches"], want_launches=want_launches)
+        bars = INT8_GOLDEN_BARS
+        if not (gap["max_dlogit"] <= bars["max_dlogit"] and gap["max_dinfo"] <= bars["max_dinfo"]
+                and gap["flipped"] <= bars["flipped_share"] * gap["n"]
+                and np.isfinite(run["logits"][mask]).all()) \
+                or run["launches"] != want_launches:
+            raise RuntimeError(f"int8 golden {name}: {gap} against {bars}, launches "
+                               f"{run['launches']} (want {want_launches})")
+        out[name] = gap
+    return out
+
+
+def _int8_tp_agreement(torch, e2e: dict, tiny_ckpt: str) -> dict:
+    """int8 at tp 2 (``CorrectionRunner(mesh=...)``, both shards on
+    ``cuda:0``) against one device's int8 step: the tiny checkpoint on its
+    golden batch and on every batch of the e2e run, float32 r10 on its
+    golden batch. Classes agree on at least ``TP_INT8_MIN_AGREE`` of the
+    supported columns, decisions are equal, and each shard runs the SIMT
+    K10 and K11's two modes n_layers times a batch."""
+    import numpy as np
+
+    from herro_tpu_torch.models.checkpoint import load_model
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.parallel import make_mesh_2d
+    from herro_tpu_torch.pipeline.batching import Batch
+    from herro_tpu_torch.pipeline.infer import CorrectionRunner
+
+    dev = torch.device("cuda", 0)
+    report, failed = {}, []
+    for name, ckpt, inputs, dtype in (
+            ("tiny", tiny_ckpt, INT8_GOLDENS["tiny"][2], None),
+            ("r10_f32", CKPT, GOLDEN, "float32")):
+        cfg, params = load_model(ckpt)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+        single = CorrectionRunner(cfg, params, int8=True, device=dev)
+        tp = CorrectionRunner(cfg, params, int8=True, device=dev,
+                              mesh=make_mesh_2d(1, 2, [dev, dev]))
+        fx = np.load(inputs)
+        golden = Batch(fx["tokens_packed"], fx["quals"], fx["support_idx"], fx["support_mask"],
+                       fx["n_alns"], windows=[])
+        ref = single._fetch(single.dispatch(golden))[1]
+        torch.cuda.synchronize()
+        before = kernels.launch_counts.snapshot()
+        got = tp._fetch(tp.dispatch(golden))[1]
+        torch.cuda.synchronize()
+        after = kernels.launch_counts.snapshot()
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = {"entry_embed_f32": 2, "count_decisions": 1, **_tiny_block_launches(cfg, 2, True)}
+        agree, dec = _agreement(got, ref, fx["support_mask"])
+        n_sup = int(fx["support_mask"].sum())
+        rep = dict(golden_class_agreement=agree, golden_decisions_equal=dec,
+                   golden_supported_columns=n_sup, launches=launches, want_launches=want,
+                   tp_fast_path=tp.tp_fast_path)
+        if name == "tiny":  # every batch of the e2e run, against one device
+            recorded = []
+            fetch = tp._fetch
+
+            def recording_fetch(inflight, fetch=fetch, recorded=recorded):
+                info, packed = fetch(inflight)
+                recorded.append((inflight.batch, packed))
+                return info, packed
+
+            tp._fetch = recording_fetch
+            _counted_run(torch, e2e["reads"], e2e["grouped"], tp,
+                         os.path.join(os.path.dirname(e2e["fasta"]), "tiny_int8_tp2.fasta"))
+            del tp._fetch
+            n_e2e = n_agree = 0
+            for batch, packed in recorded:
+                a, d_eq = _agreement(packed, single._fetch(single.dispatch(batch))[1],
+                                     batch.support_mask)
+                k = int(batch.support_mask.sum())
+                n_e2e, n_agree = n_e2e + k, n_agree + a * k
+                dec = dec and d_eq
+            agree = min(agree, n_agree / max(n_e2e, 1))
+            rep.update(e2e_class_agreement=n_agree / max(n_e2e, 1), e2e_supported_columns=n_e2e,
+                       e2e_batches=len(recorded), decisions_equal=dec)
+        emit("int8_any", run="tp 2 against one device", model=name, **rep)
+        if agree < TP_INT8_MIN_AGREE or not dec or launches != want or not tp.tp_fast_path:
+            failed.append(f"{name} {rep}")
+        report[name] = rep
+        del single, tp
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError("int8 tp 2: " + "; ".join(failed))
+    return report
+
+
+def _int8_d384_step(torch) -> dict:
+    """One correct step of a seeded d384x5L config (d 384, H 3 x D 128, d_ff
+    1280, 5 layers, band 512; tools/variant_step_time_torch.py) in bf16 under
+    int8 at B=32, L=9216, S=256: the bf16 entry and attention (K4, K2 at
+    (3, 384)) and the SIMT int8 K10 and K11, 5 times each, K5 once; finite
+    outputs; then its ms by the port's step timer."""
+    from herro_tpu_torch.models.model import R10_CONFIG, CorrectionModel
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.ops.fused import flash_kernel_name
+    from herro_tpu_torch.pipeline.infer import make_correct_step
+    from herro_tpu_torch.pipeline.steptime import example_batch, time_step
+
+    cfg = dataclasses.replace(R10_CONFIG, d_model=384, n_layers=5, n_heads=3, d_ff=1280,
+                              int8=True)
+    model = CorrectionModel(cfg, generator=torch.Generator().manual_seed(0)).cuda().eval()
+    step = make_correct_step(model)
+    sets = [[torch.from_numpy(a).cuda() for a in example_batch(B, L, 256, seed=s)]
+            for s in (3, 4)]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        before = kernels.launch_counts.snapshot()
+        info, classes, _ = step(*sets[0])
+        torch.cuda.synchronize()
+        after = kernels.launch_counts.snapshot()
+        timed = time_step(step, sets, B, iters=5)
+    launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = {"entry_embed": 1, "ln_qkv_rope_q_simt": 5, flash_kernel_name(cfg.local_window): 5,
+            "ln_ffn_q_simt": 5, "count_decisions": 1}
+    finite = bool(torch.isfinite(info).all())
+    emit("int8_any", run="d384x5L int8 step", card=nvidia_smi(), B=B, L=L, S=256,
+         ms=timed["ms"], windows_per_s=timed["windows_per_s"], launches=launches,
+         want_launches=want, finite=finite)
+    if launches != want or not finite:
+        raise RuntimeError(f"d384 int8 step: launches {launches} (want {want}), finite {finite}")
+    return timed
+
+
+def _int8_train_step(torch, tmp: str, tiny_ckpt: str) -> dict:
+    """One int8 train step of the tiny checkpoint under autograd on the
+    ``train`` phase's windows (batch 8): the forward through the SIMT int8
+    kernels, K4's float32 kernel once and the block's n_layers x 2 (remat),
+    nothing else; a finite loss and every parameter a finite gradient."""
+    import pickle
+
+    from herro_tpu_torch.models.checkpoint import load_or_init
+    from herro_tpu_torch.training.data import TRAIN_BUCKETS, collate_train
+    from herro_tpu_torch.training.train import Trainer, loss_fn
+
+    cfg, params = load_or_init(tiny_ckpt)
+    cfg = dataclasses.replace(cfg, int8=True)
+    with open(os.path.join(tmp, "train_windows.pkl"), "rb") as fh:
+        windows = pickle.load(fh)
+    trainer = Trainer(cfg, params, device="cuda")
+    batch = collate_train(windows[:8], *TRAIN_BUCKETS[0])
+    loss, _ = loss_fn(trainer.model, *trainer.tensors(batch), 0.1, 0.0)
+    grads = torch.autograd.grad(loss, list(trainer.state.params.values()))
+    bad_grads = [n for n, g_ in zip(trainer.state.params, grads)
+                 if not bool(torch.isfinite(g_).all())]
+    steps: list = []
+    with _timed_steps(torch, steps):
+        trainer.train_step(batch)
+    per_step = _step_times(steps)
+    want = {"entry_embed_f32": 1,
+            **{k: 2 * n for k, n in _tiny_block_launches(cfg, int8=True).items()}}
+    emit("int8_any", run="tiny int8 train step", L=per_step[0]["L"], ms=per_step[0]["ms"],
+         ce=per_step[0]["ce"], launches=per_step[0]["launches"], want_launches=want,
+         params_without_finite_grad=bad_grads, loss=float(loss.detach()))
+    if per_step[0]["launches"] != want or bad_grads or not torch.isfinite(loss):
+        raise RuntimeError(f"tiny int8 train step: launches {per_step[0]['launches']} (want "
+                           f"{want}), parameters without a finite gradient {bad_grads}")
+    return per_step[0]
+
+
+def phase_int8_any(torch, tmp: str, e2e: dict, tiny_ckpt: str, results: dict) -> dict:
+    """int8 at float32 and at every width, through the SIMT int8 kernels: each
+    against its plain version (``int8_simt_cases``; the rows join the
+    kernels phase's report); int8 at tp 2 against one device (classes; its
+    e2e run counts its launches from 0 on its own); then the path, counted
+    from 0: the tiny and float32-r10 int8 goldens, ``inference --int8`` of
+    the ``float32`` phase's tiny checkpoint on one device and with
+    ``--devices 2 --tp 2``, ``eval --int8`` of it, one d384x5L int8 step and
+    one tiny int8 train step. Returns the path's launches."""
+    from herro_tpu_torch.ops import cuda as kernels
+
+    t0 = time.perf_counter()
+    results["kernels"] += run_cases(torch, int8_simt_cases(torch), "int8_any")
+    torch.cuda.empty_cache()
+    rows_s = time.perf_counter() - t0
+    _int8_tp_agreement(torch, e2e, tiny_ckpt)  # its own launches, from its own run
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    _int8_golden_runs(torch)
+    _f32_inference_tp(torch, tmp, e2e, tiny_ckpt, int8=True)
+    _f32_eval(torch, tiny_ckpt, int8=True)
+    _int8_d384_step(torch)
+    _int8_train_step(torch, tmp, tiny_ckpt)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts.snapshot()
+    emit("int8_any", run="phase", seconds=time.perf_counter() - t0, kernel_rows_s=rows_s,
          path_launches={k: n for k, n in launches.items() if n})
     return launches
 
@@ -3325,9 +3713,10 @@ def _run_inference_cli(env, tmp, tag, fastq, extra) -> dict:
 
 def phase_procpool(tmp: str, e2e: dict) -> int:
     """``inference`` through the CLI in subprocesses: serial featgen against
-    ``--feat-gen-procs N``, each once plain (for the times), the pool once
-    more with ``--profile-dir`` (for the device's busy share; the serial
-    path's is the ``trace`` phase's). Returns N."""
+    ``--feat-gen-procs N``, each once: the serial run plain, the pool's with
+    ``--profile-dir`` (its times, and the device's busy share; the serial
+    path's share is the ``trace`` phase's; the trace's cost is in the pool's
+    times). Returns N."""
     from herro_tpu_torch.pipeline.procpool import can_fork
 
     cores = os.cpu_count() or 1
@@ -3338,28 +3727,27 @@ def phase_procpool(tmp: str, e2e: dict) -> int:
     want = _fasta_records(e2e["fasta"])
     report = {}
     for tag, extra in (("serial", []), ("pool", ["--feat-gen-procs", str(n_procs)])):
-        plain = _run_inference_cli(env, tmp, tag, e2e["fastq"], extra)
-        runs, traced_report = [plain], {}
+        traced_report = {}
         if tag == "pool":
             prof_dir = os.path.join(tmp, f"prof_{tag}")
-            traced = _run_inference_cli(env, tmp, tag + "_traced", e2e["fastq"],
-                                        [*extra, "--profile-dir", prof_dir])
+            plain = _run_inference_cli(env, tmp, tag, e2e["fastq"],
+                                       [*extra, "--profile-dir", prof_dir])
             device_s, span_s = _device_busy_s(prof_dir)
-            runs.append(traced)
             traced_report = dict(
-                traced_run_s=traced["run_s"], traced_device_s=device_s,
-                device_busy_share=device_s / traced["run_s"],
+                traced=True, traced_device_s=device_s,
+                device_busy_share=device_s / plain["run_s"],
                 # from the first batch on the card to the last: leaves out what a
                 # short run spends before it (the aligner, CUDA start-up)
                 traced_device_span_s=span_s, device_busy_share_in_span=device_s / span_s)
-        for run in runs:
-            got = _fasta_records(run["fasta"])
-            if got != want or run["windows"] != e2e["windows_produced"]:
-                raise RuntimeError(
-                    f"procpool {tag}: {len(got)} records, {run['windows']} windows; the "
-                    f"in-process serial run wrote {len(want)} records from "
-                    f"{e2e['windows_produced']} windows, or their bytes differ"
-                )
+        else:
+            plain = _run_inference_cli(env, tmp, tag, e2e["fastq"], extra)
+        got = _fasta_records(plain["fasta"])
+        if got != want or plain["windows"] != e2e["windows_produced"]:
+            raise RuntimeError(
+                f"procpool {tag}: {len(got)} records, {plain['windows']} windows; the "
+                f"in-process serial run wrote {len(want)} records from "
+                f"{e2e['windows_produced']} windows, or their bytes differ"
+            )
         same_order = open(plain["fasta"], "rb").read() == open(e2e["fasta"], "rb").read()
         report[tag] = dict(
             {k: plain[k] for k in ("run_s", "windows", "windows_per_s", "featgen_s",
@@ -3459,7 +3847,8 @@ def main() -> int:
         phase_train(torch, tmp)
         train_parallel_launches = phase_train_parallel(torch, tmp)
         phase_distill(torch, tmp)
-        f32_launches = phase_float32(torch, tmp, e2e, results)
+        f32_launches, tiny_ckpt = phase_float32(torch, tmp, e2e, results)
+        simt8_launches = phase_int8_any(torch, tmp, e2e, tiny_ckpt, results)
         tools_launches = phase_tools(torch, tmp)
     attention_launches = phase_attention(torch)
 
@@ -3480,6 +3869,9 @@ def main() -> int:
     # and attention()), each the sum of its entry points
     for name, modes in F32_KERNELS.items():
         launches[name] = sum(f32_launches[m] for m in modes)
+    # the SIMT int8 kernels from the int8_any phase's path, the same way
+    for name, modes in SIMT8_KERNELS.items():
+        launches[name] = sum(simt8_launches[m] for m in modes)
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_share", "library_ms")
     summary = []
@@ -3500,12 +3892,16 @@ def main() -> int:
                 n: train_parallel_launches.get(n, 0) for n in names}
         if k["name"] in F32_KERNELS:  # each entry point's launches on the float32 path
             summary[-1]["mode_launches"] = {m: f32_launches[m] for m in F32_KERNELS[k["name"]]}
+        if k["name"] in SIMT8_KERNELS:  # and on the int8_any path
+            summary[-1]["mode_launches"] = {m: simt8_launches[m]
+                                            for m in SIMT8_KERNELS[k["name"]]}
         if k["name"] in E2E_KERNELS:  # and on the paths of the tools that drive the model
             summary[-1]["battery_launches"] = battery_launches[k["name"]]
             summary[-1]["demo_launches"] = demo_launches[k["name"]]
             summary[-1]["tools_launches"] = tools_launches[k["name"]]
     missing = [e["name"] for e in summary if not e["launches"]]
     missing += [m for modes in F32_KERNELS.values() for m in modes if not f32_launches[m]]
+    missing += [m for modes in SIMT8_KERNELS.values() for m in modes if not simt8_launches[m]]
     if missing or len(summary) != len(launches) or len(summary) != len(kernels.KERNELS):
         raise RuntimeError(f"kernels never launched on their path: {missing}")
     print(smi)

@@ -96,7 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--int8", action=argparse.BooleanOptionalAction, default=None,
         help="quantize the qkv and FFN matmuls of the layer stack to int8 "
         "(per-row activations, per-channel weights); default follows the "
-        "checkpoint's config",
+        "checkpoint's config. On the card it takes bf16 and float32 configs "
+        "at d_model a multiple of 32 up to 512, d_ff (a shard's under --tp) a "
+        "multiple of 32 up to 2048 and head dims 16-128: bf16 at the shipped "
+        "widths runs the int8 tensor-core kernels, the rest the SIMT int8 ones",
     )
     pi.add_argument(
         "--resume", action="store_true",
@@ -165,7 +168,8 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument(
         "--int8", action=argparse.BooleanOptionalAction, default=None,
         help="quantize the qkv and FFN matmuls of the layer stack to int8; "
-        "default follows the checkpoint's config",
+        "default follows the checkpoint's config (on the card: bf16 or float32, "
+        "the widths inference --int8 takes)",
     )
     pe.add_argument(
         "--shuffle-quals", action="store_true",

@@ -34,6 +34,15 @@ __device__ inline float dequant(int acc, float s_row, float s_col, float bias) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col), bias);
 }
 
+// gelu_tanh as PyTorch's CUDA kernel computes it in float32 (the plain
+// version's F.gelu on the card): the cube (exact for a bf16 input), one
+// fused multiply-add, tanhf. K11's, both instances.
+__device__ inline float gelu_tanh(float v) {
+  const float cube = __fmul_rn(__fmul_rn(v, v), v);
+  const float inner = __fmul_rn(0.7978845608028654f, __fmaf_rn(0.044715f, cube, v));
+  return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.f, tanhf(inner)));
+}
+
 __device__ inline float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

@@ -145,15 +145,6 @@ __device__ inline void merge_tally(float& m, int& c, float m2, int c2) {
   m = fmaxf(m, m2);
 }
 
-// gelu_tanh as PyTorch's CUDA kernel computes it in float32 (the plain
-// version's F.gelu on the card): the cube (exact for a bf16 input), one
-// fused multiply-add, tanhf
-__device__ inline float gelu_tanh(float v) {
-  const float cube = __fmul_rn(__fmul_rn(v, v), v);
-  const float inner = __fmul_rn(0.7978845608028654f, __fmaf_rn(0.044715f, cube, v));
-  return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.f, tanhf(inner)));
-}
-
 // h_i8 over the bf16 hidden, in place (see the head of the file), for the
 // warpgroup's 32 rows: per int8 block j, a thread quantizes two 16-byte
 // units, row 32 wg + t/8 (and 16 rows further), 16-byte chunk t % 8.

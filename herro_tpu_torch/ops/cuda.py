@@ -19,7 +19,10 @@ and per mode for a kernel whose source has more than one entry point
 The float32 kernels (``*_f32.cu``, SIMT FFMA over ``f32.cuh``) take the
 float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
 not; the wrappers in ``ops/fused.py`` and ``ops/attention.py`` choose
-between the two by the operands' dtype. :func:`on_card` reads
+between the two by the operands' dtype. The int8 kernels K10 and K11 have
+a SIMT instance each as well (``*_q_simt.cu``, ``__dp4a`` over
+``int8_simt.cuh``), for float32 or bf16 at those widths;
+``fused.int8_kernel_name`` chooses between it and the Hopper one. :func:`on_card` reads
 ``HERRO_TPU_PALLAS`` at every call, as the reference reads it, and refuses
 ``0`` on the card.
 """
@@ -72,6 +75,10 @@ KERNELS = {
     "ln_qkv_rope_f32": ("herro_ln_qkv_rope_f32", [_P] * 10 + [_I] * 5 + [_P]),
     "flash_f32": ("herro_flash_f32", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "ln_ffn_f32": ("herro_ln_ffn_f32", [_P] * 9 + [_L, _I, _I, _P]),
+    # int8 for float32 or bf16 at the float32 kernels' widths (SIMT __dp4a,
+    # int8_simt.cuh); the last int says whether x is bf16
+    "ln_qkv_rope_q_simt": ("herro_ln_qkv_rope_q_simt", [_P] * 11 + [_I] * 6 + [_P]),
+    "ln_ffn_q_simt": ("herro_ln_ffn_q_simt", [_P] * 12 + [_L, _I, _I, _I, _P]),
 }
 
 # further entry points of a kernel's source, each a mode of its device code
@@ -79,7 +86,7 @@ KERNELS = {
 # two passes of a tensor-parallel shard (parallel/tensor.py); the float32
 # qkv kernel's split route (the rope tables built in the kernel, K8's); the
 # float32 attention without a band (K7's) and without the out projection
-# (K9's)
+# (K9's); the SIMT K11's two passes, as the Hopper one's
 MODES = {
     "ln_ffn_q_rowmax": ("ln_ffn_q", "herro_ln_ffn_q_rowmax", [_P] * 8 + [_L, _I, _I, _P]),
     "ln_ffn_q_rowscale": (
@@ -91,6 +98,13 @@ MODES = {
     "flash_f32_full": ("flash_f32", "herro_flash_f32_full", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "flash_f32_attention": (
         "flash_f32", "herro_flash_f32_attention", [_P] * 5 + [_I] * 5 + [_F, _P],
+    ),
+    "ln_ffn_q_simt_rowmax": (
+        "ln_ffn_q_simt", "herro_ln_ffn_q_simt_rowmax", [_P] * 8 + [_L, _I, _I, _I, _P],
+    ),
+    "ln_ffn_q_simt_rowscale": (
+        "ln_ffn_q_simt", "herro_ln_ffn_q_simt_rowscale",
+        [_P] * 10 + [_F, _P, _P, _L, _I, _I, _I, _P],
     ),
 }
 

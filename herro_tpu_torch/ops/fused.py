@@ -38,7 +38,10 @@ differentiates it. No op has a backward kernel: nor has the reference.
 * ``ln_qkv_rope_q`` (K10), ``ln_ffn_q`` (K11) — the int8 variants of K1 and
   K3: activations quantized per row, weights per output column
   (``quantize_weight``), int8 x int8 -> int32 products, float32
-  dequantization. K11 has two more modes for a tensor-parallel shard, whose
+  dequantization. Each has a Hopper instance (int8 ``wgmma``, bf16 at the
+  shipped widths) and a SIMT one (``__dp4a``, float32 or bf16 at the float32
+  kernels' widths); ``int8_kernel_name`` chooses. K11 has two more modes for
+  a tensor-parallel shard, whose
   hidden holds d_ff / tp columns of a row that is quantized as a whole:
   ``ln_ffn_q_rowmax`` (the row maxima of |h| over the shard's columns, and
   how many of them reach it) and
@@ -72,18 +75,20 @@ F32_MAX_D_FF = 2048  # a multiple of 32
 F32_MAX_ROWS = 63  # pileup rows the float32 entry takes (K5's range)
 
 
-def _check_f32_widths(d: int, f: int | None = None, D: int | None = None) -> None:
-    """The widths the float32 kernels take, each named in a ValueError."""
+def _check_f32_widths(d: int, f: int | None = None, D: int | None = None,
+                      kind: str = "float32") -> None:
+    """The widths the float32 kernels take, each named in a ValueError; the
+    SIMT int8 kernels (``kind`` "int8 SIMT") take the same."""
     _cuda.check(d % 32 == 0 and 32 <= d <= F32_MAX_D_MODEL,
-                f"d_model {d}: the float32 kernels take a multiple of 32 up to "
+                f"d_model {d}: the {kind} kernels take a multiple of 32 up to "
                 f"{F32_MAX_D_MODEL}")
     if f is not None:
         _cuda.check(f % 32 == 0 and 32 <= f <= F32_MAX_D_FF,
-                    f"d_ff {f}: the float32 kernel takes a multiple of 32 up to "
+                    f"d_ff {f}: the {kind} kernel takes a multiple of 32 up to "
                     f"{F32_MAX_D_FF}")
     if D is not None:
         _cuda.check(D in _cuda.F32_HEAD_DIMS,
-                    f"head dim {D}: the float32 kernels take {_cuda.F32_HEAD_DIMS}")
+                    f"head dim {D}: the {kind} kernels take {_cuda.F32_HEAD_DIMS}")
 
 
 _rope_cache: dict = {}
@@ -665,7 +670,37 @@ def _ln_qkv_rope_q_plain(x, scale, bias, w_i8, s_col, b, n_heads: int):
     return _rope_split_heads(qkv.reshape(B, L, 3, H, D))
 
 
+def int8_kernel_name(dtype, d: int, f: int | None = None, D: int | None = None) -> str:
+    """The kernel an int8 op takes on the card for activations of ``dtype``:
+    K10 for the qkv projection at head dim ``D`` (``f`` None), K11 for the
+    FFN at d_ff ``f`` (a shard's, under tensor parallelism; K11's two modes
+    take its instance under their own names). The Hopper instance
+    (``ln_qkv_rope_q``, ``ln_ffn_q``: int8 ``wgmma``) where it takes the
+    operands, bf16 at its widths; otherwise the SIMT one
+    (``ln_qkv_rope_q_simt``, ``ln_ffn_q_simt``: ``__dp4a``) for float32 or
+    bf16 at the float32 kernels' widths; outside those a ValueError that
+    names the dtype or the width. The reference picks its int8 kernels by
+    backend and length alone (``herro_tpu/ops/fused.py:480-486``,
+    ``:797-804``); this is the port's choice of instance, on the arguments
+    alone."""
+    if f is None:
+        if dtype == torch.bfloat16 and D == HEAD_DIM and d in QKV_Q_WIDTHS:
+            return "ln_qkv_rope_q"
+    elif dtype == torch.bfloat16 and _ffn_q_hopper_takes(d, f):
+        return "ln_ffn_q"
+    _check_int8_simt(dtype, d, f, D)
+    return "ln_qkv_rope_q_simt" if f is None else "ln_ffn_q_simt"
+
+
+def _check_int8_simt(dtype, d: int, f: int | None = None, D: int | None = None) -> None:
+    """The activations and widths the SIMT int8 kernels take."""
+    _cuda.check(dtype in (torch.float32, torch.bfloat16),
+                f"x is {dtype}: the int8 kernels take torch.float32 or torch.bfloat16")
+    _check_f32_widths(d, f, D, kind="int8 SIMT")
+
+
 def _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads: int):
+    """K10's Hopper instance (``int8_kernel_name``'s ``ln_qkv_rope_q``)."""
     B, L, d = x.shape
     H = n_heads
     D = w_i8.shape[1] // (3 * H)
@@ -691,13 +726,43 @@ def _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads: int):
     return q, k, v
 
 
+def _ln_qkv_rope_q_simt_cuda(x, scale, bias, w_i8, s_col, b, n_heads: int):
+    """K10's SIMT instance (``ln_qkv_rope_q_simt``): float32 or bf16 x, b of
+    x's dtype, at the float32 kernels' widths."""
+    B, L, d = x.shape
+    H = n_heads
+    D = w_i8.shape[1] // (3 * H)
+    N = 3 * H * D
+    _check_int8_simt(x.dtype, d, D=D)
+    _cuda.check(w_i8.shape == (d, N) and s_col.shape == (N,) and b.shape == (N,),
+                "qkv shapes")
+    _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
+    _cuda.require_dtype(x.dtype, b=b)
+    _cuda.require_dtype(torch.float32, scale=scale, bias=bias, s_col=s_col)
+    dev = _cuda.require_operands(x=x, scale=scale, bias=bias, s_col=s_col, b=b,
+                                 **_require_k_major(w_i8=w_i8))
+    q, k, v = (torch.empty(B, H, L, D, dtype=x.dtype, device=dev) for _ in range(3))
+    with torch.cuda.device(dev):
+        cos, sin = _rope_tables_cached(L, D, dev)
+        _cuda.call(
+            "ln_qkv_rope_q_simt", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w_i8.data_ptr(), s_col.data_ptr(), b.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H, D,
+            int(x.dtype == torch.bfloat16), _cuda.stream_of(x),
+        )
+    return q, k, v
+
+
 def ln_qkv_rope_q(x, scale, bias, w_i8, s_col, b, n_heads: int):
     """int8 LN + qkv projection + rotary: x [B, L, d] -> (q, k, v)
     [B, H, L, D], with (w_i8 [d, 3*H*D], s_col) from ``quantize_weight``. On
-    the card w_i8 must be ``k_major``. Not differentiable on its own: under
-    autograd it runs inside ``attention_block_q`` or ``attention_shard_q``."""
+    the card w_i8 must be ``k_major``, and the instance is
+    ``int8_kernel_name``'s. Not differentiable on its own: under autograd it
+    runs inside ``attention_block_q`` or ``attention_shard_q``."""
     if _cuda.on_card(x):
-        return _ln_qkv_rope_q_cuda(x, scale, bias, w_i8, s_col, b, n_heads)
+        name = int8_kernel_name(x.dtype, x.shape[-1], D=w_i8.shape[1] // (3 * n_heads))
+        wrapper = _ln_qkv_rope_q_cuda if name == "ln_qkv_rope_q" else _ln_qkv_rope_q_simt_cuda
+        return wrapper(x, scale, bias, w_i8, s_col, b, n_heads)
     return _ln_qkv_rope_q_plain(x, scale, bias, w_i8, s_col, b, n_heads)
 
 
@@ -750,19 +815,28 @@ def _ln_ffn_q_rowscale_plain(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
 FFN_Q_D_FF = {256: (512, 1536), 512: (256, 1280)}
 
 
-def _check_ffn_q(x, scale, bias, w1_i8, s1, b1, *second):
-    """The checks of K11's three modes: (w2_i8, s2, b2) as ``second`` where
-    the mode runs the second product. Returns the device."""
+def _ffn_q_hopper_takes(d: int, f: int) -> bool:
+    lo, hi = FFN_Q_D_FF.get(d, (0, -1))
+    return lo <= f <= hi and f % 128 == 0
+
+
+def _check_ffn_q(x, scale, bias, w1_i8, s1, b1, *second, simt: bool = False):
+    """The checks of K11's three modes, on the Hopper instance or (``simt``)
+    the SIMT one: (w2_i8, s2, b2) as ``second`` where the mode runs the
+    second product. Returns the device."""
     d = x.shape[-1]
     f = w1_i8.shape[1]
-    lo, hi = FFN_Q_D_FF.get(d, (0, -1))
-    _cuda.check(lo <= f <= hi and f % 128 == 0,
-                f"(d_model, d_ff) = ({d}, {f}): the kernel takes d_ff a multiple of 128 "
-                f"in {FFN_Q_D_FF} by d_model")
+    if simt:
+        _check_int8_simt(x.dtype, d, f)
+    else:
+        _cuda.check(_ffn_q_hopper_takes(d, f),
+                    f"(d_model, d_ff) = ({d}, {f}): the kernel takes d_ff a multiple of 128 "
+                    f"in {FFN_Q_D_FF} by d_model")
     _cuda.check(w1_i8.shape == (d, f) and s1.shape == (f,) and b1.shape == (f,),
                 "ff1 shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
-    _cuda.require_dtype(torch.bfloat16, x=x)
+    if not simt:
+        _cuda.require_dtype(torch.bfloat16, x=x)
     _cuda.require_dtype(torch.float32, scale=scale, bias=bias, s1=s1, b1=b1)
     weights = dict(w1_i8=w1_i8)
     vectors = {}
@@ -823,11 +897,73 @@ def _ln_ffn_q_rowscale_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
     return out
 
 
+def _ln_ffn_q_simt_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
+    """K11's SIMT instance (``ln_ffn_q_simt``): float32 or bf16 x at the
+    float32 kernels' widths. Its hidden, [T, d_ff] of x's dtype, and the row
+    maxima pass through a scratch allocated here."""
+    dev = _check_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, simt=True)
+    d, f = x.shape[-1], w1_i8.shape[1]
+    T = x.numel() // d
+    hidden = torch.empty(T, f, dtype=x.dtype, device=dev)
+    hmax = torch.empty(T, dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_ffn_q_simt", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_i8.data_ptr(),
+            s2.data_ptr(), b2.data_ptr(), hidden.data_ptr(), hmax.data_ptr(), out.data_ptr(),
+            T, d, f, int(x.dtype == torch.bfloat16), _cuda.stream_of(x),
+        )
+    return out
+
+
+def _ln_ffn_q_rowmax_simt_cuda(x, scale, bias, w1_i8, s1, b1, ties: bool = False):
+    dev = _check_ffn_q(x, scale, bias, w1_i8, s1, b1, simt=True)
+    d, f = x.shape[-1], w1_i8.shape[1]
+    hmax = torch.empty(x.shape[:-1], dtype=torch.float32, device=dev)
+    count = torch.empty(x.shape[:-1], dtype=torch.int32, device=dev) if ties else None
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_ffn_q_simt_rowmax", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(), hmax.data_ptr(),
+            None if count is None else count.data_ptr(), x.numel() // d, d, f,
+            int(x.dtype == torch.bfloat16), _cuda.stream_of(x),
+        )
+    return hmax, count
+
+
+def _ln_ffn_q_rowscale_simt_cuda(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
+                                 res_scale: float):
+    dev = _check_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, simt=True)
+    d, f = x.shape[-1], w1_i8.shape[1]
+    _cuda.check(hmax.shape == x.shape[:-1], f"hmax {tuple(hmax.shape)}: one a row of x")
+    _cuda.require_dtype(torch.float32, hmax=hmax)
+    _cuda.require_operands(x=x, hmax=hmax)
+    T = x.numel() // d
+    hidden = torch.empty(T, f, dtype=x.dtype, device=dev)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _cuda.call(
+            "ln_ffn_q_simt_rowscale", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            w1_i8.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_i8.data_ptr(),
+            s2.data_ptr(), b2.data_ptr(), hmax.data_ptr(), float(res_scale),
+            hidden.data_ptr(), out.data_ptr(), T, d, f, int(x.dtype == torch.bfloat16),
+            _cuda.stream_of(x),
+        )
+    return out
+
+
+def _ffn_q_on_simt(x, w1_i8) -> bool:
+    """Whether K11 takes its SIMT instance for x and (a shard's) W1."""
+    return int8_kernel_name(x.dtype, x.shape[-1], w1_i8.shape[1]) == "ln_ffn_q_simt"
+
+
 def ln_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
     """int8 pre-norm FFN block with residual: x [..., d] + FF2(quant(gelu(
     FF1(quant(LN(x)))))); (w1_i8, s1), (w2_i8, s2) from ``quantize_weight``,
-    b1 and b2 float32. On the card the weights must be ``k_major``.
-    Differentiable in every float input."""
+    b1 and b2 float32. On the card the weights must be ``k_major``, and the
+    instance is ``int8_kernel_name``'s. Differentiable in every float
+    input."""
     args = (x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2)
     if _needs_grad(*args):
         return _RecomputePlain.apply(_ln_ffn_q_op, _ln_ffn_q_plain, (), *args)
@@ -836,7 +972,8 @@ def ln_ffn_q(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2):
 
 def _ln_ffn_q_op(x, *rest):
     if _cuda.on_card(x):
-        return _ln_ffn_q_cuda(x, *rest)
+        simt = _ffn_q_on_simt(x, rest[2])
+        return (_ln_ffn_q_simt_cuda if simt else _ln_ffn_q_cuda)(x, *rest)
     return _ln_ffn_q_plain(x, *rest)
 
 
@@ -856,7 +993,8 @@ def ln_ffn_q_rowmax(x, scale, bias, w1_i8, s1, b1):
 
 def _ln_ffn_q_rowmax_op(x, *rest):
     if _cuda.on_card(x):
-        return _ln_ffn_q_rowmax_cuda(x, *rest)
+        simt = _ffn_q_on_simt(x, rest[2])
+        return (_ln_ffn_q_rowmax_simt_cuda if simt else _ln_ffn_q_rowmax_cuda)(x, *rest)
     return _ln_ffn_q_rowmax_plain(x, *rest)
 
 
@@ -876,7 +1014,8 @@ def ln_ffn_q_rowscale(x, scale, bias, w1_i8, s1, b1, w2_i8, s2, b2, hmax,
 
 def _ln_ffn_q_rowscale_op(x, *rest):
     if _cuda.on_card(x):
-        return _ln_ffn_q_rowscale_cuda(x, *rest)
+        simt = _ffn_q_on_simt(x, rest[2])
+        return (_ln_ffn_q_rowscale_simt_cuda if simt else _ln_ffn_q_rowscale_cuda)(x, *rest)
     return _ln_ffn_q_rowscale_plain(x, *rest)
 
 

@@ -347,9 +347,12 @@ def test_kernel_has_its_own_entry_source_and_counter(name):
 
 def test_registry_holds_all_eleven_kernels():
     """The eleven Hopper kernels, one a pallas_call site of the reference,
-    and beside them the four float32 kernels of the same functions."""
+    and beside them the four float32 kernels of the same functions and the
+    two SIMT int8 ones (K10 and K11 at float32 and at every width)."""
     f32 = {"entry_embed_f32", "ln_qkv_rope_f32", "flash_f32", "ln_ffn_f32"}
-    assert len(set(kernels.KERNELS) - f32) == 11 and f32 <= set(kernels.KERNELS)
+    simt8 = {"ln_qkv_rope_q_simt", "ln_ffn_q_simt"}
+    assert len(set(kernels.KERNELS) - f32 - simt8) == 11
+    assert f32 | simt8 <= set(kernels.KERNELS)
     sources = {f[:-3] for f in os.listdir(kernels.CSRC) if f.endswith(".cu")}
     assert sources == set(kernels.KERNELS)
 
