@@ -55,7 +55,9 @@ each print one JSON line:
 6. ``eval``    — the ``eval`` subcommand for the flagship weights under
    ``local_window`` 512 at the demo size, and under none and 384 on 60 reads
    (each must launch its own attention kernel and no other), and for
-   ``model_r9_sim`` on 60 reads; ``battery`` — the ``standard`` regime of
+   ``model_r9_sim`` on 60 reads (the eval runs of one size, here and in the
+   later phases, share one simulation and its feature tensors, each run's
+   model on the card on its own); ``battery`` — the ``standard`` regime of
    ``tools/eval_battery_torch.py`` for the flagship at the battery's own
    size and seed, through ``tools/merge_battery.py``'s gate against the
    committed ``resources/eval_battery.json`` (within 0.2 dB, het >= 0.99),
@@ -155,7 +157,24 @@ each print one JSON line:
    checkpoint on one device and at ``--devices 2 --tp 2``, ``eval --int8`` of
    it on 60 reads, one d384x5L int8 correct step (its ms) and one tiny int8
    train step;
-15. ``tools`` — each ported tool once at a reduced size, its launches
+15. ``bf16_any`` — bf16 at every width and head dim, through the bf16 SIMT
+   instances (``csrc/*_bf16.cu``; the Hopper instances keep every width
+   they were built for): K4, K1/K8, K2/K6/K7/K9 and K3 against their plain
+   versions at B=32 (the flagship at head dim 64, "r10h64": d 512, H 8 x
+   64, band 512, K1/K8, K2 and K9, at L=9216; TINY_CONFIG's widths at
+   L=9216 and 1024; the tp 2 shards of both) at the bf16 bars of
+   ``compare``, timed beside the bound (float32 FFMA at 67 TFLOP/s), the
+   plain version and SDPA or one torch.matmul in bf16; the bf16 flagship's
+   ``e2e`` launches (Hopper only, K1-K3 102, K4 34); then the path, counted
+   from 0: the tiny and r10h64 bf16 forwards against herro_tpu's bf16
+   logits frozen in ``tests/torch_data`` (the class on every supported
+   column, the gap at most twice the CPU's; at tp 2 the classes on >= 0.99),
+   ``inference`` of tiny in bf16 on one device and ``--devices 2 --tp 2``,
+   both again under ``--int8``, the r10h64 correct step at B=32, L=9216 on
+   one device and at tp 2 (ms, classes >= 0.99), ``attention()`` at head
+   dims 16, 32 and 64 under band 512, 40 and none, and two ``train`` steps
+   of tiny in bf16;
+16. ``tools`` — each ported tool once at a reduced size, its launches
    counted: the soup, 4 fine-tune steps on the ``train`` phase's windows,
    the systematic audit and the e2e profile on 24 reads, the step-time
    probe at B=32, L=9216 for r10 and d384x5L (K1-K4's d 384 instances), and
@@ -166,8 +185,9 @@ nvidia-smi, the per-kernel JSON summary (K1-K4 also with their launches in
 ``train_parallel``, counted from 0 over its layouts' steps; K1-K5 with
 theirs in ``battery``, ``demo`` and ``tools``; K10 and K11's modes with
 theirs in the int8 layouts of ``parallel`` and ``train_parallel``; the
-float32 kernels with their launches on the ``float32`` phase's path and the
-SIMT int8 ones on the ``int8_any`` phase's, by entry point) and
+float32 kernels with their launches on the ``float32`` phase's path, the
+SIMT int8 ones on the ``int8_any`` phase's and the bf16 SIMT ones on the
+``bf16_any`` phase's, by entry point) and
 ``{"ok": true, "device": ...}``.
 Imports nothing of JAX or herro_tpu.
 """
@@ -331,10 +351,13 @@ def float64_layernorm_sums(fused, plain, *args):
         fused.layernorm = kept
 
 
-def share_differing(got, ref) -> float:
-    """The largest share, over the outputs, of elements that differ at all."""
+def share_differing(got, ref, keep=None) -> float:
+    """The largest share, over the outputs, of elements that differ at all
+    (of the rows ``keep`` masks, where given)."""
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
+    if keep is not None:
+        got, ref = tuple(a[keep] for a in got), tuple(r[keep] for r in ref)
     return max(float((a != r).float().mean()) for a, r in zip(got, ref))
 
 
@@ -771,10 +794,13 @@ def run_cases(torch, cases: dict, phase: str = "kernels") -> list:
         )
         ok = err <= tol and (part_err is None or part_err <= part_tol)
         extra = {}
-        if c.get("share_differing"):  # the int32 product is exact: LN and gelu differ
-            extra["share_differing"] = share_differing(got, ref)
+        if c.get("share_differing"):  # int8: the int32 product is exact; bf16: roundings
+            extra["share_differing"] = share_differing(got, ref, keep)
+        if "max_share" in c:  # bf16 SIMT: a missed rounding moves most outputs
+            extra["share_bar"] = c["max_share"]
+            ok = ok and extra["share_differing"] <= c["max_share"]
         if "floor" in c:  # the same share between two plain runs, LN's sums apart
-            extra["share_differing_floor"] = floor = share_differing(c["floor"](), ref)
+            extra["share_differing_floor"] = floor = share_differing(c["floor"](), ref, keep)
             # the kernel's LayerNorm sums in another order again: at most twice that
             if "chain" not in c:
                 ok = ok and extra["share_differing"] <= 2 * floor
@@ -1582,13 +1608,67 @@ EVAL_ARGS = ["--with-baseline", "-w", "4096", "-b", "32", "--sub-rate", "0.02",
 DEMO_SIZE = ["--genome-len", "150000", "--n-reads", "160"]
 SMALL_SIZE = ["--genome-len", "60000", "--n-reads", "60"]
 ATTENTION_KERNELS = ("flash_outproj", "flash_outproj_full", "flash_outproj_band")
+# simulate's arguments -> (the dataset, its reads' feature tensors by (read
+# name, window)), shared by the eval runs of one seed and size
+_SIMULATIONS: dict = {}
+
+
+@contextlib.contextmanager
+def _one_simulation():
+    """``eval`` runs of one seed and size on one simulation: the flagship
+    under its three masks and r9 (60 reads), the tiny checkpoints, and
+    ``--int8`` beside bf16 at the demo size. The first run of a size
+    simulates and builds each read's feature tensors on the host; later
+    runs take the same dataset and tensors (both are functions of the seed
+    and size alone) and run only their own model on the card, so every
+    run's launches and corrected identity are what they are on its own,
+    and its wall time holds no simulation and no featgen. Inside the block
+    ``evaluate``'s simulate and the engine's serial featgen
+    (``extract_read_tensors``, which ``eval`` takes: one featgen thread, no
+    worker process) are memoized; each run gets a list of its own, and the
+    windows are only read. Yields the run's counts: ``reused`` (the dataset
+    came from an earlier run), ``featgen_calls`` and ``featgen_reused``;
+    raises after the block when the engine read no memoized featgen."""
+    from herro_tpu_torch.features import extract
+    from herro_tpu_torch.training import eval as evaluation
+
+    simulate, featgen = evaluation.simulate, extract.extract_read_tensors
+    current: dict = {}
+    stats = dict(reused=False, featgen_calls=0, featgen_reused=0)
+
+    def shared_simulate(**kw):
+        key = repr(sorted(kw.items()))
+        stats["reused"] = key in _SIMULATIONS
+        if key not in _SIMULATIONS:
+            _SIMULATIONS[key] = (simulate(**kw), {})
+        ds, current["features"] = _SIMULATIONS[key]
+        return ds
+
+    def shared_featgen(rid, reads, alns, window_size):
+        key = (reads.ids[rid], window_size)
+        features = current["features"]
+        stats["featgen_calls"] += 1
+        stats["featgen_reused"] += key in features
+        if key not in features:
+            features[key] = list(featgen(rid, reads, alns, window_size))
+        return list(features[key])
+
+    evaluation.simulate, extract.extract_read_tensors = shared_simulate, shared_featgen
+    try:
+        yield stats
+    finally:
+        evaluation.simulate, extract.extract_read_tensors = simulate, featgen
+    if not stats["featgen_calls"]:
+        raise RuntimeError("eval read no memoized featgen: the engine no longer takes "
+                           "extract.extract_read_tensors at call time")
 
 
 def phase_eval(torch, tmp: str) -> dict:
     """The ``eval`` subcommand for the flagship weights under three attention
     masks (the band the checkpoint ships with at the demo size, the other two
-    on 60 reads to keep the run short), and for the r9 checkpoint on 60 reads.
-    Returns each run's result document with its launches."""
+    on 60 reads to keep the run short), and for the r9 checkpoint on 60 reads;
+    the 60-read runs on one simulation (``_one_simulation``). Returns each
+    run's result document with its launches."""
     with open(os.path.join(CKPT, "config.json")) as fh:
         base_cfg = json.load(fh)
     runs = []
@@ -1660,7 +1740,7 @@ def _run_eval(torch, phase: str, label: str, ckpt: str, size, int8: bool = False
     torch.cuda.synchronize()
     kernels.launch_counts.reset()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _one_simulation() as shared:
         cli.main(["eval", ckpt, *EVAL_ARGS, *size, *(["--int8"] if int8 else [])])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1668,6 +1748,7 @@ def _run_eval(torch, phase: str, label: str, ckpt: str, size, int8: bool = False
     res = json.loads(buf.getvalue())
     base = res["counting_baseline"]
     emit(phase, model=label, int8=int8, attention_kernel=expected, wall_s=wall,
+         shared_simulation=shared,
          n_reads=res["n_reads"], raw_identity=res["raw_identity"],
          corrected_identity=res["corrected_identity"], raw_q=res["raw_q"],
          corrected_q=res["corrected_q"], corrected_infix_q=res["corrected_infix_q"],
@@ -2502,9 +2583,24 @@ def phase_distill(torch, tmp: str) -> None:
 # the float32 kernels' absolute bars, the CPU tests' (tests/test_torch_kernels.py)
 F32_ATOL = 1e-4
 F32_ATOL_PROJ = 2e-4  # after the out projection's extra contraction
-# (d, H, D, d_ff, band) of the float32 rows: TINY_CONFIG (no band) and
-# model_r10_sim with dtype float32
-F32_WIDTHS = {"tiny": (32, 2, 16, 64, None), "r10": (512, 4, 128, 1024, 512)}
+# the share of a bf16 SIMT row's outputs that may differ from the plain
+# version's at all. Sums in another order move a bf16 rounding only where a
+# value lies within float32's error of a rounding boundary: at most 0.17% of
+# the outputs on an H100. A rounding missed or added moves one at a large
+# share of them: 4-42% (tools/bf16_rounding_faults.py; PERF.md section 6).
+# K9's rows take compare's bars alone: its online softmax rounds P against a
+# running maximum, so 6-13% of its outputs are an ulp apart without a fault.
+BF16_SIMT_MAX_SHARE = 2.0 ** -6
+# (d, H, D, d_ff, band) of the SIMT rows: TINY_CONFIG (no band),
+# model_r10_sim (in float32), the flagship at head dim 64 (r10h64, bf16) and
+# the tp 2 shards of tiny and r10h64
+SIMT_WIDTHS = {"tiny": (32, 2, 16, 64, None), "r10": (512, 4, 128, 1024, 512),
+               "r10h64": (512, 8, 64, 1024, 512), "tiny-tp2": (32, 1, 16, 32, None),
+               "r10h64-tp2": (512, 4, 64, 512, 512)}
+# the (tag, L) of each dtype's SIMT rows, in order (simt_cases)
+SIMT_PLANS = {"float32": (("r10", L), ("tiny", L), ("tiny", 1024)),
+              "bfloat16": (("r10h64", L), ("tiny", L), ("tiny", 1024), ("tiny-tp2", L),
+                           ("r10h64-tp2", L))}
 F32_REPLACES = {
     "entry_embed_f32": "herro_tpu/ops/fused.py:89",
     "ln_qkv_rope_f32": "herro_tpu/ops/fused.py:572",
@@ -2523,15 +2619,29 @@ F32_KERNELS = {  # kernel -> its entry points (launch counters)
 }
 
 
-def float32_cases(torch) -> dict:
-    """The float32 kernels against their plain versions at B=32: model_r10_sim's
-    widths in float32 (d 512, H 4 x D 128, d_ff 1024, band 512) at L=9216,
-    TINY_CONFIG's (d 32, H 2 x D 16, d_ff 64) at L=9216 and L=1024, K9's mode
-    under band 512, band 40 and no band. Each row's bound is the larger of
-    its bytes over the card's memory rate and its FFMA operations over the
-    float32 peak; its library call is SDPA in float32 with the mask (the same
-    function, for the attention rows) or one float32 torch.matmul of the
-    dominant product, TF32 off."""
+def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
+    """The SIMT kernels of ``dtype`` against their plain versions at B=32,
+    each (tag, L) of ``plans`` (by default ``SIMT_PLANS[dtype]``) at the
+    widths of ``SIMT_WIDTHS``.
+    float32 (``csrc/*_f32.cu``): model_r10_sim's widths in float32 at L=9216,
+    TINY_CONFIG's at L=9216 and 1024, within 1e-4 (2e-4 after the out
+    projection). bfloat16 (``csrc/*_bf16.cu``, the widths no Hopper instance
+    takes): the flagship at head dim 64 (r10h64: K1/K8, K2 and K9; its K4
+    and K3 at d 512 are the Hopper instances') at L=9216, TINY_CONFIG's at
+    L=9216 and 1024, and the tp 2 shards of both (K1, K2/K7, K3), at the
+    bf16 bars of ``compare``; every row but K9's also with at most
+    ``BF16_SIMT_MAX_SHARE`` of its outputs differing at all. tiny's K1/K8,
+    K3 and K4, whose sums run over 16-64 terms and which have come out
+    bit-equal with their plain versions in every run on the card, are held
+    exact. So one missed bf16 rounding fails the rows it reaches, K9's P
+    alone excepted (``tools/bf16_rounding_faults.py``). K9's mode runs at
+    each band of a tag that is no shard (band 512, 40 and none for tiny at
+    L=9216). The first row of a kernel is its main row. Each row's bound is
+    the larger of its bytes over the card's memory rate and its operations
+    over the card's peak for the operands' type (float32 or bf16), whatever
+    units the instance multiplies on; its library call is SDPA in ``dtype``
+    with the mask (the attention rows) or one torch.matmul in ``dtype`` of
+    the dominant product, TF32 off."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -2542,10 +2652,20 @@ def float32_cases(torch) -> dict:
     R, V = N_ROWS, VOCAB_SIZE
     rng = np.random.default_rng(4242)
     g = torch.Generator(device=dev).manual_seed(4242)
-    f32 = torch.float32
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
+    sfx, es = ("f32", 4) if f32 else ("bf16", 2)  # the instances' suffix, the bytes a value
+    lib_dt = "float32 (TF32 off)" if f32 else "bf16"
+    peak = PEAK_F32 if f32 else PEAK_BF16
+    tol_k9 = dict(atol=F32_ATOL) if f32 else dict(share_differing=True)
+    tol = tol_k9 if f32 else dict(tol_k9, max_share=BF16_SIMT_MAX_SHARE)
+    tol_proj = dict(atol=F32_ATOL_PROJ) if f32 else tol
 
-    def randn(*shape, std=1.0):
-        return torch.randn(*shape, generator=g, device=dev) * std
+    def replaces(name):  # the TPU kernel a row's instance replaces, by its float32 name
+        return F32_REPLACES[name.replace(sfx, "f32")]
+
+    def randn(*shape, std=1.0, dtype=dt):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
     def pileup(n):
         lengths = rng.integers(int(0.7 * n), n + 1, size=B).astype(np.int32)
@@ -2572,90 +2692,102 @@ def float32_cases(torch) -> dict:
             return F.scaled_dot_product_attention(*qkv, attn_mask=bias)
 
     def sdpa_bias(lens, band, n):
-        """The mask as SDPA's additive float32 bias [B, 1, n, n]."""
+        """The mask as SDPA's additive bias [B, 1, n, n] in ``dtype``."""
         pos = torch.arange(n, device=dev)
         ok = (pos[None, :] < lens[:, None])[:, None, None, :]
         if band is not None:
             ok = ok & ((pos[:, None] - pos[None, :]).abs() <= band)[None, None]
-        return torch.zeros(B, 1, n, n, device=dev).masked_fill_(~ok, float("-inf"))
+        return torch.zeros(B, 1, n, n, device=dev, dtype=dt).masked_fill_(~ok, float("-inf"))
 
     cases = {}
-    for tag, n in (("r10", L), ("tiny", L), ("tiny", 1024)):
-        d, H, D, f, band = F32_WIDTHS[tag]
+    for tag, n in plans or SIMT_PLANS[dtype]:
+        d, H, D, f, band = SIMT_WIDTHS[tag]
         T = B * n
-        main = tag == "r10"  # the main rows: the full width, whose times PERF.md keeps
-        iters = 5 if main else 10
 
-        def key(name, *labels):
+        def add(name, c, *labels, tag=tag, n=n):
+            """The first row of a kernel under its own name (its main row),
+            later ones under their entry point's, labelled."""
+            if c.get("mode") is None and not labels and name not in cases:
+                cases[name] = dict(c, name=name)
+                return
             labels = [tag, *labels] + ([] if n == L else [f"L={n}"])
-            return f"{name}[{', '.join(labels)}]"
+            cases[f"{c.get('mode') or name}[{', '.join(labels)}]"] = dict(c, name=name)
+
+        wide = tag.startswith("r10")  # the widest rows, whose times PERF.md keeps
+        shard = tag.endswith("tp2")
+        hopper_d = not f32 and d in fused.EMBED_WIDTHS  # bf16 K4 and K3 take Hopper here
+        # tiny bf16's K1/K8, K3 and K4: bit-equal with the plain version on the card
+        short = tol if f32 or not tag.startswith("tiny") else dict(tol, exact=True)
+        iters = 5 if wide else 10
 
         tok, quals, lens_np = pileup(n)
         lens = torch.from_numpy(lens_np).to(dev)
         wc = fused.col_proj_table(randn(d, R * V, std=(R * (V + 1)) ** -0.5),
                                   randn(d, R, std=(R * (V + 1)) ** -0.5))
-        cb = randn(d, std=0.25)
+        cb = randn(d, std=0.25, dtype=torch.float32)
         x = randn(B, n, d)
-        ln_s, ln_b = 1.0 + randn(d, std=0.1), randn(d, std=0.1)
+        ln_s = 1.0 + randn(d, std=0.1, dtype=torch.float32)
+        ln_b = randn(d, std=0.1, dtype=torch.float32)
         w_qkv, b_qkv = randn(d, 3 * H * D, std=d ** -0.5), randn(3 * H * D, std=0.25)
         wo, bo = randn(H, D, d, std=(H * D) ** -0.5), randn(d, std=0.25)
         w1, b1 = randn(d, f, std=d ** -0.5), randn(f, std=0.25)
         w2, b2 = randn(f, d, std=f ** -0.5), randn(d, std=0.25)
-        q, k, v = fused._ln_qkv_rope_cuda(x, ln_s, ln_b, w_qkv, b_qkv, H)
-        nnz = int((tok < V).sum()) + int((quals != 0).sum())
-        idx = (tok.long() + torch.arange(R, device=dev)[None, :, None] * V
-               ).permute(0, 2, 1).reshape(-1, R)
-        emb = wc[: R * fused.COL_SLOT].view(R, fused.COL_SLOT, d)[:, :V].reshape(R * V, d)
-        qkv_bytes = 3 * B * H * n * D * 4
-        a_embed = (tok, quals, wc, cb, f32)
-        cases["entry_embed_f32" if main else key("entry_embed_f32")] = dict(
-            name="entry_embed_f32", replaces=F32_REPLACES["entry_embed_f32"],
-            kernel=lambda a=a_embed: fused._entry_embed_cuda(*a),
-            plain=lambda a=a_embed: fused._entry_embed_plain(*a),
-            library=("F.embedding_bag(mode=sum) of the token rows, float32, no qual term",
-                     lambda idx=idx, emb=emb: F.embedding_bag(idx, emb, mode="sum")),
-            bound=bound(tok.numel() * 5 + T * d * 4 + wc.numel() * 4 + d * 4, 2 * d * nnz,
-                        PEAK_F32),
-            atol=F32_ATOL, iters=iters,
-        )
+        qkv_name = f"ln_qkv_rope_{sfx}"
+        q, k, v = fused._ln_qkv_rope_cuda(x, ln_s, ln_b, w_qkv, b_qkv, H, kernel=qkv_name)
+        qkv_bytes = 3 * B * H * n * D * es
+        if not (hopper_d or shard):
+            nnz = int((tok < V).sum()) + int((quals != 0).sum())
+            idx = (tok.long() + torch.arange(R, device=dev)[None, :, None] * V
+                   ).permute(0, 2, 1).reshape(-1, R)
+            emb = wc[: R * fused.COL_SLOT].view(R, fused.COL_SLOT, d)[:, :V].reshape(R * V, d)
+            a_embed = (tok, quals, wc, cb, dt)
+            name = f"entry_embed_{sfx}"
+            add(name, dict(
+                replaces=replaces(name),
+                kernel=lambda a=a_embed, k_=name: fused._entry_embed_cuda(*a, kernel=k_),
+                plain=lambda a=a_embed: fused._entry_embed_plain(*a),
+                library=(f"F.embedding_bag(mode=sum) of the token rows, {lib_dt}, no qual "
+                         f"term", lambda idx=idx, emb=emb: F.embedding_bag(idx, emb, mode="sum")),
+                bound=bound(tok.numel() * 5 + T * d * es + wc.numel() * es + d * 4, 2 * d * nnz,
+                            peak),
+                iters=iters, **short))
         a_qkv = (x, ln_s, ln_b, w_qkv, b_qkv, H)
-        for route in ("ln_qkv_rope_f32", "ln_qkv_rope_f32_split")[: 2 if n == L else 1]:
+        for route in (qkv_name, f"{qkv_name}_split")[: 2 if n == L and not shard else 1]:
             c = dict(
-                name="ln_qkv_rope_f32", replaces=F32_REPLACES[route],
-                mode=None if route == "ln_qkv_rope_f32" else route,
+                mode=None if route == qkv_name else route, replaces=replaces(route),
                 kernel=lambda a=a_qkv, r=route: fused._ln_qkv_rope_cuda(*a, kernel=r),
                 plain=lambda a=a_qkv: fused._ln_qkv_rope_plain(*a),
-                library=("torch.matmul LN(x)[T,d] @ W_qkv[d,3HD] float32 (TF32 off), the "
-                         "dominant product",
-                         lambda x=x, w=w_qkv, T=T, d=d: torch.matmul(x.view(T, d), w)),
-                bound=bound(T * d * 4 + qkv_bytes + d * 3 * H * D * 4, 2 * T * d * 3 * H * D,
-                            PEAK_F32),
-                atol=F32_ATOL, iters=iters,
+                library=(f"torch.matmul LN(x)[T,d] @ W_qkv[d,3HD] {lib_dt}, the dominant "
+                         f"product", lambda x=x, w=w_qkv, T=T, d=d: torch.matmul(x.view(T, d), w)),
+                bound=bound(T * d * es + qkv_bytes + d * 3 * H * D * es, 2 * T * d * 3 * H * D,
+                            peak),
+                iters=iters, **short,
             )
-            if route == "ln_qkv_rope_f32_split":  # the same bits as the table route
-                c["twin"] = lambda a=a_qkv: fused._ln_qkv_rope_cuda(*a, kernel="ln_qkv_rope_f32")
-            cases[route if main and c["mode"] is None else key(route)] = c
-        bands = [band] if main else ([None, 512, 40] if n == L else [None])
+            if route != qkv_name:  # the same bits as the table route
+                c["twin"] = lambda a=a_qkv: fused._ln_qkv_rope_cuda(*a, kernel=qkv_name)
+            add(qkv_name, c)
+        bands = [band] if wide or shard else ([None, 512, 40] if n == L else [None])
         for w in bands:
-            route = "flash_f32" if w is not None else "flash_f32_full"
-            labels = [] if w is None else [f"w={w}"]
+            route = f"flash_{sfx}" if w is not None else f"flash_{sfx}_full"
+            w_labels = [] if w is None or wide else [f"w={w}"]
             a_att = (q, k, v, x, wo, bo, lens, w)
-            cases["flash_f32" if main else key(route, *labels)] = dict(
-                name="flash_f32", mode=None if route == "flash_f32" else route,
+            add(f"flash_{sfx}", dict(
+                mode=None if w is not None else route,
                 replaces=F32_REPLACES["flash_f32_full" if w is None
                                       else "flash_f32" if w % 256 == 0 else "flash_f32[K6]"],
-                kernel=lambda a=a_att: fused._flash_outproj_cuda(*a),
+                kernel=lambda a=a_att, r=route: fused._flash_outproj_cuda(*a, kernel=r),
                 plain=lambda a=a_att: fused._flash_outproj_plain(*a),
-                library=(f"F.scaled_dot_product_attention (memory-efficient backend) float32 "
+                library=(f"F.scaled_dot_product_attention (memory-efficient backend) {lib_dt} "
                          f"with the mask (band {w}) as an additive bias: attention only, no "
                          f"out projection",
                          lambda bias, qkv=(q, k, v): sdpa(qkv, bias),
                          lambda lens=lens, w=w, n=n: sdpa_bias(lens, w, n)),
-                bound=bound(qkv_bytes + 2 * T * d * 4 + H * D * d * 4,
+                bound=bound(qkv_bytes + 2 * T * d * es + H * D * d * es,
                             4 * H * D * band_pairs(w, lens_np, n)
-                            + 2 * int(lens_np.sum()) * H * D * d, PEAK_F32),
-                rows=lens_np, residual=x, atol=F32_ATOL_PROJ, iters=iters,
-            )
+                            + 2 * int(lens_np.sum()) * H * D * d, peak),
+                rows=lens_np, residual=x, iters=iters, **tol_proj), *w_labels)
+            if shard:
+                continue
             k9_np = lens_np
             if w is None:  # mixed lengths, one window empty (it must come out 0)
                 k9_np = lens_np.copy()
@@ -2663,29 +2795,30 @@ def float32_cases(torch) -> dict:
                 k9_np[3] = 0
             k9_lens = torch.from_numpy(k9_np).to(dev)
             a_k9 = (q, k, v, k9_lens, w)
-            cases[key("flash_f32_attention", *(labels or ["no band"]))] = dict(
-                name="flash_f32", mode="flash_f32_attention",
-                replaces=F32_REPLACES["flash_f32_attention"],
-                kernel=lambda a=a_k9: attention._flash_attention_cuda(*a),
+            k9 = f"flash_{sfx}_attention"
+            add(f"flash_{sfx}", dict(
+                mode=k9, replaces=replaces(k9),
+                kernel=lambda a=a_k9, k_=k9: attention._flash_attention_cuda(*a, kernel=k_),
                 plain=lambda a=a_k9: attention._flash_attention_plain(*a),
-                library=(f"F.scaled_dot_product_attention (memory-efficient backend) float32 "
+                library=(f"F.scaled_dot_product_attention (memory-efficient backend) {lib_dt} "
                          f"with the mask (band {w}) as an additive bias: the same function",
                          lambda bias, qkv=(q, k, v): sdpa(qkv, bias),
                          lambda lens=k9_lens, w=w, n=n: sdpa_bias(lens, w, n)),
-                bound=bound(4 * B * H * n * D * 4, 4 * H * D * band_pairs(w, k9_np, n),
-                            PEAK_F32),
-                rows=k9_np, atol=F32_ATOL, iters=iters,
-            )
+                bound=bound(4 * B * H * n * D * es, 4 * H * D * band_pairs(w, k9_np, n),
+                            peak),
+                rows=k9_np, iters=iters, **tol_k9), f"w={w}" if w is not None else "no band")
+        if hopper_d:
+            continue
         a_ffn = (x, ln_s, ln_b, w1, b1, w2, b2)
-        cases["ln_ffn_f32" if main else key("ln_ffn_f32")] = dict(
-            name="ln_ffn_f32", replaces=F32_REPLACES["ln_ffn_f32"],
-            kernel=lambda a=a_ffn: fused._ln_ffn_cuda(*a),
+        name = f"ln_ffn_{sfx}"
+        add(name, dict(
+            replaces=replaces(name),
+            kernel=lambda a=a_ffn, k_=name: fused._ln_ffn_cuda(*a, kernel=k_),
             plain=lambda a=a_ffn: fused._ln_ffn_plain(*a),
-            library=("torch.matmul LN(x)[T,d] @ W1[d,f] float32 (TF32 off), half the "
-                     "operations", lambda x=x, w=w1, T=T, d=d: torch.matmul(x.view(T, d), w)),
-            bound=bound(2 * T * d * 4 + 2 * d * f * 4, 4 * T * d * f, PEAK_F32),
-            residual=x, atol=F32_ATOL, iters=iters,
-        )
+            library=(f"torch.matmul LN(x)[T,d] @ W1[d,f] {lib_dt}, half the operations",
+                     lambda x=x, w=w1, T=T, d=d: torch.matmul(x.view(T, d), w)),
+            bound=bound(2 * T * d * es + 2 * d * f * es, 4 * T * d * f, peak),
+            residual=x, iters=iters, **short))
     return cases
 
 
@@ -2835,13 +2968,20 @@ def _f32_want_step(cfg) -> dict:
     return {names[k]: n for k, n in _want_step_launches(cfg).items()}
 
 
+def _tiny_entry(cfg) -> str:
+    """The SIMT K4 instance of a tiny config's dtype (float32 or bf16)."""
+    return "entry_embed_f32" if cfg.dtype == "float32" else "entry_embed_bf16"
+
+
 def _tiny_block_launches(cfg, tp: int = 1, int8: bool = False) -> dict:
-    """A batch's launches of the float32 block kernels (int8: the SIMT int8
-    ones, K11's two modes on a shard), every layer on each of ``tp``
+    """A batch's launches of the SIMT block kernels of a tiny config's dtype
+    (float32 or bf16; int8: the SIMT int8 K10 and K11, K11's two modes on a
+    shard, beside that dtype's attention), every layer on each of ``tp``
     shards."""
-    attn = "flash_f32_full" if cfg.local_window is None else "flash_f32"
+    sfx = "f32" if cfg.dtype == "float32" else "bf16"
+    attn = f"flash_{sfx}_full" if cfg.local_window is None else f"flash_{sfx}"
     if not int8:
-        names = ("ln_qkv_rope_f32", attn, "ln_ffn_f32")
+        names = (f"ln_qkv_rope_{sfx}", attn, f"ln_ffn_{sfx}")
     elif tp == 1:
         names = ("ln_qkv_rope_q_simt", attn, "ln_ffn_q_simt")
     else:
@@ -2912,11 +3052,11 @@ def _f32_train(torch, tmp: str) -> tuple[dict, str]:
     return report, out
 
 
-def _f32_eval(torch, ckpt: str, int8: bool = False) -> dict:
+def _tiny_eval(torch, ckpt: str, int8: bool = False, phase: str = "float32") -> dict:
     """``eval`` of a tiny checkpoint on 60 reads through the CLI (``int8``:
-    with ``--int8``): every batch runs K4's float32 kernel once and the
+    with ``--int8``): every batch runs the SIMT K4 of its dtype once and the
     block's n_layers times (the SIMT int8 K10 and K11 under int8), K5 once,
-    no bf16 kernel; the result is finite. A tiny model trained for 6 steps
+    no Hopper kernel; the result is finite. A tiny model trained for 6 steps
     is no corrector: its identity is reported, not held to a bar."""
     import math
 
@@ -2929,48 +3069,52 @@ def _f32_eval(torch, ckpt: str, int8: bool = False) -> dict:
     torch.cuda.synchronize()
     before = kernels.launch_counts.snapshot()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _one_simulation() as shared:
         cli.main(["eval", ckpt, *EVAL_ARGS, *SMALL_SIZE, *(["--int8"] if int8 else [])])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     after = kernels.launch_counts.snapshot()
     launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     res = json.loads(buf.getvalue())
-    n_b = launches.get("entry_embed_f32", 0)
-    want = {"entry_embed_f32": n_b, "count_decisions": n_b,
+    n_b = launches.get(_tiny_entry(cfg), 0)
+    want = {_tiny_entry(cfg): n_b, "count_decisions": n_b,
             **{k: n * n_b for k, n in _tiny_block_launches(cfg, int8=int8).items()}}
-    emit("int8_any" if int8 else "float32", run="eval tiny" + (" --int8" if int8 else ""),
-         wall_s=wall, n_reads=res["n_reads"],
+    emit(phase, run="eval tiny" + (" --int8" if int8 else ""),
+         wall_s=wall, shared_simulation=shared, n_reads=res["n_reads"],
          raw_identity=res["raw_identity"], corrected_identity=res["corrected_identity"],
          launches=launches, want_launches=want)
     if n_b == 0 or launches != want or res["n_reads"] == 0 \
             or not math.isfinite(res["corrected_identity"]):
-        raise RuntimeError(f"float32 eval: launches {launches} (want {want}), reads "
+        raise RuntimeError(f"{phase} eval: launches {launches} (want {want}), reads "
                            f"{res['n_reads']}, identity {res['corrected_identity']}")
     return dict(res, launches=launches)
 
 
-def _f32_inference_tp(torch, tmp: str, e2e: dict, ckpt: str, int8: bool = False) -> dict:
+def _tiny_inference_tp(torch, tmp: str, e2e: dict, ckpt: str, int8: bool = False,
+                      phase: str = "float32") -> dict:
     """``inference -m <tiny checkpoint>`` through the CLI on the e2e reads
     (alignments of 16 targets from the stub aligner), on one device and with
-    ``--devices 2 --tp 2``, both shards on ``cuda:0``: the same records, the
-    float32 kernels launched (K4's once a shard and batch, the block's
-    n_layers times a shard and batch, K5 once a batch) and no bf16 kernel.
-    ``int8``: with ``--int8``, the SIMT int8 K10 and K11 (its two modes on a
-    shard) in the block; the share of records the two write alike is
-    reported (``phase_int8_any`` holds the classes to the bar)."""
+    ``--devices 2 --tp 2``, both shards on ``cuda:0``: the SIMT kernels of
+    the checkpoint's dtype launched (K4's once a shard and batch, the
+    block's n_layers times a shard and batch, K5 once a batch) and no Hopper
+    kernel; in float32 the same records. ``int8``: with ``--int8``, the SIMT
+    int8 K10 and K11 (its two modes on a shard) in the block. Under int8 or
+    bf16 the share of records the two write alike is reported
+    (``phase_int8_any`` and ``phase_bf16_any`` hold the classes to their
+    bars)."""
     from herro_tpu_torch import cli
     from herro_tpu_torch.models.checkpoint import load_model
     from herro_tpu_torch.ops import cuda as kernels
     from herro_tpu_torch.parallel import mesh as mesh_mod
 
     cfg, _ = load_model(ckpt)
-    env = _stub_minimap2(os.path.join(tmp, "int8_stub" if int8 else "f32_stub"), e2e["rows"])
+    tag8 = f"{cfg.dtype}{'_int8' if int8 else ''}"
+    env = _stub_minimap2(os.path.join(tmp, f"{tag8}_stub"), e2e["rows"])
     runs = {}
     local_devices = mesh_mod.local_devices
     flag = ["--int8"] if int8 else []
     for tag, extra in (("single", []), ("tp2", ["--devices", "2", "--tp", "2"])):
-        out = os.path.join(tmp, f"tiny_{tag}{'_int8' if int8 else ''}.fasta")
+        out = os.path.join(tmp, f"tiny_{tag}_{tag8}.fasta")
         err = io.StringIO()
         torch.cuda.synchronize()
         before = kernels.launch_counts.snapshot()
@@ -2990,7 +3134,7 @@ def _f32_inference_tp(torch, tmp: str, e2e: dict, ckpt: str, int8: bool = False)
         launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         tp = 2 if extra else 1
         n_b = launches.get("count_decisions", 0)
-        want = {"entry_embed_f32": tp * n_b, "count_decisions": n_b,
+        want = {_tiny_entry(cfg): tp * n_b, "count_decisions": n_b,
                 **{k: n * n_b for k, n in _tiny_block_launches(cfg, tp, int8).items()}}
         runs[tag] = dict(wall_s=time.perf_counter() - t0, launches=launches,
                          want_launches=want, records=_fasta_records(out),
@@ -2998,14 +3142,14 @@ def _f32_inference_tp(torch, tmp: str, e2e: dict, ckpt: str, int8: bool = False)
     same = runs["tp2"]["records"] == runs["single"]["records"]
     alike = len(set(runs["tp2"]["records"]) & set(runs["single"]["records"])) / max(
         len(runs["single"]["records"]), 1)
-    emit("int8_any" if int8 else "float32",
-         run="inference tiny --tp 2" + (" --int8" if int8 else ""), records_equal=same,
+    emit(phase, run=f"inference tiny {cfg.dtype} --tp 2" + (" --int8" if int8 else ""),
+         records_equal=same,
          share_of_records_alike=alike, n_records=len(runs["single"]["records"]),
          **{tag: {k: v for k, v in r.items() if k != "records"} for tag, r in runs.items()})
     bad = [tag for tag, r in runs.items() if r["launches"] != r["want_launches"]
            or not r["launches"].get("count_decisions")]
-    if bad or not (same or int8) or not runs["single"]["records"]:
-        raise RuntimeError(f"float32 inference (int8 {int8}): launches off in {bad}, records "
+    if bad or not (same or int8 or cfg.dtype != "float32") or not runs["single"]["records"]:
+        raise RuntimeError(f"{phase} inference (int8 {int8}): launches off in {bad}, records "
                            f"equal {same}, {len(runs['single']['records'])} records")
     return runs
 
@@ -3038,7 +3182,7 @@ def _f32_attention(torch) -> dict:
 
 def phase_float32(torch, tmp: str, e2e: dict, results: dict) -> dict:
     """float32 and head dim 16 on the card: the four float32 kernels against
-    their plain versions (``float32_cases``; the rows join the kernels
+    their plain versions (``simt_cases``; the rows join the kernels
     phase's report), then the path, counted from 0: the tiny and float32-r10
     goldens against the frozen JAX logits, ``distill`` with no
     ``--student`` (the default tiny), ``train --config tiny``, ``eval`` of
@@ -3050,7 +3194,7 @@ def phase_float32(torch, tmp: str, e2e: dict, results: dict) -> dict:
     from herro_tpu_torch.ops import cuda as kernels
 
     t0 = time.perf_counter()
-    results["kernels"] += run_cases(torch, float32_cases(torch), "float32")
+    results["kernels"] += run_cases(torch, simt_cases(torch, "float32"), "float32")
     torch.cuda.empty_cache()
     rows_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -3068,8 +3212,8 @@ def phase_float32(torch, tmp: str, e2e: dict, results: dict) -> dict:
                            f"student launches {distill['student']}, expected {want}; "
                            f"student config {distill['cfg']}")
     _, tiny_ckpt = _f32_train(torch, tmp)
-    _f32_eval(torch, tiny_ckpt)
-    _f32_inference_tp(torch, tmp, e2e, tiny_ckpt)
+    _tiny_eval(torch, tiny_ckpt)
+    _tiny_inference_tp(torch, tmp, e2e, tiny_ckpt)
     _f32_attention(torch)
     torch.cuda.synchronize()
     launches = kernels.launch_counts.snapshot()
@@ -3401,13 +3545,270 @@ def phase_int8_any(torch, tmp: str, e2e: dict, tiny_ckpt: str, results: dict) ->
     torch.cuda.synchronize()
     kernels.launch_counts.reset()
     _int8_golden_runs(torch)
-    _f32_inference_tp(torch, tmp, e2e, tiny_ckpt, int8=True)
-    _f32_eval(torch, tiny_ckpt, int8=True)
+    _tiny_inference_tp(torch, tmp, e2e, tiny_ckpt, int8=True, phase="int8_any")
+    _tiny_eval(torch, tiny_ckpt, int8=True, phase="int8_any")
     _int8_d384_step(torch)
     _int8_train_step(torch, tmp, tiny_ckpt)
     torch.cuda.synchronize()
     launches = kernels.launch_counts.snapshot()
     emit("int8_any", run="phase", seconds=time.perf_counter() - t0, kernel_rows_s=rows_s,
+         path_launches={k: n for k, n in launches.items() if n})
+    return launches
+
+
+# the bf16 SIMT instances (bf16 at the widths and head dims no Hopper
+# instance takes; csrc/*_bf16.cu) and their entry points
+BF16_KERNELS = {"entry_embed_bf16": ("entry_embed_bf16",),
+                "ln_qkv_rope_bf16": ("ln_qkv_rope_bf16", "ln_qkv_rope_bf16_split"),
+                "flash_bf16": ("flash_bf16", "flash_bf16_full", "flash_bf16_attention"),
+                "ln_ffn_bf16": ("ln_ffn_bf16",)}
+
+
+def _bf16_maker():
+    """``tests/torch_data/make_bf16_golden.py``: the frozen bf16 goldens'
+    inputs and the port's r10h64 (it imports JAX only inside the functions
+    that build the files)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_bf16_golden", os.path.join(F32_DATA, "make_bf16_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16_block_launches(name: str, n_layers: int, tp: int = 1) -> dict:
+    """A forward's launches of tiny (every kernel its bf16 SIMT instance) or
+    r10h64 (K1 and K2 SIMT, K4 and K3 the Hopper ones at d 512) in bf16, on
+    each of ``tp`` shards."""
+    if name == "tiny":
+        return {"entry_embed_bf16": tp, "ln_qkv_rope_bf16": n_layers * tp,
+                "flash_bf16_full": n_layers * tp, "ln_ffn_bf16": n_layers * tp}
+    return {"entry_embed": tp, "ln_qkv_rope_bf16": n_layers * tp,
+            "flash_bf16": n_layers * tp, "ln_ffn": n_layers * tp}
+
+
+def _bf16_golden_runs(torch) -> None:
+    """tiny in bf16 and r10h64 on the frozen inputs against herro_tpu's bf16
+    logits of ``tests/torch_data`` (``make_bf16_golden.py``): the class on
+    every supported column, max |dlogit| and |dinfo| at most twice the CPU
+    plain route's gap the file records; tiny also under
+    ``HERRO_TPU_ROPE=split`` (the table route's gap, to the bit). Then both at
+    tp 2 (``TensorParallelModel`` over ``cuda:0`` twice): the classes agree
+    with the file's on at least ``TP_MIN_AGREE`` of the supported columns,
+    the gap reported. Each run launches what ``_bf16_block_launches``
+    says and nothing else."""
+    import numpy as np
+
+    mk = _bf16_maker()
+    dev = torch.device("cuda", 0)
+    bad, runs = [], {}
+    for name, frozen in (("tiny", mk.TINY_GOLDEN), ("r10h64", mk.R10H64_GOLDEN)):
+        want = np.load(frozen)
+        recorded = {k: float(want[k]) for k in ("cpu_max_dlogit", "cpu_max_dinfo")}
+        for tp in (1, 2):
+            gap = mk.port_gap(name, want, device=dev, tp=tp)
+            cfg = gap.pop("cfg")
+            want_launches = _bf16_block_launches(name, cfg.n_layers, tp)
+            agree = 1 - gap["flipped"] / gap["n"]
+            if tp == 1:
+                ok = (gap["flipped"] == 0 and gap["max_dlogit"] <= 2 * recorded["cpu_max_dlogit"]
+                      and gap["max_dinfo"] <= 2 * recorded["cpu_max_dinfo"])
+            else:
+                ok = agree >= TP_MIN_AGREE
+            ok = ok and gap["finite"] and gap["launches"] == want_launches
+            emit("bf16_any", run="golden", model=name, tp=tp, class_agreement=agree,
+                 cpu_gap=recorded, bar="2 x cpu_gap, every class" if tp == 1 else
+                 f"classes >= {TP_MIN_AGREE}", ok=ok, want_launches=want_launches, **gap)
+            runs[(name, tp)] = gap
+            if not ok:
+                bad.append(f"{name} tp {tp}: {gap}")
+    with _env(HERRO_TPU_ROPE="split"):
+        split = mk.port_gap("tiny", np.load(mk.TINY_GOLDEN), device=dev)
+    same = all(split[k] == runs[("tiny", 1)][k] for k in ("max_dlogit", "max_dinfo", "flipped"))
+    want_split = {("ln_qkv_rope_bf16_split" if k == "ln_qkv_rope_bf16" else k): n
+                  for k, n in _bf16_block_launches("tiny", split["cfg"].n_layers).items()}
+    emit("bf16_any", run="golden", model="tiny", rope="split", launches=split["launches"],
+         want_launches=want_split, same_gap_as_table_route=same)
+    if not same or split["launches"] != want_split:
+        bad.append(f"tiny under HERRO_TPU_ROPE=split: launches {split['launches']}, same {same}")
+    if bad:
+        raise RuntimeError("bf16 goldens: " + "; ".join(bad))
+
+
+def _bf16_tiny_checkpoint(tmp: str) -> str:
+    """``tests/torch_data/tiny_seed5`` with ``"dtype": "bfloat16"`` in a
+    copied ``config.json``."""
+    src, out = os.path.join(F32_DATA, "tiny_seed5"), os.path.join(tmp, "tiny_bf16")
+    os.makedirs(out)
+    shutil.copy(os.path.join(src, "params.msgpack"), out)
+    with open(os.path.join(src, "config.json")) as fh:
+        cfg = json.load(fh)
+    with open(os.path.join(out, "config.json"), "w") as fh:
+        json.dump(dict(cfg, dtype="bfloat16"), fh)
+    return out
+
+
+def _bf16_r10h64_step(torch) -> dict:
+    """The r10h64 forward at B=32, L=9216 (S=256) through the correct step,
+    on one device and over its tp 2 shards (H 4 x 64, d_ff 512 a shard; both
+    on ``cuda:0``): launches (K1 and K2 on the bf16 SIMT instances, K4 and
+    K3 on the Hopper ones, K5 once), finite outputs, the TP classes against
+    one device's (at least ``TP_MIN_AGREE``, decisions equal), and each
+    step's ms by the port's step timer."""
+    from herro_tpu_torch.models.model import CorrectionModel
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.parallel.tensor import TensorParallelModel, make_tp_correct_step
+    from herro_tpu_torch.pipeline.infer import make_correct_step_packed
+    from herro_tpu_torch.pipeline.steptime import example_batch, time_step
+
+    cfg, sd = _bf16_maker().port_r10h64()
+    dev = torch.device("cuda", 0)
+    model = CorrectionModel(cfg)
+    model.load_state_dict(sd)
+    steps = {"single": make_correct_step_packed(model.to(dev).eval()),
+             "tp2": make_tp_correct_step(TensorParallelModel(cfg, sd, [dev, dev]))}
+    sets = [[torch.from_numpy(a).to(dev) for a in example_batch(B, L, 256, seed=s)]
+            for s in (5, 6)]
+    smask = sets[0][3]
+    out, report = {}, {}
+    for tag, step in steps.items():
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            before = kernels.launch_counts.snapshot()
+            info, packed = step(*sets[0])
+            torch.cuda.synchronize()
+            after = kernels.launch_counts.snapshot()
+            timed = time_step(step, sets, B, iters=5)
+        tp = 2 if tag == "tp2" else 1
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = {**_bf16_block_launches("r10h64", cfg.n_layers, tp), "count_decisions": 1}
+        out[tag] = packed.cpu().numpy()
+        report[tag] = dict(ms=timed["ms"], windows_per_s=timed["windows_per_s"],
+                           launches=launches, want_launches=want,
+                           finite=bool(torch.isfinite(info).all()))
+    agree, dec = _agreement(out["tp2"], out["single"], smask.cpu().numpy())
+    emit("bf16_any", run="r10h64 step", card=nvidia_smi(), B=B, L=L, S=256,
+         tp2_class_agreement=agree, tp2_decisions_equal=dec, **report)
+    if any(r["launches"] != r["want_launches"] or not r["finite"] for r in report.values()) \
+            or agree < TP_MIN_AGREE or not dec:
+        raise RuntimeError(f"r10h64 step: {report}, tp 2 agreement {agree}, decisions {dec}")
+    return report
+
+
+def _bf16_attention(torch) -> dict:
+    """``attention(impl="auto")`` on bf16 q/k/v at head dims 16, 32 and 64
+    (B=8, H=2, L=4096; one example of length 0) under a band of 512, of 40
+    and none: one launch of the bf16 SIMT K9 each, within ``compare``'s bf16
+    bar of its plain version on the rows below each length, and 0 on the
+    empty example."""
+    from herro_tpu_torch.ops import attention as attn
+    from herro_tpu_torch.ops import cuda as kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(99)
+    n, nb = 4096, 8
+    lengths = torch.randint(n // 2, n + 1, (nb,), generator=g, device=dev).int()
+    lengths[1] = 0
+    keep = (torch.arange(n, device=dev)[None, :] < lengths[:, None])[:, None, :].expand(nb, 2, n)
+    total, report, bad = {}, {}, []
+    for D in (16, 32, 64):
+        q, k, v = (torch.randn(nb, 2, n, D, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        for band in (512, 40, None):
+            torch.cuda.synchronize()
+            before = kernels.launch_counts.snapshot()
+            out = attn.attention(q, k, v, lengths, band, impl="auto")
+            torch.cuda.synchronize()
+            after = kernels.launch_counts.snapshot()
+            launches = {k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]}
+            err, tol, _, _ = compare(torch, out, attn._flash_attention_plain(q, k, v, lengths,
+                                                                             band), keep)
+            report[f"D={D}, band {band}"] = dict(launches=launches, max_abs_err=err, tol=tol)
+            for k_, c in launches.items():
+                total[k_] = total.get(k_, 0) + c
+            if launches != {"flash_bf16_attention": 1} or err > tol or bool(out[1].any()):
+                bad.append(f"D {D} band {band}: {report[f'D={D}, band {band}']}")
+    emit("bf16_any", run="attention", shape=[nb, 2, n, "D"], cases=report)
+    if bad:
+        raise RuntimeError("bf16 attention(): " + "; ".join(bad))
+    return total
+
+
+def _bf16_train(torch, tmp: str, ckpt: str) -> dict:
+    """``train --config <tiny bf16 checkpoint>`` through the CLI on the
+    ``train`` phase's windows, 2 steps at batch 8 under autograd (the kernel
+    forward, the plain backward): each step launches the bf16 SIMT K4 once
+    and K1, K7 and K3 n_layers x 2 (remat), nothing else, with a finite CE;
+    the checkpoint it writes loads as bf16."""
+    import math
+
+    from herro_tpu_torch import cli
+    from herro_tpu_torch.models.checkpoint import load_model
+
+    cfg, _ = load_model(ckpt)
+    want = {k: (1 if k == "entry_embed_bf16" else 2 * n)
+            for k, n in _bf16_block_launches("tiny", cfg.n_layers).items()}
+    out = os.path.join(tmp, "trained_tiny_bf16")
+    args = dict(zip(TRAIN_ARGS[::2], TRAIN_ARGS[1::2]))
+    args.update({"--config": ckpt, "--batch-size": "8", "--steps": "2"})
+    steps: list = []
+    t0 = time.perf_counter()
+    with _timed_steps(torch, steps):
+        cli.main(["train", *(a for kv in args.items() for a in kv), "--data-cache",
+                  os.path.join(tmp, "train_windows.pkl"), out])
+    wall = time.perf_counter() - t0
+    per_step = _step_times(steps)
+    cfg_out, _ = load_model(out)
+    emit("bf16_any", run="train --config tiny bf16", wall_s=wall, per_step=per_step,
+         want_step_launches=want, config=cfg_out.__dict__)
+    if len(steps) != 2 or any(st["launches"] != want or not math.isfinite(st["ce"])
+                              for st in per_step) or cfg_out.dtype != "bfloat16":
+        raise RuntimeError(f"bf16 train: {per_step} (want launches {want}), config {cfg_out}")
+    return per_step
+
+
+def _bf16_e2e_unchanged(e2e: dict) -> dict:
+    """The bf16 flagship's ``e2e`` run launched only the Hopper instances:
+    K4 and K5 34 times, K1-K3 102 (its 34 batches of 3 layers), and no SIMT
+    kernel."""
+    want = {"entry_embed": 34, "ln_qkv_rope": 102, "flash_outproj": 102, "ln_ffn": 102,
+            "count_decisions": 34}
+    got = {k: n for k, n in e2e["launches"].items() if n}
+    emit("bf16_any", run="e2e launches (bf16 flagship)", launches=got, want_launches=want)
+    if got != want:
+        raise RuntimeError(f"the bf16 flagship's e2e run launched {got}, not {want}")
+    return got
+
+
+def phase_bf16_any(torch, tmp: str, e2e: dict, results: dict) -> dict:
+    """bf16 at every width and head dim, through the bf16 SIMT instances
+    (``csrc/*_bf16.cu``): each against its plain version
+    (``simt_cases(torch, "bfloat16")``; the rows join the kernels phase's
+    report); the bf16 flagship's ``e2e`` launches unchanged; then the path,
+    counted from 0: the tiny and r10h64 goldens (one device and tp 2),
+    ``inference`` of the tiny checkpoint in bf16 on one device and with
+    ``--devices 2 --tp 2``, the same with ``--int8``, the r10h64 step at
+    B=32, L=9216 on one device and at tp 2, ``attention()`` at head dims
+    16-64, and two ``train`` steps of the tiny bf16 checkpoint. Returns the
+    path's launches."""
+    from herro_tpu_torch.ops import cuda as kernels
+
+    t0 = time.perf_counter()
+    results["kernels"] += run_cases(torch, simt_cases(torch, "bfloat16"), "bf16_any")
+    torch.cuda.empty_cache()
+    rows_s = time.perf_counter() - t0
+    _bf16_e2e_unchanged(e2e)
+    ckpt = _bf16_tiny_checkpoint(tmp)
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    _bf16_golden_runs(torch)
+    _tiny_inference_tp(torch, tmp, e2e, ckpt, phase="bf16_any")
+    _tiny_inference_tp(torch, tmp, e2e, ckpt, int8=True, phase="bf16_any")
+    _bf16_r10h64_step(torch)
+    _bf16_attention(torch)
+    _bf16_train(torch, tmp, ckpt)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts.snapshot()
+    emit("bf16_any", run="phase", seconds=time.perf_counter() - t0, kernel_rows_s=rows_s,
          path_launches={k: n for k, n in launches.items() if n})
     return launches
 
@@ -3849,6 +4250,7 @@ def main() -> int:
         phase_distill(torch, tmp)
         f32_launches, tiny_ckpt = phase_float32(torch, tmp, e2e, results)
         simt8_launches = phase_int8_any(torch, tmp, e2e, tiny_ckpt, results)
+        bf16_launches = phase_bf16_any(torch, tmp, e2e, results)
         tools_launches = phase_tools(torch, tmp)
     attention_launches = phase_attention(torch)
 
@@ -3872,6 +4274,9 @@ def main() -> int:
     # the SIMT int8 kernels from the int8_any phase's path, the same way
     for name, modes in SIMT8_KERNELS.items():
         launches[name] = sum(simt8_launches[m] for m in modes)
+    # the bf16 SIMT instances from the bf16_any phase's path
+    for name, modes in BF16_KERNELS.items():
+        launches[name] = sum(bf16_launches[m] for m in modes)
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_share", "library_ms")
     summary = []
@@ -3895,6 +4300,9 @@ def main() -> int:
         if k["name"] in SIMT8_KERNELS:  # and on the int8_any path
             summary[-1]["mode_launches"] = {m: simt8_launches[m]
                                             for m in SIMT8_KERNELS[k["name"]]}
+        if k["name"] in BF16_KERNELS:  # and on the bf16_any path
+            summary[-1]["mode_launches"] = {m: bf16_launches[m]
+                                            for m in BF16_KERNELS[k["name"]]}
         if k["name"] in E2E_KERNELS:  # and on the paths of the tools that drive the model
             summary[-1]["battery_launches"] = battery_launches[k["name"]]
             summary[-1]["demo_launches"] = demo_launches[k["name"]]
@@ -3902,6 +4310,7 @@ def main() -> int:
     missing = [e["name"] for e in summary if not e["launches"]]
     missing += [m for modes in F32_KERNELS.values() for m in modes if not f32_launches[m]]
     missing += [m for modes in SIMT8_KERNELS.values() for m in modes if not simt8_launches[m]]
+    missing += [m for modes in BF16_KERNELS.values() for m in modes if not bf16_launches[m]]
     if missing or len(summary) != len(launches) or len(summary) != len(kernels.KERNELS):
         raise RuntimeError(f"kernels never launched on their path: {missing}")
     print(smi)

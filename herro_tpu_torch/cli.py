@@ -99,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
         "checkpoint's config. On the card it takes bf16 and float32 configs "
         "at d_model a multiple of 32 up to 512, d_ff (a shard's under --tp) a "
         "multiple of 32 up to 2048 and head dims 16-128: bf16 at the shipped "
-        "widths runs the int8 tensor-core kernels, the rest the SIMT int8 ones",
+        "widths runs the int8 tensor-core kernels, the rest the SIMT int8 ones; "
+        "the entry and attention take the --device widths",
     )
     pi.add_argument(
         "--resume", action="store_true",
@@ -253,7 +254,11 @@ def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--device", default="cuda",
         help="torch device to run on: cuda (default, the current card), "
-        "cuda:N, or cpu",
+        "cuda:N, or cpu. The card takes bf16 and float32 configs at d_model a "
+        "multiple of 32 up to 512, d_ff a multiple of 32 up to 2048 (bf16: or any "
+        "multiple of 128 at d_model 256, 384 or 512) and head dims 16, 32, 64 "
+        "or 128: bf16 at the shipped widths on the tensor-core kernels, the "
+        "rest on the SIMT ones",
     )
 
 

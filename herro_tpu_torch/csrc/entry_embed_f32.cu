@@ -1,82 +1,12 @@
-// K4 in float32: pileup tokens + quals -> the d_model stream.
-//
-// Replaces herro_tpu/ops/fused.py:_entry_embed_kernel (via _entry_embed_pallas)
-// for float32 configs (TINY_CONFIG, a float32 checkpoint), which the bf16
-// Hopper kernel (entry_embed.cu) does not take:
-//   out[t, c] = (sum_r E_r[tok[r, t], c] + sum_r qual[r, t] * wq_r[c]) + cb[c]
-// with E_r[v] row 16r + v and wq_r row 16r + V of the col_proj table Wc
-// [kp, d] (fused.col_proj_table); a token outside the vocab adds nothing.
-// The sums run over r in order, as the plain version's (one gather-add a
-// pileup row, then the quals' contraction, then the bias).
-//
-// Bound on the H100: bytes (tokens 1 B and quals 4 B per pileup row and
-// column, the [B, L, d] float32 output; the table stays in L1/L2).
-// Design: a thread a (token row, 4 output columns), the columns of one row in
-// consecutive threads, so a row's threads read its tokens and quals (a
-// broadcast) and R rows of Wc along the columns, a float4 each (coalesced,
-// cached), and write their outputs as float4s of one coalesced line. No
-// tensor cores: the function is a gather-sum, not a product.
-// Shapes: d a multiple of 32 up to 512, R 1-63, V 12, kp >= 16 R, any B, L.
-#include "f32.cuh"
-
-namespace herro {
-namespace embed_f32 {
-
-constexpr int kSlot = 16;
-
-__global__ void __launch_bounds__(f32::kThreads)
-    entry_embed_f32_kernel(const uint8_t* __restrict__ tok, const float* __restrict__ quals,
-                           const float* __restrict__ wc, const float* __restrict__ cb,
-                           float* __restrict__ out, int R, int L, int d, int V, long total) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;  // a float4 of the output
-  if (idx >= total) return;
-  const int dq = d / 4;
-  const long t = idx / dq;
-  const int c = (int)(idx % dq) * 4;
-  const long b = t / L;
-  const int l = (int)(t % L);
-  const long base = b * R * L + l;
-  float e[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int r = 0; r < R; ++r) {
-    const int v = tok[base + (long)r * L];
-    if (v < V) {
-      const float4 w = *reinterpret_cast<const float4*>(wc + (long)(kSlot * r + v) * d + c);
-      e[0] = __fadd_rn(e[0], w.x);
-      e[1] = __fadd_rn(e[1], w.y);
-      e[2] = __fadd_rn(e[2], w.z);
-      e[3] = __fadd_rn(e[3], w.w);
-    }
-  }
-  for (int r = 0; r < R; ++r) {
-    const float qv = quals[base + (long)r * L];
-    const float4 w = *reinterpret_cast<const float4*>(wc + (long)(kSlot * r + V) * d + c);
-    q[0] = fmaf(qv, w.x, q[0]);
-    q[1] = fmaf(qv, w.y, q[1]);
-    q[2] = fmaf(qv, w.z, q[2]);
-    q[3] = fmaf(qv, w.w, q[3]);
-  }
-  const float4 cb4 = *reinterpret_cast<const float4*>(cb + c);
-  const float bias[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
-  float y[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) y[i] = __fadd_rn(__fadd_rn(e[i], q[i]), bias[i]);
-  *reinterpret_cast<float4*>(out + t * d + c) = make_float4(y[0], y[1], y[2], y[3]);
-}
-
-}  // namespace embed_f32
-}  // namespace herro
+// K4 in float32: pileup tokens + quals -> the d_model stream, for float32
+// configs (TINY_CONFIG, a float32 checkpoint), which the bf16 Hopper kernel
+// (entry_embed.cu) does not take. The device code, its bound and its design
+// are entry_embed_simt.cuh's, at E = float.
+#include "entry_embed_simt.cuh"
 
 extern "C" int herro_entry_embed_f32(const uint8_t* tok, const float* quals, const float* wc,
                                      const float* cb, float* out, int B, int R, int L, int d,
                                      int V, int kp, void* stream) {
-  using namespace herro;
-  if (B < 1 || L < 1 || R < 1 || R > 63 || V < 1 || V >= embed_f32::kSlot ||
-      kp < embed_f32::kSlot * R || !f32::d_model_ok(d))
-    return (int)cudaErrorInvalidValue;
-  const long total = (long)B * L * d / 4;
-  const long blocks = (total + f32::kThreads - 1) / f32::kThreads;
-  embed_f32::entry_embed_f32_kernel<<<(unsigned)blocks, f32::kThreads, 0,
-                                      (cudaStream_t)stream>>>(tok, quals, wc, cb, out, R, L, d,
-                                                              V, total);
-  return (int)cudaGetLastError();
+  return herro::embed_simt::launch<float>(tok, quals, wc, cb, out, B, R, L, d, V, kp,
+                                          (cudaStream_t)stream);
 }

@@ -1,5 +1,7 @@
-// Shared pieces of the float32 kernels (entry_embed_f32, ln_qkv_rope_f32,
-// flash_f32, ln_ffn_f32): SIMT FFMA, no tensor cores.
+// Shared pieces of the SIMT kernels for float32 and for bf16 at the widths
+// the Hopper instances lack (entry_embed_simt.cuh, ln_qkv_rope_simt.cuh,
+// flash_simt.cuh, ln_ffn_f32.cu / ln_ffn_bf16.cu; the int8 ones of
+// int8_simt.cuh keep its tile layout): SIMT FFMA, no tensor cores.
 //
 // Why not wgmma: it takes float32 operands only as TF32 (a 10-bit
 // mantissa), which cannot hold the float32 forward within 2e-4 of the JAX
@@ -11,6 +13,19 @@
 // through two shared buffers, the next stage's global loads in registers
 // while the current one is multiplied.
 //
+// Every kernel is templated on the storage type E of its activations and
+// weights: float, or bf16 (__nv_bfloat16) for the bf16 configs whose widths
+// or head dims no Hopper instance was built for (TINY_CONFIG in bf16, head
+// dim 64, their tensor-parallel shards). Loads convert to float32 and the
+// shared stages hold float32, so a bf16 instance runs the same FFMA tile
+// product: a product of two bf16 values is exact in float32, and only the
+// order of the sums differs from the Hopper kernels' float32 accumulation.
+// Where the bf16 plain version rounds to bf16 (the LayerNorm output before
+// the product, qkv after the bias and again after the rope, the FFN hidden
+// after the bias and after gelu, P before P.V in K9, the attention output
+// before the out projection, every output), the kernel rounds through
+// round_to<E>, the identity for float.
+//
 // The roundings the plain versions (ops/fused.py) make outside a product
 // are made here in the same order with the _rn intrinsics, so that nvcc
 // contracts no a * b + c of theirs into one FMA: LayerNorm's statistics
@@ -20,11 +35,41 @@
 // rsqrtf/tanhf/expf against the host's are the difference the tests bound.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace herro {
 namespace f32 {
+
+// a value of storage type E as float, a float rounded to E as the plain
+// version's .to(dtype) rounds it, and four consecutive values of E (16-byte
+// aligned for float, 8 for bf16) loaded as float32 or stored from it
+__device__ inline float to_f(float v) { return v; }
+__device__ inline float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename E>
+__device__ inline float round_to(float v) {
+  return sizeof(E) == 2 ? bf16_round(v) : v;
+}
+__device__ inline void store1(float* p, float v) { *p = v; }
+__device__ inline void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ inline float4 load_f4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ inline float4 load_f4(const bf16* p) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const bf162*>(&a.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const bf162*>(&a.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+template <typename E>
+__device__ inline void load4(const E* p, float (&v)[4]) {
+  const float4 a = load_f4(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+// four values already rounded to E
+__device__ inline void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ inline void store4(bf16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
 
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads over the output tile
 constexpr int kBM = 128;       // token rows per tile: 8 per thread
@@ -49,16 +94,17 @@ __device__ inline int tile_col(int tx, int j) { return (j & 4) * 16 + 4 * tx + (
 
 // LayerNorm statistics of rows r0 .. r0 + kBM - 1 of x [T, d]: a warp a row,
 // mu = sum(x) / d and var = max(sum(x * x) / d - mu * mu, 0), float32
-__device__ inline void ln_stats(const float* __restrict__ x, long T, int d, long r0,
-                                float* mu, float* rstd) {
+template <typename E>
+__device__ inline void ln_stats(const E* __restrict__ x, long T, int d, long r0, float* mu,
+                                float* rstd) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kBM; r += kThreads / 32) {
     const long row = r0 + r;
     float s = 0.f, s2 = 0.f;
     if (row < T) {
-      const float* xr = x + row * d;
+      const E* xr = x + row * d;
       for (int c = lane; c < d; c += 32) {
-        const float v = xr[c];
+        const float v = to_f(xr[c]);
         s = __fadd_rn(s, v);
         s2 = __fadd_rn(s2, __fmul_rn(v, v));
       }
@@ -79,16 +125,17 @@ __device__ inline void ln_stats(const float* __restrict__ x, long T, int d, long
 
 // acc[i][j] = sum_k A[r0 + tile_row(ty, i), k] * W[k, n0 + tile_col(tx, j)]
 // over k < K, with (ty, tx) = (tid / 16, tid % 16), for a tile of kBM rows
-// and BN (64 or 128) columns. A [T, K] and W [K, N] are row-major float32;
-// K is a multiple of kBK, N of 4 (columns at or past N read 0, rows at or
-// past T read 0). With kLN, A is LayerNorm(x): ((x - mu) * rstd) * scale +
-// bias, the statistics of the tile's rows in mu/rstd (ln_stats). Two stages
+// and BN (64 or 128) columns. A [T, K] and W [K, N] are row-major, of
+// storage type E; K is a multiple of kBK, N of 4 (columns at or past N read
+// 0, rows at or past T read 0). With kLN, A is LayerNorm(x): ((x - mu) *
+// rstd) * scale + bias rounded to E, the statistics of the tile's rows in
+// mu/rstd (ln_stats). Two stages
 // in ``smem`` (2 stage_floats<BN>()): while one is multiplied, the next
 // one's global loads are in registers, stored to the other stage after the
 // products; one barrier a stage.
-template <int BN, bool kLN>
-__device__ inline void gemm_mainloop(float (&acc)[8][BN / 16], const float* __restrict__ A,
-                                     long T, int K, const float* __restrict__ W, int N,
+template <typename E, int BN, bool kLN>
+__device__ inline void gemm_mainloop(float (&acc)[8][BN / 16], const E* __restrict__ A,
+                                     long T, int K, const E* __restrict__ W, int N,
                                      long r0, int n0, float* smem, const float* mu,
                                      const float* rstd, const float* __restrict__ scale,
                                      const float* __restrict__ bias) {
@@ -109,14 +156,15 @@ __device__ inline void gemm_mainloop(float (&acc)[8][BN / 16], const float* __re
       const long row = r0 + r;
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
       if (row < T) {
-        a = *reinterpret_cast<const float4*>(A + row * K + k0 + kk);
+        a = load_f4(A + row * K + k0 + kk);
         if (kLN) {
           const float m = mu[r], rs = rstd[r];
           float* av = reinterpret_cast<float*>(&a);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            av[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(av[e], m), rs), scale[k0 + kk + e]),
-                              bias[k0 + kk + e]);
+            av[e] = round_to<E>(__fadd_rn(
+                __fmul_rn(__fmul_rn(__fsub_rn(av[e], m), rs), scale[k0 + kk + e]),
+                bias[k0 + kk + e]));
         }
       }
       ra[h] = a;
@@ -124,7 +172,7 @@ __device__ inline void gemm_mainloop(float (&acc)[8][BN / 16], const float* __re
 #pragma unroll
     for (int h = 0; h < G; ++h) {
       const int e = tid + kThreads * h, kb = e / (BN / 4), c = (e % (BN / 4)) * 4;
-      rb[h] = n0 + c < N ? *reinterpret_cast<const float4*>(W + (long)(k0 + kb) * N + n0 + c)
+      rb[h] = n0 + c < N ? load_f4(W + (long)(k0 + kb) * N + n0 + c)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
@@ -183,21 +231,22 @@ __device__ inline float gelu_tanh(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
 }
 
-// the epilogues of gemm_kernel
-constexpr int kEpiGelu = 0;      // y = gelu(A @ W + b)
-constexpr int kEpiResidual = 1;  // y = res + ((A @ W) + b)
-constexpr int kEpiResidualAfter = 2;  // y = (res + A @ W) + b
+// the epilogues of gemm_kernel, each rounded to E where the plain version
+// rounds (E: the storage type; float rounds nowhere)
+constexpr int kEpiGelu = 0;      // y = E(gelu(E(A @ W + b)))
+constexpr int kEpiResidual = 1;  // y = E(res + ((A @ W) + b))
+constexpr int kEpiResidualAfter = 2;  // y = E((res + A @ W) + b)
 
 // y [T, N] = A @ W + b through one of the epilogues above, A = LN(x)
-// under kLN; res [T, N] the residual. A tile of kBM x BN a block, grid
-// gemm_grid(T, N, BN); a thread stores its 8 rows as BN/64 float4s each.
-// Two blocks an SM: at most 128 registers a thread.
-template <bool kLN, int kEpi, int BN>
+// under kLN; res [T, N] the residual; A, W, b, res and y of type E. A tile
+// of kBM x BN a block, grid gemm_grid(T, N, BN); a thread stores its 8 rows
+// as BN/64 groups of 4 each. Two blocks an SM: at most 128 registers a
+// thread.
+template <typename E, bool kLN, int kEpi, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
-    gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ b, const float* __restrict__ res,
-                const float* __restrict__ scale, const float* __restrict__ bias,
-                float* __restrict__ y, long T, int K, int N) {
+    gemm_kernel(const E* __restrict__ A, const E* __restrict__ W, const E* __restrict__ b,
+                const E* __restrict__ res, const float* __restrict__ scale,
+                const float* __restrict__ bias, E* __restrict__ y, long T, int K, int N) {
   __shared__ __align__(16) float smem[2 * stage_floats<BN>()];
   __shared__ float mu[kBM], rstd[kBM];
   const long r0 = (long)blockIdx.x * kBM;
@@ -207,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
   }
   float acc[8][BN / 16];
-  gemm_mainloop<BN, kLN>(acc, A, T, K, W, N, r0, n0, smem, mu, rstd, scale, bias);
+  gemm_mainloop<E, BN, kLN>(acc, A, T, K, W, N, r0, n0, smem, mu, rstd, scale, bias);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -221,15 +270,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float a = acc[i][4 * g + e];
+        const float bn = to_f(b[n + e]);
         if (kEpi == kEpiGelu) {
-          v[e] = gelu_tanh(__fadd_rn(a, b[n + e]));
+          v[e] = round_to<E>(gelu_tanh(round_to<E>(__fadd_rn(a, bn))));
         } else if (kEpi == kEpiResidual) {
-          v[e] = __fadd_rn(res[row * N + n + e], __fadd_rn(a, b[n + e]));
+          v[e] = round_to<E>(__fadd_rn(to_f(res[row * N + n + e]), __fadd_rn(a, bn)));
         } else {
-          v[e] = __fadd_rn(__fadd_rn(res[row * N + n + e], a), b[n + e]);
+          v[e] = round_to<E>(__fadd_rn(__fadd_rn(to_f(res[row * N + n + e]), a), bn));
         }
       }
-      *reinterpret_cast<float4*>(y + row * N + n) = make_float4(v[0], v[1], v[2], v[3]);
+      store4(y + row * N + n, v);
     }
   }
 }
@@ -240,19 +290,30 @@ inline dim3 gemm_grid(long T, int N, int BN) {
 }
 
 // y = A @ W + b through epilogue kEpi, at the tile width for N
-template <bool kLN, int kEpi>
-void launch_gemm(const float* A, const float* W, const float* b, const float* res,
-                 const float* scale, const float* bias, float* y, long T, int K, int N,
-                 cudaStream_t stream) {
+template <typename E, bool kLN, int kEpi>
+void launch_gemm(const E* A, const E* W, const E* b, const E* res, const float* scale,
+                 const float* bias, E* y, long T, int K, int N, cudaStream_t stream) {
   if (tile_width(N) == 64)
-    gemm_kernel<kLN, kEpi, 64><<<gemm_grid(T, N, 64), kThreads, 0, stream>>>(
+    gemm_kernel<E, kLN, kEpi, 64><<<gemm_grid(T, N, 64), kThreads, 0, stream>>>(
         A, W, b, res, scale, bias, y, T, K, N);
   else
-    gemm_kernel<kLN, kEpi, 128><<<gemm_grid(T, N, 128), kThreads, 0, stream>>>(
+    gemm_kernel<E, kLN, kEpi, 128><<<gemm_grid(T, N, 128), kThreads, 0, stream>>>(
         A, W, b, res, scale, bias, y, T, K, N);
 }
 
-// the widths the float32 kernels take (ops/fused.py: F32_*)
+// K3: out = E(x + ((h @ W2) + b2)), h = E(gelu(E(LN(x) @ W1 + b1))) through
+// the [T, f] scratch `hidden`, two launches on one stream
+template <typename E>
+int ffn(const E* x, const float* scale, const float* bias, const E* w1, const E* b1,
+        const E* w2, const E* b2, E* hidden, E* out, long T, int d, int f, cudaStream_t s) {
+  launch_gemm<E, true, kEpiGelu>(x, w1, b1, nullptr, scale, bias, hidden, T, d, f, s);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  launch_gemm<E, false, kEpiResidual>(hidden, w2, b2, x, nullptr, nullptr, out, T, f, d, s);
+  return (int)cudaGetLastError();
+}
+
+// the widths the SIMT kernels take, float32 or bf16 (ops/fused.py: F32_*)
 inline bool head_dim_ok(int D) { return D == 16 || D == 32 || D == 64 || D == 128; }
 inline bool d_model_ok(int d) { return d >= 32 && d <= 512 && d % 32 == 0; }
 inline bool d_ff_ok(int f) { return f >= 32 && f <= 2048 && f % 32 == 0; }

@@ -40,33 +40,13 @@ constexpr int kApad = kBM + 4;  // word stride of A's k-rows (int4 reads, fewer 
 
 __host__ __device__ constexpr int b_stage_words(int BN) { return kBK4 * (BN + 4); }
 
-// an activation value of type E as float, and a float rounded to E as the
-// plain version's .to(x.dtype) rounds it
-__device__ inline float to_f(float v) { return v; }
-__device__ inline float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename E>
-__device__ inline float round_to(float v) {
-  return sizeof(E) == 2 ? bf16_round(v) : v;
-}
-
-// four consecutive values of E at p (16-byte aligned for float, 8 for bf16)
-__device__ inline void load4(const float* p, float (&v)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-}
-__device__ inline void load4(const bf16* p, float (&v)[4]) {
-  const uint2 a = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const bf162*>(&a.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const bf162*>(&a.y));
-  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-}
-// four values already rounded to E
-__device__ inline void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ inline void store4(bf16* p, const float (&v)[4]) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-}
+// an activation value of type E as float, a float rounded to E as the plain
+// version's .to(x.dtype) rounds it, four values of E loaded or stored
+// (f32.cuh's, shared with the float32 and bf16 SIMT kernels)
+using f32::load4;
+using f32::round_to;
+using f32::store4;
+using f32::to_f;
 
 // LayerNorm of rows r0 .. r0 + kBM - 1 of x [rows, d] (float32 statistics
 // in f32.cuh:ln_stats' order, the normalisation and affine each rounded on

@@ -14,7 +14,8 @@
 // [T, d_ff] scratch the wrapper allocates (the TPU kernel keeps the hidden
 // in VMEM; here a tile of 128 rows' hidden at d_ff 2048 is 1 MB, over a
 // block's shared memory). The second reads it against W2 and adds b2 and
-// the residual, in the plain version's order: x + ((h @ W2) + b2).
+// the residual, in the plain version's order: x + ((h @ W2) + b2). The two
+// launches are f32.cuh's ffn, at E = float (ln_ffn_bf16.cu: at bf16).
 #include "f32.cuh"
 
 extern "C" int herro_ln_ffn_f32(const float* x, const float* scale, const float* bias,
@@ -24,9 +25,5 @@ extern "C" int herro_ln_ffn_f32(const float* x, const float* scale, const float*
   using namespace herro::f32;
   if (T < 1 || !d_model_ok(d) || !d_ff_ok(f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  launch_gemm<true, kEpiGelu>(x, w1, b1, nullptr, scale, bias, hidden, T, d, f, s);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  launch_gemm<false, kEpiResidual>(hidden, w2, b2, x, nullptr, nullptr, out, T, f, d, s);
-  return (int)cudaGetLastError();
+  return ffn<float>(x, scale, bias, w1, b1, w2, b2, hidden, out, T, d, f, s);
 }

@@ -4,8 +4,9 @@ A port of ``herro_tpu/ops/attention.py``:
 
 * ``flash`` — the hand-written kernel (K9) for CUDA tensors: the Hopper
   kernel (``csrc/flash_attention.cu``) for bf16 at head dim 128, the SIMT
-  kernel (``csrc/flash_f32.cu``, mode ``flash_f32_attention``) for float32
-  at head dims 16-128; online-softmax tiling, so the [L, L] score matrix never
+  kernels (``csrc/flash_f32.cu`` and ``csrc/flash_bf16.cu``, modes
+  ``flash_f32_attention`` and ``flash_bf16_attention``) for float32 at head
+  dims 16-128 and bf16 at 16-64; online-softmax tiling, so the [L, L] score matrix never
   exists in device memory; a suffix length mask and an optional band. For CPU
   tensors its plain PyTorch version runs. The forward is the kernel, the
   backward recomputes through ``chunked`` (the reference has no backward
@@ -35,7 +36,9 @@ from . import cuda as _cuda
 
 NEG_INF = -1e30
 BLK_Q = 512  # query rows per block: bounds the [B, H, blk, span] score tensor
-FLASH_HEAD_DIM = 128  # the head dim the bf16 flash kernel takes
+# the head dim the bf16 Hopper flash kernel takes; the bf16 SIMT kernel
+# (csrc/flash_bf16.cu) serves the other head dims of cuda.F32_HEAD_DIMS
+FLASH_HEAD_DIM = 128
 
 
 def _query_blocks(L: int, local_window: int | None):
@@ -131,11 +134,19 @@ def _flash_attention_plain(q, k, v, lengths, local_window=None):
     return torch.cat(outs, dim=2)
 
 
-def _flash_attention_cuda(q, k, v, lengths, local_window=None):
+def _flash_attention_cuda(q, k, v, lengths, local_window=None, kernel: str | None = None):
+    """``kernel`` names the instance; None takes ``flash_f32_attention`` for
+    float32 and ``fused.bf16_kernel_name``'s for bf16."""
     _cuda.check(q.dim() == 4, f"q has {q.dim()} dimensions, the kernel takes [B, H, L, D]")
     B, H, L, D = q.shape
-    if q.dtype == torch.float32:
-        return _flash_attention_f32_cuda(q, k, v, lengths, local_window)
+    if kernel is None:
+        from .fused import bf16_kernel_name  # fused imports this module
+
+        kernel = "flash_f32_attention" if q.dtype == torch.float32 else \
+            bf16_kernel_name("flash_attention", D=D) if q.dtype == torch.bfloat16 \
+            else "flash_attention"
+    if kernel != "flash_attention":
+        return _flash_attention_simt_cuda(q, k, v, lengths, local_window, kernel)
     _cuda.check(D == FLASH_HEAD_DIM, f"head dim {D}: the kernel takes {FLASH_HEAD_DIM}")
     _cuda.check(local_window is None or local_window >= 0,
                 f"local_window {local_window} is negative")
@@ -155,21 +166,26 @@ def _flash_attention_cuda(q, k, v, lengths, local_window=None):
     return out
 
 
-def _flash_attention_f32_cuda(q, k, v, lengths, local_window=None):
+def _flash_attention_simt_cuda(q, k, v, lengths, local_window, kernel: str):
+    """K9's SIMT instances, ``flash_f32_attention`` and
+    ``flash_bf16_attention``: q/k/v and the output of the instance's dtype."""
+    from .fused import _check_f32_widths, _simt_kind  # fused imports this module
+
     B, H, L, D = q.shape
-    _cuda.check(D in _cuda.F32_HEAD_DIMS,
-                f"head dim {D}: the float32 kernels take {_cuda.F32_HEAD_DIMS}")
+    dtype = _cuda.simt_dtype(kernel)
+    _cuda.check(dtype is not None, f"no attention kernel {kernel!r}")
+    _check_f32_widths(None, D=D, kind=_simt_kind(kernel))
     _cuda.check(local_window is None or local_window >= 0,
                 f"local_window {local_window} is negative")
     _cuda.check(k.shape == q.shape and v.shape == q.shape, "q/k/v shapes")
     _cuda.check(lengths.shape == (B,), "lengths shape")
-    _cuda.require_dtype(torch.float32, q=q, k=k, v=v)
+    _cuda.require_dtype(dtype, q=q, k=k, v=v)
     _cuda.require_dtype(torch.int32, lengths=lengths)
     dev = _cuda.require_operands(q=q, k=k, v=v, lengths=lengths)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         _cuda.call(
-            "flash_f32_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, H, L, D,
             -1 if local_window is None else int(local_window), 1.0 / math.sqrt(D),
             _cuda.stream_of(q),
@@ -209,8 +225,8 @@ def attention(q, k, v, lengths, local_window=None, impl: str = "auto"):
     """[B, H, L, D] attention with the suffix-padding mask; impl in
     auto/flash/chunked/naive. ``auto`` is ``flash`` for CUDA tensors and
     ``chunked`` for CPU tensors, decided on the device alone: on the card
-    the kernel runs or its wrapper raises (bf16 at head dim 128, float32 at
-    head dims 16-128; ``HERRO_TPU_PALLAS`` is not read here, as the
+    the kernel runs or its wrapper raises (bf16 and float32 at head dims
+    16-128; ``HERRO_TPU_PALLAS`` is not read here, as the
     reference's ``attention`` does not read it), and
     plain PyTorch runs there only when ``chunked`` or ``naive`` is asked for
     by name."""

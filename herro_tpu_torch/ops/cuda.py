@@ -18,8 +18,11 @@ and per mode for a kernel whose source has more than one entry point
 
 The float32 kernels (``*_f32.cu``, SIMT FFMA over ``f32.cuh``) take the
 float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
-not; the wrappers in ``ops/fused.py`` and ``ops/attention.py`` choose
-between the two by the operands' dtype. The int8 kernels K10 and K11 have
+not; their bf16 instances (``*_bf16.cu``, the same device code at bf16
+storage) take bf16 at the widths and head dims no Hopper instance was built
+for. The wrappers in ``ops/fused.py`` and ``ops/attention.py`` choose by the
+operands' dtype, and for bf16 by their widths (``fused.bf16_kernel_name``).
+The int8 kernels K10 and K11 have
 a SIMT instance each as well (``*_q_simt.cu``, ``__dp4a`` over
 ``int8_simt.cuh``), for float32 or bf16 at those widths;
 ``fused.int8_kernel_name`` chooses between it and the Hopper one. :func:`on_card` reads
@@ -46,7 +49,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# the head dims of the float32 kernels (csrc/*_f32.cu)
+# the head dims of the SIMT kernels (csrc/*_f32.cu, csrc/*_bf16.cu)
 F32_HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
@@ -75,6 +78,12 @@ KERNELS = {
     "ln_qkv_rope_f32": ("herro_ln_qkv_rope_f32", [_P] * 10 + [_I] * 5 + [_P]),
     "flash_f32": ("herro_flash_f32", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "ln_ffn_f32": ("herro_ln_ffn_f32", [_P] * 9 + [_L, _I, _I, _P]),
+    # bf16 at the float32 kernels' widths where no Hopper instance reaches
+    # (the same SIMT device code at bf16 storage)
+    "entry_embed_bf16": ("herro_entry_embed_bf16", [_P] * 5 + [_I] * 6 + [_P]),
+    "ln_qkv_rope_bf16": ("herro_ln_qkv_rope_bf16", [_P] * 10 + [_I] * 5 + [_P]),
+    "flash_bf16": ("herro_flash_bf16", [_P] * 9 + [_I] * 6 + [_F, _P]),
+    "ln_ffn_bf16": ("herro_ln_ffn_bf16", [_P] * 9 + [_L, _I, _I, _P]),
     # int8 for float32 or bf16 at the float32 kernels' widths (SIMT __dp4a,
     # int8_simt.cuh); the last int says whether x is bf16
     "ln_qkv_rope_q_simt": ("herro_ln_qkv_rope_q_simt", [_P] * 11 + [_I] * 6 + [_P]),
@@ -86,7 +95,8 @@ KERNELS = {
 # two passes of a tensor-parallel shard (parallel/tensor.py); the float32
 # qkv kernel's split route (the rope tables built in the kernel, K8's); the
 # float32 attention without a band (K7's) and without the out projection
-# (K9's); the SIMT K11's two passes, as the Hopper one's
+# (K9's); the same three of the bf16 SIMT instances; the SIMT K11's two
+# passes, as the Hopper one's
 MODES = {
     "ln_ffn_q_rowmax": ("ln_ffn_q", "herro_ln_ffn_q_rowmax", [_P] * 8 + [_L, _I, _I, _P]),
     "ln_ffn_q_rowscale": (
@@ -99,6 +109,13 @@ MODES = {
     "flash_f32_attention": (
         "flash_f32", "herro_flash_f32_attention", [_P] * 5 + [_I] * 5 + [_F, _P],
     ),
+    "ln_qkv_rope_bf16_split": (
+        "ln_qkv_rope_bf16", "herro_ln_qkv_rope_bf16_split", [_P] * 8 + [_I] * 5 + [_P],
+    ),
+    "flash_bf16_full": ("flash_bf16", "herro_flash_bf16_full", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    "flash_bf16_attention": (
+        "flash_bf16", "herro_flash_bf16_attention", [_P] * 5 + [_I] * 5 + [_F, _P],
+    ),
     "ln_ffn_q_simt_rowmax": (
         "ln_ffn_q_simt", "herro_ln_ffn_q_simt_rowmax", [_P] * 8 + [_L, _I, _I, _I, _P],
     ),
@@ -107,6 +124,21 @@ MODES = {
         [_P] * 10 + [_F, _P, _P, _L, _I, _I, _I, _P],
     ),
 }
+
+
+def simt_dtype(name: str):
+    """The storage dtype of a SIMT kernel or mode of ``KERNELS`` / ``MODES``
+    by its source's suffix: float32 for ``*_f32``, bf16 for ``*_bf16``;
+    None for any other name (a Hopper kernel, a SIMT int8 one, none)."""
+    import torch
+
+    source = MODES[name][0] if name in MODES else name
+    if source not in KERNELS:
+        return None
+    for suffix, dtype in (("_f32", torch.float32), ("_bf16", torch.bfloat16)):
+        if source.endswith(suffix):
+            return dtype
+    return None
 
 
 class LaunchCounts:

@@ -4,9 +4,11 @@ Each op mirrors one function of ``herro_tpu/ops/fused.py`` at the same
 layouts, and comes as a pair:
 
 * a hand-written kernel (``csrc/*.cu``), reached through its wrapper
-  ``_<op>_cuda``, which chooses it by the operands' dtype (bf16: the Hopper
-  kernel, TMA and ``wgmma``; float32: the SIMT kernel of ``*_f32.cu``, at
-  any head dim in 16-128 and narrow widths; anything else raises), checks
+  ``_<op>_cuda``, which chooses it by the operands' dtype and widths (bf16:
+  the Hopper kernel, TMA and ``wgmma``, at the widths it was built for, and
+  elsewhere the bf16 SIMT kernel of ``*_bf16.cu`` (``bf16_kernel_name``);
+  float32: the SIMT kernel of ``*_f32.cu``; both SIMT kernels at any head
+  dim in 16-128 and d_model up to 512; anything else raises), checks
   devices, shapes and contiguity and raises on anything the kernel does not
   take;
 * a plain PyTorch version ``_<op>_plain``, which computes the same function
@@ -66,29 +68,47 @@ from ..constants import VOCAB_SIZE
 from . import cuda as _cuda
 from .attention import chunked_attention
 
-HEAD_DIM = 128  # the head dim the bf16 Hopper kernels take (every shipped checkpoint)
-# the widths of the float32 kernels (csrc/*_f32.cu; their head dims in
-# cuda.F32_HEAD_DIMS): TINY_CONFIG (d 32, H 2 x D 16, d_ff 64), a float32
-# checkpoint, a tensor-parallel shard (any H)
+# the head dim the bf16 Hopper kernels take (every shipped checkpoint); the
+# bf16 SIMT kernels (csrc/*_bf16.cu) serve the other head dims of
+# cuda.F32_HEAD_DIMS (bf16_kernel_name)
+HEAD_DIM = 128
+# the widths of the SIMT kernels, float32 (csrc/*_f32.cu) and bf16
+# (csrc/*_bf16.cu), their head dims in cuda.F32_HEAD_DIMS: TINY_CONFIG (d 32,
+# H 2 x D 16, d_ff 64), a float32 checkpoint, head dim 64, a tensor-parallel
+# shard (any H)
 F32_MAX_D_MODEL = 512  # a multiple of 32
 F32_MAX_D_FF = 2048  # a multiple of 32
 F32_MAX_ROWS = 63  # pileup rows the float32 entry takes (K5's range)
 
 
-def _check_f32_widths(d: int, f: int | None = None, D: int | None = None,
-                      kind: str = "float32") -> None:
-    """The widths the float32 kernels take, each named in a ValueError; the
-    SIMT int8 kernels (``kind`` "int8 SIMT") take the same."""
-    _cuda.check(d % 32 == 0 and 32 <= d <= F32_MAX_D_MODEL,
-                f"d_model {d}: the {kind} kernels take a multiple of 32 up to "
-                f"{F32_MAX_D_MODEL}")
+def _check_f32_widths(d: int | None, f: int | None = None, D: int | None = None,
+                      R: int | None = None, kind: str = "float32",
+                      hopper: str | None = None) -> None:
+    """The widths the SIMT kernels take, each named in a ValueError before
+    any launch: the float32 ones (``kind``), the bf16 SIMT ones ("bf16
+    SIMT") and the SIMT int8 ones ("int8 SIMT") take the same. ``hopper``
+    (``bf16_kernel_name``) is the d_model the op's bf16 Hopper instance
+    takes ("" where the op reads none): the message then names what both
+    bf16 instances take."""
+
+    def need(ok: bool, width: str, simt: str, on_hopper: str, takes: str = "kernels take"):
+        if hopper is None:
+            _cuda.check(ok, f"{width}: the {kind} {takes} {simt}")
+        else:
+            _cuda.check(ok, f"{width}: the bf16 kernels take {on_hopper} on the Hopper "
+                            f"instance and {simt} on the SIMT one")
+
+    if R is not None:
+        need(1 <= R <= F32_MAX_ROWS, f"R {R} pileup rows", f"1 to {F32_MAX_ROWS}", "29 to 32")
+    if d is not None:
+        need(d % 32 == 0 and 32 <= d <= F32_MAX_D_MODEL, f"d_model {d}",
+             f"a multiple of 32 up to {F32_MAX_D_MODEL}", hopper)
     if f is not None:
-        _cuda.check(f % 32 == 0 and 32 <= f <= F32_MAX_D_FF,
-                    f"d_ff {f}: the {kind} kernel takes a multiple of 32 up to "
-                    f"{F32_MAX_D_FF}")
+        need(f % 32 == 0 and 32 <= f <= F32_MAX_D_FF, f"d_ff {f}",
+             f"a multiple of 32 up to {F32_MAX_D_FF}",
+             f"a multiple of 128 at d_model {FFN_WIDTHS}", takes="kernel takes")
     if D is not None:
-        _cuda.check(D in _cuda.F32_HEAD_DIMS,
-                    f"head dim {D}: the {kind} kernels take {_cuda.F32_HEAD_DIMS}")
+        need(D in _cuda.F32_HEAD_DIMS, f"head dim {D}", f"{_cuda.F32_HEAD_DIMS}", f"{HEAD_DIM}")
 
 
 _rope_cache: dict = {}
@@ -171,11 +191,75 @@ class _RecomputePlain(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# the bf16 instances: Hopper where it takes the operands, SIMT elsewhere
+# ---------------------------------------------------------------------------
+
+
+def bf16_kernel_name(op: str, d: int | None = None, f: int | None = None,
+                     H: int | None = None, D: int | None = None, R: int | None = None,
+                     local_window: int | None = None) -> str:
+    """The kernel a bf16 op takes on the card, on its widths alone: the
+    Hopper instance (TMA and ``wgmma``) where it was built for them, and
+    otherwise the bf16 SIMT instance (``csrc/*_bf16.cu``), at the float32
+    kernels' widths (d_model a multiple of 32 up to 512, d_ff a multiple of
+    32 up to 2048, head dims ``cuda.F32_HEAD_DIMS``, R 1-63); outside those
+    a ValueError that names the width and both ranges, before any launch.
+    The reference picks its Pallas kernels by backend and length alone,
+    never by width (``herro_tpu/ops/fused.py:43-48``); this is the port's
+    choice of instance, as ``int8_kernel_name`` is for int8.
+
+    ``op`` and the widths it reads: ``entry_embed`` (d, R: the Hopper K4
+    takes ``EMBED_WIDTHS`` and the 512-row table of R 29-32),
+    ``ln_qkv_rope`` (d, D: K1 or K8 by ``HERRO_TPU_ROPE``, as
+    ``rope_kernel_name``), ``flash_outproj`` (H, d, D, local_window: K2, K6
+    or K7 by the band, as ``flash_kernel_name``), ``flash_attention`` (D:
+    K9), ``ln_ffn`` (d, f: K3)."""
+    if op == "entry_embed":
+        if d in EMBED_WIDTHS and col_proj_rows(R) == 512:
+            return "entry_embed"
+        _check_f32_widths(d, R=R, hopper=f"{EMBED_WIDTHS}")
+        return "entry_embed_bf16"
+    if op == "ln_qkv_rope":
+        if D == HEAD_DIM and d in QKV_WIDTHS:
+            return rope_kernel_name()
+        _check_f32_widths(d, D=D, hopper=f"{QKV_WIDTHS}")
+        return "ln_qkv_rope_bf16" if rope_kernel_name() == "ln_qkv_rope" \
+            else "ln_qkv_rope_bf16_split"
+    if op == "flash_outproj":
+        if D == HEAD_DIM and (H, d) in ATTENTION_WIDTHS:
+            return flash_kernel_name(local_window)
+        _check_f32_widths(d, D=D, hopper=f"(n_heads, d_model) in {ATTENTION_WIDTHS}")
+        return "flash_bf16_full" if local_window is None else "flash_bf16"
+    if op == "flash_attention":
+        if D == HEAD_DIM:
+            return "flash_attention"
+        _check_f32_widths(None, D=D, hopper="")
+        return "flash_bf16_attention"
+    if op == "ln_ffn":
+        if d in FFN_WIDTHS and f >= 128 and f % 128 == 0:
+            return "ln_ffn"
+        _check_f32_widths(d, f, hopper=f"{FFN_WIDTHS} with d_ff a multiple of 128")
+        return "ln_ffn_bf16"
+    raise ValueError(f"no bf16 op {op!r}")
+
+
+def _simt_kind(kernel: str) -> str:
+    """How a SIMT kernel's refusals name it: "float32" or "bf16 SIMT"."""
+    return "float32" if _cuda.simt_dtype(kernel) == torch.float32 else "bf16 SIMT"
+
+
+# ---------------------------------------------------------------------------
 # K4 entry_embed: tokens u8 [B, R, L] + quals f32 [B, R, L] -> x [B, L, d]
 # ---------------------------------------------------------------------------
 
 
 COL_SLOT = 16  # k rows per pileup row in the col_proj table: V one-hot, the qual, zeros
+
+
+def col_proj_rows(R: int) -> int:
+    """The rows of ``col_proj_table`` for R pileup rows: R slots of COL_SLOT,
+    up to the next multiple of 64."""
+    return -(-R * COL_SLOT // 64) * 64
 
 
 def col_proj_table(w_embT, w_qT):
@@ -190,7 +274,7 @@ def col_proj_table(w_embT, w_qT):
     V = w_embT.shape[1] // R
     if V + 1 > COL_SLOT:
         raise ValueError(f"vocab {V} and the qual do not fit a slot of {COL_SLOT}")
-    kp = -(-R * COL_SLOT // 64) * 64
+    kp = col_proj_rows(R)
     wc = torch.zeros(kp, d, dtype=w_embT.dtype, device=w_embT.device)
     tab = wc[: R * COL_SLOT].view(R, COL_SLOT, d)
     tab[:, :V] = w_embT.t().reshape(R, V, d)
@@ -218,14 +302,22 @@ def _entry_embed_plain(bases, quals, wc, cb, out_dtype):
     return (x + cb.float()).to(out_dtype)
 
 
-# d_model of the entry kernel's instantiations (csrc/entry_embed.cu): every
-# shipped checkpoint's, and 384 (tools/variant_step_time_torch.py's d384x5L)
+# d_model of the Hopper entry kernel's instantiations (csrc/entry_embed.cu):
+# every shipped checkpoint's, and 384 (tools/variant_step_time_torch.py's
+# d384x5L); the bf16 SIMT kernel (csrc/entry_embed_bf16.cu) serves the rest
+# of the SIMT widths
 EMBED_WIDTHS = (256, 384, 512)
 
 
-def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
-    if wc.dtype == torch.float32:
-        return _entry_embed_f32_cuda(bases, quals, wc, cb, out_dtype)
+def _entry_embed_cuda(bases, quals, wc, cb, out_dtype, kernel: str | None = None):
+    """``kernel`` names the instance; None takes wc's: ``entry_embed_f32``
+    for float32, ``bf16_kernel_name``'s for bf16."""
+    if kernel is None:
+        kernel = "entry_embed_f32" if wc.dtype == torch.float32 else \
+            bf16_kernel_name("entry_embed", wc.shape[1], R=bases.shape[1]) \
+            if wc.dtype == torch.bfloat16 else "entry_embed"
+    if kernel != "entry_embed":
+        return _entry_embed_simt_cuda(bases, quals, wc, cb, out_dtype, kernel)
     B, R, L = bases.shape
     kp, d = wc.shape
     V = VOCAB_SIZE
@@ -248,23 +340,26 @@ def _entry_embed_cuda(bases, quals, wc, cb, out_dtype):
     return out
 
 
-def _entry_embed_f32_cuda(bases, quals, wc, cb, out_dtype):
+def _entry_embed_simt_cuda(bases, quals, wc, cb, out_dtype, kernel: str):
+    """K4's SIMT instances: ``entry_embed_f32`` (float32) or
+    ``entry_embed_bf16`` (bf16 table and output); quals and cb float32."""
     B, R, L = bases.shape
     kp, d = wc.shape
-    _cuda.check(out_dtype == torch.float32,
-                f"entry_embed_f32 kernel emits float32, not {out_dtype}")
+    dtype, kind = _cuda.simt_dtype(kernel), _simt_kind(kernel)
+    _cuda.check(out_dtype == dtype, f"{kernel} kernel emits {dtype}, not {out_dtype}")
     _cuda.check(1 <= R <= F32_MAX_ROWS and R * COL_SLOT <= kp,
-                f"R {R} pileup rows and a col_proj table of {kp} rows: the float32 "
+                f"R {R} pileup rows and a col_proj table of {kp} rows: the {kind} "
                 f"kernel takes R 1 to {F32_MAX_ROWS} and col_proj_table's rows")
     _cuda.check(quals.shape == bases.shape and cb.shape == (d,), "input shapes")
-    _check_f32_widths(d)
+    _check_f32_widths(d, kind=kind)
     _cuda.require_dtype(torch.uint8, bases=bases)
-    _cuda.require_dtype(torch.float32, quals=quals, wc=wc, cb=cb)
+    _cuda.require_dtype(torch.float32, quals=quals, cb=cb)
+    _cuda.require_dtype(dtype, wc=wc)
     dev = _cuda.require_operands(bases=bases, quals=quals, wc=wc, cb=cb)
-    out = torch.empty(B, L, d, dtype=torch.float32, device=dev)
+    out = torch.empty(B, L, d, dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         _cuda.call(
-            "entry_embed_f32", bases.data_ptr(), quals.data_ptr(), wc.data_ptr(),
+            kernel, bases.data_ptr(), quals.data_ptr(), wc.data_ptr(),
             cb.data_ptr(), out.data_ptr(), B, R, L, d, VOCAB_SIZE, kp, _cuda.stream_of(out),
         )
     return out
@@ -335,22 +430,26 @@ def rope_kernel_name(dtype=torch.bfloat16) -> str:
     return name
 
 
-# d_model of the qkv kernels' instantiations (csrc/ln_qkv_rope_sm90.cuh):
-# every shipped checkpoint's, and for K1 and K8 also 384
-# (tools/variant_step_time_torch.py's d384x5L); K10 takes QKV_Q_WIDTHS
+# d_model of the Hopper qkv kernels' instantiations
+# (csrc/ln_qkv_rope_sm90.cuh, head dim HEAD_DIM): every shipped checkpoint's,
+# and for K1 and K8 also 384 (tools/variant_step_time_torch.py's d384x5L);
+# K10 takes QKV_Q_WIDTHS. The bf16 SIMT kernel (csrc/ln_qkv_rope_bf16.cu)
+# serves the other SIMT widths and head dims
 QKV_WIDTHS = (256, 384, 512)
 QKV_Q_WIDTHS = (256, 512)
 
 
 def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = None):
-    """``kernel`` names K1 or K8 (or a float32 route); None takes
-    ``rope_kernel_name(x.dtype)``."""
-    kernel = kernel or rope_kernel_name(x.dtype)
-    if kernel in ("ln_qkv_rope_f32", "ln_qkv_rope_f32_split"):
-        return _ln_qkv_rope_f32_cuda(x, scale, bias, w, b, n_heads, kernel)
+    """``kernel`` names K1 or K8 (or a SIMT route); None takes
+    ``rope_kernel_name`` for float32 and ``bf16_kernel_name``'s for bf16."""
     B, L, d = x.shape
     H = n_heads
     D = w.shape[1] // (3 * H)
+    if kernel is None:
+        kernel = bf16_kernel_name("ln_qkv_rope", d, D=D) if x.dtype == torch.bfloat16 \
+            else rope_kernel_name(x.dtype)
+    if _cuda.simt_dtype(kernel) is not None:
+        return _ln_qkv_rope_simt_cuda(x, scale, bias, w, b, n_heads, kernel)
     _cuda.check(kernel in ("ln_qkv_rope", "ln_qkv_rope_split"), f"no rope kernel {kernel!r}")
     _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
     _cuda.check(d in QKV_WIDTHS, f"d_model {d}: the kernel takes {QKV_WIDTHS}")
@@ -373,22 +472,26 @@ def _ln_qkv_rope_cuda(x, scale, bias, w, b, n_heads: int, kernel: str | None = N
     return q, k, v
 
 
-def _ln_qkv_rope_f32_cuda(x, scale, bias, w, b, n_heads: int, kernel: str):
+def _ln_qkv_rope_simt_cuda(x, scale, bias, w, b, n_heads: int, kernel: str):
+    """K1/K8's SIMT instances: ``ln_qkv_rope_f32`` and ``ln_qkv_rope_bf16``
+    (rope tables handed in), their ``_split`` routes (built in the kernel);
+    x, w, b and q/k/v of the instance's dtype, LayerNorm's parameters
+    float32."""
     B, L, d = x.shape
     H = n_heads
     D = w.shape[1] // (3 * H)
-    _check_f32_widths(d, D=D)
+    dtype = _cuda.simt_dtype(kernel)
+    _check_f32_widths(d, D=D, kind=_simt_kind(kernel))
     _cuda.check(w.shape == (d, 3 * H * D) and b.shape == (3 * H * D,), "qkv shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
-    _cuda.require_dtype(torch.float32, x=x, scale=scale, bias=bias, w=w, b=b)
+    _cuda.require_dtype(dtype, x=x, w=w, b=b)
+    _cuda.require_dtype(torch.float32, scale=scale, bias=bias)
     dev = _cuda.require_operands(x=x, scale=scale, bias=bias, w=w, b=b)
-    q, k, v = (
-        torch.empty(B, H, L, D, dtype=torch.float32, device=dev) for _ in range(3)
-    )
+    q, k, v = (torch.empty(B, H, L, D, dtype=dtype, device=dev) for _ in range(3))
     head = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr())
     tail = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H, D, _cuda.stream_of(x))
     with torch.cuda.device(dev):
-        if kernel == "ln_qkv_rope_f32":
+        if not kernel.endswith("_split"):
             cos, sin = _rope_tables_cached(L, D, dev)
             _cuda.call(kernel, *head, cos.data_ptr(), sin.data_ptr(), *tail)
         else:
@@ -437,19 +540,26 @@ def flash_kernel_name(local_window, dtype=torch.bfloat16) -> str:
     return "flash_outproj_band"
 
 
-# (n_heads, d_model) of the attention kernels' instantiations
-# (csrc/flash_outproj_sm90.cuh): every shipped checkpoint's, their
-# tensor-parallel shards (r10 at tp 2 and 4, r10deep at tp 2), and (3, 384)
-# (tools/variant_step_time_torch.py's d384x5L)
+# (n_heads, d_model) of the Hopper attention kernels' instantiations
+# (csrc/flash_outproj_sm90.cuh, head dim HEAD_DIM): every shipped
+# checkpoint's, their tensor-parallel shards (r10 at tp 2 and 4, r10deep at
+# tp 2), and (3, 384) (tools/variant_step_time_torch.py's d384x5L). The bf16
+# SIMT kernel (csrc/flash_bf16.cu) serves the other SIMT widths and head dims
 ATTENTION_WIDTHS = ((4, 512), (2, 256), (2, 512), (1, 512), (1, 256), (3, 384))
 
 
-def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
-    if x.dtype == torch.float32:
-        return _flash_outproj_f32_cuda(q, k, v, x, wo, bo, lengths, local_window)
+def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window,
+                        kernel: str | None = None):
+    """``kernel`` names the instance; None takes ``flash_kernel_name`` for
+    float32 and ``bf16_kernel_name``'s for bf16."""
     B, H, L, D = q.shape
     d = x.shape[-1]
-    name = flash_kernel_name(local_window)
+    if kernel is None:
+        kernel = bf16_kernel_name("flash_outproj", d, H=H, D=D, local_window=local_window) \
+            if x.dtype == torch.bfloat16 else flash_kernel_name(local_window, x.dtype)
+    if _cuda.simt_dtype(kernel) is not None:
+        return _flash_outproj_simt_cuda(q, k, v, x, wo, bo, lengths, local_window, kernel)
+    name = kernel
     _cuda.check(local_window is None or local_window >= 0,
                 f"local_window {local_window} is negative")
     _cuda.check(D == HEAD_DIM, f"head dim {D}: the kernel takes {HEAD_DIM}")
@@ -474,27 +584,33 @@ def _flash_outproj_cuda(q, k, v, x, wo, bo, lengths, local_window):
     return out
 
 
-def _flash_outproj_f32_cuda(q, k, v, x, wo, bo, lengths, local_window):
+def _flash_outproj_simt_cuda(q, k, v, x, wo, bo, lengths, local_window, kernel: str):
+    """K2/K6/K7's SIMT instances: ``flash_f32`` / ``flash_bf16`` (any band)
+    and their ``_full`` modes (no band), every float operand of the
+    instance's dtype."""
     B, H, L, D = q.shape
     d = x.shape[-1]
-    name = flash_kernel_name(local_window, torch.float32)
+    dtype = _cuda.simt_dtype(kernel)
+    _cuda.check((local_window is None) == kernel.endswith("_full"),
+                f"{kernel} does not take local_window {local_window}")
     _cuda.check(local_window is None or local_window >= 0,
                 f"local_window {local_window} is negative")
-    _check_f32_widths(d, D=D)
+    _check_f32_widths(d, D=D, kind=_simt_kind(kernel))
     _cuda.check(k.shape == q.shape and v.shape == q.shape, "q/k/v shapes")
     _cuda.check(x.shape == (B, L, d) and wo.shape == (H, D, d) and bo.shape == (d,),
                 "x/wo/bo shapes")
     _cuda.check(lengths.shape == (B,), "lengths shape")
-    _cuda.require_dtype(torch.float32, q=q, k=k, v=v, x=x, wo=wo, bo=bo)
+    _cuda.require_dtype(dtype, q=q, k=k, v=v, x=x, wo=wo, bo=bo)
     _cuda.require_dtype(torch.int32, lengths=lengths)
     dev = _cuda.require_operands(q=q, k=k, v=v, x=x, wo=wo, bo=bo, lengths=lengths)
-    # the attention's output [B, L, H, D], the out projection's operand
-    scratch = torch.empty(B, L, H, D, dtype=torch.float32, device=dev)
+    # the attention's output [B, L, H, D] in the instance's dtype, the out
+    # projection's operand
+    scratch = torch.empty(B, L, H, D, dtype=dtype, device=dev)
     out = torch.empty_like(x)
     band = () if local_window is None else (int(local_window),)
     with torch.cuda.device(dev):
         _cuda.call(
-            name, q.data_ptr(), k.data_ptr(), v.data_ptr(), x.data_ptr(), wo.data_ptr(),
+            kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), x.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(),
             B, H, L, d, D, *band, 1.0 / math.sqrt(D), _cuda.stream_of(x),
         )
@@ -526,16 +642,23 @@ def _ln_ffn_plain(x, scale, bias, w1, b1, w2, b2):
     return (xf.float() + o).to(x.dtype).reshape(x.shape)
 
 
-# d_model of the FFN kernel's instantiations (csrc/ln_ffn.cu): every shipped
-# checkpoint's, and 384 (tools/variant_step_time_torch.py's d384x5L)
+# d_model of the Hopper FFN kernel's instantiations (csrc/ln_ffn.cu, d_ff a
+# multiple of 128): every shipped checkpoint's, and 384
+# (tools/variant_step_time_torch.py's d384x5L). The bf16 SIMT kernel
+# (csrc/ln_ffn_bf16.cu) serves the other SIMT widths
 FFN_WIDTHS = (256, 384, 512)
 
 
-def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
-    if x.dtype == torch.float32:
-        return _ln_ffn_f32_cuda(x, scale, bias, w1, b1, w2, b2)
+def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2, kernel: str | None = None):
+    """``kernel`` names the instance; None takes ``ln_ffn_f32`` for float32
+    and ``bf16_kernel_name``'s for bf16."""
     d = x.shape[-1]
     f = w1.shape[1]
+    if kernel is None:
+        kernel = "ln_ffn_f32" if x.dtype == torch.float32 else \
+            bf16_kernel_name("ln_ffn", d, f) if x.dtype == torch.bfloat16 else "ln_ffn"
+    if _cuda.simt_dtype(kernel) is not None:
+        return _ln_ffn_simt_cuda(x, scale, bias, w1, b1, w2, b2, kernel)
     _cuda.check(d in FFN_WIDTHS, f"d_model {d}: the kernel takes {FFN_WIDTHS}")
     _cuda.check(f >= 128 and f % 128 == 0, f"d_ff {f}: the kernel takes a multiple of 128")
     _cuda.check(w1.shape == (d, f) and b1.shape == (f,), "ff1 shapes")
@@ -556,23 +679,28 @@ def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2):
     return out
 
 
-def _ln_ffn_f32_cuda(x, scale, bias, w1, b1, w2, b2):
+def _ln_ffn_simt_cuda(x, scale, bias, w1, b1, w2, b2, kernel: str):
+    """K3's SIMT instances: ``ln_ffn_f32`` and ``ln_ffn_bf16``; x, the
+    weights and biases of the instance's dtype, LayerNorm's parameters
+    float32, the hidden through a scratch allocated here."""
     d = x.shape[-1]
     f = w1.shape[1]
-    _check_f32_widths(d, f)
+    dtype = _cuda.simt_dtype(kernel)
+    _check_f32_widths(d, f, kind=_simt_kind(kernel))
     _cuda.check(w1.shape == (d, f) and b1.shape == (f,), "ff1 shapes")
     _cuda.check(w2.shape == (f, d) and b2.shape == (d,), "ff2 shapes")
     _cuda.check(scale.shape == (d,) and bias.shape == (d,), "LayerNorm shapes")
-    _cuda.require_dtype(torch.float32, x=x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2)
+    _cuda.require_dtype(dtype, x=x, w1=w1, b1=b1, w2=w2, b2=b2)
+    _cuda.require_dtype(torch.float32, scale=scale, bias=bias)
     dev = _cuda.require_operands(
         x=x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2
     )
     T = x.numel() // d
-    hidden = torch.empty(T, f, dtype=torch.float32, device=dev)  # gelu(LN(x) W1 + b1)
+    hidden = torch.empty(T, f, dtype=dtype, device=dev)  # gelu(LN(x) W1 + b1)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         _cuda.call(
-            "ln_ffn_f32", x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+            kernel, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hidden.data_ptr(), out.data_ptr(),
             T, d, f, _cuda.stream_of(x),
         )

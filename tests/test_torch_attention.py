@@ -473,15 +473,16 @@ class _OnCard(torch.Tensor):
 @pytest.mark.parametrize(
     "dtype,D,message",
     [(torch.float32, 128, "not on the card"), (torch.float32, 8, "head dim"),
-     (torch.float16, 128, "bfloat16"), (torch.bfloat16, 32, "head dim"),
-     (torch.bfloat16, 128, "not on the card")],
+     (torch.float16, 128, "bfloat16"), (torch.bfloat16, 96, "head dim"),
+     (torch.bfloat16, 128, "not on the card"), (torch.bfloat16, 32, "not on the card")],
 )
 def test_attention_auto_never_gives_way_to_plain_on_the_card(dtype, D, message):
     """``auto`` on tensors that say they are CUDA tensors goes to the kernel's
-    wrapper (bf16: the Hopper kernel, float32: the float32 one), which
-    raises on what the kernel does not take (and here, for the shape it
-    takes, on the lengths that are plainly on the CPU); it never runs
-    ``chunked`` there and launches nothing."""
+    wrapper (bf16: the Hopper kernel at head dim 128 and the bf16 SIMT one
+    at 16-64, float32: the float32 one), which raises on what no kernel
+    takes (and here, for the shapes they take, on the lengths that are
+    plainly on the CPU); it never runs ``chunked`` there and launches
+    nothing."""
     # copies in torch's own (aligned) memory: the kernels take 32-byte aligned operands
     q, k, v, lengths = (_t(a, dtype).clone() for a in _qkv(53, L=64, lengths=(64, 50), D=D))
     q, k, v = (t.as_subclass(_OnCard) for t in (q, k, v))
@@ -509,8 +510,9 @@ def test_flash_cuda_wrapper_never_runs_on_cpu_tensors():
     before = kernels.launch_counts.snapshot()
     with pytest.raises(ValueError, match="not on the card"):
         tattn._flash_attention_cuda(*args, 32)
-    with pytest.raises(ValueError, match="head dim"):
-        tattn._flash_attention_cuda(*(_t(a, torch.bfloat16) for a in _qkv(49)), 32)
+    with pytest.raises(ValueError, match="head dim"):  # the Hopper instance at D 32
+        tattn._flash_attention_cuda(*(_t(a, torch.bfloat16) for a in _qkv(49)), 32,
+                                    kernel="flash_attention")
     assert kernels.launch_counts.snapshot() == before
 
 

@@ -347,12 +347,14 @@ def test_kernel_has_its_own_entry_source_and_counter(name):
 
 def test_registry_holds_all_eleven_kernels():
     """The eleven Hopper kernels, one a pallas_call site of the reference,
-    and beside them the four float32 kernels of the same functions and the
-    two SIMT int8 ones (K10 and K11 at float32 and at every width)."""
+    and beside them the four float32 kernels of the same functions, the two
+    SIMT int8 ones (K10 and K11 at float32 and at every width) and the four
+    bf16 SIMT ones (bf16 at the widths no Hopper instance takes)."""
     f32 = {"entry_embed_f32", "ln_qkv_rope_f32", "flash_f32", "ln_ffn_f32"}
     simt8 = {"ln_qkv_rope_q_simt", "ln_ffn_q_simt"}
-    assert len(set(kernels.KERNELS) - f32 - simt8) == 11
-    assert f32 | simt8 <= set(kernels.KERNELS)
+    bf16 = {"entry_embed_bf16", "ln_qkv_rope_bf16", "flash_bf16", "ln_ffn_bf16"}
+    assert len(set(kernels.KERNELS) - f32 - simt8 - bf16) == 11
+    assert f32 | simt8 | bf16 <= set(kernels.KERNELS)
     sources = {f[:-3] for f in os.listdir(kernels.CSRC) if f.endswith(".cu")}
     assert sources == set(kernels.KERNELS)
 

@@ -464,8 +464,10 @@ def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f)
     (attention, all three masks), d 256, 384 or 512 with d_ff a multiple of
     128 (ln_ffn), d 256, 384 or 512 with any H (K1 and K8; K10 256 or 512),
     and 1 to 63 pileup rows (count_decisions, ``width`` here: 6-bit counts);
-    the wrapper names any other width in a ValueError before it looks at the
-    device (these are CPU tensors) and launches nothing."""
+    the wrapper, asked for the Hopper instance by name (bf16 at other widths
+    takes the bf16 SIMT one, ``tests/test_torch_bf16_widths.py``), names any
+    other width in a ValueError before it looks at the device (these are CPU
+    tensors) and launches nothing."""
     rng = np.random.default_rng(30)
     bf = torch.bfloat16
     if op == "count_decisions":
@@ -490,12 +492,13 @@ def test_cuda_wrappers_refuse_widths_the_kernels_lack(op, mask, heads, width, f)
         args = (q, k, v, _t(rng.normal(size=(1, gl, width))).to(bf),
                 _t(rng.normal(size=(heads, 128, width))).to(bf),
                 _t(rng.normal(size=(width,))).to(bf), _t(np.array([gl], np.int32)), mask)
-        call, match = fused._flash_outproj_cuda, "n_heads, d_model"
+        call = functools.partial(fused._flash_outproj_cuda, kernel=fused.flash_kernel_name(mask))
+        match = "n_heads, d_model"
     else:
         x, s, b, w1, b1, w2, b2 = _ffn_inputs(30, d=width, f=f, rows=64)
         args = (_t(x).to(bf), _t(s), _t(b), _t(w1).to(bf), _t(b1).to(bf), _t(w2).to(bf),
                 _t(b2).to(bf))
-        call = fused._ln_ffn_cuda
+        call = functools.partial(fused._ln_ffn_cuda, kernel="ln_ffn")
         match = "d_model" if width not in fused.FFN_WIDTHS else "d_ff"
     from herro_tpu_torch.ops import cuda as kernels
 

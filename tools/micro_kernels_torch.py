@@ -4,15 +4,17 @@
     python3 tools/micro_kernels_torch.py --spread 3      # three passes, for the spread
     python3 tools/micro_kernels_torch.py --spread 0      # registers only
     python3 tools/micro_kernels_torch.py --spread 0 --step   # and the step times
+    python3 tools/micro_kernels_torch.py --spread 0 --against chip_checkout/parent
 
 Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
 prints each kernel's registers, spills and ptxas's performance advisories
-(C75xx, such as serialised ``wgmma``), then runs ``chip_smoke.py``'s
+(C75xx, such as serialised ``wgmma``; ``--against`` another checkout's
+too, source by source, equal or not), then runs ``chip_smoke.py``'s
 ``kernels`` phase (every kernel against its plain version at B=32, L=9216,
 with its tolerance; times by CUDA events, K5's by CUDA-graph replay with the
-eager loop's beside it) and the float32 kernels' rows of its ``float32``
-phase ``--spread`` times in one process and prints every kernel's time per
-pass, to four significant digits. It is the short first
+eager loop's beside it) and the SIMT kernels' rows of its ``float32`` and
+``bf16_any`` phases ``--spread`` times in one process and prints every
+kernel's time per pass, to four significant digits. It is the short first
 call after a kernel changes: what the compiler refuses, or a kernel that is
 wrong, shows here in about a minute and fails the command. Shapes the smoke run does not
 take (the r9 widths but K8's, K10's and K11's, ragged lengths) are held by
@@ -43,29 +45,57 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
-def print_registers(kernels) -> None:
+def registers(kernels, csrc: str, names) -> dict[str, str]:
+    """Each source's registers, spills and ptxas's advisories, one line a
+    source of ``csrc`` (``<name>.cu``), every nvcc started at once."""
     nvcc = kernels._nvcc()
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name in kernels.KERNELS:
-            src = os.path.join(kernels.CSRC, f"{name}.cu")
-            res = subprocess.run(
+        procs = {}
+        for name in names:
+            procs[name] = subprocess.Popen(
                 [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                 os.path.join(tmp, f"{name}.so"), src],
-                capture_output=True, text=True,
+                 os.path.join(tmp, f"{name}.so"), os.path.join(csrc, f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr[-4000:]}")
+        for name, proc in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{err[-4000:]}")
             # registers, spills, and ptxas's performance advisories (C75xx:
             # e.g. wgmma serialised, or waits it had to inject)
-            lines = [l.strip() for l in res.stderr.splitlines()
+            lines = [l.strip() for l in err.splitlines()
                      if "registers" in l or "spill" in l or "(C75" in l]
-            print(name, " | ".join(lines), flush=True)
+            out[name] = " | ".join(lines)
+    return out
+
+
+def print_registers(kernels, against: str | None = None) -> None:
+    """Each kernel source's ``-Xptxas -v`` line; with ``against`` (another
+    checkout's root) that tree's line for each of its sources too, and
+    whether the two are equal."""
+    mine = registers(kernels, kernels.CSRC, kernels.KERNELS)
+    for name, line in mine.items():
+        print(name, line, flush=True)
+    if against is None:
+        return
+    csrc = os.path.join(against, "herro_tpu_torch", "csrc")
+    theirs = registers(kernels, csrc, sorted(
+        f[:-3] for f in os.listdir(csrc) if f.endswith(".cu")))
+    for name, line in theirs.items():
+        print(f"{against}: {name} {line}", flush=True)
+        print(f"{name}: {'equal' if mine.get(name) == line else 'DIFFERS'}", flush=True)
+    print(f"{sum(mine.get(n) == l for n, l in theirs.items())} of {len(theirs)} sources "
+          f"equal; only here: {sorted(set(mine) - set(theirs))}", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--spread", type=int, default=1,
                     help="passes of chip_smoke.py's kernels phase (0: registers only)")
+    ap.add_argument("--against", metavar="DIR",
+                    help="another checkout (the parent, unpacked by git archive): compare "
+                         "its sources' -Xptxas -v lines with these")
     ap.add_argument("--step", action="store_true",
                     help="also time the R10 correct step at bench.py's two shapes")
     args = ap.parse_args()
@@ -78,7 +108,7 @@ def main() -> int:
     from herro_tpu_torch.pipeline.steptime import card
 
     print(card(), flush=True)
-    print_registers(kernels)
+    print_registers(kernels, args.against)
     if args.step:
         from variant_step_time_torch import STEPS, step_time
 
@@ -97,9 +127,11 @@ def main() -> int:
         results: dict = {}
         with contextlib.redirect_stdout(io.StringIO()):
             chip_smoke.phase_kernels(torch, results)
-            # and the float32 kernels beside them (the float32 phase's rows)
-            results["kernels"] += chip_smoke.run_cases(torch, chip_smoke.float32_cases(torch),
-                                                       "float32")
+            # and the SIMT kernels beside them (the float32 and bf16_any
+            # phases' rows)
+            for dtype, phase in (("float32", "float32"), ("bfloat16", "bf16_any")):
+                results["kernels"] += chip_smoke.run_cases(
+                    torch, chip_smoke.simt_cases(torch, dtype), phase)
         times = {}
         for k in results["kernels"]:
             times[k["case"]] = float(f"{k['ms']:.4g}")
