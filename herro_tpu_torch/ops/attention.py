@@ -39,6 +39,9 @@ BLK_Q = 512  # query rows per block: bounds the [B, H, blk, span] score tensor
 # the head dim the bf16 Hopper flash kernel takes; the bf16 SIMT kernel
 # (csrc/flash_bf16.cu) serves the other head dims of cuda.F32_HEAD_DIMS
 FLASH_HEAD_DIM = 128
+# keys a tile of the SIMT kernels' online softmax (csrc/flash_simt.cuh kBKV):
+# the tile of the bf16 instance's yardstick, _flash_attention_tiled
+SIMT_KEY_TILE = 64
 
 
 def _query_blocks(L: int, local_window: int | None):
@@ -131,6 +134,47 @@ def _flash_attention_plain(q, k, v, lengths, local_window=None):
         vb = v[:, :, k0 : k0 + span]
         acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vb.float())
         outs.append((acc / l).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def _flash_attention_tiled(q, k, v, lengths, local_window=None, tile: int = SIMT_KEY_TILE):
+    """K9's function step by step as the online softmax takes it: the keys
+    in tiles of ``tile`` (tile i holds keys i*tile .. (i+1)*tile - 1), each
+    tile's p = exp(s - m) against the running maximum m of the valid keys
+    so far, rounded to v's dtype for P.V, the accumulator and the unrounded
+    row sum rescaled by exp(m_old - m) at each tile, the sum divided by the
+    row sum clamped at 1e-30 at the end (``herro_tpu/ops/attention.py:
+    _flash_kernel``, whose ``blk_k`` is the tile). The yardstick of the
+    kernels that round P that way (``flash_bf16_attention``: 64-key tiles,
+    ``csrc/flash_simt.cuh``): against :func:`_flash_attention_plain`, which
+    rounds P against the whole row's maximum, a bf16 output may sit an ulp
+    away wherever the running maximum rose. For tests and the card's
+    checks only; no route of :func:`attention` takes it."""
+    lengths = lengths.to(q.device)
+    L = q.shape[2]
+    outs = []
+    for q0, blk_q, k0, span in _query_blocks(L, local_window):
+        a = k0 // tile * tile  # the keys of whole tiles around the block's span
+        n = min(-(-(k0 + span) // tile) * tile, L) - a
+        s, mask = _block_scores(q, k, lengths, local_window, q0, blk_q, a, n)
+        nt = -(-n // tile)
+        pad = nt * tile - n
+        s = torch.nn.functional.pad(torch.where(mask, s, NEG_INF), (0, pad), value=NEG_INF)
+        mask = torch.nn.functional.pad(mask.expand_as(s[..., :n]), (0, pad))
+        vb = torch.nn.functional.pad(v[:, :, a:a + n].float(), (0, 0, 0, pad))
+        s, mask = s.unflatten(-1, (nt, tile)), mask.unflatten(-1, (nt, tile))
+        m = s.amax(dim=-1).cummax(dim=-1).values  # [B, H, blk_q, nt] after each tile
+        m_prev = torch.cat([torch.full_like(m[..., :1], NEG_INF), m[..., :-1]], dim=-1)
+        alpha = torch.exp(m_prev - m)
+        p = torch.exp(s - m[..., None]) * mask
+        acc = torch.zeros(*q.shape[:2], blk_q, q.shape[3], device=q.device)
+        l = torch.zeros(*q.shape[:2], blk_q, 1, device=q.device)
+        for t in range(nt):
+            pt, at = p[..., t, :], alpha[..., t, None]
+            l = l * at + pt.sum(dim=-1, keepdim=True)
+            acc = acc * at + torch.einsum("bhqk,bhkd->bhqd", pt.to(v.dtype).float(),
+                                          vb[:, :, t * tile:(t + 1) * tile])
+        outs.append((acc / l.clamp_min(1e-30)).to(q.dtype))
     return torch.cat(outs, dim=2)
 
 

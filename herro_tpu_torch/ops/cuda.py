@@ -14,7 +14,7 @@ Every C entry point launches on the stream it is handed (the caller passes
 ``cudaGetLastError()``; :func:`call` raises when that is not 0.
 :data:`launch_counts` counts launches per kernel, one per successful call,
 and per mode for a kernel whose source has more than one entry point
-(:data:`MODES`).
+(:data:`MODES`); it keeps the same counts by card as well.
 
 The float32 kernels (``*_f32.cu``, SIMT FFMA over ``f32.cuh``) take the
 float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
@@ -143,24 +143,34 @@ def simt_dtype(name: str):
 
 class LaunchCounts:
     """Per-kernel launch counters, safe to bump from several threads (the
-    engine dispatches from two uploader threads)."""
+    engine dispatches from two uploader threads); besides each kernel's
+    total, the launches by card index (the device current at the launch)."""
 
     def __init__(self, names):
         self._lock = threading.Lock()
         self._n = {name: 0 for name in names}
+        self._by_device: dict[int, dict[str, int]] = {}
 
-    def bump(self, name: str) -> None:
+    def bump(self, name: str, device: int) -> None:
         with self._lock:
             self._n[name] += 1
+            per = self._by_device.setdefault(device, {})
+            per[name] = per.get(name, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             for name in self._n:
                 self._n[name] = 0
+            self._by_device.clear()
 
     def snapshot(self) -> dict[str, int]:
         with self._lock:
             return dict(self._n)
+
+    def by_device(self) -> dict[int, dict[str, int]]:
+        """card index -> kernel -> launches, of the kernels launched there."""
+        with self._lock:
+            return {dev: dict(n) for dev, n in sorted(self._by_device.items())}
 
 
 launch_counts = LaunchCounts([*KERNELS, *MODES])
@@ -247,11 +257,15 @@ def build_all() -> float:
 
 def call(name: str, *args) -> None:
     """Launch kernel (or mode) ``name`` through its C entry point and count
-    it; raise if the launch was refused."""
+    it, in its total and under the current card (every wrapper launches
+    inside ``torch.cuda.device`` of its operands); raise if the launch was
+    refused."""
+    import torch
+
     err = _libs.fn(name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    launch_counts.bump(name)
+    launch_counts.bump(name, torch.cuda.current_device())
 
 
 def stream_of(t) -> int:

@@ -130,7 +130,16 @@ def all_reduce(partials: list[torch.Tensor]) -> list[torch.Tensor]:
     cards), so every shard holds the same bits. Shards on one device share
     the one tensor. Differentiable as it stands, through the copies and the
     in-place sum: the backward hands the sum of the outputs' gradients to
-    every partial (Megatron's g operator)."""
+    every partial (Megatron's g operator).
+
+    Across cards the order of the work is torch's copy barrier: a copy
+    between two cards runs on the source card's current stream once the
+    destination's current stream has reached it, and the destination's
+    current stream waits for the copy. The runner makes its stream on each
+    card current (``pipeline/infer.py:_Replica.dispatch``), so each partial
+    is read after its card wrote it and each card reads the total after it
+    arrived; the copies run one after another, each after the previous
+    sum (``tools/across_cards_torch.py`` times them)."""
     if len(partials) == 1:
         return list(partials)
     dev0 = partials[0].device

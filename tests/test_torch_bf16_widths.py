@@ -602,7 +602,8 @@ def test_bf16_rows_fail_when_the_kernel_misses_a_rounding():
     package with the bf16 SIMT device code unchanged holds every row of
     ``chip_smoke.simt_cases``; with one rounding of the bf16 plain version
     missed (or one added), the rows ``FAULTS`` names fail: every planted
-    fault but K9's P, which its online softmax's own roundings hide."""
+    fault, K9's P too, since K9's rows take the plain version that rounds P
+    per key tile against the running maximum as the kernel does."""
     _card()
     spec = importlib.util.spec_from_file_location(
         "bf16_rounding_faults", os.path.join(ROOT, "tools", "bf16_rounding_faults.py"))
