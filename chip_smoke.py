@@ -219,6 +219,11 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
+# exponentials on the SFU (ex2): the CUDA C++ Programming Guide's table of
+# arithmetic instruction throughput gives compute capability 9.0 16 results
+# a clock an SM for the base-2 exponential; 132 SMs at the H100 SXM's 1.98 GHz
+PEAK_EXP2 = 132 * 16 * 1.98e9
 # int8 on the CUDA cores (__dp4a, the SIMT int8 kernels): the CUDA C++
 # Programming Guide's table of arithmetic instruction throughput gives
 # compute capability 9.0 64 results a clock an SM for 32-bit integer
@@ -281,6 +286,16 @@ def graph_ms(torch, fn, iters: int) -> float:
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tc_bound(nbytes: float, ops: float, exps: float, f32: bool) -> tuple[float, str]:
+    """The tensor-core attention's bound (``csrc/flash_tc.cuh``): the
+    larger of its bytes over the memory rate and its operations, the
+    products at the tensor cores' peak for the operands (float32 as three
+    TF32 products: a third of the TF32 peak) or its exponentials at the
+    SFU's rate, whichever takes longer."""
+    return bound(nbytes, max(ops, exps * (PEAK_TF32 / 3 if f32 else PEAK_BF16) / PEAK_EXP2),
+                 PEAK_TF32 / 3 if f32 else PEAK_BF16)
 
 
 def compare(torch, got, ref, keep=None, residual=None, exact=False, atol=None):
@@ -2744,7 +2759,10 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
     L=9216). The first row of a kernel is its main row. Each row's bound is
     the larger of its bytes over the card's memory rate and its operations
     over the card's peak for the operands' type (float32 or bf16), whatever
-    units the instance multiplies on; its library call is SDPA in ``dtype``
+    units the instance multiplies on; the attention rows' (K2/K6/K7/K9, on
+    the tensor cores) is ``tc_bound``'s, with the operations-at-that-peak
+    bound beside it (``bound_simt_ms``: FFMA for float32) and its two terms,
+    the products and the exponentials; its library call is SDPA in ``dtype``
     with the mask (the attention rows) or one torch.matmul in ``dtype`` of
     the dominant product, TF32 off."""
     import numpy as np
@@ -2785,6 +2803,14 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
         quals = QUAL_SCALE * torch.from_numpy(
             rng.integers(33, 127, size=(B, R, n), dtype=np.uint8)).to(dev).float() - QUAL_OFFSET
         return torch.from_numpy(tok).to(dev), quals, lengths
+
+    def simt_bounds(nbytes, ops, exps):
+        """An attention row's bound as the SIMT instances stated it (its
+        operations at the peak of the operands' type: FFMA for float32),
+        and the two terms of the tensor cores' (tc_bound)."""
+        ms, by = bound(nbytes, ops, peak)
+        return dict(bound_simt_ms=ms, bound_simt_by=by, bound_exp2_ms=exps / PEAK_EXP2 * 1e3,
+                    bound_products_ms=ops / (PEAK_TF32 / 3 if f32 else PEAK_BF16) * 1e3)
 
     def band_pairs(band, lens, n):
         i = np.arange(n)
@@ -2879,6 +2905,9 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
             route = f"flash_{sfx}" if w is not None else f"flash_{sfx}_full"
             w_labels = [] if w is None or wide else [f"w={w}"]
             a_att = (q, k, v, x, wo, bo, lens, w)
+            pairs = band_pairs(w, lens_np, n)
+            att_work = (qkv_bytes + 2 * T * d * es + H * D * d * es,
+                        4 * H * D * pairs + 2 * int(lens_np.sum()) * H * D * d, H * pairs)
             add(f"flash_{sfx}", dict(
                 mode=None if w is not None else route,
                 replaces=F32_REPLACES["flash_f32_full" if w is None
@@ -2890,9 +2919,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                          f"out projection",
                          lambda bias, qkv=(q, k, v): sdpa(qkv, bias),
                          lambda lens=lens, w=w, n=n: sdpa_bias(lens, w, n)),
-                bound=bound(qkv_bytes + 2 * T * d * es + H * D * d * es,
-                            4 * H * D * band_pairs(w, lens_np, n)
-                            + 2 * int(lens_np.sum()) * H * D * d, peak),
+                bound=tc_bound(*att_work, f32), extra=lambda w_=att_work: simt_bounds(*w_),
                 rows=lens_np, residual=x, iters=iters, **tol_proj), *w_labels)
             if shard:
                 continue
@@ -2903,6 +2930,8 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                 k9_np[3] = 0
             k9_lens = torch.from_numpy(k9_np).to(dev)
             a_k9 = (q, k, v, k9_lens, w)
+            k9_pairs = band_pairs(w, k9_np, n)
+            k9_work = (4 * B * H * n * D * es, 4 * H * D * k9_pairs, H * k9_pairs)
             k9 = f"flash_{sfx}_attention"
             add(f"flash_{sfx}", dict(
                 mode=k9, replaces=replaces(k9),
@@ -2912,8 +2941,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                          f"with the mask (band {w}) as an additive bias: the same function",
                          lambda bias, qkv=(q, k, v): sdpa(qkv, bias),
                          lambda lens=k9_lens, w=w, n=n: sdpa_bias(lens, w, n)),
-                bound=bound(4 * B * H * n * D * es, 4 * H * D * band_pairs(w, k9_np, n),
-                            peak),
+                bound=tc_bound(*k9_work, f32), extra=lambda w_=k9_work: simt_bounds(*w_),
                 rows=k9_np, iters=iters, **tol), f"w={w}" if w is not None else "no band")
         if hopper_d:
             continue
@@ -3288,6 +3316,61 @@ def _f32_attention(torch) -> dict:
     return launches
 
 
+# the lengths at which the distilled student's step is timed beside its
+# teacher's at L (student_steps)
+STUDENT_LENGTHS = (1024, 4608, 9216)
+
+
+def student_steps(torch, student: str, phase: str = "float32") -> dict:
+    """The correct step (``make_correct_step_packed``, S=256) at B=32 of a
+    float32 tiny checkpoint, distill's default student, at each of
+    ``STUDENT_LENGTHS``, beside its teacher's (``model_r10_sim``, bf16 on the
+    Hopper kernels) at L=9216, by the port's step timer
+    (``pipeline/steptime.py:time_step``): ms a step, windows/s and one step's
+    launches (the student's the float32 kernels alone, the teacher's the
+    e2e run's kernels). One JSON line; raises on other launches or
+    non-finite outputs."""
+    from herro_tpu_torch.models.checkpoint import load_model
+    from herro_tpu_torch.models.model import CorrectionModel
+    from herro_tpu_torch.ops import cuda as kernels
+    from herro_tpu_torch.pipeline.infer import make_correct_step_packed
+    from herro_tpu_torch.pipeline.steptime import example_batch, time_step
+
+    dev = torch.device("cuda", 0)
+    report, bad = {}, []
+    runs = [("student", student, n) for n in STUDENT_LENGTHS] + [("teacher", CKPT, L)]
+    for role, ckpt, n in runs:
+        cfg, sd = load_model(ckpt)
+        model = CorrectionModel(cfg)
+        model.load_state_dict(sd)
+        step = make_correct_step_packed(model.to(dev).eval())
+        sets = [[torch.from_numpy(a).to(dev) for a in example_batch(B, n, 256, seed=s)]
+                for s in (5, 6)]
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            before = kernels.launch_counts.snapshot()
+            info, _ = step(*sets[0])
+            torch.cuda.synchronize()
+            after = kernels.launch_counts.snapshot()
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = ({_tiny_entry(cfg): 1, **_tiny_block_launches(cfg), "count_decisions": 1}
+                if role == "student" else
+                {k: (1 if k in ("entry_embed", "count_decisions") else cfg.n_layers)
+                 for k in E2E_KERNELS})
+        timed = time_step(step, sets, B, iters=5)
+        report[f"{role} L={n}"] = dict(dtype=cfg.dtype, ms=timed["ms"],
+                                       windows_per_s=timed["windows_per_s"], launches=launches)
+        if launches != want or not bool(torch.isfinite(info).all()):
+            bad.append((role, n, launches, want))
+        del model, step, sets
+        torch.cuda.empty_cache()
+    emit(phase, run="student and teacher steps", card=nvidia_smi(), B=B, S=256,
+         student=student, teacher=CKPT, **report)
+    if bad:
+        raise RuntimeError(f"student/teacher steps: launches or outputs wrong: {bad}")
+    return report
+
+
 def phase_float32(torch, tmp: str, e2e: dict, results: dict) -> dict:
     """float32 and head dim 16 on the card: the four float32 kernels against
     their plain versions (``simt_cases``; the rows join the kernels
@@ -3295,7 +3378,8 @@ def phase_float32(torch, tmp: str, e2e: dict, results: dict) -> dict:
     goldens against the frozen JAX logits, ``distill`` with no
     ``--student`` (the default tiny), ``train --config tiny``, ``eval`` of
     the tiny checkpoint it wrote, ``inference`` of it on one device and
-    over TP 2, and ``attention()`` in float32; then ``HERRO_TPU_PALLAS=0``
+    over TP 2, and ``attention()`` in float32; then that checkpoint's step
+    beside its teacher's (``student_steps``) and ``HERRO_TPU_PALLAS=0``
     refused on the card. Returns the path's launches and the tiny
     checkpoint ``train`` wrote."""
     from herro_tpu_torch.models.model import TINY_CONFIG
@@ -3325,6 +3409,7 @@ def phase_float32(torch, tmp: str, e2e: dict, results: dict) -> dict:
     _f32_attention(torch)
     torch.cuda.synchronize()
     launches = kernels.launch_counts.snapshot()
+    student_steps(torch, tiny_ckpt)  # off the counted path: the teacher's kernels too
     _f32_knob_runs(torch)
     emit("float32", run="phase", seconds=time.perf_counter() - t0, kernel_rows_s=rows_s,
          path_launches={k: n for k, n in launches.items() if n})

@@ -1,11 +1,12 @@
 // Shared pieces of the SIMT kernels for float32 and for bf16 at the widths
 // the Hopper instances lack (entry_embed_simt.cuh, ln_qkv_rope_simt.cuh,
-// flash_simt.cuh, ln_ffn_f32.cu / ln_ffn_bf16.cu; the int8 ones of
-// int8_simt.cuh keep its tile layout): SIMT FFMA, no tensor cores.
+// flash_tc.cuh's out projection, ln_ffn_f32.cu / ln_ffn_bf16.cu; the int8
+// ones of int8_simt.cuh keep its tile layout): SIMT FFMA, no tensor cores.
 //
 // Why not wgmma: it takes float32 operands only as TF32 (a 10-bit
 // mantissa), which cannot hold the float32 forward within 2e-4 of the JAX
-// package's logits. So every product here is a float32 FFMA on the CUDA
+// package's logits in one product (flash_tc.cuh's attention takes three,
+// on hi and lo TF32 parts). So every product here is a float32 FFMA on the CUDA
 // cores (67 TFLOP/s on an H100 SXM, against 495 for TF32), accumulated in
 // float32. The tile product (gemm_mainloop) has SGEMM's usual shape: a
 // block of 256 threads an output tile of 128 x 128, 8 x 8 outputs a thread

@@ -3,12 +3,13 @@
 // their shards) lack: TINY_CONFIG in bf16 (H 2 x D 16, d 32), head dim 64,
 // their tensor-parallel shards; any D in {16, 32, 64, 128}, any H, d a
 // multiple of 32 up to 512. The device code, its bound and its design are
-// flash_simt.cuh's, at E = bf16: q/k/v, x, Wo, bo, the scratch and the
+// flash_tc.cuh's, at E = bf16: q/k/v, x, Wo, bo, the scratch and the
 // outputs bf16, the sums float32; K9 rounds P to bf16 before P.V, the out
-// projection's attention keeps it in float32, each as its plain version.
+// projection's attention keeps it at float32 precision (two TF32 parts),
+// each as its plain version.
 // herro_flash_bf16 (K2, K6: any band), herro_flash_bf16_full (K7),
 // herro_flash_bf16_attention (K9: window -1 for no band).
-#include "flash_simt.cuh"
+#include "flash_tc.cuh"
 
 using herro::bf16;
 
@@ -17,7 +18,7 @@ extern "C" int herro_flash_bf16(const void* q, const void* k, const void* v, con
                                 void* scratch, void* y, int B, int H, int L, int d, int D,
                                 int window, float scale, void* stream) {
   if (window < 0) return (int)cudaErrorInvalidValue;
-  return herro::flash_simt::outproj<bf16>(
+  return herro::flash_tc::outproj<bf16>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)x, (const bf16*)wo,
       (const bf16*)bo, lengths, (bf16*)scratch, (bf16*)y, B, H, L, d, D, window, scale,
       (cudaStream_t)stream);
@@ -27,7 +28,7 @@ extern "C" int herro_flash_bf16_full(const void* q, const void* k, const void* v
                                      const void* x, const void* wo, const void* bo,
                                      const int* lengths, void* scratch, void* y, int B, int H,
                                      int L, int d, int D, float scale, void* stream) {
-  return herro::flash_simt::outproj<bf16>(
+  return herro::flash_tc::outproj<bf16>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)x, (const bf16*)wo,
       (const bf16*)bo, lengths, (bf16*)scratch, (bf16*)y, B, H, L, d, D, -1, scale,
       (cudaStream_t)stream);
@@ -36,7 +37,7 @@ extern "C" int herro_flash_bf16_full(const void* q, const void* k, const void* v
 extern "C" int herro_flash_bf16_attention(const void* q, const void* k, const void* v,
                                           const int* lengths, void* o, int B, int H, int L,
                                           int D, int window, float scale, void* stream) {
-  return herro::flash_simt::attention<bf16, true>((const bf16*)q, (const bf16*)k,
+  return herro::flash_tc::attention<bf16, true>((const bf16*)q, (const bf16*)k,
                                                   (const bf16*)v, lengths, (bf16*)o, B, H, L,
                                                   D, window, scale, 0, (cudaStream_t)stream);
 }

@@ -1,17 +1,18 @@
 // K2, K6, K7 and K9 in float32, for float32 configs at any head dim D in
 // {16, 32, 64, 128}, which the bf16 Hopper kernels of
 // flash_outproj_sm90.cuh (D 128) do not take. The device code, its bound and
-// its design are flash_simt.cuh's, at E = float: herro_flash_f32 (K2, K6:
+// its design are flash_tc.cuh's, at E = float (every product as three TF32
+// products on the tensor cores): herro_flash_f32 (K2, K6:
 // any band), herro_flash_f32_full (K7: every key below the length),
 // herro_flash_f32_attention (K9: attention alone, window -1 for no band).
-#include "flash_simt.cuh"
+#include "flash_tc.cuh"
 
 extern "C" int herro_flash_f32(const float* q, const float* k, const float* v, const float* x,
                                const float* wo, const float* bo, const int* lengths,
                                float* scratch, float* y, int B, int H, int L, int d, int D,
                                int window, float scale, void* stream) {
   if (window < 0) return (int)cudaErrorInvalidValue;
-  return herro::flash_simt::outproj<float>(q, k, v, x, wo, bo, lengths, scratch, y, B, H, L, d,
+  return herro::flash_tc::outproj<float>(q, k, v, x, wo, bo, lengths, scratch, y, B, H, L, d,
                                            D, window, scale, (cudaStream_t)stream);
 }
 
@@ -19,13 +20,13 @@ extern "C" int herro_flash_f32_full(const float* q, const float* k, const float*
                                     const float* x, const float* wo, const float* bo,
                                     const int* lengths, float* scratch, float* y, int B, int H,
                                     int L, int d, int D, float scale, void* stream) {
-  return herro::flash_simt::outproj<float>(q, k, v, x, wo, bo, lengths, scratch, y, B, H, L, d,
+  return herro::flash_tc::outproj<float>(q, k, v, x, wo, bo, lengths, scratch, y, B, H, L, d,
                                            D, -1, scale, (cudaStream_t)stream);
 }
 
 extern "C" int herro_flash_f32_attention(const float* q, const float* k, const float* v,
                                          const int* lengths, float* o, int B, int H, int L,
                                          int D, int window, float scale, void* stream) {
-  return herro::flash_simt::attention<float, false>(q, k, v, lengths, o, B, H, L, D, window,
+  return herro::flash_tc::attention<float, false>(q, k, v, lengths, o, B, H, L, D, window,
                                                     scale, 0, (cudaStream_t)stream);
 }

@@ -3,8 +3,9 @@
 A port of ``herro_tpu/ops/attention.py``:
 
 * ``flash`` — the hand-written kernel (K9) for CUDA tensors: the Hopper
-  kernel (``csrc/flash_attention.cu``) for bf16 at head dim 128, the SIMT
-  kernels (``csrc/flash_f32.cu`` and ``csrc/flash_bf16.cu``, modes
+  kernel (``csrc/flash_attention.cu``) for bf16 at head dim 128, the
+  instances for the other widths (``csrc/flash_f32.cu`` and
+  ``csrc/flash_bf16.cu`` over ``flash_tc.cuh``'s ``mma.sync``, modes
   ``flash_f32_attention`` and ``flash_bf16_attention``) for float32 at head
   dims 16-128 and bf16 at 16-64; online-softmax tiling, so the [L, L] score matrix never
   exists in device memory; a suffix length mask and an optional band. For CPU
@@ -39,7 +40,7 @@ BLK_Q = 512  # query rows per block: bounds the [B, H, blk, span] score tensor
 # the head dim the bf16 Hopper flash kernel takes; the bf16 SIMT kernel
 # (csrc/flash_bf16.cu) serves the other head dims of cuda.F32_HEAD_DIMS
 FLASH_HEAD_DIM = 128
-# keys a tile of the SIMT kernels' online softmax (csrc/flash_simt.cuh kBKV):
+# keys a tile of the bf16 instances' online softmax (csrc/flash_tc.cuh kBKV):
 # the tile of the bf16 instance's yardstick, _flash_attention_tiled
 SIMT_KEY_TILE = 64
 
@@ -146,7 +147,7 @@ def _flash_attention_tiled(q, k, v, lengths, local_window=None, tile: int = SIMT
     row sum clamped at 1e-30 at the end (``herro_tpu/ops/attention.py:
     _flash_kernel``, whose ``blk_k`` is the tile). The yardstick of the
     kernels that round P that way (``flash_bf16_attention``: 64-key tiles,
-    ``csrc/flash_simt.cuh``): against :func:`_flash_attention_plain`, which
+    ``csrc/flash_tc.cuh``): against :func:`_flash_attention_plain`, which
     rounds P against the whole row's maximum, a bf16 output may sit an ulp
     away wherever the running maximum rose. For tests and the card's
     checks only; no route of :func:`attention` takes it."""

@@ -16,7 +16,8 @@ Every C entry point launches on the stream it is handed (the caller passes
 and per mode for a kernel whose source has more than one entry point
 (:data:`MODES`); it keeps the same counts by card as well.
 
-The float32 kernels (``*_f32.cu``, SIMT FFMA over ``f32.cuh``) take the
+The float32 kernels (``*_f32.cu``, SIMT FFMA over ``f32.cuh``; the attention
+of ``flash_f32.cu`` on the tensor cores, ``flash_tc.cuh``) take the
 float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
 not; their bf16 instances (``*_bf16.cu``, the same device code at bf16
 storage) take bf16 at the widths and head dims no Hopper instance was built

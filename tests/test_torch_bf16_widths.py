@@ -532,9 +532,10 @@ def _held(got, want, keep=None, residual=None):
 
 
 # (d, H, D, d_ff): TINY_CONFIG, its tp 2 shard, head dim 32, r10h64 and its
-# tp 2 shard (K3 and K4 at d 512 forced onto the SIMT instance by name)
+# tp 2 shard (K3 and K4 at d 512 forced onto the SIMT instance by name), and
+# head dim 128 at (H, d) (1, 128), which no Hopper instance takes
 GPU_WIDTHS = [(32, 2, 16, 64), (32, 1, 16, 32), (64, 2, 32, 128), (512, 8, 64, 1024),
-              (512, 4, 64, 512)]
+              (512, 4, 64, 512), (128, 1, 128, 256)]
 GPU_IDS = [f"d{w[0]}-H{w[1]}-D{w[2]}-f{w[3]}" for w in GPU_WIDTHS]
 
 
@@ -596,6 +597,37 @@ def test_bf16_forward_on_card_matches_frozen_jax_logits(name):
     assert _within_twice_the_recorded_gap(gap, frozen), gap
 
 
+def _faults_module():
+    spec = importlib.util.spec_from_file_location(
+        "bf16_rounding_faults", os.path.join(ROOT, "tools", "bf16_rounding_faults.py"))
+    faults = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(faults)
+    return faults
+
+
+@pytest.mark.parametrize("fault", ["ln_output", "qkv_bias", "ffn_bias", "quals", "k9_p",
+                                   "outproj_p"])
+def test_each_rounding_fault_finds_its_anchor_in_the_sources(fault, tmp_path):
+    """``tools/bf16_rounding_faults.py`` plants each fault in a copy of the
+    package: its text is in the named source once (``copy_with`` raises
+    otherwise), and the copy differs from the source there and nowhere
+    else."""
+    faults = _faults_module()
+    assert sorted(f for f, spec in faults.FAULTS.items() if spec) == sorted(
+        ["ln_output", "qkv_bias", "ffn_bias", "quals", "k9_p", "outproj_p"])
+    faults.copy_with(fault, str(tmp_path))
+    src, old, new, _ = faults.FAULTS[fault]
+    csrc = os.path.join(ROOT, "herro_tpu_torch", "csrc")
+    for name in sorted(os.listdir(csrc)):
+        if not name.endswith((".cu", ".cuh")):
+            continue
+        with open(os.path.join(csrc, name)) as fh:
+            mine = fh.read()
+        with open(os.path.join(tmp_path, "herro_tpu_torch", "csrc", name)) as fh:
+            planted = fh.read()
+        assert planted == (mine.replace(old, new) if name == src else mine), name
+
+
 @pytest.mark.gpu
 def test_bf16_rows_fail_when_the_kernel_misses_a_rounding():
     """``tools/bf16_rounding_faults.py`` at tiny, L=1024: a copy of the
@@ -605,10 +637,7 @@ def test_bf16_rows_fail_when_the_kernel_misses_a_rounding():
     fault, K9's P too, since K9's rows take the plain version that rounds P
     per key tile against the running maximum as the kernel does."""
     _card()
-    spec = importlib.util.spec_from_file_location(
-        "bf16_rounding_faults", os.path.join(ROOT, "tools", "bf16_rounding_faults.py"))
-    faults = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(faults)
+    faults = _faults_module()
     rows = faults.run(list(faults.FAULTS), [("tiny", 1024)])
     got = faults.verdicts(rows)
     assert set(got) == set(faults.FAULTS)

@@ -3,7 +3,7 @@
 The flash kernel (``herro_tpu/ops/attention.py:_flash_kernel``, K9) walks the
 keys in tiles of ``blk_k`` and rounds p = exp(s - m) to bf16 for P.V against
 the running maximum m of the keys seen so far; the port's bf16 SIMT instance
-(``csrc/flash_simt.cuh``) does the same over 64-key tiles.
+(``csrc/flash_tc.cuh``) does the same over 64-key tiles.
 ``attention._flash_attention_tiled`` follows those steps at a tile width of
 its parameter; ``attention._flash_attention_plain`` rounds P against the
 whole row's maximum instead.

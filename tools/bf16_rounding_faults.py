@@ -5,12 +5,15 @@
     python3 tools/bf16_rounding_faults.py --fault k9_p --out rows.jsonl
 
 Each fault copies ``herro_tpu_torch/`` and ``chip_smoke.py`` into a
-temporary directory and changes one rounding of the bf16 SIMT device code
-there: a ``round_to<E>`` taken out where the bf16 plain version rounds, or
-P rounded where it keeps float32 (``FAULTS``). The copy builds its four bf16
-SIMT sources (all copies at once) and runs ``chip_smoke.simt_cases(torch,
-"bfloat16", plans)`` through ``chip_smoke.run_cases``, at the smoke run's
-bars, in a process of its own; ``none`` runs the copy unchanged. Prints one
+temporary directory and changes one rounding of the bf16 device code of the
+widths no Hopper instance takes there: a ``round_to<E>`` taken out where the
+bf16 plain version rounds, K9's P kept at float32 precision where it is
+rounded to bf16, or the out projection's P rounded where it keeps float32
+(``FAULTS``; the attention's two on the tensor cores, ``flash_tc.cuh``). The
+copy builds its four bf16 sources (all copies at once) and runs
+``chip_smoke.simt_cases(torch, "bfloat16", plans)`` through
+``chip_smoke.run_cases``, at the smoke run's bars, in a process of its
+own; ``none`` runs the copy unchanged. Prints one
 JSON line a row (the fault, the case, whether it held, its error beside its
 bar, the share of outputs that differ from the plain version's), then each
 fault's failed rows. Roundings the storage type makes (an output, the
@@ -44,9 +47,9 @@ FAULTS = {
                  "v[e] = round_to<E>(gelu_tanh(__fadd_rn(a, bn)));", ("ln_ffn_bf16",)),
     "quals": ("entry_embed_simt.cuh", "const float qv = round_to<E>(quals[base + (long)r * L]);",
               "const float qv = quals[base + (long)r * L];", ("entry_embed_bf16",)),
-    "k9_p": ("flash_simt.cuh", "return kRoundP ? round_to<E>(x) : x;", "return x;",
+    "k9_p": ("flash_tc.cuh", "kRoundP ? kPVRound : kPVSplitP", "kPVSplitP",
              ("flash_bf16_attention",)),
-    "outproj_p": ("flash_simt.cuh", "int err = attention<E, false>(", "int err = attention<E, true>(",
+    "outproj_p": ("flash_tc.cuh", "int err = attention<E, false>(", "int err = attention<E, true>(",
                   ("flash_bf16", "flash_bf16_full")),
 }
 

@@ -1,0 +1,122 @@
+"""The attention kernels' SIMT-width rows and the distilled student's step, beside another checkout's.
+
+    python3 tools/flash_rows_torch.py                                 # this checkout, once
+    python3 tools/flash_rows_torch.py --against chip_checkout/parent  # this, other, other, this
+    python3 tools/flash_rows_torch.py --against DIR --no-steps --out rows.jsonl
+
+Each pass runs in a process of its own, on one tree's ``herro_tpu_torch``
+with this checkout's ``chip_smoke.py`` (so both trees run the same rows,
+inputs, bars and bounds; the other tree is unpacked with ``git archive``),
+and prints one JSON line a row, tagged with its tree and pass:
+
+* the rows of ``chip_smoke.simt_cases`` whose kernel is ``flash_f32`` or
+  ``flash_bf16`` (K2, K6, K7 and K9 at every width no Hopper instance
+  takes: r10 in float32, the flagship at head dim 64 in bf16, TINY_CONFIG
+  in both, the tp 2 shards), held against their plain versions at the
+  smoke run's bars and timed by CUDA events beside their bounds, the plain
+  version and SDPA;
+* unless ``--no-steps``, ``chip_smoke.student_steps``: the correct step of
+  distill's default student (TINY_CONFIG in float32; here the frozen
+  ``tests/torch_data/tiny_seed5``) at B=32 and L 1024, 4608 and 9216,
+  beside its teacher's (``model_r10_sim`` in bf16) at L=9216.
+
+The passes run in turns (this, other, other, this) on one card, so the two
+trees' times come from one call; the card's name and power limit lead the
+output. A row that disagrees with its plain version fails its pass and the
+command (exit 1), after every pass has run.
+Needs a CUDA card and nvcc; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHILD = r"""
+import importlib.util, json, os, sys
+tree, smoke, steps = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+sys.path.insert(0, tree)
+import torch
+spec = importlib.util.spec_from_file_location("chip_smoke", smoke)
+chip_smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(chip_smoke)
+from herro_tpu_torch.ops import cuda
+from herro_tpu_torch.pipeline.infer import keep_float32_exact
+
+keep_float32_exact(torch.device("cuda"))
+cuda.build_all()
+bad = []
+for dtype, phase in (("float32", "float32"), ("bfloat16", "bf16_any")):
+    cases = {k: c for k, c in chip_smoke.simt_cases(torch, dtype).items()
+             if c["name"].startswith("flash_")}
+    try:
+        chip_smoke.run_cases(torch, cases, phase)
+    except RuntimeError as err:  # every row has printed its line
+        print(err, file=sys.stderr)
+        bad.append(dtype)
+    del cases
+    torch.cuda.empty_cache()
+if steps:
+    chip_smoke.student_steps(torch, os.path.join(chip_smoke.F32_DATA, "tiny_seed5"), "steps")
+sys.exit(1 if bad else 0)
+"""
+
+
+def run_pass(tree: str, steps: bool) -> tuple[list[dict], str | None]:
+    """One pass on ``tree``: chip_smoke's JSON lines of its rows (and steps),
+    and the end of its errors where it failed (a row that disagreed, or
+    worse)."""
+    env = dict(os.environ, PYTHONPATH=tree)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, tree, os.path.join(ROOT, "chip_smoke.py"),
+         "1" if steps else "0"],
+        cwd=tree, env=env, capture_output=True, text=True,
+    )
+    rows = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+    failed = proc.stderr[-4000:] if proc.returncode or not rows else None
+    return rows, failed
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="another checkout (unpacked by git archive) to time in turns")
+    ap.add_argument("--no-steps", action="store_true", help="the kernel rows alone")
+    ap.add_argument("--out", help="also write every line here")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_rows_torch: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from herro_tpu_torch.pipeline.steptime import card
+
+    print(card(), flush=True)
+    trees = [("this", ROOT)]
+    if args.against:
+        other = ("other", os.path.abspath(args.against))
+        trees = [trees[0], other, other, trees[0]]
+    out, failed = [], []
+    for i, (tag, tree) in enumerate(trees):
+        rows, err = run_pass(tree, not args.no_steps)
+        for row in rows:
+            row = dict(row, tree=tag, pass_=i)
+            out.append(row)
+            print(json.dumps(row), flush=True)
+        if err:
+            print(f"pass {i} ({tag}, {tree}) failed:\n{err}", flush=True)
+            failed.append(i)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.writelines(json.dumps(r) + "\n" for r in out)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

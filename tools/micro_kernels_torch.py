@@ -7,8 +7,8 @@
     python3 tools/micro_kernels_torch.py --spread 0 --against chip_checkout/parent
 
 Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
-prints each kernel's registers, spills and ptxas's performance advisories
-(C75xx, such as serialised ``wgmma``; ``--against`` another checkout's
+prints each entry function's (mangled) name, registers, spills and ptxas's
+performance advisories (C75xx, such as serialised ``wgmma``; ``--against`` another checkout's
 too, source by source, equal or not), then runs ``chip_smoke.py``'s
 ``kernels`` phase (every kernel against its plain version at B=32, L=9216,
 with its tolerance; times by CUDA events, K5's by CUDA-graph replay with the
@@ -62,10 +62,14 @@ def registers(kernels, csrc: str, names) -> dict[str, str]:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{err[-4000:]}")
-            # registers, spills, and ptxas's performance advisories (C75xx:
-            # e.g. wgmma serialised, or waits it had to inject)
-            lines = [l.strip() for l in err.splitlines()
-                     if "registers" in l or "spill" in l or "(C75" in l]
+            # each entry function's (mangled) name, its registers and spills,
+            # and ptxas's performance advisories (C75xx: e.g. wgmma
+            # serialised, or waits it had to inject)
+            lines = [l.strip().split("Compiling entry function ")[-1].split(" for ")[0]
+                     if "Compiling entry function" in l else l.strip()
+                     for l in err.splitlines()
+                     if "registers" in l or "spill" in l or "(C75" in l
+                     or "Compiling entry function" in l]
             out[name] = " | ".join(lines)
     return out
 
