@@ -2704,10 +2704,11 @@ F32_ATOL_PROJ = 2e-4  # after the out projection's extra contraction
 # value lies within float32's error of a rounding boundary: at most 0.17% of
 # the outputs on an H100. A rounding missed or added moves one at a large
 # share of them: 4-42% (tools/bf16_rounding_faults.py; PERF.md section 6).
-# K9's rows hold the kernel against the plain version that rounds P as its
-# online softmax does, tile by tile against the running maximum
-# (attention._flash_attention_tiled at the kernel's 64-key tile): against the
-# whole row's maximum 6-13% of its outputs were an ulp apart without a fault.
+# The attention rows (K9, and K2/K6/K7's projection) hold the kernel against
+# the plain version that rounds P as its online softmax does, tile by tile
+# against the running maximum (attention._flash_attention_tiled,
+# fused._flash_outproj_tiled, at the kernel's 64-key tile): against the whole
+# row's maximum 6-13% of K9's outputs were an ulp apart without a fault.
 BF16_SIMT_MAX_SHARE = 2.0 ** -6
 # (d, H, D, d_ff, band) of the SIMT rows: TINY_CONFIG (no band),
 # model_r10_sim (in float32), the flagship at head dim 64 (r10h64, bf16) and
@@ -2748,9 +2749,11 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
     and K3 at d 512 are the Hopper instances') at L=9216, TINY_CONFIG's at
     L=9216 and 1024, and the tp 2 shards of both (K1, K2/K7, K3), at the
     bf16 bars of ``compare``; every row also with at most
-    ``BF16_SIMT_MAX_SHARE`` of its outputs differing at all, K9's against
-    the plain version that rounds P per 64-key tile against the running
-    maximum, as the kernel does (``attention._flash_attention_tiled``).
+    ``BF16_SIMT_MAX_SHARE`` of its outputs differing at all, the attention
+    rows (K9, K2/K6/K7) against the plain version that rounds P per 64-key
+    tile against the running maximum, as the kernel does and as herro_tpu's
+    Pallas kernels round it (``attention._flash_attention_tiled``,
+    ``fused._flash_outproj_tiled``).
     tiny's K1/K8, K3 and K4, whose sums run over 16-64 terms and which have
     come out bit-equal with their plain versions in every run on the card,
     are held exact. So one missed bf16 rounding fails the rows it reaches
@@ -2758,11 +2761,13 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
     each band of a tag that is no shard (band 512, 40 and none for tiny at
     L=9216). The first row of a kernel is its main row. Each row's bound is
     the larger of its bytes over the card's memory rate and its operations
-    over the card's peak for the operands' type (float32 or bf16), whatever
-    units the instance multiplies on; the attention rows' (K2/K6/K7/K9, on
-    the tensor cores) is ``tc_bound``'s, with the operations-at-that-peak
-    bound beside it (``bound_simt_ms``: FFMA for float32) and its two terms,
-    the products and the exponentials; its library call is SDPA in ``dtype``
+    over the card's peak for the operands' type (float32 or bf16); the rows
+    on the tensor cores (K1/K8, K2/K6/K7/K9, K3) take ``tc_bound``'s (bf16
+    products at the bf16 peak, float32 as three TF32 products; the
+    attention's exponentials at the SFU's rate), with the operations at the
+    float32 FFMA or bf16 peak beside it (``bound_simt_ms``) and its two
+    terms, the products and the exponentials; K4 stays on the FFMA (float32)
+    or bf16 peak. A row's library call is SDPA in ``dtype``
     with the mask (the attention rows) or one torch.matmul in ``dtype`` of
     the dominant product, TF32 off."""
     import numpy as np
@@ -2786,6 +2791,9 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
     # K9's plain version: float32 keeps P unrounded, so the whole row's
     # maximum serves; bf16 rounds P per key tile against the running maximum
     k9_plain = attention._flash_attention_plain if f32 else attention._flash_attention_tiled
+    # K2/K6/K7's: float32 as the CPU forward; bf16 rounds P as K9's (and as
+    # herro_tpu's Pallas kernels)
+    proj_plain = fused._flash_outproj_plain if f32 else fused._flash_outproj_tiled
 
     def replaces(name):  # the TPU kernel a row's instance replaces, by its float32 name
         return F32_REPLACES[name.replace(sfx, "f32")]
@@ -2804,8 +2812,8 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
             rng.integers(33, 127, size=(B, R, n), dtype=np.uint8)).to(dev).float() - QUAL_OFFSET
         return torch.from_numpy(tok).to(dev), quals, lengths
 
-    def simt_bounds(nbytes, ops, exps):
-        """An attention row's bound as the SIMT instances stated it (its
+    def simt_bounds(nbytes, ops, exps=0):
+        """A tensor-core row's bound as the SIMT instances stated it (its
         operations at the peak of the operands' type: FFMA for float32),
         and the two terms of the tensor cores' (tc_bound)."""
         ms, by = bound(nbytes, ops, peak)
@@ -2886,6 +2894,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                             peak),
                 iters=iters, **short))
         a_qkv = (x, ln_s, ln_b, w_qkv, b_qkv, H)
+        qkv_work = (T * d * es + qkv_bytes + d * 3 * H * D * es, 2 * T * d * 3 * H * D)
         for route in (qkv_name, f"{qkv_name}_split")[: 2 if n == L and not shard else 1]:
             c = dict(
                 mode=None if route == qkv_name else route, replaces=replaces(route),
@@ -2893,8 +2902,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                 plain=lambda a=a_qkv: fused._ln_qkv_rope_plain(*a),
                 library=(f"torch.matmul LN(x)[T,d] @ W_qkv[d,3HD] {lib_dt}, the dominant "
                          f"product", lambda x=x, w=w_qkv, T=T, d=d: torch.matmul(x.view(T, d), w)),
-                bound=bound(T * d * es + qkv_bytes + d * 3 * H * D * es, 2 * T * d * 3 * H * D,
-                            peak),
+                bound=tc_bound(*qkv_work, 0, f32), extra=lambda w_=qkv_work: simt_bounds(*w_),
                 iters=iters, **short,
             )
             if route != qkv_name:  # the same bits as the table route
@@ -2913,7 +2921,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                 replaces=F32_REPLACES["flash_f32_full" if w is None
                                       else "flash_f32" if w % 256 == 0 else "flash_f32[K6]"],
                 kernel=lambda a=a_att, r=route: fused._flash_outproj_cuda(*a, kernel=r),
-                plain=lambda a=a_att: fused._flash_outproj_plain(*a),
+                plain=lambda a=a_att: proj_plain(*a),
                 library=(f"F.scaled_dot_product_attention (memory-efficient backend) {lib_dt} "
                          f"with the mask (band {w}) as an additive bias: attention only, no "
                          f"out projection",
@@ -2946,6 +2954,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
         if hopper_d:
             continue
         a_ffn = (x, ln_s, ln_b, w1, b1, w2, b2)
+        ffn_work = (2 * T * d * es + 2 * d * f * es, 4 * T * d * f)
         name = f"ln_ffn_{sfx}"
         add(name, dict(
             replaces=replaces(name),
@@ -2953,7 +2962,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
             plain=lambda a=a_ffn: fused._ln_ffn_plain(*a),
             library=(f"torch.matmul LN(x)[T,d] @ W1[d,f] {lib_dt}, half the operations",
                      lambda x=x, w=w1, T=T, d=d: torch.matmul(x.view(T, d), w)),
-            bound=bound(2 * T * d * es + 2 * d * f * es, 4 * T * d * f, peak),
+            bound=tc_bound(*ffn_work, 0, f32), extra=lambda w_=ffn_work: simt_bounds(*w_),
             residual=x, iters=iters, **short))
     return cases
 

@@ -1,34 +1,33 @@
-// Shared pieces of the SIMT kernels for float32 and for bf16 at the widths
-// the Hopper instances lack (entry_embed_simt.cuh, ln_qkv_rope_simt.cuh,
-// flash_tc.cuh's out projection, ln_ffn_f32.cu / ln_ffn_bf16.cu; the int8
-// ones of int8_simt.cuh keep its tile layout): SIMT FFMA, no tensor cores.
+// Shared pieces of the SIMT and tensor-core kernels for float32 and for bf16
+// at the widths the Hopper instances lack: loads, stores and roundings of the
+// storage type, LayerNorm, gelu and the epilogues (gemm_tc.cuh's tile
+// product of K1/K8 and K3, entry_embed_simt.cuh, flash_tc.cuh,
+// int8_simt.cuh), and the FFMA tile product that flash_tc.cuh's out
+// projection runs (K2/K6/K7's second launch) and that K1/K8 and K3 run at d
+// 32 (gemm_tc.cuh kFFMAWidth; the int8 kernels of int8_simt.cuh keep its
+// tile layout).
 //
-// Why not wgmma: it takes float32 operands only as TF32 (a 10-bit
-// mantissa), which cannot hold the float32 forward within 2e-4 of the JAX
-// package's logits in one product (flash_tc.cuh's attention takes three,
-// on hi and lo TF32 parts). So every product here is a float32 FFMA on the CUDA
-// cores (67 TFLOP/s on an H100 SXM, against 495 for TF32), accumulated in
-// float32. The tile product (gemm_mainloop) has SGEMM's usual shape: a
-// block of 256 threads an output tile of 128 x 128, 8 x 8 outputs a thread
-// (four float4 reads of shared memory feed 64 FFMAs), k in stages of 16
-// through two shared buffers, the next stage's global loads in registers
-// while the current one is multiplied.
+// The FFMA tile product (gemm_mainloop) has SGEMM's usual shape: a block of
+// 256 threads an output tile of 128 x 128, 8 x 8 outputs a thread (four
+// float4 reads of shared memory feed 64 FFMAs), k in stages of 16 through
+// two shared buffers, the next stage's global loads in registers while the
+// current one is multiplied; float32 FFMAs on the CUDA cores (67 TFLOP/s on
+// an H100 SXM), accumulated in float32.
 //
 // Every kernel is templated on the storage type E of its activations and
 // weights: float, or bf16 (__nv_bfloat16) for the bf16 configs whose widths
 // or head dims no Hopper instance was built for (TINY_CONFIG in bf16, head
 // dim 64, their tensor-parallel shards). Loads convert to float32 and the
-// shared stages hold float32, so a bf16 instance runs the same FFMA tile
-// product: a product of two bf16 values is exact in float32, and only the
-// order of the sums differs from the Hopper kernels' float32 accumulation.
-// Where the bf16 plain version rounds to bf16 (the LayerNorm output before
-// the product, qkv after the bias and again after the rope, the FFN hidden
-// after the bias and after gelu, P before P.V in K9, the attention output
-// before the out projection, every output), the kernel rounds through
-// round_to<E>, the identity for float.
+// FFMA stages hold float32: a product of two bf16 values is exact in
+// float32, and only the order of the sums differs from the Hopper kernels'
+// float32 accumulation. Where the bf16 plain version rounds to bf16 (the
+// LayerNorm output before the product, qkv after the bias and again after
+// the rope, the FFN hidden after the bias and after gelu, P before P.V, the
+// attention output before the out projection, every output), the kernels
+// round through round_to<E>, the identity for float.
 //
 // The roundings the plain versions (ops/fused.py) make outside a product
-// are made here in the same order with the _rn intrinsics, so that nvcc
+// are made in the same order with the _rn intrinsics, so that nvcc
 // contracts no a * b + c of theirs into one FMA: LayerNorm's statistics
 // (flax's fast variance mean(x^2) - mean(x)^2, clamped at 0), the
 // normalisation, the bias and residual adds, and the rope's rotations. The
@@ -64,7 +63,13 @@ __device__ inline void load4(const E* p, float (&v)[4]) {
   const float4 a = load_f4(p);
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
 }
-// four values already rounded to E
+// two (four) values already rounded to E
+__device__ inline void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ inline void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
 __device__ inline void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -92,6 +97,12 @@ inline int tile_width(int N) { return N <= 64 ? 64 : 128; }
 // two addresses (A) or 256 consecutive bytes (W)
 __device__ inline int tile_row(int ty, int i) { return (i & 4) * 16 + 4 * ty + (i & 3); }
 __device__ inline int tile_col(int tx, int j) { return (j & 4) * 16 + 4 * tx + (j & 3); }
+
+// LayerNorm's output of one value, rounded to E as the plain version rounds it
+template <typename E>
+__device__ inline float ln_apply(float v, float mu, float rstd, float scale, float bias) {
+  return round_to<E>(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rstd), scale), bias));
+}
 
 // LayerNorm statistics of rows r0 .. r0 + kBM - 1 of x [T, d]: a warp a row,
 // mu = sum(x) / d and var = max(sum(x * x) / d - mu * mu, 0), float32
@@ -163,9 +174,7 @@ __device__ inline void gemm_mainloop(float (&acc)[8][BN / 16], const E* __restri
           float* av = reinterpret_cast<float*>(&a);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            av[e] = round_to<E>(__fadd_rn(
-                __fmul_rn(__fmul_rn(__fsub_rn(av[e], m), rs), scale[k0 + kk + e]),
-                bias[k0 + kk + e]));
+            av[e] = ln_apply<E>(av[e], m, rs, scale[k0 + kk + e], bias[k0 + kk + e]);
         }
       }
       ra[h] = a;
@@ -232,11 +241,24 @@ __device__ inline float gelu_tanh(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
 }
 
-// the epilogues of gemm_kernel, each rounded to E where the plain version
+// the epilogues of a tile product, each rounded to E where the plain version
 // rounds (E: the storage type; float rounds nowhere)
 constexpr int kEpiGelu = 0;      // y = E(gelu(E(A @ W + b)))
 constexpr int kEpiResidual = 1;  // y = E(res + ((A @ W) + b))
 constexpr int kEpiResidualAfter = 2;  // y = E((res + A @ W) + b)
+
+// one output of epilogue kEpi: a = (A @ W)[row, n], bn = b[n], res[i] the
+// residual's element (unread by kEpiGelu)
+template <typename E, int kEpi>
+__device__ inline float epilogue(float a, float bn, const E* res, long i) {
+  if constexpr (kEpi == kEpiGelu) {
+    return round_to<E>(gelu_tanh(round_to<E>(__fadd_rn(a, bn))));
+  } else if constexpr (kEpi == kEpiResidual) {
+    return round_to<E>(__fadd_rn(to_f(res[i]), __fadd_rn(a, bn)));
+  } else {
+    return round_to<E>(__fadd_rn(__fadd_rn(to_f(res[i]), a), bn));
+  }
+}
 
 // y [T, N] = A @ W + b through one of the epilogues above, A = LN(x)
 // under kLN; res [T, N] the residual; A, W, b, res and y of type E. A tile
@@ -269,17 +291,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (n >= N) continue;  // N is a multiple of 4: the four columns are in or out
       float v[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a = acc[i][4 * g + e];
-        const float bn = to_f(b[n + e]);
-        if (kEpi == kEpiGelu) {
-          v[e] = round_to<E>(gelu_tanh(round_to<E>(__fadd_rn(a, bn))));
-        } else if (kEpi == kEpiResidual) {
-          v[e] = round_to<E>(__fadd_rn(to_f(res[row * N + n + e]), __fadd_rn(a, bn)));
-        } else {
-          v[e] = round_to<E>(__fadd_rn(__fadd_rn(to_f(res[row * N + n + e]), a), bn));
-        }
-      }
+      for (int e = 0; e < 4; ++e)
+        v[e] = epilogue<E, kEpi>(acc[i][4 * g + e], to_f(b[n + e]), res, row * N + n + e);
       store4(y + row * N + n, v);
     }
   }
@@ -302,8 +315,9 @@ void launch_gemm(const E* A, const E* W, const E* b, const E* res, const float* 
         A, W, b, res, scale, bias, y, T, K, N);
 }
 
-// K3: out = E(x + ((h @ W2) + b2)), h = E(gelu(E(LN(x) @ W1 + b1))) through
-// the [T, f] scratch `hidden`, two launches on one stream
+// K3 on the FFMA tile product (the widths of gemm_tc.cuh kFFMAWidth): out =
+// E(x + ((h @ W2) + b2)), h = E(gelu(E(LN(x) @ W1 + b1))) through the [T, f]
+// scratch `hidden`, two launches on one stream
 template <typename E>
 int ffn(const E* x, const float* scale, const float* bias, const E* w1, const E* b1,
         const E* w2, const E* b2, E* hidden, E* out, long T, int d, int f, cudaStream_t s) {

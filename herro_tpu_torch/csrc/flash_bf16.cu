@@ -4,9 +4,8 @@
 // their tensor-parallel shards; any D in {16, 32, 64, 128}, any H, d a
 // multiple of 32 up to 512. The device code, its bound and its design are
 // flash_tc.cuh's, at E = bf16: q/k/v, x, Wo, bo, the scratch and the
-// outputs bf16, the sums float32; K9 rounds P to bf16 before P.V, the out
-// projection's attention keeps it at float32 precision (two TF32 parts),
-// each as its plain version.
+// outputs bf16, the sums float32; every mode rounds P to bf16 before P.V,
+// as herro_tpu's Pallas kernels do.
 // herro_flash_bf16 (K2, K6: any band), herro_flash_bf16_full (K7),
 // herro_flash_bf16_attention (K9: window -1 for no band).
 #include "flash_tc.cuh"

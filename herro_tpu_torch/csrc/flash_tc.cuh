@@ -14,11 +14,14 @@
 //   L, D] (window -1: no band).
 // y = E((x + E(concat_h(attn_h)) @ Wo) + bo), key j of query i attended
 // when j < length and (no band or |i - j| <= window), E the storage type
-// (float: the identity). K9 in bf16 rounds P to bf16 before P.V and divides
-// by the unrounded row sum, as its plain version does (attention.py
-// _flash_attention_tiled: P against the running maximum of 64-key tiles);
-// the out projection's attention keeps P at float32 precision, as its plain
-// version (chunked_attention) does. A row with no key to attend comes out 0
+// (float: the identity). In bf16 every mode rounds P to bf16 before P.V and
+// divides by the unrounded row sum, as herro_tpu's Pallas kernels do (K9's
+// _flash_kernel, K7's _flash_outproj_kernel, K6's and K2's banded ones:
+// p.astype(v.dtype)); the yardstick on the card is P against the running
+// maximum of 64-key tiles (attention.py _flash_attention_tiled, and
+// fused.py _flash_outproj_tiled for K2/K6/K7). The CPU forward's plain
+// version of the projection (chunked_attention) keeps P at float32
+// precision, as herro_tpu's jnp twin does. A row with no key to attend comes out 0
 // (the plain K9's sum clamped at 1e-30; every row of a length-0 example);
 // under the out projection such rows are padding.
 //
@@ -56,11 +59,12 @@
 //   tests/test_torch_flash_tc.py emulates it). A k-step's index t maps to
 //   dim (or key) 2t and t + 4 to 2t + 1, so a thread's A and B pairs are
 //   adjacent in memory and P's A fragment is S's C fragment as it lies.
-// - P.V: K9 in bf16 packs P to bf16 (the rounding its plain version makes)
-//   against V by ldmatrix.trans, one m16n8k16; the bf16 out projection's
-//   attention splits P into two TF32 parts against V read the same way and
-//   widened (bf16 is exact in TF32), two m16n8k8; float32 splits P and V,
-//   three m16n8k8.
+// - P.V: bf16 packs P to bf16 (the rounding herro_tpu's kernels make)
+//   against V by ldmatrix.trans, one m16n8k16; float32 splits P and V,
+//   three m16n8k8. The mode that keeps bf16 P at float32 precision (two
+//   TF32 parts against V read the same way and widened, bf16 being exact in
+//   TF32: two m16n8k8) is taken by no entry point; it stays for
+//   tools/bf16_rounding_faults.py, which plants P left unrounded with it.
 // Why mma.sync and not wgmma: at D 16-64, every configuration but float32
 // r10, the products take a small share of a tile's time beside the
 // exponentials and the softmax, and wgmma's 64-row warpgroup tile would
@@ -74,8 +78,8 @@
 // the residual and the bias in its epilogue.
 #pragma once
 
-#include "common.cuh"
 #include "f32.cuh"
+#include "mma.cuh"
 
 namespace herro {
 namespace flash_tc {
@@ -92,8 +96,8 @@ constexpr int kPVRound = 0;   // rounded to bf16: one m16n8k16 against bf16 V
 constexpr int kPVSplitP = 1;  // two TF32 parts against bf16 V: two m16n8k8
 constexpr int kPVSplit3 = 2;  // P and float32 V as two TF32 parts each: three m16n8k8
 
-// P.V's mode for storage E: K9 in bf16 rounds P (kRoundP), the projection's
-// attention keeps it at float32 precision, float32 splits both operands
+// P.V's mode for storage E: bf16 rounds P (kRoundP; every entry point),
+// float32 splits both operands
 template <typename E, bool kRoundP>
 constexpr int pv_mode() {
   return sizeof(E) == 4 ? kPVSplit3 : kRoundP ? kPVRound : kPVSplitP;
@@ -113,81 +117,15 @@ struct Shape {
   static constexpr int kSmem = (kBQ * kKS + 2 * kStage) * (int)sizeof(E);
 };
 
-// x = hi + lo to 2^-20 of |x|, each part TF32: hi is x with the 13 low
-// bits of its encoding cleared, lo = x - hi (exact), whose 13 low bits the
-// tensor cores ignore as they read a TF32 operand (CUTLASS's
-// round_toward_zero conversion to tfloat32_t, a plain copy, rests on the
-// same). An integer and and a subtraction: cvt.rna.tf32.f32 runs on the
-// conversion pipe (16 a clock an SM, beside ex2's), which set the first
-// build's time
-constexpr uint32_t kTF32Mask = 0xffffe000u;
-__device__ inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & kTF32Mask;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
-}
-
 __device__ inline float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-__device__ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 bf16 matrices, lanes 8i .. 8i + 7 naming matrix i's rows
-__device__ inline void ldsm_x4(uint32_t (&r)[4], const void* row) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-__device__ inline void ldsm_x4_trans(uint32_t (&r)[4], const void* row) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-// 16 bytes from device memory, or zeros where !valid
-__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// every copy this thread has issued has landed
-__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
 // the two halves of a register of two bf16 as float (TF32: exact)
 __device__ inline uint32_t bf16_lo(uint32_t x) { return x << 16; }
 __device__ inline uint32_t bf16_hi(uint32_t x) { return x & 0xffff0000u; }
-
-__device__ inline void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ inline void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
 
 // o [B, L, H, D] (heads_inner: the projection's A) or [B, H, L, D]
 template <typename E, int D, int kPV>
@@ -517,14 +455,14 @@ int attention(const E* q, const E* k, const E* v, const int* lengths, E* o, int 
   }
 }
 
-// attention into o [B, L, H, D] (P at float32 precision), then
-// y = (x + o @ Wo) + bo
+// attention into o [B, L, H, D] (bf16: P rounded), then y = (x + o @ Wo) + bo
+// on f32.cuh's FFMA tile product
 template <typename E>
 int outproj(const E* q, const E* k, const E* v, const E* x, const E* wo, const E* bo,
             const int* lengths, E* scratch, E* y, int B, int H, int L, int d, int D, int window,
             float scale, cudaStream_t stream) {
   if (!d_model_ok(d)) return (int)cudaErrorInvalidValue;
-  int err = attention<E, false>(q, k, v, lengths, scratch, B, H, L, D, window, scale, 1, stream);
+  int err = attention<E, true>(q, k, v, lengths, scratch, B, H, L, D, window, scale, 1, stream);
   if (err) return err;
   const long T = (long)B * L;
   launch_gemm<E, false, kEpiResidualAfter>(scratch, wo, bo, x, nullptr, nullptr, y, T, H * D,

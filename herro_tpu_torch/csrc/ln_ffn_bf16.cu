@@ -7,12 +7,12 @@
 // (ops/fused.py:_ln_ffn_plain) rounds it.
 //
 // Replaces herro_tpu/ops/fused.py:_ln_ffn_kernel (via _ln_ffn_pallas) there.
-// Bound on the H100: operations, 4 T d d_ff FFMA-operations against 67
-// TFLOP/s.
-// Design: ln_ffn_f32.cu's two launches of f32.cuh's SIMT tile product (ffn),
-// at E = bf16: the operands load as bf16 and multiply in float32, the
-// hidden passes through a [T, d_ff] bf16 scratch the wrapper allocates.
-#include "f32.cuh"
+// Bound on the H100: the products, 4 T d d_ff operations at the bf16 peak,
+// or the bytes at tiny's widths.
+// Design: ln_ffn_f32.cu's two launches of gemm_tc.cuh's tensor-core tile
+// product (ffn), at E = bf16: m16n8k16 on the bf16 operands, float32 sums,
+// the hidden through a [T, d_ff] bf16 scratch the wrapper allocates.
+#include "gemm_tc.cuh"
 
 extern "C" int herro_ln_ffn_bf16(const void* x, const float* scale, const float* bias,
                                  const void* w1, const void* b1, const void* w2, const void* b2,
@@ -20,7 +20,7 @@ extern "C" int herro_ln_ffn_bf16(const void* x, const float* scale, const float*
   using namespace herro::f32;
   using herro::bf16;
   if (T < 1 || !d_model_ok(d) || !d_ff_ok(f)) return (int)cudaErrorInvalidValue;
-  return ffn<bf16>((const bf16*)x, scale, bias, (const bf16*)w1, (const bf16*)b1,
-                   (const bf16*)w2, (const bf16*)b2, (bf16*)hidden, (bf16*)out, T, d, f,
-                   (cudaStream_t)stream);
+  return herro::gemm_tc::ffn<bf16>((const bf16*)x, scale, bias, (const bf16*)w1,
+                                   (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
+                                   (bf16*)hidden, (bf16*)out, T, d, f, (cudaStream_t)stream);
 }

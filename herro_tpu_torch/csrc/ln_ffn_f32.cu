@@ -5,18 +5,18 @@
 // multiple of 32 up to 2048), which the bf16 Hopper kernel (ln_ffn.cu) does
 // not take.
 //
-// Bound on the H100: operations, 4 T d d_ff FFMA-operations against 67
-// TFLOP/s of float32 (at r10's widths in float32, 6.2e11: 9.2 ms at B=32,
-// L=9216).
-// Design: two launches of the SIMT tile product of f32.cuh on one stream.
-// The first takes its 128 rows' LayerNorm statistics (a warp a row),
+// Bound on the H100: the products, 4 T d d_ff operations as three TF32
+// products at a third of the TF32 peak (at r10's widths in float32, 6.2e11:
+// 3.75 ms at B=32, L=9216).
+// Design: two launches of gemm_tc.cuh's tensor-core tile product on one
+// stream. The first takes its 128 rows' LayerNorm statistics (a warp a row),
 // normalises each stage of x as it stages it, and writes gelu(h + b1) to a
 // [T, d_ff] scratch the wrapper allocates (the TPU kernel keeps the hidden
 // in VMEM; here a tile of 128 rows' hidden at d_ff 2048 is 1 MB, over a
 // block's shared memory). The second reads it against W2 and adds b2 and
 // the residual, in the plain version's order: x + ((h @ W2) + b2). The two
-// launches are f32.cuh's ffn, at E = float (ln_ffn_bf16.cu: at bf16).
-#include "f32.cuh"
+// launches are gemm_tc.cuh's ffn, at E = float (ln_ffn_bf16.cu: at bf16).
+#include "gemm_tc.cuh"
 
 extern "C" int herro_ln_ffn_f32(const float* x, const float* scale, const float* bias,
                                 const float* w1, const float* b1, const float* w2,
@@ -25,5 +25,5 @@ extern "C" int herro_ln_ffn_f32(const float* x, const float* scale, const float*
   using namespace herro::f32;
   if (T < 1 || !d_model_ok(d) || !d_ff_ok(f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return ffn<float>(x, scale, bias, w1, b1, w2, b2, hidden, out, T, d, f, s);
+  return herro::gemm_tc::ffn<float>(x, scale, bias, w1, b1, w2, b2, hidden, out, T, d, f, s);
 }

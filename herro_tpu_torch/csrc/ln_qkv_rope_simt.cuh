@@ -1,8 +1,8 @@
-// K1 and K8 on the CUDA cores: LayerNorm + qkv projection + rope, for
-// float32 configs and for bf16 at head dims or widths the Hopper instances
-// (ln_qkv_rope_sm90.cuh: D 128, d 256, 384 or 512) lack. Entry points:
-// ln_qkv_rope_f32.cu (float32), ln_qkv_rope_bf16.cu (bf16), each with the
-// table route (K1) and the split route (K8).
+// K1 and K8 on the tensor cores (mma.sync), for float32 configs and for
+// bf16 at head dims or widths the Hopper instances (ln_qkv_rope_sm90.cuh: D
+// 128, d 256, 384 or 512) lack: LayerNorm + qkv projection + rope. Entry
+// points: ln_qkv_rope_f32.cu (float32), ln_qkv_rope_bf16.cu (bf16), each
+// with the table route (K1) and the split route (K8).
 //
 // Replaces herro_tpu/ops/fused.py:_ln_qkv_rope_tbl_kernel (K1, rope tables
 // handed in) and _ln_qkv_rope_kernel (K8, tables built in the kernel,
@@ -11,34 +11,51 @@
 //   q, k: E(rotate-half rope at the absolute column l); v as it is
 // -> q, k, v [B, H, L, D] of the storage type E (float: every E() the identity).
 //
-// Bound on the H100: operations, 2 T d 3HD FFMA-operations against 67
-// TFLOP/s (at r10's widths, 4.6e11: 6.9 ms at B=32, L=9216), far above the
-// bytes.
-// Design: the SIMT tile product of f32.cuh: a block of 256 threads a tile
-// of 128 token rows x 128 columns of qkv (one head at D 128; whole heads
-// below, as D divides 128; 64 columns where qkv has no more), 8 x 8 outputs
-// a thread in two column groups of 4, 64 apart. The block takes its rows'
-// LayerNorm statistics first (a warp a row), normalises each A stage as it
-// stages it, adds the bias (rounding qkv to E), and each output takes its
-// rope partner (column dd +- D/2 of its head) from the thread's other group
-// at D 128 or by a shuffle D/8 lanes away below; the rope's two products
-// and one sum are rounded as the plain version rounds them, and a thread
-// stores 4 columns of a head row at once. The split route builds cos/sin of
-// (l, i) with the full-range expf/cosf/sinf of the plain version's
-// rope_tables (freq_i = exp(-ln(10000) i / (D/2)), D/2 a power of two, so
-// the division is exact either way), so both routes give the same bits.
+// Bound on the H100: the products, 2 T d 3HD operations at the bf16 peak or
+// as three TF32 products in float32 (gemm_tc.cuh; at r10's widths in
+// float32, 4.6e11: 2.8 ms at B=32, L=9216), above the bytes.
+// Design: LayerNorm(x) into a [B L, d] scratch (gemm_tc.cuh's layernorm),
+// then gemm_tc.cuh's tile product, a block 64 token rows and each tile of
+// 128 columns of qkv in turn (one head at D 128, whole heads below; 64
+// columns where qkv has no more). The block first stages cos/sin of its
+// rows at each frequency in shared memory beside the stages: the table
+// route copies its rows of the tables, the split route builds them with the
+// full-range expf/cosf/sinf of the plain version's rope_tables (freq_i =
+// exp(-ln(10000) i / (D/2)), D/2 a power of two, so the division is exact
+// either way): both routes give the same bits. The epilogue works on the C
+// fragments in registers: + bias rounded to E, then each q/k value's rope
+// partner (column dd +- D/2 of its head) is the same thread's fragment D/16
+// fragments away (a warp's sub-tile holds whole heads), the rope's two
+// products and one sum rounded as the plain version rounds them, two
+// columns of a head row stored at once. At d 32 (TINY_CONFIG and its
+// shards, gemm_tc.cuh kFFMAWidth) K1/K8 keep the FFMA kernel below, on
+// f32.cuh's tile product.
 #pragma once
 
-#include "f32.cuh"
+#include "gemm_tc.cuh"
 
 namespace herro {
 namespace qkv_simt {
 
 using namespace f32;
+using gemm_tc::Acc;
+using gemm_tc::Tile;
 
+// qkv's value plus its bias, rounded to E as the plain version rounds it
+template <typename E>
+__device__ inline float qkv_bias(float a, float b) {
+  return round_to<E>(__fadd_rn(a, b));
+}
+
+// K1/K8 at the widths of gemm_tc.cuh kFFMAWidth on f32.cuh's FFMA tile
+// product: a block of 256 threads a tile of 128 token rows x 128 columns of
+// qkv (64 where qkv has no more), 8 x 8 outputs a thread in two column
+// groups of 4, 64 apart; the rows' LayerNorm statistics first, each A stage
+// normalised as it is staged; each output's rope partner from the thread's
+// other group at D 128 or by a shuffle D/8 lanes away below.
 template <typename E, bool kTables, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
-    ln_qkv_rope_kernel(const E* __restrict__ x, const float* __restrict__ scale,
+    ln_qkv_rope_ffma(const E* __restrict__ x, const float* __restrict__ scale,
                        const float* __restrict__ bias, const E* __restrict__ w,
                        const E* __restrict__ b, const float* __restrict__ cos_t,
                        const float* __restrict__ sin_t, E* __restrict__ q, E* __restrict__ k,
@@ -62,7 +79,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int n = n0 + tile_col(tx, j);
     const float bj = n < N ? to_f(b[n]) : 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i][j] = round_to<E>(__fadd_rn(acc[i][j], bj));
+    for (int i = 0; i < 8; ++i) acc[i][j] = qkv_bias<E>(acc[i][j], bj);
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -113,21 +130,171 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// a warp's rows: 16 where a head is the whole tile (its 128 columns in one
+// warp's fragments), else 32
+template <int D>
+__host__ __device__ constexpr int warp_rows() {
+  return D == 128 ? 16 : 32;
+}
+
+// the dynamic shared memory of an instance: the stages, then cos/sin of
+// the block's rows at D/2 frequencies
+template <typename E, int BN, int D>
+constexpr int smem_bytes() {
+  return Tile<E, BN, warp_rows<D>()>::kSmem +
+         2 * gemm_tc::kRowsT * (D / 2) * (int)sizeof(float);
+}
+
+template <typename E, bool kTables, int BN, int D>
+__global__ void __launch_bounds__(gemm_tc::kTileThreads, gemm_tc::kMinBlocks<E>)
+    ln_qkv_rope_kernel(const E* __restrict__ y, const E* __restrict__ w,
+                       const E* __restrict__ b, const float* __restrict__ cos_t,
+                       const float* __restrict__ sin_t, E* __restrict__ q, E* __restrict__ k,
+                       E* __restrict__ v, int B, int L, int d, int H) {
+  constexpr int WM = warp_rows<D>(), half = D / 2;
+  using Tl = Tile<E, BN, WM>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const long T = (long)B * L;
+  const int N = 3 * H * D;
+  const long r0 = (long)blockIdx.x * gemm_tc::kRowsT;
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = gemm_tc::warp_row<BN, WM>(), wc = gemm_tc::warp_col<BN, WM>();
+  // cos/sin of the tile's row r at frequency i, [r * half + i]: the table
+  // route's rows of its tables, or the split route's built here
+  float* const cs_s = reinterpret_cast<float*>(smem_raw + Tl::kSmem);
+  float* const sn_s = cs_s + gemm_tc::kRowsT * half;
+  for (int e = tid; e < gemm_tc::kRowsT * half; e += gemm_tc::kTileThreads) {
+    const int ri = e % half, l = (int)((r0 + e / half) % L);
+    if constexpr (kTables) {
+      cs_s[e] = cos_t[(long)l * half + ri];
+      sn_s[e] = sin_t[(long)l * half + ri];
+    } else {
+      const float freq =
+          expf(__fdiv_rn(__fmul_rn(-9.210340371976184f, (float)ri), (float)half));
+      const float ang = __fmul_rn((float)l, freq);
+      cs_s[e] = cosf(ang);
+      sn_s[e] = sinf(ang);
+    }
+  }
+  // each of the thread's rows (wr + 16 mt + g + 8 hf): the offset of (b,
+  // head 0, l) in q/k/v, -1 past T
+  constexpr int kRows = 2 * Tl::kMT;
+  long base[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const long row = r0 + wr + 16 * (i / 2) + g + 8 * (i % 2);
+    base[i] = row < T ? ((row / L) * H * L + row % L) * D : -1;
+  }
+  __syncthreads();
+  gemm_tc::product<E, BN, WM>(
+      y, T, d, w, N, r0, reinterpret_cast<E*>(smem_raw), [&](int n0, Acc<E, BN, WM>& acc) {
+#pragma unroll
+        for (int nt = 0; nt < Tl::kNT; ++nt) {
+          const int n = n0 + wc + 8 * nt + 2 * t;  // columns n, n + 1 of one head
+          if (n >= N) continue;
+          // + bias, rounded to E, every value (the rope's partner too)
+          const float b0 = to_f(b[n]), b1 = to_f(b[n + 1]);
+#pragma unroll
+          for (int mt = 0; mt < Tl::kMT; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[mt][nt][e] = qkv_bias<E>(acc[mt][nt][e], e & 1 ? b1 : b0);
+        }
+#pragma unroll
+        for (int nt = 0; nt < Tl::kNT; ++nt) {
+          const int n = n0 + wc + 8 * nt + 2 * t;
+          if (n >= N) continue;
+          const int head = n / D, which = head / H;  // q, k or v of head h
+          E* const out =
+              (which == 0 ? q : which == 1 ? k : v) + (long)(head - which * H) * L * D;
+          // the head's dims dd0, dd0 + 1; the first half's partner is D/16
+          // fragments on, the second half's D/16 back (the sub-tile holds
+          // whole heads, so both lie in this thread's fragments; nt, and
+          // with it the partner's index, is a constant of the unrolled loop)
+          const int dims = 8 * nt % D;  // the fragment's first dim in its head
+          const bool first = dims < half;
+          const int np = first ? nt + half / 8 : nt - half / 8;
+          const int dd0 = dims + 2 * t, ri = dd0 % half;
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            if (base[i] < 0) continue;  // a row past T
+            const int mt = i / 2, hf = i % 2;
+            float v0 = acc[mt][nt][2 * hf], v1 = acc[mt][nt][2 * hf + 1];
+            if (which < 2) {
+              const float o0 = acc[mt][np][2 * hf], o1 = acc[mt][np][2 * hf + 1];
+              const int rl = wr + 16 * mt + g + 8 * hf;  // the row in the tile
+              const float2 c2 = *reinterpret_cast<const float2*>(cs_s + rl * half + ri);
+              const float2 s2 = *reinterpret_cast<const float2*>(sn_s + rl * half + ri);
+              // x1 * cos - x2 * sin for the first half, x2 * cos + x1 * sin
+              // for the second
+              if (first) {
+                v0 = round_to<E>(__fsub_rn(__fmul_rn(v0, c2.x), __fmul_rn(o0, s2.x)));
+                v1 = round_to<E>(__fsub_rn(__fmul_rn(v1, c2.y), __fmul_rn(o1, s2.y)));
+              } else {
+                v0 = round_to<E>(__fadd_rn(__fmul_rn(v0, c2.x), __fmul_rn(o0, s2.x)));
+                v1 = round_to<E>(__fadd_rn(__fmul_rn(v1, c2.y), __fmul_rn(o1, s2.y)));
+              }
+            }
+            store2(out + base[i] + dd0, v0, v1);
+          }
+        }
+      });
+}
+
+template <typename E, bool kTables, int BN, int D>
+int launch_d(const E* y, const E* w, const E* b, const float* cos_t, const float* sin_t, E* q,
+             E* k, E* v, int B, int L, int d, int H, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<E, BN, D>();
+  const void* kernel = (const void*)ln_qkv_rope_kernel<E, kTables, BN, D>;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  ln_qkv_rope_kernel<E, kTables, BN, D>
+      <<<gemm_tc::row_tiles((long)B * L), gemm_tc::kTileThreads, smem, stream>>>(
+          y, w, b, cos_t, sin_t, q, k, v, B, L, d, H);
+  return (int)cudaGetLastError();
+}
+
+// the product and the rope on the tensor cores, LayerNorm(x) in y
+template <typename E, bool kTables>
+int launch_tc(const E* y, const E* w, const E* b, const float* cos_t, const float* sin_t, E* q,
+              E* k, E* v, int B, int L, int d, int H, int D, cudaStream_t stream) {
+  switch (D) {
+    case 16:  // qkv of one head at D 16 is 48 columns: whole heads in a tile of 64
+      if (tile_width(3 * H * D) == 64)
+        return launch_d<E, kTables, 64, 16>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+      return launch_d<E, kTables, 128, 16>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+    case 32:
+      return launch_d<E, kTables, 128, 32>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+    case 64:
+      return launch_d<E, kTables, 128, 64>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+    default:
+      return launch_d<E, kTables, 128, 128>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+  }
+}
+
+// at d above gemm_tc.cuh kFFMAWidth LayerNorm(x) into the [B L, d] scratch
+// y, then the product and the rope on the tensor cores; at or below it the
+// FFMA kernel (y unused)
 template <typename E, bool kTables>
 int launch(const E* x, const float* scale, const float* bias, const E* w, const E* b,
-           const float* cos_t, const float* sin_t, E* q, E* k, E* v, int B, int L, int d, int H,
-           int D, cudaStream_t stream) {
+           const float* cos_t, const float* sin_t, E* y, E* q, E* k, E* v, int B, int L, int d,
+           int H, int D, cudaStream_t stream) {
   if (B < 1 || L < 1 || H < 1 || !d_model_ok(d) || !head_dim_ok(D))
     return (int)cudaErrorInvalidValue;
   const long T = (long)B * L;
   const int N = 3 * H * D;
-  if (tile_width(N) == 64)  // D <= 32: whole heads in a tile of 64
-    ln_qkv_rope_kernel<E, kTables, 64><<<gemm_grid(T, N, 64), kThreads, 0, stream>>>(
-        x, scale, bias, w, b, cos_t, sin_t, q, k, v, B, L, d, H, D);
-  else
-    ln_qkv_rope_kernel<E, kTables, 128><<<gemm_grid(T, N, 128), kThreads, 0, stream>>>(
-        x, scale, bias, w, b, cos_t, sin_t, q, k, v, B, L, d, H, D);
-  return (int)cudaGetLastError();
+  if (d <= gemm_tc::kFFMAWidth) {
+    if (tile_width(N) == 64)  // D <= 32: whole heads in a tile of 64
+      ln_qkv_rope_ffma<E, kTables, 64><<<gemm_grid(T, N, 64), kThreads, 0, stream>>>(
+          x, scale, bias, w, b, cos_t, sin_t, q, k, v, B, L, d, H, D);
+    else
+      ln_qkv_rope_ffma<E, kTables, 128><<<gemm_grid(T, N, 128), kThreads, 0, stream>>>(
+          x, scale, bias, w, b, cos_t, sin_t, q, k, v, B, L, d, H, D);
+    return (int)cudaGetLastError();
+  }
+  int err = gemm_tc::layernorm<E>(x, scale, bias, y, T, d, stream);
+  if (err) return err;
+  return launch_tc<E, kTables>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, D, stream);
 }
 
 }  // namespace qkv_simt

@@ -16,8 +16,9 @@ Every C entry point launches on the stream it is handed (the caller passes
 and per mode for a kernel whose source has more than one entry point
 (:data:`MODES`); it keeps the same counts by card as well.
 
-The float32 kernels (``*_f32.cu``, SIMT FFMA over ``f32.cuh``; the attention
-of ``flash_f32.cu`` on the tensor cores, ``flash_tc.cuh``) take the
+The float32 kernels (``*_f32.cu``: K1/K8 and K3 on the tensor cores over
+``gemm_tc.cuh``, the attention of ``flash_f32.cu`` over ``flash_tc.cuh``,
+K4 and the out projection SIMT FFMA over ``f32.cuh``) take the
 float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
 not; their bf16 instances (``*_bf16.cu``, the same device code at bf16
 storage) take bf16 at the widths and head dims no Hopper instance was built
@@ -74,15 +75,15 @@ KERNELS = {
     "ln_qkv_rope_q": ("herro_ln_qkv_rope_q", [_P] * 9 + [_I] * 4 + [_P]),
     "ln_ffn_q": ("herro_ln_ffn_q", [_P] * 10 + [_L, _I, _I, _P]),
     "flash_attention": ("herro_flash_attention", [_P] * 5 + [_I] * 4 + [_F, _P]),
-    # float32 at any head dim in 16-128 (SIMT FFMA, f32.cuh)
+    # float32 at any head dim in 16-128 (tensor cores and SIMT FFMA)
     "entry_embed_f32": ("herro_entry_embed_f32", [_P] * 5 + [_I] * 6 + [_P]),
-    "ln_qkv_rope_f32": ("herro_ln_qkv_rope_f32", [_P] * 10 + [_I] * 5 + [_P]),
+    "ln_qkv_rope_f32": ("herro_ln_qkv_rope_f32", [_P] * 11 + [_I] * 5 + [_P]),
     "flash_f32": ("herro_flash_f32", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "ln_ffn_f32": ("herro_ln_ffn_f32", [_P] * 9 + [_L, _I, _I, _P]),
     # bf16 at the float32 kernels' widths where no Hopper instance reaches
     # (the same SIMT device code at bf16 storage)
     "entry_embed_bf16": ("herro_entry_embed_bf16", [_P] * 5 + [_I] * 6 + [_P]),
-    "ln_qkv_rope_bf16": ("herro_ln_qkv_rope_bf16", [_P] * 10 + [_I] * 5 + [_P]),
+    "ln_qkv_rope_bf16": ("herro_ln_qkv_rope_bf16", [_P] * 11 + [_I] * 5 + [_P]),
     "flash_bf16": ("herro_flash_bf16", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "ln_ffn_bf16": ("herro_ln_ffn_bf16", [_P] * 9 + [_L, _I, _I, _P]),
     # int8 for float32 or bf16 at the float32 kernels' widths (SIMT __dp4a,
@@ -104,14 +105,14 @@ MODES = {
         "ln_ffn_q", "herro_ln_ffn_q_rowscale", [_P] * 10 + [_F, _P, _L, _I, _I, _P],
     ),
     "ln_qkv_rope_f32_split": (
-        "ln_qkv_rope_f32", "herro_ln_qkv_rope_f32_split", [_P] * 8 + [_I] * 5 + [_P],
+        "ln_qkv_rope_f32", "herro_ln_qkv_rope_f32_split", [_P] * 9 + [_I] * 5 + [_P],
     ),
     "flash_f32_full": ("flash_f32", "herro_flash_f32_full", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "flash_f32_attention": (
         "flash_f32", "herro_flash_f32_attention", [_P] * 5 + [_I] * 5 + [_F, _P],
     ),
     "ln_qkv_rope_bf16_split": (
-        "ln_qkv_rope_bf16", "herro_ln_qkv_rope_bf16_split", [_P] * 8 + [_I] * 5 + [_P],
+        "ln_qkv_rope_bf16", "herro_ln_qkv_rope_bf16_split", [_P] * 9 + [_I] * 5 + [_P],
     ),
     "flash_bf16_full": ("flash_bf16", "herro_flash_bf16_full", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "flash_bf16_attention": (

@@ -66,7 +66,7 @@ import torch.nn.functional as F
 
 from ..constants import VOCAB_SIZE
 from . import cuda as _cuda
-from .attention import chunked_attention
+from .attention import SIMT_KEY_TILE, _flash_attention_tiled, chunked_attention
 
 # the head dim the bf16 Hopper kernels take (every shipped checkpoint); the
 # bf16 SIMT kernels (csrc/*_bf16.cu) serve the other head dims of
@@ -476,7 +476,7 @@ def _ln_qkv_rope_simt_cuda(x, scale, bias, w, b, n_heads: int, kernel: str):
     """K1/K8's SIMT instances: ``ln_qkv_rope_f32`` and ``ln_qkv_rope_bf16``
     (rope tables handed in), their ``_split`` routes (built in the kernel);
     x, w, b and q/k/v of the instance's dtype, LayerNorm's parameters
-    float32."""
+    float32, LayerNorm's output through a [B L, d] scratch allocated here."""
     B, L, d = x.shape
     H = n_heads
     D = w.shape[1] // (3 * H)
@@ -488,8 +488,10 @@ def _ln_qkv_rope_simt_cuda(x, scale, bias, w, b, n_heads: int, kernel: str):
     _cuda.require_dtype(torch.float32, scale=scale, bias=bias)
     dev = _cuda.require_operands(x=x, scale=scale, bias=bias, w=w, b=b)
     q, k, v = (torch.empty(B, H, L, D, dtype=dtype, device=dev) for _ in range(3))
+    y = torch.empty(B * L, d, dtype=dtype, device=dev)  # LN(x), the product's A
     head = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr())
-    tail = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H, D, _cuda.stream_of(x))
+    tail = (y.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H, D,
+            _cuda.stream_of(x))
     with torch.cuda.device(dev):
         if not kernel.endswith("_split"):
             cos, sin = _rope_tables_cached(L, D, dev)
@@ -516,8 +518,28 @@ def ln_qkv_rope(x, scale, bias, w, b, n_heads: int):
 def _flash_outproj_plain(q, k, v, x, wo, bo, lengths, local_window):
     """The plain version of all three attention kernels: ``chunked_attention``
     masks |iq - ik| <= local_window for any band and nothing but the length
-    for ``local_window=None``, so one function serves K2, K6 and K7."""
-    attn = chunked_attention(q, k, v, lengths, local_window)  # [B, H, L, D]
+    for ``local_window=None``, so one function serves K2, K6 and K7. P stays
+    at float32 precision, as herro_tpu's jnp twin keeps it: the CPU forward,
+    whose goldens that twin made."""
+    return _project(chunked_attention(q, k, v, lengths, local_window), x, wo, bo)
+
+
+def _flash_outproj_tiled(q, k, v, x, wo, bo, lengths, local_window,
+                         tile: int = SIMT_KEY_TILE):
+    """K2/K6/K7's function with P rounded to v's dtype per key tile against
+    the running maximum (``attention._flash_attention_tiled``), then the
+    same projection as :func:`_flash_outproj_plain`. herro_tpu's Pallas
+    kernels round P so (``p.astype(v.dtype)``: K7 over key tiles of its
+    ``blk_k``, K2 and K6 against one maximum over the band), and so does the
+    bf16 SIMT instance (``csrc/flash_tc.cuh``, 64-key tiles): its yardstick
+    on the card. For tests and the card's checks only; no route of
+    :func:`flash_outproj` takes it."""
+    attn = _flash_attention_tiled(q, k, v, lengths, local_window, tile)
+    return _project(attn, x, wo, bo)
+
+
+def _project(attn, x, wo, bo):
+    """y = x + concat_h(attn_h) @ Wo + bo in float32, rounded to x's dtype."""
     out = torch.einsum("bhld,hdo->blo", attn.float(), wo.float())
     return (x.float() + out + bo.float()).to(x.dtype)
 

@@ -20,8 +20,10 @@ K2/K6/K7/K9 and K3 (``csrc/*_bf16.cu``).
   |dinfo| within twice the gap the file records; the same at ``--tp 2``
   (two shards of the CPU); ``tiny --int8`` in bf16 against herro_tpu's int8
   bf16 forward within ``chip_smoke.INT8_GOLDEN_BARS``.
-* ``gpu``: each bf16 SIMT instance against its plain version on the card,
-  at the bf16 bars of ``chip_smoke.compare``; the tiny and r10h64 forwards
+* ``gpu``: each bf16 SIMT instance against its plain version on the card
+  (K2/K6/K7 against ``fused._flash_outproj_tiled``, P rounded per 64-key
+  tile as the kernel and herro_tpu's Pallas kernels round it), at the bf16
+  bars of ``chip_smoke.compare``; the tiny and r10h64 forwards
   through them against the frozen goldens. These skip inside the test
   without a card and import no JAX.
 """
@@ -565,7 +567,7 @@ def test_bf16_simt_kernels_match_plain_on_card(width, gl, lengths):
         args = (q, k, v, x, wo, bo, lens, band)
         got, launched = _launched(lambda: fused._flash_outproj_cuda(*args, kernel=name))
         assert launched == {name: 1} and bool(torch.isfinite(got.float()).all())
-        _held(got, fused._flash_outproj_plain(*args), keep, x)
+        _held(got, fused._flash_outproj_tiled(*args), keep, x)
         got, launched = _launched(lambda: tattn._flash_attention_cuda(
             q, k, v, lens, band, kernel="flash_bf16_attention"))
         assert launched == {"flash_bf16_attention": 1}

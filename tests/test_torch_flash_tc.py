@@ -11,8 +11,9 @@ plain torch, step by step as the kernel takes it:
 * float32: Q scaled by 1/sqrt(D) in float32, each operand split so, three
   products lo.hi + hi.lo + hi.hi (each exact in float32), for S and P.V;
 * bf16: S = Q.K^T of the bf16 operands as they are (exact products), the
-  scale joined to log2(e) in the exponent; K9 packs P to bf16 against V;
-  the out projection's attention splits P into two TF32 parts against V;
+  scale joined to log2(e) in the exponent; every mode packs P to bf16
+  against V (the P-unrounded mode, two TF32 parts of P against V, is the
+  one ``tools/bf16_rounding_faults.py`` plants as its ``outproj_p``);
 * the key tiles of 64 (32 for float32 at D 128) from key 0, the running
   maximum, p = exp2(s c - m c), the row sum unrounded, O rescaled by
   exp2(m_old c - m c) at each tile, divided by the sum clamped at 1e-30;
@@ -26,15 +27,17 @@ yardstick the split is held against, takes each operand rounded as
 ``cvt.rna.tf32.f32`` rounds it (to nearest, ties away from zero).
 
 Held against the port's plain versions (``fused._flash_outproj_plain``,
-``attention._flash_attention_plain`` and, for K9 in bf16, the tiled one
-the card's rows take), with q/k/v from ``_ln_qkv_rope_plain`` on inputs
+``attention._flash_attention_plain`` and, in bf16, the tiled ones the
+card's rows take: ``attention._flash_attention_tiled``,
+``fused._flash_outproj_tiled``), with q/k/v from ``_ln_qkv_rope_plain`` on inputs
 from a numpy seed, for each head dim of ``F32_HEAD_DIMS`` at its width,
 each dtype and each mode (band, full, K9): float32 within 1e-4 (2e-4 after
 the out projection), bf16 within ``chip_smoke.compare``'s bars with at most
 2^-6 of the outputs differing. At r10's widths (H 4 x D 128) one TF32
 product for each of S and P.V misses the float32 bar in every mode: the
-split is needed. The bf16 split of P into two TF32 parts moves no more
-outputs than a split into two bf16 parts.
+split is needed. Had the bf16 projection kept P unrounded, a split of P
+into two TF32 parts would move no more outputs than one into two bf16
+parts.
 """
 
 import math
@@ -201,8 +204,8 @@ def test_bf16_products_hold_the_bf16_bars(D, mode):
         keep, residual = _keep(lengths, q.shape[1]), None
         assert not got[2].any()
     else:
-        got = project(emulate(q, k, v, lengths, window), x, wo, bo)
-        want = fused._flash_outproj_plain(q, k, v, x, wo, bo, lengths, window)
+        got = project(emulate(q, k, v, lengths, window, round_p=True), x, wo, bo)
+        want = fused._flash_outproj_tiled(q, k, v, x, wo, bo, lengths, window, tile=64)
         keep, residual = _keep(lengths), x
     err, tol, part_err, part_tol = compare(torch, got, want, keep, residual)
     assert err <= tol and (part_err is None or part_err <= part_tol), \
@@ -225,8 +228,10 @@ def test_one_tf32_product_misses_the_float32_bar_at_r10_widths(mode):
 
 
 def test_tf32_split_of_p_moves_no_more_bf16_outputs_than_a_bf16_split():
-    """The bf16 out projection's P at float32 precision: as two TF32 parts
-    (the kernel) against as two bf16 parts, at r10h64's widths, band 40."""
+    """The bf16 out projection's P at float32 precision (the mode the
+    kernel keeps for the planted fault, against the CPU forward's plain
+    version): as two TF32 parts against as two bf16 parts, at r10h64's
+    widths, band 40."""
     from chip_smoke import share_differing
 
     q, k, v, x, wo, bo, lengths = _inputs(400, 64, torch.bfloat16)

@@ -7,9 +7,11 @@
 Each fault copies ``herro_tpu_torch/`` and ``chip_smoke.py`` into a
 temporary directory and changes one rounding of the bf16 device code of the
 widths no Hopper instance takes there: a ``round_to<E>`` taken out where the
-bf16 plain version rounds, K9's P kept at float32 precision where it is
-rounded to bf16, or the out projection's P rounded where it keeps float32
-(``FAULTS``; the attention's two on the tensor cores, ``flash_tc.cuh``). The
+bf16 plain version rounds (LayerNorm's output, qkv's bias and the FFN's
+bias, each in the helper that the tensor-core kernels of ``gemm_tc.cuh``
+and the FFMA ones of ``f32.cuh`` share), or P kept at float32
+precision where K9 or the out projection rounds it to bf16 (``FAULTS``; the
+attention's two on the tensor cores, ``flash_tc.cuh``). The
 copy builds its four bf16 sources (all copies at once) and runs
 ``chip_smoke.simt_cases(torch, "bfloat16", plans)`` through
 ``chip_smoke.run_cases``, at the smoke run's bars, in a process of its
@@ -38,18 +40,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # must catch it: chip_smoke case names up to their "[")
 FAULTS = {
     "none": None,
-    "ln_output": ("f32.cuh", "av[e] = round_to<E>(__fadd_rn(", "av[e] = (__fadd_rn(",
+    "ln_output": ("f32.cuh",
+                  "  return round_to<E>(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rstd), "
+                  "scale), bias));\n",
+                  "  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rstd), scale), "
+                  "bias);\n",
                   ("ln_qkv_rope_bf16", "ln_qkv_rope_bf16_split", "ln_ffn_bf16")),
-    "qkv_bias": ("ln_qkv_rope_simt.cuh", "acc[i][j] = round_to<E>(__fadd_rn(acc[i][j], bj));",
-                 "acc[i][j] = __fadd_rn(acc[i][j], bj);",
+    "qkv_bias": ("ln_qkv_rope_simt.cuh", "  return round_to<E>(__fadd_rn(a, b));\n",
+                 "  return __fadd_rn(a, b);\n",
                  ("ln_qkv_rope_bf16", "ln_qkv_rope_bf16_split")),
-    "ffn_bias": ("f32.cuh", "v[e] = round_to<E>(gelu_tanh(round_to<E>(__fadd_rn(a, bn))));",
-                 "v[e] = round_to<E>(gelu_tanh(__fadd_rn(a, bn)));", ("ln_ffn_bf16",)),
+    "ffn_bias": ("f32.cuh", "return round_to<E>(gelu_tanh(round_to<E>(__fadd_rn(a, bn))));",
+                 "return round_to<E>(gelu_tanh(__fadd_rn(a, bn)));", ("ln_ffn_bf16",)),
     "quals": ("entry_embed_simt.cuh", "const float qv = round_to<E>(quals[base + (long)r * L]);",
               "const float qv = quals[base + (long)r * L];", ("entry_embed_bf16",)),
     "k9_p": ("flash_tc.cuh", "kRoundP ? kPVRound : kPVSplitP", "kPVSplitP",
              ("flash_bf16_attention",)),
-    "outproj_p": ("flash_tc.cuh", "int err = attention<E, false>(", "int err = attention<E, true>(",
+    "outproj_p": ("flash_tc.cuh", "int err = attention<E, true>(", "int err = attention<E, false>(",
                   ("flash_bf16", "flash_bf16_full")),
 }
 

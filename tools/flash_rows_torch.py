@@ -1,20 +1,23 @@
-"""The attention kernels' SIMT-width rows and the distilled student's step, beside another checkout's.
+"""The SIMT-width kernel rows and the distilled student's step, beside another checkout's.
 
     python3 tools/flash_rows_torch.py                                 # this checkout, once
     python3 tools/flash_rows_torch.py --against chip_checkout/parent  # this, other, other, this
     python3 tools/flash_rows_torch.py --against DIR --no-steps --out rows.jsonl
+    python3 tools/flash_rows_torch.py --kernels ln_ --no-steps        # K1/K8 and K3's rows
 
 Each pass runs in a process of its own, on one tree's ``herro_tpu_torch``
 with this checkout's ``chip_smoke.py`` (so both trees run the same rows,
 inputs, bars and bounds; the other tree is unpacked with ``git archive``),
 and prints one JSON line a row, tagged with its tree and pass:
 
-* the rows of ``chip_smoke.simt_cases`` whose kernel is ``flash_f32`` or
-  ``flash_bf16`` (K2, K6, K7 and K9 at every width no Hopper instance
-  takes: r10 in float32, the flagship at head dim 64 in bf16, TINY_CONFIG
-  in both, the tp 2 shards), held against their plain versions at the
-  smoke run's bars and timed by CUDA events beside their bounds, the plain
-  version and SDPA;
+* the rows of ``chip_smoke.simt_cases`` whose kernel's name starts with a
+  prefix of ``--kernels`` (by default ``flash_``: K2, K6, K7 and K9's
+  ``flash_f32`` and ``flash_bf16``; ``ln_`` takes K1/K8's
+  ``ln_qkv_rope_*`` and K3's ``ln_ffn_*``) at every width no Hopper
+  instance takes (r10 in float32, the flagship at head dim 64 in bf16,
+  TINY_CONFIG in both, the tp 2 shards), held against their plain versions
+  at the smoke run's bars and timed by CUDA events beside their bounds, the
+  plain version and the library call;
 * unless ``--no-steps``, ``chip_smoke.student_steps``: the correct step of
   distill's default student (TINY_CONFIG in float32; here the frozen
   ``tests/torch_data/tiny_seed5``) at B=32 and L 1024, 4608 and 9216,
@@ -40,20 +43,25 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = r"""
 import importlib.util, json, os, sys
 tree, smoke, steps = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+prefixes = tuple(sys.argv[4].split(","))
 sys.path.insert(0, tree)
 import torch
 spec = importlib.util.spec_from_file_location("chip_smoke", smoke)
 chip_smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(chip_smoke)
-from herro_tpu_torch.ops import cuda
+from herro_tpu_torch.ops import cuda, fused
 from herro_tpu_torch.pipeline.infer import keep_float32_exact
+
+if not hasattr(fused, "_flash_outproj_tiled"):
+    # a tree whose bf16 projection keeps P unrounded: its own yardstick
+    fused._flash_outproj_tiled = fused._flash_outproj_plain
 
 keep_float32_exact(torch.device("cuda"))
 cuda.build_all()
 bad = []
 for dtype, phase in (("float32", "float32"), ("bfloat16", "bf16_any")):
     cases = {k: c for k, c in chip_smoke.simt_cases(torch, dtype).items()
-             if c["name"].startswith("flash_")}
+             if c["name"].startswith(prefixes)}
     try:
         chip_smoke.run_cases(torch, cases, phase)
     except RuntimeError as err:  # every row has printed its line
@@ -67,14 +75,14 @@ sys.exit(1 if bad else 0)
 """
 
 
-def run_pass(tree: str, steps: bool) -> tuple[list[dict], str | None]:
+def run_pass(tree: str, steps: bool, kernels: str) -> tuple[list[dict], str | None]:
     """One pass on ``tree``: chip_smoke's JSON lines of its rows (and steps),
     and the end of its errors where it failed (a row that disagreed, or
     worse)."""
     env = dict(os.environ, PYTHONPATH=tree)
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, tree, os.path.join(ROOT, "chip_smoke.py"),
-         "1" if steps else "0"],
+         "1" if steps else "0", kernels],
         cwd=tree, env=env, capture_output=True, text=True,
     )
     rows = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
@@ -87,6 +95,8 @@ def main() -> int:
     ap.add_argument("--against", metavar="DIR",
                     help="another checkout (unpacked by git archive) to time in turns")
     ap.add_argument("--no-steps", action="store_true", help="the kernel rows alone")
+    ap.add_argument("--kernels", default="flash_",
+                    help="comma-separated prefixes of the rows' kernel names (default flash_)")
     ap.add_argument("--out", help="also write every line here")
     args = ap.parse_args()
     import torch
@@ -104,7 +114,7 @@ def main() -> int:
         trees = [trees[0], other, other, trees[0]]
     out, failed = [], []
     for i, (tag, tree) in enumerate(trees):
-        rows, err = run_pass(tree, not args.no_steps)
+        rows, err = run_pass(tree, not args.no_steps, args.kernels)
         for row in rows:
             row = dict(row, tree=tag, pass_=i)
             out.append(row)
