@@ -224,9 +224,10 @@ PEAK_TF32 = 495e12
 # arithmetic instruction throughput gives compute capability 9.0 16 results
 # a clock an SM for the base-2 exponential; 132 SMs at the H100 SXM's 1.98 GHz
 PEAK_EXP2 = 132 * 16 * 1.98e9
-# int8 on the CUDA cores (__dp4a, the SIMT int8 kernels): the CUDA C++
-# Programming Guide's table of arithmetic instruction throughput gives
-# compute capability 9.0 64 results a clock an SM for 32-bit integer
+# int8 on the CUDA cores (__dp4a, the SIMT int8 K10; K11's SIMT instance
+# before it moved onto the tensor cores, its bound beside the new one): the
+# CUDA C++ Programming Guide's table of arithmetic instruction throughput
+# gives compute capability 9.0 64 results a clock an SM for 32-bit integer
 # multiply-add, the pipe __dp4a issues on; one __dp4a result is 4
 # multiply-adds (8 operations); 132 SMs at the H100 SXM's 1.98 GHz boost
 PEAK_INT8_SIMT = 132 * 64 * 8 * 1.98e9
@@ -296,6 +297,14 @@ def tc_bound(nbytes: float, ops: float, exps: float, f32: bool) -> tuple[float, 
     SFU's rate, whichever takes longer."""
     return bound(nbytes, max(ops, exps * (PEAK_TF32 / 3 if f32 else PEAK_BF16) / PEAK_EXP2),
                  PEAK_TF32 / 3 if f32 else PEAK_BF16)
+
+
+def dp4a_bound(nbytes: float, ops: float) -> dict:
+    """The bound of a SIMT int8 row at the __dp4a rate (``PEAK_INT8_SIMT``),
+    which K11's SIMT instance ran at before the int8 tensor cores: reported
+    beside its tensor-core bound."""
+    ms, by = bound(nbytes, ops, PEAK_INT8_SIMT)
+    return dict(bound_dp4a_ms=ms, bound_dp4a_by=by)
 
 
 def compare(torch, got, ref, keep=None, residual=None, exact=False, atol=None):
@@ -1002,11 +1011,11 @@ def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8,
     another. So ``rowmax`` is held to the int8 bar through the pass it feeds: shard
     0's ``rowscale`` on its maxima (``chain``: kernel then kernel, plain then
     plain, and both plain with LayerNorm's sums in float64), its own share
-    and floor reported beside. ``simt``: the SIMT instance's modes, bounded
-    by the CUDA cores' int8 rate."""
+    and floor reported beside. ``simt``: the SIMT instance's modes, with the
+    bound at the __dp4a rate beside the tensor cores' (``dp4a_bound``)."""
     from herro_tpu_torch.ops import fused
 
-    name, peak = ("ln_ffn_q_simt", PEAK_INT8_SIMT) if simt else ("ln_ffn_q", PEAK_INT8)
+    name = "ln_ffn_q_simt" if simt else "ln_ffn_q"
     rowmax = fused._ln_ffn_q_rowmax_simt_cuda if simt else fused._ln_ffn_q_rowmax_cuda
     rowscale = fused._ln_ffn_q_rowscale_simt_cuda if simt else fused._ln_ffn_q_rowscale_cuda
     xs, s, b, w1q = head[:4]
@@ -1022,6 +1031,13 @@ def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8,
         f"torch._int_mm quant(LN(x))[T,d] @ W1 shard[d,f/tp] int8 -> int32, {what}",
         lambda y_i8: torch._int_mm(y_i8, w1q), lambda: ln_rows_i8(xs, s, b))
     vectors = (2 * d + 2 * fl) * 4
+    work = {"rowmax": (T * d * xs.element_size() + d * fl + T * 4 + vectors, 2 * T * d * fl),
+            "rowscale": (2 * T * d * xs.element_size() + 2 * d * fl + T * 4 + vectors + d * 8,
+                         4 * T * d * fl)}
+
+    def dp4a(mode):  # the SIMT instance's bound at the __dp4a rate, beside
+        return dp4a_bound(*work[mode]) if simt else {}
+
     return {
         f"{name}_rowmax[{tag}]": dict(
             name=name, mode=f"{name}_rowmax", replaces="herro_tpu/ops/fused.py:420",
@@ -1029,11 +1045,10 @@ def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8,
             plain=lambda: fused._ln_ffn_q_rowmax_plain(*head)[0],
             floor=lambda: float64_layernorm_sums(
                 fused, lambda *a: fused._ln_ffn_q_rowmax_plain(*a)[0], *head),
-            extra=lambda: rowmax_ties(torch, fused, head, rowmax),
+            extra=lambda: rowmax_ties(torch, fused, head, rowmax) | dp4a("rowmax"),
             library=library("the pass's product (partial: no LN, quantization, gelu, "
                             "row maxima)"),
-            bound=bound(T * d * xs.element_size() + d * fl + T * 4 + vectors,
-                        2 * T * d * fl, peak),
+            bound=bound(*work["rowmax"], PEAK_INT8),
             share_differing=True,
             chain=(lambda: rowscale(*head, *tail[:3], rowmax(*head)[0], tail[-1]),
                    lambda: chained(*head, *tail[:3], tail[-1]),
@@ -1047,8 +1062,8 @@ def ffn_q_mode_cases(torch, tag: str, head: tuple, tail: tuple, ln_rows_i8,
                                                  *head, *tail),
             library=library("half the pass's operations (partial: no LN, quantization, "
                             "gelu, second product)"),
-            bound=bound(2 * T * d * xs.element_size() + 2 * d * fl + T * 4 + vectors + d * 8,
-                        4 * T * d * fl, peak),
+            extra=lambda: dp4a("rowscale"),
+            bound=bound(*work["rowscale"], PEAK_INT8),
             residual=xs * tail[-1], share_differing=True,
         ),
     }
@@ -2767,7 +2782,11 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
     attention's exponentials at the SFU's rate), with the operations at the
     float32 FFMA or bf16 peak beside it (``bound_simt_ms``) and its two
     terms, the products and the exponentials; K4 stays on the FFMA (float32)
-    or bf16 peak. A row's library call is SDPA in ``dtype``
+    or bf16 peak. The widest tags (r10, r10h64) also hold K2/K6/K7's out
+    projection alone (``outproj_tc``, mode ``flash_*_outproj``: the tile
+    product the attention entry points launch after their attention, bf16
+    on the tensor cores, float32 on FFMA and bounded so) against
+    ``fused._outproj_plain``, its library call one torch.addmm. A row's library call is SDPA in ``dtype``
     with the mask (the attention rows) or one torch.matmul in ``dtype`` of
     the dominant product, TF32 off."""
     import numpy as np
@@ -2951,6 +2970,23 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                          lambda lens=k9_lens, w=w, n=n: sdpa_bias(lens, w, n)),
                 bound=tc_bound(*k9_work, f32), extra=lambda w_=k9_work: simt_bounds(*w_),
                 rows=k9_np, iters=iters, **tol), f"w={w}" if w is not None else "no band")
+        if wide:  # K2/K6/K7's out projection alone, through its own entry point
+            o = randn(B, n, H, D)
+            a_proj = (o, x, wo, bo)
+            proj_work = ((T * H * D + 2 * T * d + H * D * d + d) * es, 2 * T * H * D * d)
+            cases[f"outproj_tc[{tag}]"] = dict(
+                name=f"flash_{sfx}", mode=f"flash_{sfx}_outproj",
+                replaces=F32_REPLACES["flash_f32"],
+                kernel=lambda a=a_proj, m=f"flash_{sfx}_outproj": fused._outproj_cuda(*a, m),
+                plain=lambda a=a_proj: fused._outproj_plain(*a),
+                library=(f"torch.addmm x[T,d] + o[T,HD] @ Wo[HD,d] {lib_dt}: the same product "
+                         f"and residual, bo not added",
+                         lambda x=x, o=o, wo=wo, T=T, d=d, K=H * D: torch.addmm(
+                             x.view(T, d), o.view(T, K), wo.view(K, d))),
+                # float32 keeps the FFMA product (csrc/flash_tc.cuh outproj_on_tc)
+                bound=bound(*proj_work, PEAK_F32) if f32 else tc_bound(*proj_work, 0, False),
+                extra=lambda w_=proj_work: simt_bounds(*w_), residual=x, iters=iters,
+                **tol_proj)
         if hopper_d:
             continue
         a_ffn = (x, ln_s, ln_b, w1, b1, w2, b2)
@@ -3459,7 +3495,9 @@ def int8_simt_cases(torch) -> dict:
     to the int8 rule: within 2^-6 of the largest output, and its share of
     differing outputs at most twice the plain version's own when LayerNorm
     sums in float64. Bound: bytes, or int8 operations at the CUDA cores'
-    rate; the library call is torch._int_mm of quant(LN(x)) @ W alone."""
+    rate (K10) or on the int8 tensor cores (K11, the __dp4a rate's bound
+    beside it); the library call is torch._int_mm of quant(LN(x)) @ W
+    alone."""
     from herro_tpu_torch.ops import fused
 
     dev = torch.device("cuda")
@@ -3499,7 +3537,9 @@ def int8_simt_cases(torch) -> dict:
                      "operations (partial: no LN, quantization, gelu, second product)",
                      lambda y_i8: torch._int_mm(y_i8, w1q), lambda: ln_rows_i8(xs, s, b)),
             bound=bound(2 * ts * dd * xs.element_size() + 2 * dd * ff + (dd + ff) * 8,
-                        4 * ts * dd * ff, PEAK_INT8_SIMT),
+                        4 * ts * dd * ff, PEAK_INT8),
+            extra=lambda: dp4a_bound(2 * ts * dd * xs.element_size() + 2 * dd * ff
+                                     + (dd + ff) * 8, 4 * ts * dd * ff),
             residual=xs, share_differing=True, iters=10,
         )
 

@@ -7,7 +7,9 @@
 // outputs bf16, the sums float32; every mode rounds P to bf16 before P.V,
 // as herro_tpu's Pallas kernels do.
 // herro_flash_bf16 (K2, K6: any band), herro_flash_bf16_full (K7),
-// herro_flash_bf16_attention (K9: window -1 for no band).
+// herro_flash_bf16_attention (K9: window -1 for no band),
+// herro_flash_bf16_outproj (K2/K6/K7's out projection alone, for its rows on
+// the card).
 #include "flash_tc.cuh"
 
 using herro::bf16;
@@ -39,4 +41,12 @@ extern "C" int herro_flash_bf16_attention(const void* q, const void* k, const vo
   return herro::flash_tc::attention<bf16, true>((const bf16*)q, (const bf16*)k,
                                                   (const bf16*)v, lengths, (bf16*)o, B, H, L,
                                                   D, window, scale, 0, (cudaStream_t)stream);
+}
+
+extern "C" int herro_flash_bf16_outproj(const void* o, const void* x, const void* wo,
+                                        const void* bo, void* y, long T, int K, int d,
+                                        void* stream) {
+  return herro::flash_tc::outproj_only<bf16>((const bf16*)o, (const bf16*)x, (const bf16*)wo,
+                                             (const bf16*)bo, (bf16*)y, T, K, d,
+                                             (cudaStream_t)stream);
 }

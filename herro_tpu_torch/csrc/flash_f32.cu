@@ -4,7 +4,9 @@
 // its design are flash_tc.cuh's, at E = float (every product as three TF32
 // products on the tensor cores): herro_flash_f32 (K2, K6:
 // any band), herro_flash_f32_full (K7: every key below the length),
-// herro_flash_f32_attention (K9: attention alone, window -1 for no band).
+// herro_flash_f32_attention (K9: attention alone, window -1 for no band),
+// herro_flash_f32_outproj (K2/K6/K7's out projection alone, for its rows on
+// the card).
 #include "flash_tc.cuh"
 
 extern "C" int herro_flash_f32(const float* q, const float* k, const float* v, const float* x,
@@ -29,4 +31,10 @@ extern "C" int herro_flash_f32_attention(const float* q, const float* k, const f
                                          int D, int window, float scale, void* stream) {
   return herro::flash_tc::attention<float, false>(q, k, v, lengths, o, B, H, L, D, window,
                                                     scale, 0, (cudaStream_t)stream);
+}
+
+extern "C" int herro_flash_f32_outproj(const float* o, const float* x, const float* wo,
+                                       const float* bo, float* y, long T, int K, int d,
+                                       void* stream) {
+  return herro::flash_tc::outproj_only<float>(o, x, wo, bo, y, T, K, d, (cudaStream_t)stream);
 }

@@ -30,8 +30,9 @@
 // operations, on the tensor cores at the operands' peak (bf16 989 TFLOP/s;
 // float32 as three TF32 products, 495 / 3); at D 16-32 the exponentials
 // and the softmax's own float32 work set it, at D 128 in float32 the
-// products. The out projection (2 H D d a row) stays on f32.cuh's FFMA tile
-// product, a second launch.
+// products. The out projection (2 H D d operations a row, a second
+// launch) is bound by its products at the bf16 tensor-core peak or its
+// bytes (o, x and y) in bf16, by its products at the FFMA rate in float32.
 //
 // Design: a block of 4 warps a (batch element, head, 64 query rows), 16 rows
 // a warp; the keys in tiles of 64 (32 for float32 at D 128, so that two
@@ -73,12 +74,15 @@
 // TF32 splits of P are register work that mma.sync's A fragment (S's C
 // fragment) takes as it lies.
 // The out projection is a second launch on the same stream: the attention
-// writes o [B, L, H, D] of type E to a scratch the wrapper allocates, and
-// the tile product of f32.cuh reads it as [T, H D] against Wo [H D, d] with
-// the residual and the bias in its epilogue.
+// writes o [B, L, H, D] of type E to a scratch the wrapper allocates, and a
+// tile product reads it as [T, H D] against Wo [H D, d] with the residual
+// and the bias in its epilogue (f32.cuh kEpiResidualAfter): in bf16 on
+// gemm_tc.cuh's tensor cores, in float32 on f32.cuh's FFMA tile product
+// (outproj_on_tc says why).
 #pragma once
 
 #include "f32.cuh"
+#include "gemm_tc.cuh"
 #include "mma.cuh"
 
 namespace herro {
@@ -455,8 +459,36 @@ int attention(const E* q, const E* k, const E* v, const int* lengths, E* o, int 
   }
 }
 
+// whether the out projection of storage type E at width d and K = H D
+// takes gemm_tc.cuh's tensor-core tile product (K a multiple of its 32-k
+// stage) rather than f32.cuh's FFMA one. bf16 does at every width: timed
+// against FFMA in one call on an H100 (B=32, L=9216; PERF.md section 6, PR
+// 22), r10h64's K2 6.49-6.53 -> 3.75-3.80 ms, tiny's K2 at band 512
+// 0.345-0.348 -> 0.319-0.323, its rows held to the 2^-6 share bar either
+// way. float32 keeps FFMA: on the tensor cores r10's K2 ran 13.02-13.10 ->
+// 12.56-12.61 within the 2e-4 bar, but the three TF32 products' sums (each
+// 32-k stage truncated toward zero inside the tensor cores) moved enough
+// int8 steps of the next K11 that the float32 r10 int8 golden's info head
+// came 0.072 from herro_tpu's frozen logits, past the frozen 0.05
+// (chip_smoke.py INT8_GOLDEN_BARS); and at tiny's widths FFMA timed no
+// slower (K2 at band 512 0.778-0.785 against 0.783-0.809). tiny's tp 2
+// shard (K = 16) is below a stage.
+template <typename E>
+inline bool outproj_on_tc(int d, int K) {
+  return sizeof(E) == 2 && K % gemm_tc::kBK == 0;
+}
+
+// y [T, d] = (x + o @ Wo) + bo, o [T, K] the attention's output, Wo [K, d]
+template <typename E>
+int project(const E* o, const E* wo, const E* bo, const E* x, E* y, long T, int K, int d,
+            cudaStream_t stream) {
+  if (outproj_on_tc<E>(d, K))
+    return gemm_tc::launch<E, kEpiResidualAfter>(o, wo, bo, x, y, T, K, d, stream);
+  launch_gemm<E, false, kEpiResidualAfter>(o, wo, bo, x, nullptr, nullptr, y, T, K, d, stream);
+  return (int)cudaGetLastError();
+}
+
 // attention into o [B, L, H, D] (bf16: P rounded), then y = (x + o @ Wo) + bo
-// on f32.cuh's FFMA tile product
 template <typename E>
 int outproj(const E* q, const E* k, const E* v, const E* x, const E* wo, const E* bo,
             const int* lengths, E* scratch, E* y, int B, int H, int L, int d, int D, int window,
@@ -464,10 +496,16 @@ int outproj(const E* q, const E* k, const E* v, const E* x, const E* wo, const E
   if (!d_model_ok(d)) return (int)cudaErrorInvalidValue;
   int err = attention<E, true>(q, k, v, lengths, scratch, B, H, L, D, window, scale, 1, stream);
   if (err) return err;
-  const long T = (long)B * L;
-  launch_gemm<E, false, kEpiResidualAfter>(scratch, wo, bo, x, nullptr, nullptr, y, T, H * D,
-                                           d, stream);
-  return (int)cudaGetLastError();
+  return project<E>(scratch, wo, bo, x, y, (long)B * L, H * D, d, stream);
+}
+
+// the out projection alone (an entry point of its own for its rows on the
+// card): o [T, K] with K = H D, any H and D the attention takes
+template <typename E>
+int outproj_only(const E* o, const E* x, const E* wo, const E* bo, E* y, long T, int K, int d,
+                 cudaStream_t stream) {
+  if (T < 1 || !d_model_ok(d) || K < 16 || K % 16) return (int)cudaErrorInvalidValue;
+  return project<E>(o, wo, bo, x, y, T, K, d, stream);
 }
 
 }  // namespace flash_tc

@@ -1,6 +1,8 @@
-// The tile product of K1/K8 (ln_qkv_rope_simt.cuh) and K3 (ln_ffn_f32.cu,
-// ln_ffn_bf16.cu) on the tensor cores (mma.sync), for float32 and for bf16
-// at the widths no Hopper instance takes: A @ W over a block's row tile of
+// The tile product of K1/K8 (ln_qkv_rope_simt.cuh), K3 (ln_ffn_f32.cu,
+// ln_ffn_bf16.cu) and the bf16 out projection behind K2/K6/K7 (flash_tc.cuh
+// project: o [T, H D] @ Wo + the residual, kEpiResidualAfter) on the tensor
+// cores (mma.sync), for float32 and for bf16 at the widths no Hopper
+// instance takes: A @ W over a block's row tile of
 // kRowsT = 64 token rows, column tile by column tile of BN (64 or 128), A [T,
 // K] (LayerNorm(x) rounded to E as the plain versions round it, which
 // layernorm() writes first; or the FFN's hidden), W [K, N] row-major, the
@@ -43,10 +45,14 @@
 // fragment of a stage from zero on its own and takes 128, four blocks an
 // SM (kMinBlocks), so that other blocks' products fill one block's
 // barriers, copies and epilogues. Measured (tools/gemm_tc_clocks_torch.py):
-// float32 spends about 65% of a stage on its products, bf16 under 30%.
+// float32 spends about 55-60% of a stage on its products, bf16 26-31%; at
+// the out projection's shapes (K 512, N 512) bf16 issuing its copies 0.35
+// and its epilogue 0.34 of a stage (PERF.md section 7).
 //
 // At d 32 (kFFMAWidth: TINY_CONFIG and its shards) K1/K8 and K3 keep
-// f32.cuh's FFMA tile product.
+// f32.cuh's FFMA tile product. The out projection takes this one in bf16
+// alone, at every width (flash_tc.cuh outproj_on_tc: float32 keeps FFMA,
+// whose sums the int8 golden's frozen bar holds).
 #pragma once
 
 #include "f32.cuh"

@@ -1,6 +1,7 @@
 // The tensor-core pieces the mma.sync kernels share (flash_tc.cuh's
-// attention, gemm_tc.cuh's tile product): the two products, the TF32 split
-// of a float32 operand, ldmatrix fragment loads and cp.async copies.
+// attention, gemm_tc.cuh's tile product, int8_simt.cuh's int8 product):
+// the three products, the TF32 split of a float32 operand, ldmatrix
+// fragment loads and cp.async copies.
 #pragma once
 
 #include "common.cuh"
@@ -35,6 +36,21 @@ __device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b over 32 k of int8: a [16 x 32] row-major, b [32 x 8] column-major
+// (k contiguous for each n), c in int32. Exact: |sum| <= 127^2 * 2048 <
+// 2^31 over any K the kernels take, so no .satfinite. A register of a holds
+// 4 k of one row (a0: row g, k 4t..4t+3; a1: row g + 8; a2, a3: k + 16),
+// of b 4 k of one column (b0: column g, k 4t..4t+3; b1: k + 16), g = lane
+// / 4, t = lane % 4: ldmatrix's b16 matrices of 8 rows x 16 bytes as they
+// lie
+__device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

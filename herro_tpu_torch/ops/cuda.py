@@ -17,16 +17,17 @@ and per mode for a kernel whose source has more than one entry point
 (:data:`MODES`); it keeps the same counts by card as well.
 
 The float32 kernels (``*_f32.cu``: K1/K8 and K3 on the tensor cores over
-``gemm_tc.cuh``, the attention of ``flash_f32.cu`` over ``flash_tc.cuh``,
-K4 and the out projection SIMT FFMA over ``f32.cuh``) take the
+``gemm_tc.cuh``, the attention of ``flash_f32.cu`` over ``flash_tc.cuh``
+and its out projection over ``gemm_tc.cuh`` too, K4 SIMT FFMA over
+``f32.cuh``) take the
 float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
 not; their bf16 instances (``*_bf16.cu``, the same device code at bf16
 storage) take bf16 at the widths and head dims no Hopper instance was built
 for. The wrappers in ``ops/fused.py`` and ``ops/attention.py`` choose by the
 operands' dtype, and for bf16 by their widths (``fused.bf16_kernel_name``).
 The int8 kernels K10 and K11 have
-a SIMT instance each as well (``*_q_simt.cu``, ``__dp4a`` over
-``int8_simt.cuh``), for float32 or bf16 at those widths;
+a SIMT instance each as well (``*_q_simt.cu`` over ``int8_simt.cuh``: K10
+``__dp4a``, K11 int8 ``mma.sync``), for float32 or bf16 at those widths;
 ``fused.int8_kernel_name`` chooses between it and the Hopper one. :func:`on_card` reads
 ``HERRO_TPU_PALLAS`` at every call, as the reference reads it, and refuses
 ``0`` on the card.
@@ -86,8 +87,8 @@ KERNELS = {
     "ln_qkv_rope_bf16": ("herro_ln_qkv_rope_bf16", [_P] * 11 + [_I] * 5 + [_P]),
     "flash_bf16": ("herro_flash_bf16", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "ln_ffn_bf16": ("herro_ln_ffn_bf16", [_P] * 9 + [_L, _I, _I, _P]),
-    # int8 for float32 or bf16 at the float32 kernels' widths (SIMT __dp4a,
-    # int8_simt.cuh); the last int says whether x is bf16
+    # int8 for float32 or bf16 at the float32 kernels' widths (int8_simt.cuh:
+    # K10 __dp4a, K11 int8 mma.sync); the last int says whether x is bf16
     "ln_qkv_rope_q_simt": ("herro_ln_qkv_rope_q_simt", [_P] * 11 + [_I] * 6 + [_P]),
     "ln_ffn_q_simt": ("herro_ln_ffn_q_simt", [_P] * 12 + [_L, _I, _I, _I, _P]),
 }
@@ -97,8 +98,10 @@ KERNELS = {
 # two passes of a tensor-parallel shard (parallel/tensor.py); the float32
 # qkv kernel's split route (the rope tables built in the kernel, K8's); the
 # float32 attention without a band (K7's) and without the out projection
-# (K9's); the same three of the bf16 SIMT instances; the SIMT K11's two
-# passes, as the Hopper one's
+# (K9's); the same three of the bf16 SIMT instances; the out projection
+# of K2/K6/K7's SIMT instances alone (their rows on the card; the attention
+# entry points run it inside their own call); the SIMT K11's two passes, as
+# the Hopper one's
 MODES = {
     "ln_ffn_q_rowmax": ("ln_ffn_q", "herro_ln_ffn_q_rowmax", [_P] * 8 + [_L, _I, _I, _P]),
     "ln_ffn_q_rowscale": (
@@ -117,6 +120,10 @@ MODES = {
     "flash_bf16_full": ("flash_bf16", "herro_flash_bf16_full", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "flash_bf16_attention": (
         "flash_bf16", "herro_flash_bf16_attention", [_P] * 5 + [_I] * 5 + [_F, _P],
+    ),
+    "flash_f32_outproj": ("flash_f32", "herro_flash_f32_outproj", [_P] * 5 + [_L, _I, _I, _P]),
+    "flash_bf16_outproj": (
+        "flash_bf16", "herro_flash_bf16_outproj", [_P] * 5 + [_L, _I, _I, _P],
     ),
     "ln_ffn_q_simt_rowmax": (
         "ln_ffn_q_simt", "herro_ln_ffn_q_simt_rowmax", [_P] * 8 + [_L, _I, _I, _I, _P],

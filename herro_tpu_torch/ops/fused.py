@@ -41,8 +41,9 @@ differentiates it. No op has a backward kernel: nor has the reference.
   K3: activations quantized per row, weights per output column
   (``quantize_weight``), int8 x int8 -> int32 products, float32
   dequantization. Each has a Hopper instance (int8 ``wgmma``, bf16 at the
-  shipped widths) and a SIMT one (``__dp4a``, float32 or bf16 at the float32
-  kernels' widths); ``int8_kernel_name`` chooses. K11 has two more modes for
+  shipped widths) and a SIMT one (K10 ``__dp4a``, K11 int8 ``mma.sync``,
+  float32 or bf16 at the float32 kernels' widths); ``int8_kernel_name``
+  chooses. K11 has two more modes for
   a tensor-parallel shard, whose
   hidden holds d_ff / tp columns of a row that is quantized as a whole:
   ``ln_ffn_q_rowmax`` (the row maxima of |h| over the shard's columns, and
@@ -639,6 +640,36 @@ def _flash_outproj_simt_cuda(q, k, v, x, wo, bo, lengths, local_window, kernel: 
     return out
 
 
+def _outproj_cuda(o, x, wo, bo, kernel: str):
+    """K2/K6/K7's out projection alone on its SIMT instance's card route
+    (``flash_f32_outproj``, ``flash_bf16_outproj``): y = (x + concat_h(o_h)
+    @ Wo) + bo, o [B, L, H, D] as the attention leaves it in the scratch of
+    :func:`_flash_outproj_simt_cuda`, every operand of the instance's dtype.
+    The attention kernels run the same projection inside their own call;
+    this entry point times and checks it on its own (its plain version:
+    :func:`_outproj_plain`)."""
+    B, L, H, D = o.shape
+    d = x.shape[-1]
+    _cuda.check(kernel in ("flash_f32_outproj", "flash_bf16_outproj"),
+                f"{kernel} is no out projection")
+    dtype = _cuda.simt_dtype(kernel)
+    _check_f32_widths(d, D=D, kind=_simt_kind(kernel))
+    _cuda.check(x.shape == (B, L, d) and wo.shape == (H, D, d) and bo.shape == (d,),
+                "o/x/wo/bo shapes")
+    _cuda.require_dtype(dtype, o=o, x=x, wo=wo, bo=bo)
+    dev = _cuda.require_operands(o=o, x=x, wo=wo, bo=bo)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _cuda.call(kernel, o.data_ptr(), x.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+                   out.data_ptr(), B * L, H * D, d, _cuda.stream_of(x))
+    return out
+
+
+def _outproj_plain(o, x, wo, bo):
+    """:func:`_outproj_cuda`'s function: :func:`_project` of o [B, L, H, D]."""
+    return _project(o.permute(0, 2, 1, 3), x, wo, bo)
+
+
 def flash_outproj(q, k, v, x, wo, bo, lengths, local_window):
     """Attention + out projection + residual: y = x + concat_h(attn_h) @ Wo
     + bo, with wo passed as [H, D, d_model] and the band |iq - ik| <=
@@ -827,7 +858,8 @@ def int8_kernel_name(dtype, d: int, f: int | None = None, D: int | None = None) 
     take its instance under their own names). The Hopper instance
     (``ln_qkv_rope_q``, ``ln_ffn_q``: int8 ``wgmma``) where it takes the
     operands, bf16 at its widths; otherwise the SIMT one
-    (``ln_qkv_rope_q_simt``, ``ln_ffn_q_simt``: ``__dp4a``) for float32 or
+    (``ln_qkv_rope_q_simt``: ``__dp4a``; ``ln_ffn_q_simt``: int8
+    ``mma.sync``) for float32 or
     bf16 at the float32 kernels' widths; outside those a ValueError that
     names the dtype or the width. The reference picks its int8 kernels by
     backend and length alone (``herro_tpu/ops/fused.py:480-486``,

@@ -24,6 +24,16 @@ mode within 1e-4; one TF32 product (each operand rounded as
 takes three. ``tools/bf16_rounding_faults.py``'s anchors of the
 tile product's roundings stand in the device code the tensor-core
 instances run.
+
+K2/K6/K7's out projection on the same tile product (``flash_tc.cuh:project``,
+which bf16 takes; float32 keeps FFMA there, as the three TF32 products moved
+the int8 r10 golden past its frozen bar on the card) is held the same way
+in float32: herro_tpu's banded attention
+and projection (``_banded_flash_outproj_rot_pallas``) in interpret mode at
+r10's widths against the port's plain attention (P unrounded in float32)
+then the emulated product, K = H D 512 and N = d 512, in
+``kEpiResidualAfter``'s order ((x + o @ Wo) + bo), within 2e-4 on the rows
+inside the length.
 """
 
 import importlib.util
@@ -40,8 +50,11 @@ from test_torch_flash_tc import split_tf32, tf32
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "herro_tpu_torch", "csrc")
 ATOL = 1e-4
+ATOL_PROJ = 2e-4  # after the out projection's extra contraction (chip_smoke.F32_ATOL_PROJ)
 KBK = 32  # k a stage (gemm_tc.cuh kBK)
 B, L, d, H, D, F_FF = 2, 256, 512, 4, 128, 1024  # model_r10_sim's widths
+WINDOW, BLK = 128, 64  # the band and the Pallas kernel's block (w % blk == 0)
+LENGTHS = (L, L - 70)
 
 
 @pytest.fixture(scope="module")
@@ -99,6 +112,35 @@ def _inputs(seed):
     return x, s, b, w, bias, w1, b1, w2, b2
 
 
+def _attn_inputs(seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(rng.normal(0.0, std, size=shape).astype(np.float32))
+
+    q, k, v = (t(B, H, L, D) for _ in range(3))
+    x = t(B, L, d)
+    wo, bo = t(H, D, d, std=(H * D) ** -0.5), t(d, std=0.25)
+    return q, k, v, x, wo, bo, torch.tensor(LENGTHS, dtype=torch.int32)
+
+
+def outproj(q, k, v, x, wo, bo, lengths, take):
+    """K2's function with the projection as the tile product sums it: the
+    attention's output o [T, H D] (the scratch's layout) against Wo [H D, d],
+    then (x + o @ Wo) + bo."""
+    from herro_tpu_torch.ops.attention import chunked_attention
+
+    o = chunked_attention(q, k, v, lengths, WINDOW).permute(0, 2, 1, 3).reshape(-1, H * D)
+    y = (x.reshape(-1, d) + product(o, wo.reshape(H * D, d), take)) + bo
+    return y.reshape(B, L, d)
+
+
+def _valid(y):
+    """The rows inside each example's length (the rest are padding)."""
+    y = np.asarray(y)
+    return np.concatenate([y[b, :n] for b, n in enumerate(LENGTHS)])
+
+
 def _gap(got, want):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -114,21 +156,30 @@ def pallas(ref):
     with pltpu.force_tpu_interpret_mode():
         k1 = jfused._ln_qkv_rope_pallas(*map(j, (x, s, b, w, bias)), H, blk_t=L, rope_tbl=True)
         k3 = jfused._ln_ffn_pallas(*map(j, (x.reshape(-1, d), s, b, w1, b1, w2, b2)), blk_t=256)
-    return {"ln_qkv_rope": k1, "ln_ffn": np.asarray(k3).reshape(B, L, d)}
+    a = _attn_inputs(9)
+    k2 = jfused._banded_flash_outproj_rot_pallas(*map(j, a), WINDOW, blk=BLK, interpret=True)
+    return {"ln_qkv_rope": k1, "ln_ffn": np.asarray(k3).reshape(B, L, d),
+            "flash_outproj": _valid(k2)}
 
 
 def _emulated(kernel, take):
     x, s, b, w, bias, w1, b1, w2, b2 = _inputs(7)
     if kernel == "ln_qkv_rope":
         return qkv(x, s, b, w, bias, take)
+    if kernel == "flash_outproj":
+        return torch.from_numpy(_valid(outproj(*_attn_inputs(9), take)))
     return ffn(x, s, b, w1, b1, w2, b2, take)
 
 
-@pytest.mark.parametrize("kernel", ["ln_qkv_rope", "ln_ffn"])
+BARS = {"ln_qkv_rope": ATOL, "ln_ffn": ATOL, "flash_outproj": ATOL_PROJ}
+
+
+@pytest.mark.parametrize("kernel", ["ln_qkv_rope", "ln_ffn", "flash_outproj"])
 def test_three_tf32_products_hold_the_float32_bar_against_pallas(kernel, pallas):
     """Measured: K1 3.3e-5 (the plain version itself 3.3e-5: the rope
-    tables' cos/sin), K3 4.1e-6 (plain 2.9e-6)."""
-    assert _gap(_emulated(kernel, three), pallas[kernel]) <= ATOL
+    tables' cos/sin), K3 4.1e-6 (plain 2.9e-6), K2's projection 7.2e-7 (plain
+    7.2e-7; one TF32 product 2.4e-4)."""
+    assert _gap(_emulated(kernel, three), pallas[kernel]) <= BARS[kernel]
 
 
 @pytest.mark.parametrize("kernel", ["ln_qkv_rope", "ln_ffn"])
@@ -174,3 +225,25 @@ def test_rounding_fault_anchors_stand_in_the_tensor_core_code(fault):
     assert tc.count(helper[1]) >= 1 and ffma.count(helper[1]) >= 1
     assert '#include "gemm_tc.cuh"' in qkv_src
     assert all('#include "gemm_tc.cuh"' in text(f"ln_ffn_{s}.cu") for s in ("f32", "bf16"))
+
+
+def test_outproj_entry_refuses_what_its_kernel_does_not_take():
+    """``fused._outproj_cuda`` (the out projection's own entry point, for its
+    rows on the card) names an out projection mode, the instance's dtype
+    and card tensors before any launch."""
+    o, x = torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 32)
+    wo, bo = torch.zeros(2, 16, 32), torch.zeros(32)
+    with pytest.raises(ValueError, match="no out projection"):
+        fused._outproj_cuda(o, x, wo, bo, "flash_f32")
+    with pytest.raises(ValueError, match="takes torch.float32"):
+        fused._outproj_cuda(o.bfloat16(), x.bfloat16(), wo.bfloat16(), bo.bfloat16(),
+                            "flash_f32_outproj")
+    with pytest.raises(ValueError, match="o/x/wo/bo shapes"):
+        fused._outproj_cuda(o, x, wo[:, :8], bo, "flash_f32_outproj")
+    with pytest.raises(ValueError, match="not on the card"):
+        fused._outproj_cuda(o, x, wo, bo, "flash_f32_outproj")
+    # the plain version: herro_tpu's projection order on o [B, L, H, D]
+    o = torch.randn(1, 8, 2, 16)
+    x, wo, bo = torch.randn(1, 8, 32), torch.randn(2, 16, 32), torch.randn(32)
+    want = (x + torch.einsum("blhd,hdo->blo", o, wo) + bo)
+    assert torch.allclose(fused._outproj_plain(o, x, wo, bo), want, atol=1e-6)

@@ -204,8 +204,8 @@ def test_ln_qkv_rope_q_plain_matches_pallas_interpret(dtype, ref):
         np.testing.assert_allclose(_f32(g), _f32(r), atol=_tol(_f32(r), dtype), rtol=0)
 
 
-def _ffn_q_both(ref, seed, dtype):
-    x, s, b, w1, b1, w2, b2 = _ffn_inputs(seed)
+def _ffn_q_both(ref, seed, dtype, width=d, f=F_FF):
+    x, s, b, w1, b1, w2, b2 = _ffn_inputs(seed, width, f)
     j1, js1 = ref.fused.quantize_weight(_j(ref, w1))
     j2, js2 = ref.fused.quantize_weight(_j(ref, w2))
     jargs = (_j(ref, x, dtype), _j(ref, s), _j(ref, b), j1, js1, _j(ref, b1), j2, js2,
@@ -224,9 +224,15 @@ def test_ln_ffn_q_plain_matches_jnp_twin(dtype, ref):
     np.testing.assert_allclose(_f32(got), want, atol=_tol(want, dtype), rtol=0)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_ln_ffn_q_plain_matches_pallas_interpret(dtype, ref):
-    jargs, got = _ffn_q_both(ref, 13, dtype)
+# (dtype, d_model, d_ff): the test widths, and d384x5L's (d 384, d_ff 1280:
+# K11's SIMT instance in bf16, tools/variant_step_time_torch.py)
+FFN_Q_PALLAS_WIDTHS = [(dt, d, F_FF) for dt in DTYPES] + [(dt, 384, 1280) for dt in DTYPES]
+
+
+@pytest.mark.parametrize("dtype,width,f", FFN_Q_PALLAS_WIDTHS,
+                         ids=DTYPES + [f"{dt}-d384" for dt in DTYPES])
+def test_ln_ffn_q_plain_matches_pallas_interpret(dtype, width, f, ref):
+    jargs, got = _ffn_q_both(ref, 13, dtype, width, f)
     with ref.pltpu.force_tpu_interpret_mode():
         want = _f32(ref.fused._ln_ffn_q_pallas(*jargs, blk_t=128))
     np.testing.assert_allclose(_f32(got), want, atol=_tol(want, dtype), rtol=0)

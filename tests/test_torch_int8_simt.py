@@ -2,9 +2,9 @@
 
 * ``int8_kernel_name`` keeps the Hopper instances (int8 ``wgmma``) where they
   take the operands, bf16 at their widths, and sends every other float32 or
-  bf16 width of the float32 kernels to the SIMT instances (``__dp4a``,
-  ``csrc/*_q_simt.cu``); outside those it names the dtype or the width in a
-  ValueError. Checked over every width the Hopper wrappers refuse, those of
+  bf16 width of the float32 kernels to the SIMT instances (K10 ``__dp4a``,
+  K11 int8 ``mma.sync``, ``csrc/*_q_simt.cu``); outside those it names the
+  dtype or the width in a ValueError. Checked over every width the Hopper wrappers refuse, those of
   ``test_ln_ffn_q_cuda_wrapper_names_a_refused_width`` among them.
 * The public int8 ops, handed tensors that say they are on the card, reach
   the wrapper of that instance (K11's two modes too), and launch nothing.

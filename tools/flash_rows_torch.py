@@ -4,20 +4,25 @@
     python3 tools/flash_rows_torch.py --against chip_checkout/parent  # this, other, other, this
     python3 tools/flash_rows_torch.py --against DIR --no-steps --out rows.jsonl
     python3 tools/flash_rows_torch.py --kernels ln_ --no-steps        # K1/K8 and K3's rows
+    python3 tools/flash_rows_torch.py --kernels ln_ffn_q_simt,ln_qkv_rope_q_simt --no-steps
 
 Each pass runs in a process of its own, on one tree's ``herro_tpu_torch``
 with this checkout's ``chip_smoke.py`` (so both trees run the same rows,
 inputs, bars and bounds; the other tree is unpacked with ``git archive``),
 and prints one JSON line a row, tagged with its tree and pass:
 
-* the rows of ``chip_smoke.simt_cases`` whose kernel's name starts with a
-  prefix of ``--kernels`` (by default ``flash_``: K2, K6, K7 and K9's
-  ``flash_f32`` and ``flash_bf16``; ``ln_`` takes K1/K8's
-  ``ln_qkv_rope_*`` and K3's ``ln_ffn_*``) at every width no Hopper
-  instance takes (r10 in float32, the flagship at head dim 64 in bf16,
-  TINY_CONFIG in both, the tp 2 shards), held against their plain versions
-  at the smoke run's bars and timed by CUDA events beside their bounds, the
-  plain version and the library call;
+* the rows of ``chip_smoke.simt_cases`` (float32 and bf16) and
+  ``chip_smoke.int8_simt_cases`` whose kernel's name starts with a prefix
+  of ``--kernels`` (by default ``flash_``: K2, K6, K7 and K9's
+  ``flash_f32`` and ``flash_bf16``, and their out projection alone,
+  ``outproj_tc``; ``ln_`` takes K1/K8's ``ln_qkv_rope_*``, K3's
+  ``ln_ffn_*`` and the SIMT int8 K10 and K11 with K11's two modes) at every
+  width no Hopper instance takes (r10 in float32, the flagship at head dim
+  64 in bf16, TINY_CONFIG in both, d 384 in bf16 for int8, the tp 2
+  shards), held against their plain versions at the smoke run's bars and
+  timed by CUDA events beside their bounds, the plain version and the
+  library call, with a sha256 digest of the kernel's output bytes
+  (``digest``); a row whose entry point the tree lacks is left out there;
 * unless ``--no-steps``, ``chip_smoke.student_steps``: the correct step of
   distill's default student (TINY_CONFIG in float32; here the frozen
   ``tests/torch_data/tiny_seed5``) at B=32 and L 1024, 4608 and 9216,
@@ -25,8 +30,10 @@ and prints one JSON line a row, tagged with its tree and pass:
 
 The passes run in turns (this, other, other, this) on one card, so the two
 trees' times come from one call; the card's name and power limit lead the
-output. A row that disagrees with its plain version fails its pass and the
-command (exit 1), after every pass has run.
+output. Under ``--against`` one line a row then says whether the two trees'
+outputs agree bit for bit (``digests_agree``: every pass of both trees gave
+one digest). A row that disagrees with its plain version fails its pass and
+the command (exit 1), after every pass has run.
 Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 
@@ -41,7 +48,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = r"""
-import importlib.util, json, os, sys
+import hashlib, importlib.util, json, os, sys
 tree, smoke, steps = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
 prefixes = tuple(sys.argv[4].split(","))
 sys.path.insert(0, tree)
@@ -56,17 +63,34 @@ if not hasattr(fused, "_flash_outproj_tiled"):
     # a tree whose bf16 projection keeps P unrounded: its own yardstick
     fused._flash_outproj_tiled = fused._flash_outproj_plain
 
+
+def digest(out):
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def with_digest(c):
+    extra = c.get("extra")
+    return dict(c, extra=lambda: {"digest": digest(c["kernel"]())} | (extra() if extra else {}))
+
+
 keep_float32_exact(torch.device("cuda"))
 cuda.build_all()
 bad = []
-for dtype, phase in (("float32", "float32"), ("bfloat16", "bf16_any")):
-    cases = {k: c for k, c in chip_smoke.simt_cases(torch, dtype).items()
-             if c["name"].startswith(prefixes)}
+for what, phase in (("float32", "float32"), ("bfloat16", "bf16_any"), ("int8", "int8_any")):
+    made = (chip_smoke.int8_simt_cases(torch) if what == "int8"
+            else chip_smoke.simt_cases(torch, what))
+    cases = {k: with_digest(c) for k, c in made.items() if c["name"].startswith(prefixes)
+             and (c.get("mode") or c["name"]) in {**cuda.KERNELS, **cuda.MODES}}
+    del made
     try:
-        chip_smoke.run_cases(torch, cases, phase)
+        if cases:
+            chip_smoke.run_cases(torch, cases, phase)
     except RuntimeError as err:  # every row has printed its line
         print(err, file=sys.stderr)
-        bad.append(dtype)
+        bad.append(what)
     del cases
     torch.cuda.empty_cache()
 if steps:
@@ -122,6 +146,18 @@ def main() -> int:
         if err:
             print(f"pass {i} ({tag}, {tree}) failed:\n{err}", flush=True)
             failed.append(i)
+    if args.against:  # each row's outputs in the two trees, bit for bit
+        digests: dict = {}
+        for row in out:
+            if "digest" in row:
+                key = (row["phase"], row["case"])
+                digests.setdefault(key, {}).setdefault(row["tree"], set()).add(row["digest"])
+        for (phase, case), by_tree in digests.items():
+            mine, theirs = by_tree.get("this", set()), by_tree.get("other", set())
+            line = dict(phase=phase, case=case, digests_agree=len(mine) == 1 and mine == theirs,
+                        this=sorted(mine), other=sorted(theirs))
+            out.append(line)
+            print(json.dumps(line), flush=True)
     if args.out:
         with open(args.out, "w") as fh:
             fh.writelines(json.dumps(r) + "\n" for r in out)

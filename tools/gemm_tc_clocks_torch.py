@@ -1,7 +1,8 @@
-"""Where a stage's time goes in the tensor-core tile product of K1/K8 and K3 (``csrc/gemm_tc.cuh``).
+"""Where a stage's time goes in the tensor-core tile product of K1/K8, K3 and the out projection (``csrc/gemm_tc.cuh``).
 
     python3 tools/gemm_tc_clocks_torch.py            # every row of ROWS, B=32, L=9216
     python3 tools/gemm_tc_clocks_torch.py --rows f32-r10-qkv
+    python3 tools/gemm_tc_clocks_torch.py --rows f32-r10-outproj bf16-r10h64-outproj
 
 Builds a copy of ``gemm_tc.cuh`` with ``clock64`` laps around the phases of
 a k stage of its ``product`` (``PHASES``: the wait for the stage's copies
@@ -9,8 +10,11 @@ and the barrier, issuing the copies of the stage two on, the products, a
 column tile's epilogue) and around each tile product kernel's whole run
 (LayerNorm's launch before it is not counted), in
 a temporary directory, with ``ln_qkv_rope_f32.cu``, ``ln_qkv_rope_bf16.cu``,
-``ln_ffn_f32.cu`` and ``ln_ffn_bf16.cu`` beside it, each with one more C
-function that reads and clears the counters; the sources in the repository
+``ln_ffn_f32.cu``, ``ln_ffn_bf16.cu``, ``flash_f32.cu`` and ``flash_bf16.cu``
+(whose out projection, K2/K6/K7's second launch, is the same tile product:
+the rows time it alone, through its ``*_outproj`` entry point, K = H D 512
+and N = d 512) beside it, each with one more C function that reads and
+clears the counters; the sources in the repository
 are not changed. Each warp's first lane sums its laps, one ``atomicAdd`` a
 phase when a tile product ends. For each row (an entry point at the widths
 of ``chip_smoke.SIMT_WIDTHS``, random inputs) it prints one JSON line: the
@@ -38,12 +42,15 @@ sys.path.insert(0, ROOT)
 PHASES = ("wait", "issue", "products", "epilogue")
 KERNEL = len(PHASES)  # the counter of the kernels' whole runs
 TILE_ROWS, WARPS = 64, 4  # a tile's token rows and warps (gemm_tc.cuh kRowsT, kWarps)
-SOURCES = ("ln_qkv_rope_f32", "ln_qkv_rope_bf16", "ln_ffn_f32", "ln_ffn_bf16")
+SOURCES = ("ln_qkv_rope_f32", "ln_qkv_rope_bf16", "ln_ffn_f32", "ln_ffn_bf16", "flash_f32",
+           "flash_bf16")
 # row -> (source, dtype, chip_smoke.SIMT_WIDTHS tag)
 ROWS = {
     "f32-r10-qkv": ("ln_qkv_rope_f32", "float32", "r10"),
     "f32-r10-ffn": ("ln_ffn_f32", "float32", "r10"),
     "bf16-r10h64-qkv": ("ln_qkv_rope_bf16", "bfloat16", "r10h64"),
+    "f32-r10-outproj": ("flash_f32", "float32", "r10"),
+    "bf16-r10h64-outproj": ("flash_bf16", "bfloat16", "r10h64"),
 }
 LAP = "{ const long long n_ = clock64(); clk[%d] += n_ - tk; tk = n_; }\n"
 FLUSH = (f"  if (threadIdx.x % 32 == 0)\n    for (int i = 0; i < {len(PHASES)}; ++i) "
@@ -140,9 +147,17 @@ def run_row(torch, lib, row: str, iters: int) -> dict:
     ln_s = 1.0 + randn(d, std=0.1, dtype=torch.float32)
     ln_b = randn(d, std=0.1, dtype=torch.float32)
     stream = torch.cuda.current_stream().cuda_stream
-    fn = getattr(lib, f"herro_{source}")
-    fn.argtypes = cuda.KERNELS[source][1]
-    if source.startswith("ln_qkv_rope"):
+    entry = f"{source}_outproj" if source.startswith("flash_") else source
+    fn = getattr(lib, f"herro_{entry}")
+    fn.argtypes = (cuda.MODES[entry] if entry in cuda.MODES else cuda.KERNELS[entry])[-1]
+    if source.startswith("flash_"):
+        o = randn(B, L, H, D)
+        wo, bo = randn(H * D, d, std=(H * D) ** -0.5), randn(d, std=0.25)
+        y = torch.empty_like(x)
+        args = (o.data_ptr(), x.data_ptr(), wo.data_ptr(), bo.data_ptr(), y.data_ptr(), T,
+                H * D, d, stream)
+        stages = -(-T // TILE_ROWS) * (-(-d // (64 if d <= 64 else 128))) * (H * D // 32)
+    elif source.startswith("ln_qkv_rope"):
         w, b = randn(d, 3 * H * D, std=d ** -0.5), randn(3 * H * D, std=0.25)
         cos, sin = fused.rope_tables(L, D, dev)
         q, k, v = (torch.empty(B, H, L, D, device=dev, dtype=dt) for _ in range(3))
