@@ -224,8 +224,8 @@ PEAK_TF32 = 495e12
 # arithmetic instruction throughput gives compute capability 9.0 16 results
 # a clock an SM for the base-2 exponential; 132 SMs at the H100 SXM's 1.98 GHz
 PEAK_EXP2 = 132 * 16 * 1.98e9
-# int8 on the CUDA cores (__dp4a, the SIMT int8 K10; K11's SIMT instance
-# before it moved onto the tensor cores, its bound beside the new one): the
+# int8 on the CUDA cores (__dp4a, the SIMT int8 K10 and K11 before they
+# moved onto the tensor cores, their bound beside the new one): the
 # CUDA C++ Programming Guide's table of arithmetic instruction throughput
 # gives compute capability 9.0 64 results a clock an SM for 32-bit integer
 # multiply-add, the pipe __dp4a issues on; one __dp4a result is 4
@@ -301,8 +301,8 @@ def tc_bound(nbytes: float, ops: float, exps: float, f32: bool) -> tuple[float, 
 
 def dp4a_bound(nbytes: float, ops: float) -> dict:
     """The bound of a SIMT int8 row at the __dp4a rate (``PEAK_INT8_SIMT``),
-    which K11's SIMT instance ran at before the int8 tensor cores: reported
-    beside its tensor-core bound."""
+    which the SIMT int8 K10 and K11 ran at before the int8 tensor cores:
+    reported beside their tensor-core bound."""
     ms, by = bound(nbytes, ops, PEAK_INT8_SIMT)
     return dict(bound_dp4a_ms=ms, bound_dp4a_by=by)
 
@@ -3494,10 +3494,9 @@ def int8_simt_cases(torch) -> dict:
     weights quantized as ``TensorParallelModel`` quantizes them). Each is held
     to the int8 rule: within 2^-6 of the largest output, and its share of
     differing outputs at most twice the plain version's own when LayerNorm
-    sums in float64. Bound: bytes, or int8 operations at the CUDA cores'
-    rate (K10) or on the int8 tensor cores (K11, the __dp4a rate's bound
-    beside it); the library call is torch._int_mm of quant(LN(x)) @ W
-    alone."""
+    sums in float64. Bound: bytes, or int8 operations on the int8 tensor
+    cores, the __dp4a rate's bound beside it; the library call is
+    torch._int_mm of quant(LN(x)) @ W alone."""
     from herro_tpu_torch.ops import fused
 
     dev = torch.device("cuda")
@@ -3521,7 +3520,9 @@ def int8_simt_cases(torch) -> dict:
                      "dominant product only (partial: no LN, quantization, scales, rope)",
                      lambda y_i8: torch._int_mm(y_i8, wq), lambda: ln_rows_i8(xs, s, b)),
             bound=bound((ts * dd + ts * n) * xs.element_size() + dd * n + n * 8,
-                        2 * ts * dd * n, PEAK_INT8_SIMT),
+                        2 * ts * dd * n, PEAK_INT8),
+            extra=lambda: dp4a_bound((ts * dd + ts * n) * xs.element_size() + dd * n + n * 8,
+                                     2 * ts * dd * n),
             share_differing=True, iters=10,
         )
 

@@ -16,8 +16,8 @@
 // (parallel/tensor.py): _rowmax stores each row's max |h| over the shard's
 // columns and, given a buffer for them, how many columns reach it;
 // _rowscale quantizes h by the given row maxima and scales x by res_scale.
-// The int32 products are exact, and every rounding around them is the
-// __dp4a instance's that this one replaced, so its outputs are that
+// The int32 products are exact, and every rounding around them is that of
+// the CUDA-core int8 instance this one replaced, so its outputs are that
 // instance's bit for bit.
 //
 // Bound on the H100: 4 T d f int8 operations at the tensor cores' int8 peak
@@ -32,7 +32,7 @@
 // ring of four.
 // - The hidden pass: LayerNorm and the row quantization once (a warp a
 //   row, in int8_simt.cuh's order of sums, the next row's first read in
-//   flight; ln_quant_rows_major), the int8 rows row-major and resident in
+//   flight; layernorm_rows_i8), the int8 rows row-major and resident in
 //   shared memory; then the d_ff columns in tiles of 128 (64 at d_ff <= 64),
 //   W1's stages streaming past by cp.async. Its epilogue dequantizes, adds
 //   b1, rounds, applies gelu and rounds again on each C fragment. The whole
@@ -59,10 +59,10 @@
 //   ring, and the epilogue adds the scaled residual (at d <= 64 its values
 //   loaded before the products). The grid walks a row tile's column tiles
 //   together, so they share its int8 rows through L2.
-// The __dp4a instance quantized h as its output pass staged it, once for
+// The CUDA-core instance quantized h as its output pass staged it, once for
 // each of a row tile's column tiles; here each value is quantized once.
-// Measured (tools/flash_rows_torch.py --against the __dp4a tree, one call,
-// H100 at 700 W, B=32, L=9216; PERF.md section 6, PR 22): r10 float32
+// Measured (tools/flash_rows_torch.py --against that instance's tree, one
+// call, H100 at 700 W, B=32, L=9216; PERF.md section 6): r10 float32
 // 6.92-7.18 -> 3.24 ms, d 384 bf16 6.85-6.92 -> 3.28, TINY_CONFIG
 // 0.35-0.37 -> 0.30, every output the same bits. A hidden-pass warp's
 // cycles at r10 (tools/ffn_q_simt_clocks_torch.py): LayerNorm 0.25, the
@@ -73,7 +73,6 @@ namespace herro {
 namespace ffn_simt8 {
 
 using namespace simt8;
-using f32::store2;
 
 // the merge of two (max |h|, how many reach it) pairs of one row
 __device__ inline void merge_max(float& m, int& c, float m2, int c2) {
@@ -83,12 +82,6 @@ __device__ inline void merge_max(float& m, int& c, float m2, int c2) {
   } else if (m2 == m) {
     c += c2;
   }
-}
-
-// two values of E (8 bytes or 4, aligned) as floats
-__device__ inline float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ inline float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
 }
 
 // 16 bytes of E as floats
@@ -142,7 +135,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     else
       smax[r] = 0u, scnt[r] = 0;
   }
-  ln_quant_rows_major<E>(x, rows, d, r0, ln_s, ln_b, As, as, srow);
+  layernorm_rows_i8<E>(x, rows, d, r0, ln_s, ln_b, As, as, srow);
   __syncthreads();
   float m[2][2];  // a thread's running max |h| of its rows (mt, g + 8 hf), and how many reach it
   int c[2][2];
@@ -154,7 +147,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) m[mt][hf] = 0.f, c[mt][hf] = 0;
-  product_resident_a_tc<BN>(As, as, w1t, d, f, ring, [&](int n0, const AccI<BN>& acc) {
+  product_resident<BN>(As, as, w1t, d, f, ring, [&](int n0, const AccI<BN>& acc) {
 #pragma unroll
     for (int nt = 0; nt < BN / 16; ++nt) {
       const int n = n0 + wc + 8 * nt + 2 * t;

@@ -26,8 +26,8 @@ storage) take bf16 at the widths and head dims no Hopper instance was built
 for. The wrappers in ``ops/fused.py`` and ``ops/attention.py`` choose by the
 operands' dtype, and for bf16 by their widths (``fused.bf16_kernel_name``).
 The int8 kernels K10 and K11 have
-a SIMT instance each as well (``*_q_simt.cu`` over ``int8_simt.cuh``: K10
-``__dp4a``, K11 int8 ``mma.sync``), for float32 or bf16 at those widths;
+a SIMT instance each as well (``*_q_simt.cu`` over ``int8_simt.cuh``: int8
+``mma.sync``), for float32 or bf16 at those widths;
 ``fused.int8_kernel_name`` chooses between it and the Hopper one. :func:`on_card` reads
 ``HERRO_TPU_PALLAS`` at every call, as the reference reads it, and refuses
 ``0`` on the card.
@@ -88,7 +88,7 @@ KERNELS = {
     "flash_bf16": ("herro_flash_bf16", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "ln_ffn_bf16": ("herro_ln_ffn_bf16", [_P] * 9 + [_L, _I, _I, _P]),
     # int8 for float32 or bf16 at the float32 kernels' widths (int8_simt.cuh:
-    # K10 __dp4a, K11 int8 mma.sync); the last int says whether x is bf16
+    # int8 mma.sync); the last int says whether x is bf16
     "ln_qkv_rope_q_simt": ("herro_ln_qkv_rope_q_simt", [_P] * 11 + [_I] * 6 + [_P]),
     "ln_ffn_q_simt": ("herro_ln_ffn_q_simt", [_P] * 12 + [_L, _I, _I, _I, _P]),
 }

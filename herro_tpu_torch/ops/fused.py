@@ -41,8 +41,8 @@ differentiates it. No op has a backward kernel: nor has the reference.
   K3: activations quantized per row, weights per output column
   (``quantize_weight``), int8 x int8 -> int32 products, float32
   dequantization. Each has a Hopper instance (int8 ``wgmma``, bf16 at the
-  shipped widths) and a SIMT one (K10 ``__dp4a``, K11 int8 ``mma.sync``,
-  float32 or bf16 at the float32 kernels' widths); ``int8_kernel_name``
+  shipped widths) and a SIMT one (int8 ``mma.sync``, float32 or bf16 at
+  the float32 kernels' widths); ``int8_kernel_name``
   chooses. K11 has two more modes for
   a tensor-parallel shard, whose
   hidden holds d_ff / tp columns of a row that is quantized as a whole:
@@ -858,8 +858,8 @@ def int8_kernel_name(dtype, d: int, f: int | None = None, D: int | None = None) 
     take its instance under their own names). The Hopper instance
     (``ln_qkv_rope_q``, ``ln_ffn_q``: int8 ``wgmma``) where it takes the
     operands, bf16 at its widths; otherwise the SIMT one
-    (``ln_qkv_rope_q_simt``: ``__dp4a``; ``ln_ffn_q_simt``: int8
-    ``mma.sync``) for float32 or
+    (``ln_qkv_rope_q_simt``, ``ln_ffn_q_simt``: int8 ``mma.sync``) for
+    float32 or
     bf16 at the float32 kernels' widths; outside those a ValueError that
     names the dtype or the width. The reference picks its int8 kernels by
     backend and length alone (``herro_tpu/ops/fused.py:480-486``,

@@ -177,12 +177,12 @@ def test_k_major_is_the_same_weight_transposed_in_memory():
 # ---------------------------------------------------------------------------
 
 
-def _qkv_q_both(ref, seed, dtype):
-    x, s, b, w, bias = _qkv_inputs(seed)
+def _qkv_q_both(ref, seed, dtype, width=d, heads=H, hd=D):
+    x, s, b, w, bias = _qkv_inputs(seed, width, heads, hd)
     jw, js = ref.fused.quantize_weight(_j(ref, w, dtype))
-    jargs = (_j(ref, x, dtype), _j(ref, s), _j(ref, b), jw, js, _j(ref, bias, dtype), H)
+    jargs = (_j(ref, x, dtype), _j(ref, s), _j(ref, b), jw, js, _j(ref, bias, dtype), heads)
     tw, ts = fused.quantize_weight(_t(w, dtype))
-    got = fused.ln_qkv_rope_q(_t(x, dtype), _t(s), _t(b), tw, ts, _t(bias, dtype), H)
+    got = fused.ln_qkv_rope_q(_t(x, dtype), _t(s), _t(b), tw, ts, _t(bias, dtype), heads)
     return jargs, got
 
 
@@ -195,12 +195,22 @@ def test_ln_qkv_rope_q_plain_matches_jnp_twin(dtype, ref):
         np.testing.assert_allclose(_f32(g), _f32(r), atol=_tol(_f32(r), dtype), rtol=0)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_ln_qkv_rope_q_plain_matches_pallas_interpret(dtype, ref):
-    jargs, got = _qkv_q_both(ref, 11, dtype)
+# (dtype, d_model, heads, head dim): the test widths, d384x5L's (H 3 x 128:
+# K10's SIMT instance in bf16), TINY_CONFIG's head dim 16 and a head dim of
+# 64, each in both dtypes
+QKV_Q_PALLAS_WIDTHS = [(dt, d, H, D) for dt in DTYPES] + [
+    (dt, *w) for w in ((384, 3, 128), (32, 2, 16), (128, 2, 64)) for dt in DTYPES]
+QKV_Q_PALLAS_IDS = DTYPES + [f"{dt}-{tag}" for tag in ("d384", "hd16", "hd64")
+                             for dt in DTYPES]
+
+
+@pytest.mark.parametrize("dtype,width,heads,hd", QKV_Q_PALLAS_WIDTHS, ids=QKV_Q_PALLAS_IDS)
+def test_ln_qkv_rope_q_plain_matches_pallas_interpret(dtype, width, heads, hd, ref):
+    jargs, got = _qkv_q_both(ref, 11, dtype, width, heads, hd)
     with ref.pltpu.force_tpu_interpret_mode():
         want = ref.fused._ln_qkv_rope_q_pallas(*jargs, blk_t=64)
     for g, r in zip(got, want):
+        assert g.shape == (B, heads, L, hd)
         np.testing.assert_allclose(_f32(g), _f32(r), atol=_tol(_f32(r), dtype), rtol=0)
 
 

@@ -1,11 +1,12 @@
-"""The arithmetic of K11's SIMT instance on the int8 tensor cores on the CPU.
+"""The arithmetic of K10's and K11's SIMT instances on the int8 tensor cores on the CPU.
 
-``csrc/ln_ffn_q_simt.cu`` takes both int8 products on ``mma.sync``
-m16n8k32 (s8 x s8 -> s32, ``csrc/mma.cuh:mma_s8``) through
-``csrc/int8_simt.cuh``'s ``stage_mma``: a block of 8 warps over 128 token
-rows, a warp 32 rows x BN/2 columns, k in stages of 64 bytes, the fragments
+``csrc/ln_qkv_rope_q_simt.cu`` (K10) and ``csrc/ln_ffn_q_simt.cu`` (K11)
+take their int8 products on ``mma.sync`` m16n8k32 (s8 x s8 -> s32,
+``csrc/mma.cuh:mma_s8``) through ``csrc/int8_simt.cuh``'s ``stage_mma``: a
+block of 8 warps over 128 token rows, a warp 32 rows x BN/2 columns (in
+spans of S, 2S apart: ``span_col``), k in stages of 64 bytes, the fragments
 read by ``ldmatrix`` from row-major int8 tiles (A by token rows, W k-major).
-Nothing here compiles that code, so :func:`tile_product` repeats its walk
+Nothing here compiles that code, so :func:`fragment_walk` repeats its walk
 lane by lane: ``ldmatrix.x4`` as the PTX ISA defines it (lane l names row l
 % 8 of matrix l / 8; thread i receives bytes 4 (i % 4) .. 4 (i % 4) + 3 of
 row i / 4 of each matrix), the addresses each lane hands it in the kernel,
@@ -16,6 +17,15 @@ epilogue's reading of the C fragments. The reassembled product must equal
 the int64 product exactly at d 32 / 384 / 512 with d_ff 64 / 1280 / 1024
 (the hidden pass, y_i8 @ W1, and the output pass, h_i8 @ W2) on a ragged
 row count.
+
+:func:`qkv_epilogue` repeats K10's epilogue on those C fragments lane by
+lane: dequantize, add the bias, round, and rope each value with its partner
+D/2 columns away, which the warp's spans put in the same thread's fragment
+nt ^ P (at D 128 two spans of 32, 64 apart). From the plain version's int8
+LayerNorm rows it must give ``fused._ln_qkv_rope_q_plain``'s q, k, v bit for
+bit at the widths of TINY_CONFIG, its shard, r10, its shard, d384x5L and
+head dims 32 and 64, in float32 and bf16; a partner one fragment off must
+fail.
 
 :func:`row_maxima` repeats the hidden pass's (max |h|, tied count) merge in
 the kernel's order (a thread's fragments column tile by column tile, then
@@ -35,7 +45,7 @@ import pytest
 import torch
 
 from herro_tpu_torch.ops import fused
-from test_torch_int8_simt import _card, _ffn_q_args, _launched
+from test_torch_int8_simt import _card, _ffn_q_args, _launched, _qkv_q_args
 
 KB, BM, WARP_ROWS, WARPS = 64, 128, 32, 8  # int8_simt.cuh kKB, kBM, kWarpRows; 8 warps
 LANES = np.arange(32)
@@ -76,17 +86,25 @@ def mma_s8(acc, a, b0, b1):
         acc[:, e] += C[G + 8 * (e // 2), 2 * T4 + e % 2]
 
 
-def tile_product(a, wt):
-    """a [T, K] int8 @ wt [N, K] (k-major) int8 -> [T, N] as the kernel
-    reassembles it: row tiles of BM, column tiles of BN, k stages of KB
-    (rows past T, columns past N and k past K read 0), stage_mma's ldmatrix
-    addresses, the epilogue's rows wr + 16 mt + g + 8 hf and columns n0 + wc
-    + 8 nt + 2t + e."""
+def frag_col(nt, warp, BN, S=None):
+    """The tile's first column of a warp's fragment nt (int8_simt.cuh: the
+    warp column's first span, warp % 2 * S, plus span_col<S>(nt)): its
+    columns in spans of S (BN/2 by default), 2S apart, the second warp
+    column's S after the first's."""
+    S = BN // 2 if S is None else S
+    return 8 * nt % S + 8 * nt // S * 2 * S + warp % 2 * S
+
+
+def fragment_walk(a, wt, S=None):
+    """a [T, K] int8 @ wt [N, K] (k-major) int8 as the kernel walks it: row
+    tiles of BM, column tiles of BN, k stages of KB (rows past T, columns
+    past N and k past K read 0), stage_mma's ldmatrix addresses with the
+    warp's columns in spans of S. Yields (r0, n0, warp, BN, acc) after each
+    column tile, acc [2 mt, BN/16 nt, 32 lanes, 4] the warp's C fragments."""
     T, K = a.shape
     N = wt.shape[0]
     BN = tile_width(N)
     nk = -(-K // KB)
-    out = np.zeros((T, N), np.int64)
     for r0 in range(0, T, BM):
         A = np.zeros((BM, nk * KB), np.int64)
         rows = a[r0:r0 + BM]
@@ -96,7 +114,7 @@ def tile_product(a, wt):
             cols = wt[n0:n0 + BN]
             Wt[:len(cols), :K] = cols
             for warp in range(WARPS):
-                wr, wc = warp // 2 * WARP_ROWS, warp % 2 * (BN // 2)
+                wr = warp // 2 * WARP_ROWS
                 acc = np.zeros((2, BN // 16, 32, 4), np.int64)
                 for kt in range(nk):
                     stage = Wt[:, kt * KB:(kt + 1) * KB]
@@ -105,19 +123,31 @@ def tile_product(a, wt):
                                           kt * KB + 32 * ks + (LANES >> 4) * 16)
                               for mt in range(2)]
                         for np_ in range(BN // 32):
-                            b = ldmatrix_x4(stage, wc + 16 * np_ + (LANES & 7) + (LANES >> 4) * 8,
+                            b = ldmatrix_x4(stage, frag_col(2 * np_, warp, BN, S) + (LANES & 7)
+                                            + (LANES >> 4) * 8,
                                             32 * ks + ((LANES >> 3) & 1) * 16)
                             for mt in range(2):
                                 mma_s8(acc[mt, 2 * np_], af[mt], b[:, 0], b[:, 1])
                                 mma_s8(acc[mt, 2 * np_ + 1], af[mt], b[:, 2], b[:, 3])
-                for mt in range(2):
-                    for hf in range(2):
-                        row = r0 + wr + 16 * mt + G + 8 * hf
-                        for nt in range(BN // 16):
-                            for e in range(2):
-                                col = n0 + wc + 8 * nt + 2 * T4 + e
-                                ok = (row < T) & (col < N)
-                                out[row[ok], col[ok]] = acc[mt, nt][ok, 2 * hf + e]
+                yield r0, n0, warp, BN, acc
+
+
+def tile_product(a, wt, S=None):
+    """The product reassembled from :func:`fragment_walk`'s C fragments at
+    the epilogue's rows wr + 16 mt + g + 8 hf and columns n0 + frag_col(nt) +
+    2t + e."""
+    T, N = a.shape[0], wt.shape[0]
+    out = np.zeros((T, N), np.int64)
+    for r0, n0, warp, BN, acc in fragment_walk(a, wt, S):
+        wr = warp // 2 * WARP_ROWS
+        for mt in range(2):
+            for hf in range(2):
+                row = r0 + wr + 16 * mt + G + 8 * hf
+                for nt in range(BN // 16):
+                    for e in range(2):
+                        col = n0 + frag_col(nt, warp, BN, S) + 2 * T4 + e
+                        ok = (row < T) & (col < N)
+                        out[row[ok], col[ok]] = acc[mt, nt][ok, 2 * hf + e]
     return out
 
 
@@ -151,6 +181,109 @@ def test_fragment_walk_sees_a_misread_lane():
         globals()["ldmatrix_x4"] = kept
 
 
+# K10: (d, H, D) of TINY_CONFIG and its tp 2 shard (D 16: BN 128 and 64), r10
+# and its shard, d384x5L (D 128: spans of 32), a head-dim-64 and a
+# head-dim-32 width
+QKV_WIDTHS = [(32, 2, 16), (32, 1, 16), (512, 4, 128), (512, 2, 128), (384, 3, 128),
+              (256, 4, 64), (64, 2, 32)]
+QKV_IDS = ["tiny", "tiny-shard", "r10", "r10-shard", "d384", "hd64", "hd32"]
+
+
+def qkv_span(D, BN):
+    """K10's span S and partner offset P (ln_qkv_rope_q_simt.cu Tile): at D
+    128 a warp's columns are two spans of 32, 64 apart, so that both halves
+    of each head it touches are its own."""
+    return (32, 4) if D == 128 else (BN // 2, D // 16)
+
+
+def qkv_epilogue(x, scale, bias, w_i8, s_col, b, H, partner=None):
+    """K10's SIMT instance on the CPU: the plain version's int8 LayerNorm
+    rows (the kernel's differ from them only in LayerNorm's sum order) times
+    W through :func:`fragment_walk` with the kernel's spans, then its
+    epilogue lane by lane on the C fragments, in float32 with the kernel's
+    roundings: for each pair of fragments (lo in the first half of its
+    heads, hi = lo | P), dequantize ((acc * s_row) * s_col + b), round to
+    x's dtype, rope (x1 c - x2 s, x2 c + x1 s, rounded) on q and k, store v
+    as it is. ``partner`` replaces hi (a planted fault). Returns q, k, v [B,
+    H, L, D] of x's dtype."""
+    Bn, L, d = x.shape
+    N = w_i8.shape[1]
+    D = N // (3 * H)
+    HD, half = H * D, D // 2
+    dt = x.dtype
+    T = Bn * L
+
+    def rnd(v):
+        return torch.from_numpy(v).to(dt).float().numpy()
+
+    y = fused.layernorm(x, scale, bias).float().reshape(-1, d)
+    y_i8, s_row = fused._quant_rows(y)
+    s_row, sc = s_row[:, 0].numpy(), s_col.numpy()
+    bf = b.float().numpy()
+    cos, sin = (t.numpy() for t in fused.rope_tables(L, D, "cpu"))
+    out = np.zeros((3, Bn, H, L, D), np.float32)
+    S, P = qkv_span(D, tile_width(N))
+    for r0, n0, warp, BN, acc in fragment_walk(y_i8.numpy().astype(np.int64),
+                                               w_i8.t().numpy().astype(np.int64), S):
+        wr = warp // 2 * WARP_ROWS
+        for lo in range(BN // 16):
+            if lo & P:
+                continue
+            hi = lo | P if partner is None else partner(lo, P)
+            n = n0 + frag_col(lo, warp, BN, S) + 2 * T4
+            if n[0] >= N:  # the fragment's 8 columns are in or out together
+                continue
+            assert (n0 + frag_col(lo | P, warp, BN, S) + 2 * T4 == n + half).all()
+            which, h, dd = n // HD, n % HD // D, n % D
+            assert (dd < half).all() and (which == which[0]).all()
+            for mt in range(2):
+                for hf in range(2):
+                    row = r0 + wr + 16 * mt + G + 8 * hf
+                    ok = row < T
+                    rw = np.minimum(row, T - 1)
+                    bb, l = rw // L, rw % L
+                    for e in range(2):
+                        sr = s_row[rw]
+                        a = rnd((acc[mt, lo][:, 2 * hf + e].astype(np.float32) * sr) * sc[n + e]
+                                + bf[n + e])
+                        z = rnd((acc[mt, hi][:, 2 * hf + e].astype(np.float32) * sr)
+                                * sc[n + half + e] + bf[n + half + e])
+                        if which[0] < 2:
+                            c, sn = cos[l, dd + e], sin[l, dd + e]
+                            a, z = rnd(a * c - z * sn), rnd(z * c + a * sn)
+                        out[which[ok], bb[ok], h[ok], l[ok], (dd + e)[ok]] = a[ok]
+                        out[which[ok], bb[ok], h[ok], l[ok], (dd + half + e)[ok]] = z[ok]
+    return tuple(torch.from_numpy(o).to(dt) for o in out)
+
+
+def _qkv_case(width, dtype):
+    """K10's operands at ``width`` (B 2 x L 60: one row tile, ragged, the
+    second sequence starting inside it)."""
+    d, H, D = width
+    return _qkv_q_args(23 + d + H + D, d, H, D, B=2, L=60, dtype=getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", QKV_WIDTHS, ids=QKV_IDS)
+def test_qkv_epilogue_on_the_fragments_is_the_plain_version_bit_for_bit(width, dtype):
+    args = _qkv_case(width, dtype)
+    want = fused._ln_qkv_rope_q_plain(*args)
+    got = qkv_epilogue(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("width", [QKV_WIDTHS[0], QKV_WIDTHS[2], QKV_WIDTHS[5]],
+                         ids=["tiny", "r10", "hd64"])
+def test_qkv_epilogue_sees_a_partner_one_fragment_off(width):
+    """The rope partner taken from the fragment beside the one that holds it
+    breaks q and k, and leaves v as it was."""
+    args = _qkv_case(width, "float32")
+    want = fused._ln_qkv_rope_q_plain(*args)
+    q, k, v = qkv_epilogue(*args, partner=lambda lo, P: (lo | P) ^ 1)
+    assert not torch.equal(q, want[0]) and not torch.equal(k, want[1])
+
+
 def row_maxima(h):
     """The hidden pass's (max |h|, count of columns reaching it) per row, h
     [T, f] float32, merged as the kernel merges: each thread over its C
@@ -173,12 +306,12 @@ def row_maxima(h):
         smax = np.zeros(BM, np.float32)
         held = []
         for warp in range(WARPS):
-            wr, wc = warp // 2 * WARP_ROWS, warp % 2 * (BN // 2)
+            wr = warp // 2 * WARP_ROWS
             m = np.zeros((2, 2, 32), np.float32)
             c = np.zeros((2, 2, 32), np.int64)
             for n0 in range(0, f, BN):
                 for nt in range(BN // 16):
-                    n = n0 + wc + 8 * nt + 2 * T4
+                    n = n0 + frag_col(nt, warp, BN) + 2 * T4
                     for mt in range(2):
                         for hf in range(2):
                             row = r0 + wr + 16 * mt + G + 8 * hf
@@ -264,23 +397,37 @@ def test_rowscale_on_rowmax_maxima_is_the_whole_function_on_card(width):
 
 
 def test_clock_tool_plants_its_laps_in_a_copy_of_the_sources(tmp_path):
-    """``tools/ffn_q_simt_clocks_torch.py`` edits a copy of ``int8_simt.cuh``
-    and ``ln_ffn_q_simt.cu`` at anchors that must each stand once in the
-    sources; the repository's files are left as they are."""
+    """``tools/ffn_q_simt_clocks_torch.py`` (K11's hidden pass) and
+    ``tools/qkv_q_simt_clocks_torch.py`` (K10) edit a copy of
+    ``int8_simt.cuh`` and their kernel's source at anchors that must each
+    stand once in the sources; the repository's files are left as they
+    are."""
     import importlib.util
     import os
     import shutil
+    import sys
 
     from herro_tpu_torch.ops import cuda
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "ffn_q_simt_clocks_torch", os.path.join(root, "tools", "ffn_q_simt_clocks_torch.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    csrc = tmp_path / "csrc"
-    shutil.copytree(cuda.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
-    tool.patched(str(csrc))
-    text = (csrc / "ln_ffn_q_simt.cu").read_text()
-    assert "herro_ffn_clocks" in text and text.count("clk_[6] +=") == 1
-    assert "ffn_clocks" not in open(os.path.join(cuda.CSRC, "int8_simt.cuh")).read()
+    tools = os.path.join(root, "tools")
+    sys.path.insert(0, tools)
+    try:
+        for name, source, reader, laps in (
+                ("ffn_q_simt_clocks_torch", "ln_ffn_q_simt.cu", "herro_ffn_clocks", "clk_[6] +="),
+                ("qkv_q_simt_clocks_torch", "ln_qkv_rope_q_simt.cu", "herro_qkv_clocks",
+                 "clk_[5] +=")):
+            spec = importlib.util.spec_from_file_location(name, os.path.join(tools, f"{name}.py"))
+            tool = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(tool)
+            csrc = tmp_path / name / "csrc"
+            shutil.copytree(cuda.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+            tool.patched(str(csrc))
+            text = (csrc / source).read_text()
+            assert reader in text and text.count(laps) == 1
+            assert "simt8_clocks[" in (csrc / "int8_simt.cuh").read_text()
+            for kept in ("int8_simt.cuh", source):
+                text = open(os.path.join(cuda.CSRC, kept)).read()
+                assert "simt8_clocks" not in text and reader not in text
+    finally:
+        sys.path.remove(tools)

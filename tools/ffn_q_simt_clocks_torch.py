@@ -37,16 +37,19 @@ WHOLE = len(PHASES)  # the counter of the kernel's whole run
 WARPS, TILE_ROWS = 8, 128  # a block's warps and token rows (int8_simt.cuh kThreads / 32, kBM)
 ROWS = {"r10-float32": "r10", "d384-bf16": "d384", "tiny-float32": "tiny"}
 LAP = "{ const long long n_ = clock64(); %s[%d] += n_ - tk_; tk_ = n_; }\n"
+COUNTERS = 16  # simt8_clocks, the counters a kernel's laps sum into
 STAGE = ("    cp_async_wait<kTCStages - 2>();\n    __syncthreads();\n"
          "    if (ln0 < N) copy_w<BN>(wt, K, N, ln0, lk0, ring + (s == 0 ? kTCStages - 1 : s - 1)"
          " * kStage);\n    cp_async_commit();  // empty past the last stage: the count of groups"
-         " holds\n    advance(ln0, lk0);\n    stage_mma<BN>(acc, a + k0, as, ring + s * kStage);\n"
-         "    if (k0 + kKB >= K) {  // the column tile's last stage\n      epi(n0, acc);\n"
+         " holds\n    advance(ln0, lk0);\n    stage_mma<BN, S>(acc, a + k0, as, ring + s * kStage);"
+         "\n    if (k0 + kKB >= K) {  // the column tile's last stage\n      epi(n0, acc);\n"
          "      zero_acc<BN>(acc);\n    }\n")
-# (file, text, what it becomes)
-EDITS = [
+# (file, text, what it becomes): the laps of int8_simt.cuh's product_resident,
+# which both SIMT int8 kernels walk (counters 1-4: the wait, issuing copies, products,
+# epilogue), then the hidden pass's own
+PRODUCT_EDITS = [
     ("int8_simt.cuh", "constexpr int kKB = 64;",
-     f"__device__ unsigned long long ffn_clocks[{WHOLE + 1}];\nconstexpr int kKB = 64;"),
+     f"__device__ unsigned long long simt8_clocks[{COUNTERS}];\nconstexpr int kKB = 64;"),
     ("int8_simt.cuh", STAGE,
      "    long long tk_ = clock64();\n" + STAGE.replace(
          "    if (ln0 < N)", "    " + LAP % ("ck_", 1) + "    if (ln0 < N)").replace(
@@ -58,10 +61,13 @@ EDITS = [
      "  for (int n0 = 0, k0 = 0, s = 0;"),
     ("int8_simt.cuh", "  cp_async_wait_all();\n  __syncthreads();\n}\n",
      "  cp_async_wait_all();\n  __syncthreads();\n  if (threadIdx.x % 32 == 0)\n"
-     "    for (int i = 1; i < 5; ++i) atomicAdd(&ffn_clocks[i], (unsigned long long)ck_[i]);\n}\n"),
-    ("ln_ffn_q_simt.cu", "  ln_quant_rows_major<E>(",
+     "    for (int i = 1; i < 5; ++i) atomicAdd(&simt8_clocks[i], (unsigned long long)ck_[i]);\n"
+     "}\n"),
+]
+EDITS = PRODUCT_EDITS + [
+    ("ln_ffn_q_simt.cu", "  layernorm_rows_i8<E>(",
      f"  long long t0_ = clock64(), tk_ = t0_;\n  long long clk_[{WHOLE}] = {{}};\n"
-     "  ln_quant_rows_major<E>("),
+     "  layernorm_rows_i8<E>("),
     ("ln_ffn_q_simt.cu", "as, srow);\n  __syncthreads();\n  float m[2][2];",
      "as, srow);\n  __syncthreads();\n  " + LAP % ("clk_", 0) + "  float m[2][2];"),
     ("ln_ffn_q_simt.cu", "  if constexpr (kMode != kScaled) {\n    // the quad",
@@ -74,25 +80,33 @@ EDITS = [
      "          *reinterpret_cast<uint2*>(hr + kVec * e) = make_uint2(w[0], w[1]);\n"
      "      }\n    }\n  }\n  " + LAP % ("clk_", 6)
      + "  if (threadIdx.x % 32 == 0) {\n"
-     + "".join(f"    atomicAdd(&ffn_clocks[{i}], (unsigned long long)clk_[{i}]);\n"
+     + "".join(f"    atomicAdd(&simt8_clocks[{i}], (unsigned long long)clk_[{i}]);\n"
                for i in (0, 5, 6))
-     + f"    atomicAdd(&ffn_clocks[{WHOLE}], (unsigned long long)(clock64() - t0_));\n  }}\n}}\n"),
+     + f"    atomicAdd(&simt8_clocks[{WHOLE}], (unsigned long long)(clock64() - t0_));\n  }}\n"
+     "}\n"),
 ]
-READER = f"""
-extern "C" int herro_ffn_clocks(unsigned long long* out, int reset) {{
-  int err = (int)cudaMemcpyFromSymbol(out, herro::simt8::ffn_clocks, {WHOLE + 1} * 8);
+
+
+def reader(fn: str) -> str:
+    """The C function ``fn(out, reset)`` that reads the counters into out
+    (COUNTERS of them) and, where reset is set, clears them."""
+    return f"""
+extern "C" int {fn}(unsigned long long* out, int reset) {{
+  int err = (int)cudaMemcpyFromSymbol(out, herro::simt8::simt8_clocks, {COUNTERS} * 8);
   if (!err && reset) {{
-    unsigned long long z[{WHOLE + 1}] = {{}};
-    err = (int)cudaMemcpyToSymbol(herro::simt8::ffn_clocks, z, {WHOLE + 1} * 8);
+    unsigned long long z[{COUNTERS}] = {{}};
+    err = (int)cudaMemcpyToSymbol(herro::simt8::simt8_clocks, z, {COUNTERS} * 8);
   }}
   return err;
 }}
 """
 
 
-def patched(csrc: str) -> None:
-    """``csrc`` (a copy of the kernels' sources) with the laps planted."""
-    for name, old, new in EDITS:
+def plant(csrc: str, edits, source: str, fn: str) -> None:
+    """``csrc`` (a copy of the kernels' sources) with ``edits`` made, each
+    anchor found once, and the counters' reader ``fn`` appended to
+    ``source``."""
+    for name, old, new in edits:
         path = os.path.join(csrc, name)
         with open(path) as fh:
             text = fh.read()
@@ -100,22 +114,49 @@ def patched(csrc: str) -> None:
             raise RuntimeError(f"{name} no longer holds {old!r} once")
         with open(path, "w") as fh:
             fh.write(text.replace(old, new))
-    with open(os.path.join(csrc, "ln_ffn_q_simt.cu"), "a") as fh:
-        fh.write(READER)
+    with open(os.path.join(csrc, source), "a") as fh:
+        fh.write(reader(fn))
 
 
-def build(tmp: str):
+def patched(csrc: str) -> None:
+    """``csrc`` (a copy of the kernels' sources) with the laps planted."""
+    plant(csrc, EDITS, "ln_ffn_q_simt.cu", "herro_ffn_clocks")
+
+
+def build_lib(tmp: str, patch, source: str, lib: str):
+    """A copy of the sources in ``tmp``, ``patch``ed, and ``source`` built
+    into the shared library ``lib`` there, loaded."""
     from herro_tpu_torch.ops import cuda
 
     csrc = os.path.join(tmp, "csrc")
     shutil.copytree(cuda.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
-    patched(csrc)
-    so = os.path.join(tmp, "libffn_clocks.so")
+    patch(csrc)
+    so = os.path.join(tmp, lib)
     proc = subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", so,
-                           os.path.join(csrc, "ln_ffn_q_simt.cu")], capture_output=True, text=True)
+                           os.path.join(csrc, source)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed:\n{proc.stderr[-4000:]}")
     return ctypes.CDLL(so)
+
+
+def build(tmp: str):
+    return build_lib(tmp, patched, "ln_ffn_q_simt.cu", "libffn_clocks.so")
+
+
+def laps(torch, read, launch) -> list[int]:
+    """The counters a second ``launch()`` sums (the first warms up, then
+    ``read``, the planted C reader, clears them)."""
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    buf = (ctypes.c_ulonglong * COUNTERS)()
+    launch()
+    torch.cuda.synchronize()
+    if read(buf, 1):
+        raise RuntimeError("clearing the counters failed")
+    launch()
+    torch.cuda.synchronize()
+    if read(buf, 1):
+        raise RuntimeError("reading the counters failed")
+    return [int(c) for c in buf]
 
 
 def run_row(torch, lib, row: str, iters: int) -> dict:
@@ -151,18 +192,7 @@ def run_row(torch, lib, row: str, iters: int) -> dict:
         if err:
             raise RuntimeError(f"ln_ffn_q_simt failed to launch: error {err}")
 
-    read = lib.herro_ffn_clocks
-    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    buf = (ctypes.c_ulonglong * (WHOLE + 1))()
-    launch()
-    torch.cuda.synchronize()
-    if read(buf, 1):
-        raise RuntimeError("clearing the counters failed")
-    launch()
-    torch.cuda.synchronize()
-    if read(buf, 1):
-        raise RuntimeError("reading the counters failed")
-    counted = [int(c) for c in buf]
+    counted = laps(torch, lib.herro_ffn_clocks, launch)[:WHOLE + 1]
     whole = counted[WHOLE]
     return dict(row=row, dtype=dtype, widths=dict(d=d, d_ff=f), B=B, L=L,
                 ms=time_ms(torch, launch, iters),
