@@ -1,11 +1,10 @@
 // Shared pieces of the SIMT and tensor-core kernels for float32 and for bf16
 // at the widths the Hopper instances lack: loads, stores and roundings of the
 // storage type, LayerNorm, gelu and the epilogues (gemm_tc.cuh's tile
-// product of K1/K8 and K3, entry_embed_simt.cuh, flash_tc.cuh,
-// int8_simt.cuh), and the FFMA tile product that flash_tc.cuh's out
-// projection runs (K2/K6/K7's second launch) and that K1/K8 and K3 run at d
-// 32 (gemm_tc.cuh kFFMAWidth; the int8 kernels of int8_simt.cuh keep its
-// tile layout).
+// product of K1/K8 and K3, narrow.cuh's K1/K8 and K3 at d 32,
+// entry_embed_simt.cuh, flash_tc.cuh, int8_simt.cuh), and the FFMA tile
+// product that flash_tc.cuh's out projection runs in float32 (K2/K6/K7's
+// second launch; the int8 kernels of int8_simt.cuh keep its tile layout).
 //
 // The FFMA tile product (gemm_mainloop) has SGEMM's usual shape: a block of
 // 256 threads an output tile of 128 x 128, 8 x 8 outputs a thread (four
@@ -104,53 +103,18 @@ __device__ inline float ln_apply(float v, float mu, float rstd, float scale, flo
   return round_to<E>(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rstd), scale), bias));
 }
 
-// LayerNorm statistics of rows r0 .. r0 + kBM - 1 of x [T, d]: a warp a row,
-// mu = sum(x) / d and var = max(sum(x * x) / d - mu * mu, 0), float32
-template <typename E>
-__device__ inline void ln_stats(const E* __restrict__ x, long T, int d, long r0, float* mu,
-                                float* rstd) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kBM; r += kThreads / 32) {
-    const long row = r0 + r;
-    float s = 0.f, s2 = 0.f;
-    if (row < T) {
-      const E* xr = x + row * d;
-      for (int c = lane; c < d; c += 32) {
-        const float v = to_f(xr[c]);
-        s = __fadd_rn(s, v);
-        s2 = __fadd_rn(s2, __fmul_rn(v, v));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
-      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
-    }
-    if (lane == 0) {
-      const float m = __fdiv_rn(s, (float)d);
-      const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, (float)d), __fmul_rn(m, m)), 0.f);
-      mu[r] = m;
-      rstd[r] = rsqrtf(__fadd_rn(var, 1e-6f));
-    }
-  }
-}
-
 // acc[i][j] = sum_k A[r0 + tile_row(ty, i), k] * W[k, n0 + tile_col(tx, j)]
 // over k < K, with (ty, tx) = (tid / 16, tid % 16), for a tile of kBM rows
 // and BN (64 or 128) columns. A [T, K] and W [K, N] are row-major, of
 // storage type E; K is a multiple of kBK, N of 4 (columns at or past N read
-// 0, rows at or past T read 0). With kLN, A is LayerNorm(x): ((x - mu) *
-// rstd) * scale + bias rounded to E, the statistics of the tile's rows in
-// mu/rstd (ln_stats). Two stages
-// in ``smem`` (2 stage_floats<BN>()): while one is multiplied, the next
-// one's global loads are in registers, stored to the other stage after the
-// products; one barrier a stage.
-template <typename E, int BN, bool kLN>
+// 0, rows at or past T read 0). Two stages in ``smem`` (2
+// stage_floats<BN>()): while one is multiplied, the next one's global loads
+// are in registers, stored to the other stage after the products; one
+// barrier a stage.
+template <typename E, int BN>
 __device__ inline void gemm_mainloop(float (&acc)[8][BN / 16], const E* __restrict__ A,
                                      long T, int K, const E* __restrict__ W, int N,
-                                     long r0, int n0, float* smem, const float* mu,
-                                     const float* rstd, const float* __restrict__ scale,
-                                     const float* __restrict__ bias) {
+                                     long r0, int n0, float* smem) {
   constexpr int G = BN / 64;  // column groups of 4 a thread
   constexpr int kStage = stage_floats<BN>();
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -167,16 +131,7 @@ __device__ inline void gemm_mainloop(float (&acc)[8][BN / 16], const E* __restri
       const int r = tid / 4 + 64 * h, kk = (tid % 4) * 4;
       const long row = r0 + r;
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < T) {
-        a = load_f4(A + row * K + k0 + kk);
-        if (kLN) {
-          const float m = mu[r], rs = rstd[r];
-          float* av = reinterpret_cast<float*>(&a);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            av[e] = ln_apply<E>(av[e], m, rs, scale[k0 + kk + e], bias[k0 + kk + e]);
-        }
-      }
+      if (row < T) a = load_f4(A + row * K + k0 + kk);
       ra[h] = a;
     }
 #pragma unroll
@@ -260,26 +215,19 @@ __device__ inline float epilogue(float a, float bn, const E* res, long i) {
   }
 }
 
-// y [T, N] = A @ W + b through one of the epilogues above, A = LN(x)
-// under kLN; res [T, N] the residual; A, W, b, res and y of type E. A tile
-// of kBM x BN a block, grid gemm_grid(T, N, BN); a thread stores its 8 rows
-// as BN/64 groups of 4 each. Two blocks an SM: at most 128 registers a
-// thread.
-template <typename E, bool kLN, int kEpi, int BN>
+// y [T, N] = A @ W + b through one of the epilogues above; res [T, N] the
+// residual; A, W, b, res and y of type E. A tile of kBM x BN a block, grid
+// gemm_grid(T, N, BN); a thread stores its 8 rows as BN/64 groups of 4
+// each. Two blocks an SM: at most 128 registers a thread.
+template <typename E, int kEpi, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_kernel(const E* __restrict__ A, const E* __restrict__ W, const E* __restrict__ b,
-                const E* __restrict__ res, const float* __restrict__ scale,
-                const float* __restrict__ bias, E* __restrict__ y, long T, int K, int N) {
+                const E* __restrict__ res, E* __restrict__ y, long T, int K, int N) {
   __shared__ __align__(16) float smem[2 * stage_floats<BN>()];
-  __shared__ float mu[kBM], rstd[kBM];
   const long r0 = (long)blockIdx.x * kBM;
   const int n0 = blockIdx.y * BN;
-  if (kLN) {
-    ln_stats(A, T, K, r0, mu, rstd);
-    __syncthreads();
-  }
   float acc[8][BN / 16];
-  gemm_mainloop<E, BN, kLN>(acc, A, T, K, W, N, r0, n0, smem, mu, rstd, scale, bias);
+  gemm_mainloop<E, BN>(acc, A, T, K, W, N, r0, n0, smem);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -304,28 +252,15 @@ inline dim3 gemm_grid(long T, int N, int BN) {
 }
 
 // y = A @ W + b through epilogue kEpi, at the tile width for N
-template <typename E, bool kLN, int kEpi>
-void launch_gemm(const E* A, const E* W, const E* b, const E* res, const float* scale,
-                 const float* bias, E* y, long T, int K, int N, cudaStream_t stream) {
+template <typename E, int kEpi>
+void launch_gemm(const E* A, const E* W, const E* b, const E* res, E* y, long T, int K, int N,
+                 cudaStream_t stream) {
   if (tile_width(N) == 64)
-    gemm_kernel<E, kLN, kEpi, 64><<<gemm_grid(T, N, 64), kThreads, 0, stream>>>(
-        A, W, b, res, scale, bias, y, T, K, N);
+    gemm_kernel<E, kEpi, 64><<<gemm_grid(T, N, 64), kThreads, 0, stream>>>(A, W, b, res, y, T,
+                                                                           K, N);
   else
-    gemm_kernel<E, kLN, kEpi, 128><<<gemm_grid(T, N, 128), kThreads, 0, stream>>>(
-        A, W, b, res, scale, bias, y, T, K, N);
-}
-
-// K3 on the FFMA tile product (the widths of gemm_tc.cuh kFFMAWidth): out =
-// E(x + ((h @ W2) + b2)), h = E(gelu(E(LN(x) @ W1 + b1))) through the [T, f]
-// scratch `hidden`, two launches on one stream
-template <typename E>
-int ffn(const E* x, const float* scale, const float* bias, const E* w1, const E* b1,
-        const E* w2, const E* b2, E* hidden, E* out, long T, int d, int f, cudaStream_t s) {
-  launch_gemm<E, true, kEpiGelu>(x, w1, b1, nullptr, scale, bias, hidden, T, d, f, s);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  launch_gemm<E, false, kEpiResidual>(hidden, w2, b2, x, nullptr, nullptr, out, T, f, d, s);
-  return (int)cudaGetLastError();
+    gemm_kernel<E, kEpi, 128><<<gemm_grid(T, N, 128), kThreads, 0, stream>>>(A, W, b, res, y,
+                                                                             T, K, N);
 }
 
 // the widths the SIMT kernels take, float32 or bf16 (ops/fused.py: F32_*)

@@ -484,7 +484,7 @@ int project(const E* o, const E* wo, const E* bo, const E* x, E* y, long T, int 
             cudaStream_t stream) {
   if (outproj_on_tc<E>(d, K))
     return gemm_tc::launch<E, kEpiResidualAfter>(o, wo, bo, x, y, T, K, d, stream);
-  launch_gemm<E, false, kEpiResidualAfter>(o, wo, bo, x, nullptr, nullptr, y, T, K, d, stream);
+  launch_gemm<E, kEpiResidualAfter>(o, wo, bo, x, y, T, K, d, stream);
   return (int)cudaGetLastError();
 }
 

@@ -49,10 +49,10 @@
 // the out projection's shapes (K 512, N 512) bf16 issuing its copies 0.35
 // and its epilogue 0.34 of a stage (PERF.md section 7).
 //
-// At d 32 (kFFMAWidth: TINY_CONFIG and its shards) K1/K8 and K3 keep
-// f32.cuh's FFMA tile product. The out projection takes this one in bf16
-// alone, at every width (flash_tc.cuh outproj_on_tc: float32 keeps FFMA,
-// whose sums the int8 golden's frozen bar holds).
+// At d 32 (TINY_CONFIG and its shards) K1/K8 and K3 take narrow.cuh's
+// FFMA kernels instead. The out projection takes this one in bf16 alone, at
+// every width (flash_tc.cuh outproj_on_tc: float32 keeps f32.cuh's FFMA
+// product, whose sums the int8 golden's frozen bar holds).
 #pragma once
 
 #include "f32.cuh"
@@ -132,8 +132,8 @@ __device__ inline void row_stats(const float (&v)[kCols], int d, float& mu, floa
   rstd = rsqrtf(__fadd_rn(var, 1e-6f));
 }
 
-// y [T, d] = LayerNorm(x) rounded to E, d <= 512: a warp a row (row_stats,
-// in f32.cuh:ln_stats' order; f32.cuh's ln_apply), kLnRows rows a warp at
+// y [T, d] = LayerNorm(x) rounded to E, d <= 512: a warp a row (row_stats;
+// f32.cuh's ln_apply), kLnRows rows a warp at
 // once, every load of them in flight together
 constexpr int kLnRows = 4;
 constexpr int kLnCols = 512 / 32;  // values a lane holds of a row
@@ -385,24 +385,13 @@ int launch(const E* A, const E* W, const E* b, const E* res, E* y, long T, int K
   return launch_bn<E, kEpi, 128>(A, W, b, res, y, T, K, N, stream);
 }
 
-// the widest d_model at which K1/K8 and K3 keep f32.cuh's FFMA tile
-// product: TINY_CONFIG and its shards. Their bf16 outputs are held
-// bit-equal with the plain versions' (whose cuBLAS SGEMM sums as the FFMA
-// product does, k ascending, one FMA a product), which the tensor cores'
-// sums missed on 2e-5 to 7e-5 of them by an ulp; float32 takes the same
-// rule, its rows there bound by their bytes (on an H100 the tensor cores
-// ran them neither clearly faster nor slower)
-constexpr int kFFMAWidth = 32;
-
-// K3: out = E(x + ((h @ W2) + b2)), h = E(gelu(E(LN(x) @ W1 + b1))): at d
-// above kFFMAWidth three launches on one stream, LayerNorm's output in `out`
-// until the second product overwrites it, the hidden in the [T, f] scratch
-// `hidden`
+// K3: out = E(x + ((h @ W2) + b2)), h = E(gelu(E(LN(x) @ W1 + b1))): three
+// launches on one stream, LayerNorm's output in `out` until the second
+// product overwrites it, the hidden in the [T, f] scratch `hidden` (the
+// entry points send d 32 to narrow.cuh instead)
 template <typename E>
 int ffn(const E* x, const float* scale, const float* bias, const E* w1, const E* b1,
         const E* w2, const E* b2, E* hidden, E* out, long T, int d, int f, cudaStream_t s) {
-  if (d <= kFFMAWidth)
-    return f32::ffn<E>(x, scale, bias, w1, b1, w2, b2, hidden, out, T, d, f, s);
   int err = layernorm<E>(x, scale, bias, out, T, d, s);
   if (!err) err = launch<E, kEpiGelu>(out, w1, b1, nullptr, hidden, T, d, f, s);
   if (!err) err = launch<E, kEpiResidual>(hidden, w2, b2, x, out, T, f, d, s);

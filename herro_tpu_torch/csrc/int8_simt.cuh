@@ -60,7 +60,7 @@ __device__ inline float2 load2(const bf16* p) {
 }
 
 // LayerNorm of rows r0 .. r0 + kBM - 1 of x [rows, d] (float32 statistics
-// in f32.cuh:ln_stats' order, the normalisation and affine each rounded on
+// in gemm_tc.cuh:row_stats' order, the normalisation and affine each rounded on
 // its own, the result rounded to E as fused.py:layernorm does), quantized
 // per row (the largest magnitude of the rounded row, then quant) into the
 // product's row-major A: row r's int8 word w (k 4w .. 4w + 3) at As[r * as

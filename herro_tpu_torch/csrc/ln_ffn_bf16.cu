@@ -11,8 +11,9 @@
 // or the bytes at tiny's widths.
 // Design: ln_ffn_f32.cu's two launches of gemm_tc.cuh's tensor-core tile
 // product (ffn), at E = bf16: m16n8k16 on the bf16 operands, float32 sums,
-// the hidden through a [T, d_ff] bf16 scratch the wrapper allocates.
-#include "gemm_tc.cuh"
+// the hidden through a [T, d_ff] bf16 scratch the wrapper allocates; at d 32
+// narrow.cuh's ffn at E = bf16 (one launch, `hidden` unread).
+#include "narrow.cuh"
 
 extern "C" int herro_ln_ffn_bf16(const void* x, const float* scale, const float* bias,
                                  const void* w1, const void* b1, const void* w2, const void* b2,
@@ -20,6 +21,10 @@ extern "C" int herro_ln_ffn_bf16(const void* x, const float* scale, const float*
   using namespace herro::f32;
   using herro::bf16;
   if (T < 1 || !d_model_ok(d) || !d_ff_ok(f)) return (int)cudaErrorInvalidValue;
+  if (d <= herro::narrow::kWidth)
+    return herro::narrow::ffn<bf16>((const bf16*)x, scale, bias, (const bf16*)w1,
+                                    (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
+                                    (bf16*)out, T, d, f, (cudaStream_t)stream);
   return herro::gemm_tc::ffn<bf16>((const bf16*)x, scale, bias, (const bf16*)w1,
                                    (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
                                    (bf16*)hidden, (bf16*)out, T, d, f, (cudaStream_t)stream);

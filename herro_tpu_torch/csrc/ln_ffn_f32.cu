@@ -16,7 +16,9 @@
 // block's shared memory). The second reads it against W2 and adds b2 and
 // the residual, in the plain version's order: x + ((h @ W2) + b2). The two
 // launches are gemm_tc.cuh's ffn, at E = float (ln_ffn_bf16.cu: at bf16).
-#include "gemm_tc.cuh"
+// At d 32 narrow.cuh's ffn instead: one launch, the hidden kept on chip
+// (`hidden` unread, the caller may pass none).
+#include "narrow.cuh"
 
 extern "C" int herro_ln_ffn_f32(const float* x, const float* scale, const float* bias,
                                 const float* w1, const float* b1, const float* w2,
@@ -25,5 +27,7 @@ extern "C" int herro_ln_ffn_f32(const float* x, const float* scale, const float*
   using namespace herro::f32;
   if (T < 1 || !d_model_ok(d) || !d_ff_ok(f)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (d <= herro::narrow::kWidth)
+    return herro::narrow::ffn<float>(x, scale, bias, w1, b1, w2, b2, out, T, d, f, s);
   return herro::gemm_tc::ffn<float>(x, scale, bias, w1, b1, w2, b2, hidden, out, T, d, f, s);
 }

@@ -80,6 +80,10 @@ HEAD_DIM = 128
 F32_MAX_D_MODEL = 512  # a multiple of 32
 F32_MAX_D_FF = 2048  # a multiple of 32
 F32_MAX_ROWS = 63  # pileup rows the float32 entry takes (K5's range)
+# the d_model at which the SIMT K1/K8 and K3 take the narrow kernels
+# (csrc/narrow.cuh kWidth: one launch each, no scratch), above it the
+# tensor-core product (csrc/gemm_tc.cuh)
+NARROW_D_MODEL = 32
 
 
 def _check_f32_widths(d: int | None, f: int | None = None, D: int | None = None,
@@ -477,7 +481,8 @@ def _ln_qkv_rope_simt_cuda(x, scale, bias, w, b, n_heads: int, kernel: str):
     """K1/K8's SIMT instances: ``ln_qkv_rope_f32`` and ``ln_qkv_rope_bf16``
     (rope tables handed in), their ``_split`` routes (built in the kernel);
     x, w, b and q/k/v of the instance's dtype, LayerNorm's parameters
-    float32, LayerNorm's output through a [B L, d] scratch allocated here."""
+    float32, LayerNorm's output through a [B L, d] scratch allocated here
+    above ``NARROW_D_MODEL`` (at it the narrow kernel keeps it on chip)."""
     B, L, d = x.shape
     H = n_heads
     D = w.shape[1] // (3 * H)
@@ -489,10 +494,11 @@ def _ln_qkv_rope_simt_cuda(x, scale, bias, w, b, n_heads: int, kernel: str):
     _cuda.require_dtype(torch.float32, scale=scale, bias=bias)
     dev = _cuda.require_operands(x=x, scale=scale, bias=bias, w=w, b=b)
     q, k, v = (torch.empty(B, H, L, D, dtype=dtype, device=dev) for _ in range(3))
-    y = torch.empty(B * L, d, dtype=dtype, device=dev)  # LN(x), the product's A
+    # LN(x), the tensor-core product's A
+    y = None if d <= NARROW_D_MODEL else torch.empty(B * L, d, dtype=dtype, device=dev)
     head = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr())
-    tail = (y.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, d, H, D,
-            _cuda.stream_of(x))
+    tail = (None if y is None else y.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            B, L, d, H, D, _cuda.stream_of(x))
     with torch.cuda.device(dev):
         if not kernel.endswith("_split"):
             cos, sin = _rope_tables_cached(L, D, dev)
@@ -735,7 +741,8 @@ def _ln_ffn_cuda(x, scale, bias, w1, b1, w2, b2, kernel: str | None = None):
 def _ln_ffn_simt_cuda(x, scale, bias, w1, b1, w2, b2, kernel: str):
     """K3's SIMT instances: ``ln_ffn_f32`` and ``ln_ffn_bf16``; x, the
     weights and biases of the instance's dtype, LayerNorm's parameters
-    float32, the hidden through a scratch allocated here."""
+    float32, the hidden through a scratch allocated here above
+    ``NARROW_D_MODEL`` (at it one launch keeps the hidden on chip)."""
     d = x.shape[-1]
     f = w1.shape[1]
     dtype = _cuda.simt_dtype(kernel)
@@ -749,12 +756,14 @@ def _ln_ffn_simt_cuda(x, scale, bias, w1, b1, w2, b2, kernel: str):
         x=x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2
     )
     T = x.numel() // d
-    hidden = torch.empty(T, f, dtype=dtype, device=dev)  # gelu(LN(x) W1 + b1)
+    # gelu(LN(x) W1 + b1)
+    hidden = None if d <= NARROW_D_MODEL else torch.empty(T, f, dtype=dtype, device=dev)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         _cuda.call(
             kernel, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            None if hidden is None else hidden.data_ptr(), out.data_ptr(),
             T, d, f, _cuda.stream_of(x),
         )
     return out

@@ -201,9 +201,8 @@ def test_stage_sums_match_one_float32_product_to_its_rounding():
 def test_rounding_fault_anchors_stand_in_the_tensor_core_code(fault):
     """Each anchor is in its source once, in a helper that the tensor-core
     kernels (gemm_tc.cuh, the qkv kernel of ln_qkv_rope_simt.cuh) and the
-    FFMA ones at tiny's widths (f32.cuh, the FFMA qkv kernel) both call:
-    LayerNorm's output (ln_apply), qkv's bias (qkv_bias), the FFN's bias
-    (epilogue)."""
+    narrow ones at d 32 (narrow.cuh) both call: LayerNorm's output
+    (ln_apply), qkv's bias (qkv_bias), the FFN's bias (epilogue)."""
     spec = importlib.util.spec_from_file_location(
         "bf16_rounding_faults", os.path.join(ROOT, "tools", "bf16_rounding_faults.py"))
     faults = importlib.util.module_from_spec(spec)
@@ -216,15 +215,15 @@ def test_rounding_fault_anchors_stand_in_the_tensor_core_code(fault):
 
     assert text(src).count(old) == 1
     helper = {"ln_output": ("f32.cuh", "ln_apply<E>("), "qkv_bias": ("ln_qkv_rope_simt.cuh",
-              "qkv_bias<E>("), "ffn_bias": ("f32.cuh", "epilogue<E, kEpi>(")}[fault]
+              "qkv_bias<E>("), "ffn_bias": ("f32.cuh", "epilogue<E, kEpi")}[fault]
     assert src == helper[0]
-    # the helper is called by the tensor-core code and by the FFMA code
-    gemm, qkv_src, f32 = text("gemm_tc.cuh"), text("ln_qkv_rope_simt.cuh"), text("f32.cuh")
-    split = qkv_src.index("    ln_qkv_rope_kernel(")  # the FFMA kernel, then the tensor cores'
-    tc, ffma = gemm + qkv_src[split:], f32 + qkv_src[:split]
-    assert tc.count(helper[1]) >= 1 and ffma.count(helper[1]) >= 1
-    assert '#include "gemm_tc.cuh"' in qkv_src
-    assert all('#include "gemm_tc.cuh"' in text(f"ln_ffn_{s}.cu") for s in ("f32", "bf16"))
+    # the helper is called by the tensor-core code and by the narrow kernels
+    qkv_src = text("ln_qkv_rope_simt.cuh")
+    tc, narrow = text("gemm_tc.cuh") + qkv_src, text("narrow.cuh")
+    assert tc.count(helper[1]) >= 1 and narrow.count(helper[1]) >= 1
+    assert '#include "gemm_tc.cuh"' in qkv_src and '#include "ln_qkv_rope_simt.cuh"' in narrow
+    assert all('#include "narrow.cuh"' in text(f"{k}_{s}.cu")
+               for k in ("ln_ffn", "ln_qkv_rope") for s in ("f32", "bf16"))
 
 
 def test_outproj_entry_refuses_what_its_kernel_does_not_take():

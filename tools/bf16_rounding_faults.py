@@ -9,7 +9,7 @@ temporary directory and changes one rounding of the bf16 device code of the
 widths no Hopper instance takes there: a ``round_to<E>`` taken out where the
 bf16 plain version rounds (LayerNorm's output, qkv's bias and the FFN's
 bias, each in the helper that the tensor-core kernels of ``gemm_tc.cuh``
-and the FFMA ones of ``f32.cuh`` share), or P kept at float32
+and the narrow ones of ``narrow.cuh`` share), or P kept at float32
 precision where K9 or the out projection rounds it to bf16 (``FAULTS``; the
 attention's two on the tensor cores, ``flash_tc.cuh``). The
 copy builds its four bf16 sources (all copies at once) and runs

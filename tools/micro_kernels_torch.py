@@ -5,11 +5,13 @@
     python3 tools/micro_kernels_torch.py --spread 0      # registers only
     python3 tools/micro_kernels_torch.py --spread 0 --step   # and the step times
     python3 tools/micro_kernels_torch.py --spread 0 --against chip_checkout/parent
+    python3 tools/micro_kernels_torch.py --spread 0 --against chip_checkout/parent --sass
 
 Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
 prints each entry function's (mangled) name, registers, spills and ptxas's
 performance advisories (C75xx, such as serialised ``wgmma``; ``--against`` another checkout's
-too, source by source, equal or not), then runs ``chip_smoke.py``'s
+too, source by source, equal or not; with ``--sass`` each entry function's
+``cuobjdump -sass`` as well, function by function), then runs ``chip_smoke.py``'s
 ``kernels`` phase (every kernel against its plain version at B=32, L=9216,
 with its tolerance; times by CUDA events, K5's by CUDA-graph replay with the
 eager loop's beside it) and the SIMT kernels' rows of its ``float32`` and
@@ -36,6 +38,7 @@ import argparse
 import contextlib
 import io
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -45,9 +48,10 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
-def registers(kernels, csrc: str, names) -> dict[str, str]:
+def registers(kernels, csrc: str, names, sass: dict | None = None) -> dict[str, str]:
     """Each source's registers, spills and ptxas's advisories, one line a
-    source of ``csrc`` (``<name>.cu``), every nvcc started at once."""
+    source of ``csrc`` (``<name>.cu``), every nvcc started at once; with
+    ``sass`` (a dict) each source's functions' SASS into it (:func:`functions`)."""
     nvcc = kernels._nvcc()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -71,26 +75,81 @@ def registers(kernels, csrc: str, names) -> dict[str, str]:
                      if "registers" in l or "spill" in l or "(C75" in l
                      or "Compiling entry function" in l]
             out[name] = " | ".join(lines)
+            if sass is not None:
+                dump = subprocess.run(
+                    [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                     os.path.join(tmp, f"{name}.so")], capture_output=True, text=True, check=True)
+                sass[name] = functions(dump.stdout)
     return out
 
 
-def print_registers(kernels, against: str | None = None) -> None:
+def functions(dump: str) -> dict[str, str]:
+    """``cuobjdump -sass`` output split by function: mangled name -> its code
+    and encodings, runs of blanks as one (the listing pads its columns to
+    the widest instruction of the library)."""
+    out, name = {}, None
+    for line in dump.splitlines():
+        if line.strip().startswith("Function : "):
+            name = line.strip()[len("Function : "):]
+            out[name] = []
+        elif name is not None and line.strip():
+            out[name].append(" ".join(line.split()))
+    return {n: "\n".join(code) for n, code in out.items()}
+
+
+# a constant-bank operand: a kernel parameter (bank 0) or a constant the
+# compiler placed in the module's own bank; an instruction's encoding (its
+# operands and its scheduling bits), which holds the operand's offset too
+CONST_OPERAND = re.compile(r"c\[0x[0-9a-f]+\]\[0x[0-9a-f]+\]")
+ENCODING = re.compile(r"/\* 0x[0-9a-f]{16} \*/")
+
+
+def instructions(code: str) -> str:
+    """A function's instructions alone, every constant-bank offset masked."""
+    return "\n".join(line for line in (CONST_OPERAND.sub("c[][]", ENCODING.sub("", l)).strip()
+                                        for l in code.splitlines()) if line)
+
+
+def print_sass(mine: dict, theirs: dict, against: str) -> None:
+    """Source by source, the other tree's functions whose SASS (instructions
+    and encodings) is this tree's under the same name, those whose
+    instructions are one of this tree's functions' (under any name) but for
+    the offsets of their constant-bank operands (a parameter list or the
+    module's constants laid out anew; encodings not compared), those that
+    differ, and the functions of one tree alone."""
+    for name in sorted(theirs):
+        a, b = mine.get(name, {}), theirs[name]
+        same = sorted(f for f in b if a.get(f) == b[f])
+        masked = {instructions(code) for code in a.values()}
+        offsets = sorted(f for f in b if f not in same and instructions(b[f]) in masked)
+        rest = [f for f in b if f not in same and f not in offsets]
+        differ, gone = [f for f in rest if f in a], [f for f in rest if f not in a]
+        print(f"{name}: sass {len(same)} of {len(b)} functions of {against} equal; "
+              f"{len(offsets)} equal but for constant-bank offsets {offsets}; "
+              f"differ {differ}; only there {gone}; only here {sorted(set(a) - set(b))}",
+              flush=True)
+
+
+def print_registers(kernels, against: str | None = None, sass: bool = False) -> None:
     """Each kernel source's ``-Xptxas -v`` line; with ``against`` (another
     checkout's root) that tree's line for each of its sources too, and
-    whether the two are equal."""
-    mine = registers(kernels, kernels.CSRC, kernels.KERNELS)
+    whether the two are equal (and with ``sass`` each function's SASS)."""
+    my_sass, their_sass = ({}, {}) if sass and against else (None, None)
+    mine = registers(kernels, kernels.CSRC, kernels.KERNELS, my_sass)
     for name, line in mine.items():
         print(name, line, flush=True)
     if against is None:
         return
     csrc = os.path.join(against, "herro_tpu_torch", "csrc")
     theirs = registers(kernels, csrc, sorted(
-        f[:-3] for f in os.listdir(csrc) if f.endswith(".cu")))
+        f[:-3] for f in os.listdir(csrc) if f.endswith(".cu")), their_sass)
     for name, line in theirs.items():
         print(f"{against}: {name} {line}", flush=True)
         print(f"{name}: {'equal' if mine.get(name) == line else 'DIFFERS'}", flush=True)
     print(f"{sum(mine.get(n) == l for n, l in theirs.items())} of {len(theirs)} sources "
           f"equal; only here: {sorted(set(mine) - set(theirs))}", flush=True)
+    if their_sass is not None:
+        print_sass(my_sass, their_sass, against)
 
 
 def main() -> int:
@@ -100,6 +159,8 @@ def main() -> int:
     ap.add_argument("--against", metavar="DIR",
                     help="another checkout (the parent, unpacked by git archive): compare "
                          "its sources' -Xptxas -v lines with these")
+    ap.add_argument("--sass", action="store_true",
+                    help="with --against: also compare each function's cuobjdump -sass")
     ap.add_argument("--step", action="store_true",
                     help="also time the R10 correct step at bench.py's two shapes")
     args = ap.parse_args()
@@ -112,7 +173,7 @@ def main() -> int:
     from herro_tpu_torch.pipeline.steptime import card
 
     print(card(), flush=True)
-    print_registers(kernels, args.against)
+    print_registers(kernels, args.against, args.sass)
     if args.step:
         from variant_step_time_torch import STEPS, step_time
 
