@@ -2782,7 +2782,8 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
     attention's exponentials at the SFU's rate), with the operations at the
     float32 FFMA or bf16 peak beside it (``bound_simt_ms``) and its two
     terms, the products and the exponentials; K4 stays on the FFMA (float32)
-    or bf16 peak. The widest tags (r10, r10h64) also hold K2/K6/K7's out
+    or bf16 peak, its operations at the FFMA rate beside it
+    (``bound_ffma_ms``). The widest tags (r10, r10h64) also hold K2/K6/K7's out
     projection alone (``outproj_tc``, mode ``flash_*_outproj``: the tile
     product the attention entry points launch after their attention, bf16
     on the tensor cores, float32 on FFMA and bounded so) against
@@ -2902,6 +2903,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                    ).permute(0, 2, 1).reshape(-1, R)
             emb = wc[: R * fused.COL_SLOT].view(R, fused.COL_SLOT, d)[:, :V].reshape(R * V, d)
             a_embed = (tok, quals, wc, cb, dt)
+            embed_work = (tok.numel() * 5 + T * d * es + wc.numel() * es + d * 4, 2 * d * nnz)
             name = f"entry_embed_{sfx}"
             add(name, dict(
                 replaces=replaces(name),
@@ -2909,8 +2911,8 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                 plain=lambda a=a_embed: fused._entry_embed_plain(*a),
                 library=(f"F.embedding_bag(mode=sum) of the token rows, {lib_dt}, no qual "
                          f"term", lambda idx=idx, emb=emb: F.embedding_bag(idx, emb, mode="sum")),
-                bound=bound(tok.numel() * 5 + T * d * es + wc.numel() * es + d * 4, 2 * d * nnz,
-                            peak),
+                bound=bound(*embed_work, peak),
+                extra=lambda w_=embed_work: dict(bound_ffma_ms=w_[1] / PEAK_F32 * 1e3),
                 iters=iters, **short))
         a_qkv = (x, ln_s, ln_b, w_qkv, b_qkv, H)
         qkv_work = (T * d * es + qkv_bytes + d * 3 * H * D * es, 2 * T * d * 3 * H * D)

@@ -19,7 +19,7 @@ and per mode for a kernel whose source has more than one entry point
 The float32 kernels (``*_f32.cu``: K1/K8 and K3 on the tensor cores over
 ``gemm_tc.cuh``, at d 32 on ``narrow.cuh``'s FFMA kernels, the attention
 of ``flash_f32.cu`` over ``flash_tc.cuh`` and its out projection over
-``gemm_tc.cuh`` too, K4 SIMT FFMA over ``f32.cuh``) take the
+``gemm_tc.cuh`` too, K4's gather-sum over ``entry_embed_simt.cuh``) take the
 float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
 not; their bf16 instances (``*_bf16.cu``, the same device code at bf16
 storage) take bf16 at the widths and head dims no Hopper instance was built

@@ -345,6 +345,26 @@ def _entry_embed_cuda(bases, quals, wc, cb, out_dtype, kernel: str | None = None
     return out
 
 
+# K4's SIMT kernel (csrc/entry_embed_simt.cuh): the columns of d a block
+# owns, the positions of a tile, the ring's slots, the bytes of its
+# mbarriers and counters, and the most shared memory one H100 block may use
+# (csrc/common.cuh kMaxSmem)
+EMBED_SIMT_SLICE, EMBED_SIMT_TILE, EMBED_SIMT_RING, EMBED_SIMT_HEAD = 32, 128, 2, 64
+SMEM_LIMIT = 232448
+
+
+def embed_simt_plan(d: int, R: int, V: int = VOCAB_SIZE) -> dict:
+    """The launch plan of K4's SIMT kernel as ``entry_embed_simt.cuh:launch``
+    makes it: ``slices`` blocks of ``EMBED_SIMT_SLICE`` columns share a
+    tile of ``EMBED_SIMT_TILE`` positions, and a block's ``smem`` bytes hold
+    its mbarriers and counters, a ring of slots of a tile's tokens (u8) and
+    quals (float32), and the (V + 1) R table rows of its slice and a row of
+    zeros, in float32 whatever the storage type."""
+    ring = EMBED_SIMT_RING * R * EMBED_SIMT_TILE * 5
+    return dict(slices=d // EMBED_SIMT_SLICE, tile=EMBED_SIMT_TILE,
+                smem=EMBED_SIMT_HEAD + ring + (R * (V + 1) + 1) * EMBED_SIMT_SLICE * 4)
+
+
 def _entry_embed_simt_cuda(bases, quals, wc, cb, out_dtype, kernel: str):
     """K4's SIMT instances: ``entry_embed_f32`` (float32) or
     ``entry_embed_bf16`` (bf16 table and output); quals and cb float32."""
@@ -357,6 +377,8 @@ def _entry_embed_simt_cuda(bases, quals, wc, cb, out_dtype, kernel: str):
                 f"kernel takes R 1 to {F32_MAX_ROWS} and col_proj_table's rows")
     _cuda.check(quals.shape == bases.shape and cb.shape == (d,), "input shapes")
     _check_f32_widths(d, kind=kind)
+    smem = embed_simt_plan(d, R)["smem"]
+    _cuda.check(smem <= SMEM_LIMIT, f"R {R}: {smem} bytes of shared memory a block")
     _cuda.require_dtype(torch.uint8, bases=bases)
     _cuda.require_dtype(torch.float32, quals=quals, cb=cb)
     _cuda.require_dtype(dtype, wc=wc)

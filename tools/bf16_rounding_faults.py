@@ -51,8 +51,10 @@ FAULTS = {
                  ("ln_qkv_rope_bf16", "ln_qkv_rope_bf16_split")),
     "ffn_bias": ("f32.cuh", "return round_to<E>(gelu_tanh(round_to<E>(__fadd_rn(a, bn))));",
                  "return round_to<E>(gelu_tanh(__fadd_rn(a, bn)));", ("ln_ffn_bf16",)),
-    "quals": ("entry_embed_simt.cuh", "const float qv = round_to<E>(quals[base + (long)r * L]);",
-              "const float qv = quals[base + (long)r * L];", ("entry_embed_bf16",)),
+    "quals": ("entry_embed_simt.cuh",
+              "const float qj[kPer] = {round_to<E>(qv.x), round_to<E>(qv.y), round_to<E>(qv.z),\n"
+              "                              round_to<E>(qv.w)};",
+              "const float qj[kPer] = {qv.x, qv.y, qv.z, qv.w};", ("entry_embed_bf16",)),
     "k9_p": ("flash_tc.cuh", "kRoundP ? kPVRound : kPVSplitP", "kPVSplitP",
              ("flash_bf16_attention",)),
     "outproj_p": ("flash_tc.cuh", "int err = attention<E, true>(", "int err = attention<E, false>(",
