@@ -36,9 +36,9 @@ each print one JSON line:
    ``tests/golden/logits_r10.npz`` against the JAX logits frozen there;
 4. ``e2e``     — ``run_correction`` with ``CorrectionRunner(device="cuda")``
    on a simulated demo-size dataset, with every kernel's launch count over
-   that run; ``trace`` — the same run under torch.profiler (device busy
-   share, device time by kernel); ``cli`` — the CLI with ``--read-alns`` when
-   zstandard is present;
+   that run; ``trace`` — the same run under torch.profiler, the card's
+   activity alone (device busy share, device time by kernel); ``cli`` — the
+   CLI with ``--read-alns`` when zstandard is present;
 5. ``parallel`` — ``CorrectionRunner(mesh=...)`` with every device ``cuda:0``
    (one card holds every layout): data parallelism over a 2 x 1
    mesh must write the e2e run's FASTA records byte for byte; tensor
@@ -56,8 +56,10 @@ each print one JSON line:
    ``local_window`` 512 at the demo size, and under none and 384 on 60 reads
    (each must launch its own attention kernel and no other), and for
    ``model_r9_sim`` on 60 reads (the eval runs of one size, here and in the
-   later phases, share one simulation and its feature tensors, each run's
-   model on the card on its own); ``battery`` — the ``standard`` regime of
+   later phases, share one simulation, its PAF rows, its feature tensors
+   and the truth scores of a FASTA already scored, which the counting
+   baseline's is at every run, each run's model on the card on its own);
+   ``battery`` — the ``standard`` regime of
    ``tools/eval_battery_torch.py`` for the flagship at the battery's own
    size and seed, through ``tools/merge_battery.py``'s gate against the
    committed ``resources/eval_battery.json`` (within 0.2 dB, het >= 0.99),
@@ -174,20 +176,41 @@ each print one JSON line:
    one device and at tp 2 (ms, classes >= 0.99), ``attention()`` at head
    dims 16, 32 and 64 under band 512, 40 and none, and two ``train`` steps
    of tiny in bf16;
-16. ``tools`` — each ported tool once at a reduced size, its launches
+16. ``widths`` — every width a herro_tpu ``config.json`` can ask for up to
+   d_model 1024, d_ff 4096 and any head dim a multiple of 16: the float32
+   and bf16 SIMT kernels against their plain versions at B=32, L=9216 at
+   w768h96's widths (d 768, H 8 x 96, d_ff 3072;
+   ``tests/torch_data/w768h96.py``) and d 1024's (H 8 x 128, d_ff 4096):
+   K4, K1, K8, K2 (band 512), K7 and K9 (band 512 and none) and K3, and K1
+   and K9 at head dims 48, 80 and 112 (H 8), at the bars of ``float32`` and
+   ``bf16_any``, each timed beside ``tc_bound``, the plain version (one
+   call) and SDPA or one torch.matmul; then the path, counted from 0: the
+   w768h96 forwards against herro_tpu's logits frozen in
+   ``tests/torch_data/golden_w768h96.npz`` (float32 within 2e-4 and every
+   class; bf16 within twice the CPU's recorded gap, every class but the
+   near-ties that gap allows to flip) and one ``inference`` of its seeded
+   bf16 checkpoint on the e2e reads: a record for every read the e2e run
+   wrote, the bf16 SIMT instances launched and no Hopper one;
+17. ``tools`` — each ported tool once at a reduced size, its launches
    counted: the soup, 4 fine-tune steps on the ``train`` phase's windows,
    the systematic audit and the e2e profile on 24 reads, the step-time
    probe at B=32, L=9216 for r10 and d384x5L (K1-K4's d 384 instances), and
    the ablation's variants and standalone ops at B=8, L=2048.
 
-Any failed phase exits nonzero. The last lines are the card line of
-nvidia-smi, the per-kernel JSON summary (K1-K4 also with their launches in
+The ``golden`` phase also holds ``model_r10_deep_sim`` in bf16 (the Hopper
+instances at d 256, H 2 x 128, 8 layers) to the classes of herro_tpu's
+float32 logits frozen in ``tests/torch_data/golden_r10deep_f32.npz``.
+
+Any failed phase exits nonzero. The last lines are each phase's seconds
+(``phase_seconds``), the card line of nvidia-smi, the per-kernel JSON
+summary (K1-K4 also with their launches in
 ``train_parallel``, counted from 0 over its layouts' steps; K1-K5 with
 theirs in ``battery``, ``demo`` and ``tools``; K10 and K11's modes with
 theirs in the int8 layouts of ``parallel`` and ``train_parallel``; the
 float32 kernels with their launches on the ``float32`` phase's path, the
 SIMT int8 ones on the ``int8_any`` phase's and the bf16 SIMT ones on the
-``bf16_any`` phase's, by entry point) and
+``bf16_any`` phase's, by entry point, both SIMT kinds also on the
+``widths`` phase's, the widths rows among each kernel's ``other_cases``) and
 ``{"ok": true, "device": ...}``.
 Imports nothing of JAX or herro_tpu.
 """
@@ -195,8 +218,10 @@ Imports nothing of JAX or herro_tpu.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import glob
+import hashlib
 import importlib.util
 import io
 import json
@@ -242,6 +267,20 @@ def emit(phase: str, **kw) -> None:
     """One JSON line; ``at_s``: seconds since the script started, where the
     time of a phase shows."""
     print(json.dumps({"phase": phase, **kw, "at_s": time.perf_counter() - START}), flush=True)
+
+
+# seconds each phase took, by its name, summed over its calls (``timed``);
+# printed on a line of its own near the end of the run
+PHASE_S: dict = {}
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, its seconds added to ``PHASE_S[phase]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[phase] = PHASE_S.get(phase, 0.0) + time.perf_counter() - t0
 
 
 def nvidia_smi() -> str:
@@ -789,11 +828,13 @@ def phase_kernels(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def run_cases(torch, cases: dict, phase: str = "kernels") -> list:
+def run_cases(torch, cases: dict, phase: str = "kernels", quick: bool = False) -> list:
     """Each case's kernel against its plain version on the same inputs (with
     the case's tolerance), then timed beside the plain version and the
     library call, with its bound; one JSON line a case. Raises when any
-    disagrees; returns the report."""
+    disagrees; returns the report. ``quick``: the plain version timed by one
+    call (the comparison's call warmed it), the library call by two after
+    one warm-up; the kernel as always."""
     report = []
     dev = torch.device("cuda")
     for case, c in cases.items():
@@ -846,17 +887,18 @@ def run_cases(torch, cases: dict, phase: str = "kernels") -> list:
         if c.get("graph"):  # device time; the eager loop's is the wrapper's
             extra["eager_ms"] = ms
             ms = graph_ms(torch, c["kernel"], iters)
-        plain_ms = time_ms(torch, c["plain"], 3, warmup=1)
+        plain_ms = time_ms(torch, c["plain"], *((1, 0) if quick else (3, 1)))
         del got, ref
         lib_label, lib_fn, *lib_setup = c["library"]
         lib_ms = None
+        lib_iters = (2, 1) if quick else (min(iters, 5), 2)
         if lib_setup:  # a library call with an operand of its own to build
             operand = lib_setup[0]()
-            lib_ms = time_ms(torch, lambda: lib_fn(operand), min(iters, 5))
+            lib_ms = time_ms(torch, lambda: lib_fn(operand), *lib_iters)
             del operand
             torch.cuda.empty_cache()
         elif lib_fn is not None:
-            lib_ms = time_ms(torch, lib_fn, iters)
+            lib_ms = time_ms(torch, lib_fn, *(lib_iters if quick else (iters, 2)))
         bound_ms, bound_by = c["bound"]
         entry = dict(
             name=name, case=case, route="cuda",
@@ -1214,6 +1256,37 @@ def phase_golden(torch, phase: str = "golden", int8: bool = False, min_agree=0.9
     return logits[mask]
 
 
+R10DEEP_CKPT = os.path.join(ROOT, "resources", "model_r10_deep_sim")
+
+
+def phase_golden_r10deep(torch, min_agree=0.995) -> dict:
+    """``model_r10_deep_sim`` (d 256, 8 layers, H 2 x 128: the Hopper
+    instances) in bf16 on the golden batch's inputs against herro_tpu's
+    float32 logits frozen in ``tests/torch_data/golden_r10deep_f32.npz``: the
+    argmax on at least ``min_agree`` of the supported columns, as
+    ``phase_golden`` holds the flagship; the Hopper K4, K1, K2 and K3
+    launched, n_layers times the block's."""
+    import numpy as np
+
+    want = np.load(os.path.join(F32_DATA, "golden_r10deep_f32.npz"))
+    fx = np.load(GOLDEN)
+    run = _golden_forward(torch, R10DEEP_CKPT, fx)
+    cfg, mask = run["cfg"], fx["support_mask"]
+    agree = float((run["logits"].argmax(-1) == want["logits"].argmax(-1))[mask].mean())
+    finite = bool(np.isfinite(run["logits"]).all() and np.isfinite(run["info"]).all())
+    want_launches = {"entry_embed": 1, "ln_qkv_rope": cfg.n_layers,
+                     "flash_outproj": cfg.n_layers, "ln_ffn": cfg.n_layers}
+    emit("golden", run="golden", model="model_r10_deep_sim", dtype=cfg.dtype,
+         argmax_agreement=agree, n_supported=int(mask.sum()),
+         max_dlogit=float(np.abs(run["logits"] - want["logits"])[mask].max()),
+         max_dinfo=float(np.abs(run["info"] - want["info"])[mask].max()), finite=finite,
+         launches=run["launches"], want_launches=want_launches)
+    if not finite or agree < min_agree or run["launches"] != want_launches:
+        raise RuntimeError(f"golden model_r10_deep_sim: argmax agreement {agree} < "
+                           f"{min_agree}, finite {finite}, launches {run['launches']}")
+    return run
+
+
 def _kmer_validity(seq: bytes, truth_kmers: set, k: int = 15) -> float:
     n = len(seq) - k + 1
     if n <= 0:
@@ -1333,15 +1406,17 @@ def phase_trace(torch, tmp: str, e2e: dict, runner=None, **labels) -> None:
     from herro_tpu_torch.pipeline.engine import run_correction
 
     out = os.path.join(tmp, "traced.fasta")
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    # the card's activity alone: the busy share and the time by kernel read
+    # device events only, and the host's ops would repeat them (recording
+    # them took most of the phase's time)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_correction(e2e["reads"], iter(e2e["grouped"].items()),
                        runner or e2e["runner"], out, 4096, 32)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = {}
-    for ev in prof.key_averages():  # device-side events only: CPU ops repeat them
+    for ev in prof.key_averages():  # device-side events only
         us = ev.self_device_time_total
         if str(ev.device_type).endswith("CUDA") and us > 0:
             dev[ev.key] = dev.get(ev.key, 0) + us
@@ -1694,8 +1769,10 @@ EVAL_ARGS = ["--with-baseline", "-w", "4096", "-b", "32", "--sub-rate", "0.02",
 DEMO_SIZE = ["--genome-len", "150000", "--n-reads", "160"]
 SMALL_SIZE = ["--genome-len", "60000", "--n-reads", "60"]
 ATTENTION_KERNELS = ("flash_outproj", "flash_outproj_full", "flash_outproj_band")
-# simulate's arguments -> (the dataset, its reads' feature tensors by (read
-# name, window)), shared by the eval runs of one seed and size
+# simulate's arguments -> the dataset ("ds"), its PAF rows by paf_rows's
+# arguments ("paf"), its reads' feature tensors by (read name, window)
+# ("features") and the truth scores of the FASTAs scored on it by their
+# bytes' sha256 ("scores"), shared by the eval runs of one seed and size
 _SIMULATIONS: dict = {}
 
 
@@ -1709,26 +1786,53 @@ def _one_simulation():
     and size alone) and run only their own model on the card, so every
     run's launches and corrected identity are what they are on its own,
     and its wall time holds no simulation and no featgen. Inside the block
-    ``evaluate``'s simulate and the engine's serial featgen
+    ``evaluate``'s simulate, its ``paf_rows`` (the simulated overlaps, a
+    function of the dataset alone) and the engine's serial featgen
     (``extract_read_tensors``, which ``eval`` takes: one featgen thread, no
     worker process) are memoized; each run gets a list of its own, and the
-    windows are only read. Yields the run's counts: ``reused`` (the dataset
-    came from an earlier run), ``featgen_calls`` and ``featgen_reused``;
-    raises after the block when the engine read no memoized featgen."""
+    windows are only read. So is ``evaluate``'s truth scoring
+    (``score_fragments``) of a FASTA whose bytes an earlier run of the
+    simulation scored: ``--with-baseline``'s counting decode is a function of
+    the features alone, the same bytes at every model and mask, and its
+    scores are the first run's (a model's own output is scored anew unless
+    it is those bytes too). Yields the run's counts: ``reused`` (the dataset
+    came from an earlier run), ``featgen_calls``, ``featgen_reused``,
+    ``scores_reused`` and ``paf_reused``; raises after the block when the
+    engine read no memoized featgen."""
     from herro_tpu_torch.features import extract
     from herro_tpu_torch.training import eval as evaluation
 
     simulate, featgen = evaluation.simulate, extract.extract_read_tensors
+    score, rows_of = evaluation.score_fragments, evaluation.paf_rows
     current: dict = {}
-    stats = dict(reused=False, featgen_calls=0, featgen_reused=0)
+    stats = dict(reused=False, featgen_calls=0, featgen_reused=0, scores_reused=0,
+                 paf_reused=False)
 
     def shared_simulate(**kw):
         key = repr(sorted(kw.items()))
         stats["reused"] = key in _SIMULATIONS
         if key not in _SIMULATIONS:
-            _SIMULATIONS[key] = (simulate(**kw), {})
-        ds, current["features"] = _SIMULATIONS[key]
-        return ds
+            _SIMULATIONS[key] = dict(ds=simulate(**kw), paf={}, features={}, scores={})
+        current.update(_SIMULATIONS[key])
+        return current["ds"]
+
+    def shared_paf_rows(ds, **kw):  # evaluate's ds: shared_simulate's
+        key = repr(sorted(kw.items()))
+        stats["paf_reused"] = key in current["paf"]
+        if key not in current["paf"]:
+            current["paf"][key] = rows_of(ds, **kw)
+        return list(current["paf"][key])
+
+    def shared_score(ds, reads, fasta_path, acc):  # evaluate's acc: a fresh one
+        with open(fasta_path, "rb") as fh:
+            key = hashlib.sha256(fh.read()).hexdigest()
+        scored = current["scores"]
+        if key in scored:
+            stats["scores_reused"] += 1
+            vars(acc).update(copy.deepcopy(vars(scored[key])))
+        else:
+            score(ds, reads, fasta_path, acc)
+            scored[key] = copy.deepcopy(acc)
 
     def shared_featgen(rid, reads, alns, window_size):
         key = (reads.ids[rid], window_size)
@@ -1740,10 +1844,12 @@ def _one_simulation():
         return list(features[key])
 
     evaluation.simulate, extract.extract_read_tensors = shared_simulate, shared_featgen
+    evaluation.score_fragments, evaluation.paf_rows = shared_score, shared_paf_rows
     try:
         yield stats
     finally:
         evaluation.simulate, extract.extract_read_tensors = simulate, featgen
+        evaluation.score_fragments, evaluation.paf_rows = score, rows_of
     if not stats["featgen_calls"]:
         raise RuntimeError("eval read no memoized featgen: the engine no longer takes "
                            "extract.extract_read_tensors at call time")
@@ -2730,11 +2836,20 @@ BF16_SIMT_MAX_SHARE = 2.0 ** -6
 # the tp 2 shards of tiny and r10h64
 SIMT_WIDTHS = {"tiny": (32, 2, 16, 64, None), "r10": (512, 4, 128, 1024, 512),
                "r10h64": (512, 8, 64, 1024, 512), "tiny-tp2": (32, 1, 16, 32, None),
-               "r10h64-tp2": (512, 4, 64, 512, 512)}
+               "r10h64-tp2": (512, 4, 64, 512, 512),
+               # the widths phase: w768h96 (tests/torch_data/w768h96.py), d 1024 at
+               # H 8 x 128, and head dims 48, 80 and 112 at H 8 (K1 and K9 alone)
+               "w768h96": (768, 8, 96, 3072, 512), "d1024": (1024, 8, 128, 4096, 512),
+               "D48": (384, 8, 48, 1536, 512), "D80": (640, 8, 80, 2560, 512),
+               "D112": (896, 8, 112, 3584, 512)}
+# the tags of the widths phase whose rows are K1 (table route) and K9 alone
+HEAD_DIM_TAGS = ("D48", "D80", "D112")
 # the (tag, L) of each dtype's SIMT rows, in order (simt_cases)
 SIMT_PLANS = {"float32": (("r10", L), ("tiny", L), ("tiny", 1024)),
               "bfloat16": (("r10h64", L), ("tiny", L), ("tiny", 1024), ("tiny-tp2", L),
                            ("r10h64-tp2", L))}
+# the (tag, L) of the widths phase's rows, each dtype
+WIDTHS_PLANS = (("w768h96", L), ("d1024", L), ("D48", L), ("D80", L), ("D112", L))
 F32_REPLACES = {
     "entry_embed_f32": "herro_tpu/ops/fused.py:89",
     "ln_qkv_rope_f32": "herro_tpu/ops/fused.py:572",
@@ -2753,7 +2868,7 @@ F32_KERNELS = {  # kernel -> its entry points (launch counters)
 }
 
 
-def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
+def simt_cases(torch, dtype: str = "float32", plans=None, labelled: bool = False) -> dict:
     """The SIMT kernels of ``dtype`` against their plain versions at B=32,
     each (tag, L) of ``plans`` (by default ``SIMT_PLANS[dtype]``) at the
     widths of ``SIMT_WIDTHS``.
@@ -2789,7 +2904,10 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
     on the tensor cores, float32 on FFMA and bounded so) against
     ``fused._outproj_plain``, its library call one torch.addmm. A row's library call is SDPA in ``dtype``
     with the mask (the attention rows) or one torch.matmul in ``dtype`` of
-    the dominant product, TF32 off."""
+    the dominant product, TF32 off. The widths phase's tags (``WIDTHS_PLANS``,
+    ``labelled``: every row under its tag, none a kernel's main row): w768h96
+    and d 1024 hold K4, K1, K8, K2 (band 512), K7 and K9 (band 512 and none)
+    and K3; the head dims of ``HEAD_DIM_TAGS`` K1 and K9 (band 512) alone."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -2869,18 +2987,20 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
         def add(name, c, *labels, tag=tag, n=n):
             """The first row of a kernel under its own name (its main row),
             later ones under their entry point's, labelled."""
-            if c.get("mode") is None and not labels and name not in cases:
+            if c.get("mode") is None and not labels and name not in cases and not labelled:
                 cases[name] = dict(c, name=name)
                 return
             labels = [tag, *labels] + ([] if n == L else [f"L={n}"])
             cases[f"{c.get('mode') or name}[{', '.join(labels)}]"] = dict(c, name=name)
 
         wide = tag.startswith("r10")  # the widest rows, whose times PERF.md keeps
+        new = tag in ("w768h96", "d1024")  # the widths phase's model widths
+        heads_only = tag in HEAD_DIM_TAGS  # K1 and K9 alone
         shard = tag.endswith("tp2")
         hopper_d = not f32 and d in fused.EMBED_WIDTHS  # bf16 K4 and K3 take Hopper here
         # tiny bf16's K1/K8, K3 and K4: bit-equal with the plain version on the card
         short = tol if f32 or not tag.startswith("tiny") else dict(tol, exact=True)
-        iters = 5 if wide else 10
+        iters = 5 if wide or new or heads_only else 10
 
         tok, quals, lens_np = pileup(n)
         lens = torch.from_numpy(lens_np).to(dev)
@@ -2897,7 +3017,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
         qkv_name = f"ln_qkv_rope_{sfx}"
         q, k, v = fused._ln_qkv_rope_cuda(x, ln_s, ln_b, w_qkv, b_qkv, H, kernel=qkv_name)
         qkv_bytes = 3 * B * H * n * D * es
-        if not (hopper_d or shard):
+        if not (hopper_d or shard or heads_only):
             nnz = int((tok < V).sum()) + int((quals != 0).sum())
             idx = (tok.long() + torch.arange(R, device=dev)[None, :, None] * V
                    ).permute(0, 2, 1).reshape(-1, R)
@@ -2916,7 +3036,8 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                 iters=iters, **short))
         a_qkv = (x, ln_s, ln_b, w_qkv, b_qkv, H)
         qkv_work = (T * d * es + qkv_bytes + d * 3 * H * D * es, 2 * T * d * 3 * H * D)
-        for route in (qkv_name, f"{qkv_name}_split")[: 2 if n == L and not shard else 1]:
+        for route in (qkv_name, f"{qkv_name}_split")[
+                : 2 if n == L and not (shard or heads_only) else 1]:
             c = dict(
                 mode=None if route == qkv_name else route, replaces=replaces(route),
                 kernel=lambda a=a_qkv, r=route: fused._ln_qkv_rope_cuda(*a, kernel=r),
@@ -2929,27 +3050,29 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
             if route != qkv_name:  # the same bits as the table route
                 c["twin"] = lambda a=a_qkv: fused._ln_qkv_rope_cuda(*a, kernel=qkv_name)
             add(qkv_name, c)
-        bands = [band] if wide or shard else ([None, 512, 40] if n == L else [None])
+        bands = [band] if wide or shard or heads_only else \
+            [band, None] if new else ([None, 512, 40] if n == L else [None])
         for w in bands:
             route = f"flash_{sfx}" if w is not None else f"flash_{sfx}_full"
-            w_labels = [] if w is None or wide else [f"w={w}"]
+            w_labels = [] if w is None or wide or new else [f"w={w}"]
             a_att = (q, k, v, x, wo, bo, lens, w)
             pairs = band_pairs(w, lens_np, n)
             att_work = (qkv_bytes + 2 * T * d * es + H * D * d * es,
                         4 * H * D * pairs + 2 * int(lens_np.sum()) * H * D * d, H * pairs)
-            add(f"flash_{sfx}", dict(
-                mode=None if w is not None else route,
-                replaces=F32_REPLACES["flash_f32_full" if w is None
-                                      else "flash_f32" if w % 256 == 0 else "flash_f32[K6]"],
-                kernel=lambda a=a_att, r=route: fused._flash_outproj_cuda(*a, kernel=r),
-                plain=lambda a=a_att: proj_plain(*a),
-                library=(f"F.scaled_dot_product_attention (memory-efficient backend) {lib_dt} "
-                         f"with the mask (band {w}) as an additive bias: attention only, no "
-                         f"out projection",
-                         lambda bias, qkv=(q, k, v): sdpa(qkv, bias),
-                         lambda lens=lens, w=w, n=n: sdpa_bias(lens, w, n)),
-                bound=tc_bound(*att_work, f32), extra=lambda w_=att_work: simt_bounds(*w_),
-                rows=lens_np, residual=x, iters=iters, **tol_proj), *w_labels)
+            if not heads_only:
+                add(f"flash_{sfx}", dict(
+                    mode=None if w is not None else route,
+                    replaces=F32_REPLACES["flash_f32_full" if w is None
+                                          else "flash_f32" if w % 256 == 0 else "flash_f32[K6]"],
+                    kernel=lambda a=a_att, r=route: fused._flash_outproj_cuda(*a, kernel=r),
+                    plain=lambda a=a_att: proj_plain(*a),
+                    library=(f"F.scaled_dot_product_attention (memory-efficient backend) {lib_dt} "
+                             f"with the mask (band {w}) as an additive bias: attention only, no "
+                             f"out projection",
+                             lambda bias, qkv=(q, k, v): sdpa(qkv, bias),
+                             lambda lens=lens, w=w, n=n: sdpa_bias(lens, w, n)),
+                    bound=tc_bound(*att_work, f32), extra=lambda w_=att_work: simt_bounds(*w_),
+                    rows=lens_np, residual=x, iters=iters, **tol_proj), *w_labels)
             if shard:
                 continue
             k9_np = lens_np
@@ -2989,7 +3112,7 @@ def simt_cases(torch, dtype: str = "float32", plans=None) -> dict:
                 bound=bound(*proj_work, PEAK_F32) if f32 else tc_bound(*proj_work, 0, False),
                 extra=lambda w_=proj_work: simt_bounds(*w_), residual=x, iters=iters,
                 **tol_proj)
-        if hopper_d:
+        if hopper_d or heads_only:
             continue
         a_ffn = (x, ln_s, ln_b, w1, b1, w2, b2)
         ffn_work = (2 * T * d * es + 2 * d * f * es, 4 * T * d * f)
@@ -4062,6 +4185,148 @@ def phase_bf16_any(torch, tmp: str, e2e: dict, results: dict) -> dict:
     return launches
 
 
+# the widths phase's forward goldens: the float32 bar of F32_GOLDENS; the
+# kernels of a w768h96 forward in each dtype (every one its SIMT instance),
+# one forward: K4 once, the block's n_layers times (band 512: K2's entry)
+WIDTHS_F32_BAR = 2e-4
+
+
+def _widths_maker():
+    """``tests/torch_data/make_widths_golden.py``: the w768h96 recipe, the
+    frozen golden's inputs and the port's forward against it (it imports
+    JAX only inside the functions that build the file)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_widths_golden", os.path.join(F32_DATA, "make_widths_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _widths_launches(sfx: str, n_layers: int, n_batches: int = 1) -> dict:
+    """A w768h96 run's launches in the dtype of ``sfx`` ("f32", "bf16") over
+    ``n_batches`` forwards: every kernel its SIMT instance, no Hopper one."""
+    return {f"entry_embed_{sfx}": n_batches, f"ln_qkv_rope_{sfx}": n_layers * n_batches,
+            f"flash_{sfx}": n_layers * n_batches, f"ln_ffn_{sfx}": n_layers * n_batches}
+
+
+def _widths_goldens(torch) -> dict:
+    """The w768h96 forward on the card against ``golden_w768h96.npz``:
+    float32 within ``WIDTHS_F32_BAR`` and every class; bf16 within twice the
+    CPU plain route's gap the file records, and the class on every supported
+    column but near-ties, columns whose two highest frozen logits lie within
+    twice that bar (there a flip is within the bar; herro_tpu's CPU forward
+    and the port's differ on one such column, which the file records). Each
+    launches its SIMT instances and nothing else."""
+    import numpy as np
+
+    mk = _widths_maker()
+    want = np.load(mk.GOLDEN)
+    cfg = mk.recipe().CONFIG
+    if str(want["params_sha256"]) != mk.recipe().digest(mk.recipe().params()):
+        raise RuntimeError("widths: the w768h96 recipe no longer gives the golden's parameters")
+    mask = mk.inputs()[3]
+    out, bad = {}, []
+    for dtype, sfx in (("float32", "f32"), ("bfloat16", "bf16")):
+        model = mk.port_model("cuda", dtype)
+        gap = mk.port_gap(want, dtype, device="cuda", model=model)
+        del model
+        torch.cuda.empty_cache()
+        want_launches = _widths_launches(sfx, cfg["n_layers"])
+        if dtype == "float32":
+            bars = dict(max_dlogit=WIDTHS_F32_BAR, max_dinfo=WIDTHS_F32_BAR)
+            ok = gap["flipped"] == 0
+        else:
+            bars = dict(max_dlogit=2 * float(want["cpu_max_dlogit"]),
+                        max_dinfo=2 * float(want["cpu_max_dinfo"]))
+            top = np.sort(want["logits_bf16"], axis=-1)
+            near = (top[..., -1] - top[..., -2] <= 2 * bars["max_dlogit"]) & mask
+            gap["near_ties"] = int(near.sum())
+            gap["flipped_off_near_ties"] = sum(not near[b, c] for b, c in gap["flipped_at"])
+            ok = gap["flipped_off_near_ties"] == 0
+        ok = ok and gap["finite"] and gap["launches"] == want_launches and all(
+            gap[k] <= bar for k, bar in bars.items())
+        emit("widths", run="golden", model="w768h96", dtype=dtype, bars=bars,
+             cpu_gap={k: float(want[k]) for k in ("cpu_max_dlogit", "cpu_max_dinfo",
+                                                    "cpu_flipped")},
+             want_launches=want_launches, ok=ok, **gap)
+        out[dtype] = gap
+        if not ok:
+            bad.append(f"{dtype}: {gap}")
+    if bad:
+        raise RuntimeError("widths goldens: " + "; ".join(bad))
+    return out
+
+
+def _widths_cli(torch, tmp: str, e2e: dict) -> dict:
+    """``herro_tpu_torch inference -m <w768h96 checkpoint, bf16>`` in
+    process on the e2e reads, every target's alignments from the stub
+    aligner: a record for every read the e2e run wrote, the bf16 SIMT
+    instances launched (K4 once a batch, the block's n_layers times a batch,
+    K5 once a batch) and no Hopper kernel of those ops."""
+    from herro_tpu_torch import cli
+    from herro_tpu_torch.ops import cuda as kernels
+
+    mk = _widths_maker()
+    ckpt = mk.recipe().write_checkpoint(os.path.join(tmp, "w768h96"))
+    env = _stub_minimap2(os.path.join(tmp, "w768h96_stub"), e2e["rows"])
+    out = os.path.join(tmp, "w768h96.fasta")
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    before = kernels.launch_counts.snapshot()
+    t0 = time.perf_counter()
+    with _env(PATH=env["PATH"]), contextlib.redirect_stderr(err):
+        cli.main(["inference", "-m", ckpt, "-w", "4096", "-b", "32", e2e["fastq"], out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = kernels.launch_counts.snapshot()
+    launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    n_b = launches.get("count_decisions", 0)
+    want = {"count_decisions": n_b, **_widths_launches("bf16", mk.recipe().CONFIG["n_layers"],
+                                                       n_b)}
+    names = sorted(r.split(b"\n")[0] for r in _fasta_records(out))
+    e2e_names = sorted(r.split(b"\n")[0] for r in _fasta_records(e2e["fasta"]))
+    ok = n_b > 0 and launches == want and names == e2e_names
+    emit("widths", run="inference w768h96 bf16", wall_s=wall, launches=launches,
+         want_launches=want, n_records=len(names), n_e2e_records=len(e2e_names),
+         records_for_every_read=names == e2e_names, ok=ok,
+         summary=err.getvalue().strip().splitlines()[-1])
+    if not ok:
+        raise RuntimeError(f"widths inference: launches {launches} (want {want}), "
+                           f"{len(names)} records against the e2e run's {len(e2e_names)}")
+    return launches
+
+
+def phase_widths(torch, tmp: str, e2e: dict, results: dict) -> dict:
+    """Every width a herro_tpu config.json can ask for up to d_model 1024,
+    d_ff 4096 and any head dim a multiple of 16: the SIMT kernels in float32
+    and bf16 against their plain versions at B=32, L=9216 (``simt_cases`` at
+    ``WIDTHS_PLANS``, one tag at a time; float32 within 1e-4, 2e-4 after a
+    projection, bf16 at the 2^-6 share bar; the rows join the kernels
+    report under their tags); then the path, counted from 0: the w768h96
+    forwards against their golden in float32 and bf16, and one ``inference``
+    run of its bf16 checkpoint on the e2e reads. Returns the path's
+    launches."""
+    from herro_tpu_torch.ops import cuda as kernels
+
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        for plan in WIDTHS_PLANS:
+            results["kernels"] += run_cases(
+                torch, simt_cases(torch, dtype, plans=(plan,), labelled=True), "widths",
+                quick=True)
+            torch.cuda.empty_cache()
+    rows_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.launch_counts.reset()
+    _widths_goldens(torch)
+    _widths_cli(torch, tmp, e2e)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts.snapshot()
+    emit("widths", run="phase", seconds=time.perf_counter() - t0, kernel_rows_s=rows_s,
+         path_launches={k: n for k, n in launches.items() if n})
+    return launches
+
+
 STUB_MM2 = """#!{python}
 import os, sys
 # a stand-in for minimap2: replays the simulated PAF rows whose target is in
@@ -4478,30 +4743,33 @@ def main() -> int:
          native_featgen=native.available())
 
     results: dict = {}
-    phase_kernels(torch, results)
-    bf16_logits = phase_golden(torch)
+    timed("kernels", phase_kernels, torch, results)
+    bf16_logits = timed("golden", phase_golden, torch)
+    timed("golden", phase_golden_r10deep, torch)
     with tempfile.TemporaryDirectory() as tmp:
-        e2e = phase_e2e(torch, tmp)
-        phase_trace(torch, tmp, e2e)
-        phase_cli(torch, tmp, e2e["ds"], e2e["rows"])
-        tp_int8_launches = phase_parallel(torch, tmp, e2e, one_card(torch))
-        phase_multihost(tmp, e2e, one_card(torch, 2))
-        evals = phase_eval(torch, tmp)
-        battery_launches = phase_battery(torch)
-        demo_launches = phase_demo(torch)
-        n_procs = phase_procpool(tmp, e2e)
-        phase_features(tmp, e2e, n_procs)
-        int8_launches = phase_int8(torch, tmp, e2e, evals, bf16_logits)
-        split_launches = phase_rope_split(torch, tmp, e2e)
-        phase_grad(torch)
-        phase_train(torch, tmp)
-        train_parallel_launches = phase_train_parallel(torch, tmp, one_card(torch))
-        phase_distill(torch, tmp)
-        f32_launches, tiny_ckpt = phase_float32(torch, tmp, e2e, results)
-        simt8_launches = phase_int8_any(torch, tmp, e2e, tiny_ckpt, results)
-        bf16_launches = phase_bf16_any(torch, tmp, e2e, results)
-        tools_launches = phase_tools(torch, tmp)
-    attention_launches = phase_attention(torch)
+        e2e = timed("e2e", phase_e2e, torch, tmp)
+        timed("trace", phase_trace, torch, tmp, e2e)
+        timed("cli", phase_cli, torch, tmp, e2e["ds"], e2e["rows"])
+        tp_int8_launches = timed("parallel", phase_parallel, torch, tmp, e2e, one_card(torch))
+        timed("multihost", phase_multihost, tmp, e2e, one_card(torch, 2))
+        evals = timed("eval", phase_eval, torch, tmp)
+        battery_launches = timed("battery", phase_battery, torch)
+        demo_launches = timed("demo", phase_demo, torch)
+        n_procs = timed("procpool", phase_procpool, tmp, e2e)
+        timed("features", phase_features, tmp, e2e, n_procs)
+        int8_launches = timed("int8", phase_int8, torch, tmp, e2e, evals, bf16_logits)
+        split_launches = timed("rope_split", phase_rope_split, torch, tmp, e2e)
+        timed("grad", phase_grad, torch)
+        timed("train", phase_train, torch, tmp)
+        train_parallel_launches = timed("train_parallel", phase_train_parallel, torch, tmp,
+                                        one_card(torch))
+        timed("distill", phase_distill, torch, tmp)
+        f32_launches, tiny_ckpt = timed("float32", phase_float32, torch, tmp, e2e, results)
+        simt8_launches = timed("int8_any", phase_int8_any, torch, tmp, e2e, tiny_ckpt, results)
+        bf16_launches = timed("bf16_any", phase_bf16_any, torch, tmp, e2e, results)
+        widths_launches = timed("widths", phase_widths, torch, tmp, e2e, results)
+        tools_launches = timed("tools", phase_tools, torch, tmp)
+    attention_launches = timed("attention", phase_attention, torch)
 
     # launches, each counted from 0 over the run that drives the kernel: K1-K5
     # from the inference run; K7 and K6 from the eval run whose checkpoint
@@ -4552,6 +4820,10 @@ def main() -> int:
         if k["name"] in BF16_KERNELS:  # and on the bf16_any path
             summary[-1]["mode_launches"] = {m: bf16_launches[m]
                                             for m in BF16_KERNELS[k["name"]]}
+        for modes in (F32_KERNELS, BF16_KERNELS):  # and on the widths path
+            if k["name"] in modes:
+                summary[-1]["widths_launches"] = {m: widths_launches[m]
+                                                  for m in modes[k["name"]]}
         if k["name"] in E2E_KERNELS:  # and on the paths of the tools that drive the model
             summary[-1]["battery_launches"] = battery_launches[k["name"]]
             summary[-1]["demo_launches"] = demo_launches[k["name"]]
@@ -4560,8 +4832,12 @@ def main() -> int:
     missing += [m for modes in F32_KERNELS.values() for m in modes if not f32_launches[m]]
     missing += [m for modes in SIMT8_KERNELS.values() for m in modes if not simt8_launches[m]]
     missing += [m for modes in BF16_KERNELS.values() for m in modes if not bf16_launches[m]]
+    # the widths path: each SIMT kernel's main entry point, float32 and bf16
+    missing += [f"{modes[0]} (widths)" for table in (F32_KERNELS, BF16_KERNELS)
+                for modes in table.values() if not widths_launches[modes[0]]]
     if missing or len(summary) != len(launches) or len(summary) != len(kernels.KERNELS):
         raise RuntimeError(f"kernels never launched on their path: {missing}")
+    emit("phase_seconds", **PHASE_S, total=time.perf_counter() - START)
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

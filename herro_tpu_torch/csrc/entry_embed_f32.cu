@@ -1,6 +1,6 @@
 // K4 in float32: pileup tokens + quals -> the d_model stream, for float32
-// configs (TINY_CONFIG, a float32 checkpoint), which the bf16 Hopper kernel
-// (entry_embed.cu) does not take. The device code, its bound and its design
+// configs (TINY_CONFIG, a float32 checkpoint; d a multiple of 32 up to 1024,
+// R 1-63), which the bf16 Hopper kernel (entry_embed.cu) does not take. The device code, its bound and its design
 // are entry_embed_simt.cuh's, at E = float.
 #include "entry_embed_simt.cuh"
 

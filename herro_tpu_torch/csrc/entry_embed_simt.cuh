@@ -71,7 +71,8 @@
 // against the per-thread kernel's 3.05 / 0.226 / 0.218; a warp spends
 // 0.61-0.68 of its cycles in the sums, which wait on the shared-memory pipe
 // (tools/embed_clocks_torch.py).
-// Shapes: d a multiple of 32 up to 512, R 1-63, V < 16, kp >= 16 R, any B, L.
+// Shapes: d a multiple of 32 up to 1024 (d / 32 slices, the grid a multiple
+// of them), R 1-63, V < 16, kp >= 16 R, any B, L.
 #pragma once
 
 #include "f32.cuh"

@@ -263,10 +263,21 @@ void launch_gemm(const E* A, const E* W, const E* b, const E* res, E* y, long T,
                                                                              T, K, N);
 }
 
-// the widths the SIMT kernels take, float32 or bf16 (ops/fused.py: F32_*)
-inline bool head_dim_ok(int D) { return D == 16 || D == 32 || D == 64 || D == 128; }
-inline bool d_model_ok(int d) { return d >= 32 && d <= 512 && d % 32 == 0; }
-inline bool d_ff_ok(int f) { return f >= 32 && f <= 2048 && f % 32 == 0; }
+// the widths the SIMT kernels take, float32 or bf16 (ops/fused.py: F32_*):
+// every head dim a multiple of 16 from 16 to 128, d_model a multiple of 32
+// up to 1024, d_ff a multiple of 32 up to 4096
+inline bool head_dim_ok(int D) { return D >= 16 && D <= 128 && D % 16 == 0; }
+inline bool d_model_ok(int d) { return d >= 32 && d <= 1024 && d % 32 == 0; }
+inline bool d_ff_ok(int f) { return f >= 32 && f <= 4096 && f % 32 == 0; }
+
+// the head dims of the kernels laid out by powers of two: narrow.cuh's K1/K8
+// at d 32 (a frequency a thread, D/2 dividing the block) and the SIMT int8
+// K10 (int8_simt.cuh's rope spans, span_col)
+inline bool head_dim_pow2(int D) { return D == 16 || D == 32 || D == 64 || D == 128; }
+// the SIMT int8 kernels' widths (ops/fused.py: INT8_*): int8_simt.cuh holds
+// a LayerNorm row in registers up to d 512
+inline bool int8_d_model_ok(int d) { return d >= 32 && d <= 512 && d % 32 == 0; }
+inline bool int8_d_ff_ok(int f) { return f >= 32 && f <= 2048 && f % 32 == 0; }
 
 }  // namespace f32
 }  // namespace herro

@@ -1,8 +1,8 @@
 // K2, K6, K7 and K9 in bf16 at the head dims and (heads, width) pairs the
 // Hopper kernels of flash_outproj_sm90.cuh (D 128; the shipped (H, d) and
 // their shards) lack: TINY_CONFIG in bf16 (H 2 x D 16, d 32), head dim 64,
-// their tensor-parallel shards; any D in {16, 32, 64, 128}, any H, d a
-// multiple of 32 up to 512. The device code, its bound and its design are
+// their tensor-parallel shards; any D a multiple of 16 from 16 to 128, any
+// H, d a multiple of 32 up to 1024. The device code, its bound and its design are
 // flash_tc.cuh's, at E = bf16: q/k/v, x, Wo, bo, the scratch and the
 // outputs bf16, the sums float32; every mode rounds P to bf16 before P.V,
 // as herro_tpu's Pallas kernels do.

@@ -1,5 +1,6 @@
-// K2, K6, K7 and K9 in float32, for float32 configs at any head dim D in
-// {16, 32, 64, 128}, which the bf16 Hopper kernels of
+// K2, K6, K7 and K9 in float32, for float32 configs at any head dim D a
+// multiple of 16 from 16 to 128 and d a multiple of 32 up to 1024, which the
+// bf16 Hopper kernels of
 // flash_outproj_sm90.cuh (D 128) do not take. The device code, its bound and
 // its design are flash_tc.cuh's, at E = float (every product as three TF32
 // products on the tensor cores): herro_flash_f32 (K2, K6:

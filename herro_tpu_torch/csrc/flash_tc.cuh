@@ -5,7 +5,8 @@
 // out projection and the residual. Entry points: flash_f32.cu (float32),
 // flash_bf16.cu (bf16), each with the banded route, the full one and K9's.
 //
-// Replaces, at any head dim D in {16, 32, 64, 128}:
+// Replaces, at any head dim D a multiple of 16 from 16 to 128 (and, under
+// the out projection, d_model a multiple of 32 up to 1024):
 // - herro_tpu/ops/fused.py:_banded_flash_outproj_rot_kernel (K2) and
 //   _banded_flash_outproj_kernel (K6): any band;
 // - herro_tpu/ops/fused.py:_flash_outproj_kernel (K7): every key below the
@@ -35,8 +36,9 @@
 // bytes (o, x and y) in bf16, by its products at the FFMA rate in float32.
 //
 // Design: a block of 4 warps a (batch element, head, 64 query rows), 16 rows
-// a warp; the keys in tiles of 64 (32 for float32 at D 128, so that two
-// blocks fit an SM), K and V double-buffered into shared memory by cp.async
+// a warp; the keys in tiles of 64 (32 for float32 above D 64, so that two
+// blocks fit an SM: at D 96 a 64-key tile's Q, K and V took 128 KB), K and
+// V double-buffered into shared memory by cp.async
 // (16 bytes a thread, rows past L zero-filled), the next tile's copies in
 // flight while the current one is multiplied. Rows are padded (K by 8
 // elements, V by 4 floats or 8 bf16), which keeps every fragment read below
@@ -112,7 +114,7 @@ constexpr int pv_mode() {
 template <typename E, int D>
 struct Shape {
   static constexpr bool kF32 = sizeof(E) == 4;
-  static constexpr int kBKV = kF32 && D == 128 ? 32 : 64;  // keys a tile
+  static constexpr int kBKV = kF32 && D > 64 ? 32 : 64;  // keys a tile
   static constexpr int kNT = kBKV / 8;                     // 8-key column tiles of S
   static constexpr int kND = D / 8;                        // 8-dim column tiles of O
   static constexpr int kKS = D + 8;                        // row stride of Q and K
@@ -410,9 +412,9 @@ __global__ void __launch_bounds__(kTCThreads)
   flash_tile_rows<E, D, kPV>(q, k, v, lengths, o, H, L, window, scale, heads_inner);
 }
 
-// float32 at D 128, told it may take a whole SM's registers: ptxas then
-// gives it more than under the bare bound, and at r10's widths it ran a
-// fifth faster so (the other instances ran slower so)
+// float32 above D 64, told it may take a whole SM's registers: ptxas then
+// gives it more than under the bare bound, and at r10's widths (D 128) it
+// ran a fifth faster so (the instances at D 16-64 ran slower so)
 template <typename E, int D, int kPV>
 __global__ void __launch_bounds__(kTCThreads, 1)
     flash_kernel_wide(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
@@ -425,7 +427,7 @@ template <typename E, int D, int kPV>
 int attend(const E* q, const E* k, const E* v, const int* lengths, E* o, int B, int H, int L,
            int window, float scale, int heads_inner, cudaStream_t stream) {
   auto kernel = [] {
-    if constexpr (sizeof(E) == 4 && D == 128) return flash_kernel_wide<E, D, kPV>;
+    if constexpr (sizeof(E) == 4 && D > 64) return flash_kernel_wide<E, D, kPV>;
     else return flash_kernel<E, D, kPV>;
   }();
   constexpr int smem = Shape<E, D>::kSmem;
@@ -450,12 +452,26 @@ int attention(const E* q, const E* k, const E* v, const int* lengths, E* o, int 
     case 32:
       return attend<E, 32, kPV>(q, k, v, lengths, o, B, H, L, window, scale, heads_inner,
                                 stream);
+    case 48:
+      return attend<E, 48, kPV>(q, k, v, lengths, o, B, H, L, window, scale, heads_inner,
+                                stream);
     case 64:
       return attend<E, 64, kPV>(q, k, v, lengths, o, B, H, L, window, scale, heads_inner,
                                 stream);
-    default:
+    case 80:
+      return attend<E, 80, kPV>(q, k, v, lengths, o, B, H, L, window, scale, heads_inner,
+                                stream);
+    case 96:
+      return attend<E, 96, kPV>(q, k, v, lengths, o, B, H, L, window, scale, heads_inner,
+                                stream);
+    case 112:
+      return attend<E, 112, kPV>(q, k, v, lengths, o, B, H, L, window, scale, heads_inner,
+                                 stream);
+    case 128:
       return attend<E, 128, kPV>(q, k, v, lengths, o, B, H, L, window, scale, heads_inner,
                                  stream);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

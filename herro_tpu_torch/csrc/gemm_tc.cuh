@@ -132,22 +132,22 @@ __device__ inline void row_stats(const float (&v)[kCols], int d, float& mu, floa
   rstd = rsqrtf(__fadd_rn(var, 1e-6f));
 }
 
-// y [T, d] = LayerNorm(x) rounded to E, d <= 512: a warp a row (row_stats;
-// f32.cuh's ln_apply), kLnRows rows a warp at
-// once, every load of them in flight together
+// y [T, d] = LayerNorm(x) rounded to E, d <= 32 kCols: a warp a row
+// (row_stats; f32.cuh's ln_apply), kLnRows rows a warp at once, every load of
+// them in flight together; a lane holds kCols values of a row, 16 up to d 512
+// and 32 above (to d 1024: 128 floats of registers a thread)
 constexpr int kLnRows = 4;
-constexpr int kLnCols = 512 / 32;  // values a lane holds of a row
-template <typename E>
+template <typename E, int kCols>
 __global__ void __launch_bounds__(kThreads)
     layernorm_kernel(const E* __restrict__ x, const float* __restrict__ scale,
                      const float* __restrict__ bias, E* __restrict__ y, long T, int d) {
   const int lane = threadIdx.x % 32;
   const long r = ((long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32) * kLnRows;
-  float v[kLnRows][kLnCols];
+  float v[kLnRows][kCols];
 #pragma unroll
   for (int j = 0; j < kLnRows; ++j)
 #pragma unroll
-    for (int i = 0; i < kLnCols; ++i) {
+    for (int i = 0; i < kCols; ++i) {
       const int c = lane + 32 * i;
       v[j][i] = r + j < T && c < d ? to_f(x[(r + j) * d + c]) : 0.f;
     }
@@ -157,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
     float m, rs;
     row_stats(v[j], d, m, rs);
 #pragma unroll
-    for (int i = 0; i < kLnCols; ++i) {
+    for (int i = 0; i < kCols; ++i) {
       const int c = lane + 32 * i;
       if (c >= d) break;
       store1(y + (r + j) * d + c, ln_apply<E>(v[j][i], m, rs, scale[c], bias[c]));
@@ -169,8 +169,11 @@ template <typename E>
 int layernorm(const E* x, const float* scale, const float* bias, E* y, long T, int d,
               cudaStream_t stream) {
   constexpr long kRowsABlock = kThreads / 32 * kLnRows;
-  layernorm_kernel<E><<<(unsigned)((T + kRowsABlock - 1) / kRowsABlock), kThreads, 0, stream>>>(
-      x, scale, bias, y, T, d);
+  const unsigned grid = (unsigned)((T + kRowsABlock - 1) / kRowsABlock);
+  if (d <= 512)
+    layernorm_kernel<E, 16><<<grid, kThreads, 0, stream>>>(x, scale, bias, y, T, d);
+  else
+    layernorm_kernel<E, 32><<<grid, kThreads, 0, stream>>>(x, scale, bias, y, T, d);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // K3 in bf16 at the widths the Hopper kernel (ln_ffn.cu: d 256, 384 or 512,
 // d_ff a multiple of 128) lacks: TINY_CONFIG in bf16 (d 32, d_ff 64), its
-// tensor-parallel shard (d_ff 32); any d a multiple of 32 up to 512 and d_ff
-// a multiple of 32 up to 2048.
+// tensor-parallel shard (d_ff 32); any d a multiple of 32 up to 1024 and d_ff
+// a multiple of 32 up to 4096.
 //   out = bf16(x + ((h @ W2) + b2)),  h = bf16(gelu_tanh(bf16(LN(x) @ W1 + b1)))
 // with LN(x) rounded to bf16 before the product, as the bf16 plain version
 // (ops/fused.py:_ln_ffn_plain) rounds it.

@@ -444,7 +444,7 @@ int both(const void* x, const float* ln_s, const float* ln_b, const void* w1t,
 }
 
 inline bool widths_ok(long rows, int d, int f) {
-  return rows >= 1 && f32::d_model_ok(d) && f32::d_ff_ok(f);
+  return rows >= 1 && f32::int8_d_model_ok(d) && f32::int8_d_ff_ok(f);
 }
 
 }  // namespace ffn_simt8

@@ -1,7 +1,8 @@
 // K1 and K8 in bf16 at the head dims and widths the Hopper kernels
 // (ln_qkv_rope_sm90.cuh: D 128, d 256, 384 or 512) lack: TINY_CONFIG in bf16
-// (d 32, D 16), head dim 64, their tensor-parallel shards; any D in {16, 32,
-// 64, 128} and d a multiple of 32 up to 512. The device code, its bound and
+// (d 32, D 16), head dim 64, their tensor-parallel shards; any D a multiple
+// of 16 from 16 to 128 and d a multiple of 32 up to 1024 (D 16, 32, 64 or
+// 128 at d 32). The device code, its bound and
 // its design are ln_qkv_rope_simt.cuh's, at E = bf16, and at d 32
 // narrow.cuh's: x, the weight, the bias, q/k/v and the [B L, d] scratch y
 // of LayerNorm's output (unread at d 32, where the caller may pass none)

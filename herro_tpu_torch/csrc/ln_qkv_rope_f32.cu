@@ -1,5 +1,6 @@
 // K1 and K8 in float32: LayerNorm + qkv projection + rope for float32
-// configs at any head dim D in {16, 32, 64, 128}, which the bf16 Hopper
+// configs at any head dim D a multiple of 16 from 16 to 128 and d a multiple
+// of 32 up to 1024 (D 16, 32, 64 or 128 at d 32), which the bf16 Hopper
 // kernels (ln_qkv_rope_sm90.cuh, D 128) do not take. The device code, its
 // bound and its design are ln_qkv_rope_simt.cuh's, at E = float, and at d 32
 // narrow.cuh's; y is a [B L, d] scratch for LayerNorm's output (unread at

@@ -187,7 +187,7 @@ extern "C" int herro_ln_qkv_rope_q_simt(const void* x, const float* ln_s, const 
                                         void* k, void* v, int B, int L, int d, int H, int D,
                                         int is_bf16, void* stream) {
   using namespace herro;
-  if (B < 1 || L < 1 || H < 1 || !f32::d_model_ok(d) || !f32::head_dim_ok(D))
+  if (B < 1 || L < 1 || H < 1 || !f32::int8_d_model_ok(d) || !f32::head_dim_pow2(D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)

@@ -6,7 +6,8 @@
 //
 // Replaces herro_tpu/ops/fused.py:_ln_qkv_rope_tbl_kernel (K1, rope tables
 // handed in) and _ln_qkv_rope_kernel (K8, tables built in the kernel,
-// HERRO_TPU_ROPE=split) for any head dim D in {16, 32, 64, 128}:
+// HERRO_TPU_ROPE=split) for any head dim D a multiple of 16 from 16 to 128
+// and d_model a multiple of 32 up to 1024:
 //   qkv = E(E(LN(x)) @ W + b)   (x [B, L, d], W [d, 3HD] in (3, H, D) c-major order)
 //   q, k: E(rotate-half rope at the absolute column l); v as it is
 // -> q, k, v [B, H, L, D] of the storage type E (float: every E() the identity).
@@ -16,13 +17,20 @@
 // float32, 4.6e11: 2.8 ms at B=32, L=9216), above the bytes.
 // Design: LayerNorm(x) into a [B L, d] scratch (gemm_tc.cuh's layernorm),
 // then gemm_tc.cuh's tile product, a block 64 token rows and each tile of
-// 128 columns of qkv in turn (one head at D 128, whole heads below; 64
-// columns where qkv has no more). The block first stages cos/sin of its
+// columns of qkv in turn: at D 16, 32 and 64 tiles of 128 columns (64
+// where qkv has no more), a warp 32 rows x 64 columns, whole heads; at D 48,
+// 80, 96, 112 and 128 tiles of one head, D columns, a warp 16 rows x the
+// whole head (warp_rows). So the rope's partner of a column, D/2 away in its
+// head, is always in the same thread's C fragments, at D 96 as at D 128:
+// no exchange through shared memory and no barrier after the product, at
+// the cost of every warp reading the whole of W's stage (4 x its bytes of
+// shared memory a stage, as D 128 already did). The block first stages cos/sin of its
 // rows at each frequency in shared memory beside the stages: the table
 // route copies its rows of the tables, the split route builds them with the
 // full-range expf/cosf/sinf of the plain version's rope_tables (freq_i =
-// exp(-ln(10000) i / (D/2)), D/2 a power of two, so the division is exact
-// either way): both routes give the same bits. The epilogue works on the C
+// exp(-ln(10000) i / (D/2)), the division correctly rounded on both sides:
+// rope_tables divides by a tensor, which the card does not turn into a
+// product by the reciprocal): both routes give the same bits. The epilogue works on the C
 // fragments in registers: + bias rounded to E, then each q/k value's rope
 // partner (column dd +- D/2 of its head) is the same thread's fragment D/16
 // fragments away (a warp's sub-tile holds whole heads), the rope's two
@@ -46,11 +54,12 @@ __device__ inline float qkv_bias(float a, float b) {
   return round_to<E>(__fadd_rn(a, b));
 }
 
-// a warp's rows: 16 where a head is the whole tile (its 128 columns in one
-// warp's fragments), else 32
+// a warp's rows: 32 where whole heads fill a warp's 64 columns (D 16, 32,
+// 64), else 16, a head the whole tile (its D columns in one warp's
+// fragments)
 template <int D>
 __host__ __device__ constexpr int warp_rows() {
-  return D == 128 ? 16 : 32;
+  return 64 % D == 0 ? 32 : 16;
 }
 
 // the dynamic shared memory of an instance: the stages, then cos/sin of
@@ -183,8 +192,19 @@ int launch_tc(const E* y, const E* w, const E* b, const float* cos_t, const floa
       return launch_d<E, kTables, 128, 32>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
     case 64:
       return launch_d<E, kTables, 128, 64>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
-    default:
+    // a tile of one head
+    case 48:
+      return launch_d<E, kTables, 48, 48>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+    case 80:
+      return launch_d<E, kTables, 80, 80>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+    case 96:
+      return launch_d<E, kTables, 96, 96>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+    case 112:
+      return launch_d<E, kTables, 112, 112>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+    case 128:
       return launch_d<E, kTables, 128, 128>(y, w, b, cos_t, sin_t, q, k, v, B, L, d, H, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -531,13 +531,13 @@ int qkv_d(const E* x, const float* scale, const float* bias, const E* w, const E
   return (int)cudaGetLastError();
 }
 
-// K1/K8 at d 32, any head dim of f32.cuh head_dim_ok and any H; B L and B H
-// L below 2^31 (q/k/v then hold at most 2^31 D values each)
+// K1/K8 at d 32, head dim 16, 32, 64 or 128 (f32.cuh head_dim_pow2) and any
+// H; B L and B H L below 2^31 (q/k/v then hold at most 2^31 D values each)
 template <typename E, bool kTables>
 int qkv_rope(const E* x, const float* scale, const float* bias, const E* w, const E* b,
              const float* cos_t, const float* sin_t, E* q, E* k, E* v, int B, int L, int d,
              int H, int D, cudaStream_t stream) {
-  if (B < 1 || L < 1 || H < 1 || d != kWidth || !head_dim_ok(D) ||
+  if (B < 1 || L < 1 || H < 1 || d != kWidth || !head_dim_pow2(D) ||
       (long)B * H * L > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
   switch (D) {
@@ -547,7 +547,7 @@ int qkv_rope(const E* x, const float* scale, const float* bias, const E* w, cons
       return qkv_d<E, kTables, 32>(x, scale, bias, w, b, cos_t, sin_t, q, k, v, B, L, H, stream);
     case 64:
       return qkv_d<E, kTables, 64>(x, scale, bias, w, b, cos_t, sin_t, q, k, v, B, L, H, stream);
-    default:
+    default:  // 128
       return qkv_d<E, kTables, 128>(x, scale, bias, w, b, cos_t, sin_t, q, k, v, B, L, H, stream);
   }
 }

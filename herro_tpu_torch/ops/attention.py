@@ -7,9 +7,10 @@ A port of ``herro_tpu/ops/attention.py``:
   instances for the other widths (``csrc/flash_f32.cu`` and
   ``csrc/flash_bf16.cu`` over ``flash_tc.cuh``'s ``mma.sync``, modes
   ``flash_f32_attention`` and ``flash_bf16_attention``) for float32 at head
-  dims 16-128 and bf16 at 16-64; online-softmax tiling, so the [L, L] score matrix never
-  exists in device memory; a suffix length mask and an optional band. For CPU
-  tensors its plain PyTorch version runs. The forward is the kernel, the
+  dims 16-128 and bf16 at 16-112, every multiple of 16; online-softmax
+  tiling, so the [L, L] score matrix never exists in device memory; a
+  suffix length mask and an optional band. For CPU tensors its plain
+  PyTorch version runs. The forward is the kernel, the
   backward recomputes through ``chunked`` (the reference has no backward
   kernel either);
 * ``chunked`` — plain PyTorch, blocked over query rows, each block scoring
@@ -271,7 +272,7 @@ def attention(q, k, v, lengths, local_window=None, impl: str = "auto"):
     auto/flash/chunked/naive. ``auto`` is ``flash`` for CUDA tensors and
     ``chunked`` for CPU tensors, decided on the device alone: on the card
     the kernel runs or its wrapper raises (bf16 and float32 at head dims
-    16-128; ``HERRO_TPU_PALLAS`` is not read here, as the
+    16-128, multiples of 16; ``HERRO_TPU_PALLAS`` is not read here, as the
     reference's ``attention`` does not read it), and
     plain PyTorch runs there only when ``chunked`` or ``naive`` is asked for
     by name."""

@@ -20,14 +20,16 @@ The float32 kernels (``*_f32.cu``: K1/K8 and K3 on the tensor cores over
 ``gemm_tc.cuh``, at d 32 on ``narrow.cuh``'s FFMA kernels, the attention
 of ``flash_f32.cu`` over ``flash_tc.cuh`` and its out projection over
 ``gemm_tc.cuh`` too, K4's gather-sum over ``entry_embed_simt.cuh``) take the
-float32 configs and the head dims 16-128 that the bf16 Hopper kernels do
-not; their bf16 instances (``*_bf16.cu``, the same device code at bf16
+float32 configs, and d_model up to 1024, d_ff up to 4096 and the head dims
+16-128 (multiples of 16) that the bf16 Hopper kernels do not; their bf16
+instances (``*_bf16.cu``, the same device code at bf16
 storage) take bf16 at the widths and head dims no Hopper instance was built
 for. The wrappers in ``ops/fused.py`` and ``ops/attention.py`` choose by the
 operands' dtype, and for bf16 by their widths (``fused.bf16_kernel_name``).
 The int8 kernels K10 and K11 have
 a SIMT instance each as well (``*_q_simt.cu`` over ``int8_simt.cuh``: int8
-``mma.sync``), for float32 or bf16 at those widths;
+``mma.sync``), for float32 or bf16 at narrower widths (``fused.INT8_*``: d
+up to 512, d_ff up to 2048, head dims ``POW2_HEAD_DIMS``);
 ``fused.int8_kernel_name`` chooses between it and the Hopper one. :func:`on_card` reads
 ``HERRO_TPU_PALLAS`` at every call, as the reference reads it, and refuses
 ``0`` on the card.
@@ -52,8 +54,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# the head dims of the SIMT kernels (csrc/*_f32.cu, csrc/*_bf16.cu)
-F32_HEAD_DIMS = (16, 32, 64, 128)
+# the head dims of the SIMT kernels (csrc/*_f32.cu, csrc/*_bf16.cu): every
+# multiple of 16 from 16 to 128 (csrc/f32.cuh head_dim_ok)
+F32_HEAD_DIMS = tuple(range(16, 129, 16))
+# the head dims of the kernels laid out by powers of two (csrc/f32.cuh
+# head_dim_pow2): the SIMT int8 K10, and K1/K8 at d 32 (csrc/narrow.cuh)
+POW2_HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 
@@ -76,7 +82,8 @@ KERNELS = {
     "ln_qkv_rope_q": ("herro_ln_qkv_rope_q", [_P] * 9 + [_I] * 4 + [_P]),
     "ln_ffn_q": ("herro_ln_ffn_q", [_P] * 10 + [_L, _I, _I, _P]),
     "flash_attention": ("herro_flash_attention", [_P] * 5 + [_I] * 4 + [_F, _P]),
-    # float32 at any head dim in 16-128 (tensor cores and SIMT FFMA)
+    # float32 at any head dim a multiple of 16 in 16-128 (tensor cores and
+    # SIMT FFMA)
     "entry_embed_f32": ("herro_entry_embed_f32", [_P] * 5 + [_I] * 6 + [_P]),
     "ln_qkv_rope_f32": ("herro_ln_qkv_rope_f32", [_P] * 11 + [_I] * 5 + [_P]),
     "flash_f32": ("herro_flash_f32", [_P] * 9 + [_I] * 6 + [_F, _P]),
@@ -87,7 +94,7 @@ KERNELS = {
     "ln_qkv_rope_bf16": ("herro_ln_qkv_rope_bf16", [_P] * 11 + [_I] * 5 + [_P]),
     "flash_bf16": ("herro_flash_bf16", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "ln_ffn_bf16": ("herro_ln_ffn_bf16", [_P] * 9 + [_L, _I, _I, _P]),
-    # int8 for float32 or bf16 at the float32 kernels' widths (int8_simt.cuh:
+    # int8 for float32 or bf16 at the widths of fused.INT8_* (int8_simt.cuh:
     # int8 mma.sync); the last int says whether x is bf16
     "ln_qkv_rope_q_simt": ("herro_ln_qkv_rope_q_simt", [_P] * 11 + [_I] * 6 + [_P]),
     "ln_ffn_q_simt": ("herro_ln_ffn_q_simt", [_P] * 12 + [_L, _I, _I, _I, _P]),

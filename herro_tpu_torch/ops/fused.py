@@ -8,7 +8,8 @@ layouts, and comes as a pair:
   the Hopper kernel, TMA and ``wgmma``, at the widths it was built for, and
   elsewhere the bf16 SIMT kernel of ``*_bf16.cu`` (``bf16_kernel_name``);
   float32: the SIMT kernel of ``*_f32.cu``; both SIMT kernels at any head
-  dim in 16-128 and d_model up to 512; anything else raises), checks
+  dim a multiple of 16 in 16-128, d_model up to 1024 and d_ff up to 4096;
+  anything else raises), checks
   devices, shapes and contiguity and raises on anything the kernel does not
   take;
 * a plain PyTorch version ``_<op>_plain``, which computes the same function
@@ -42,7 +43,7 @@ differentiates it. No op has a backward kernel: nor has the reference.
   (``quantize_weight``), int8 x int8 -> int32 products, float32
   dequantization. Each has a Hopper instance (int8 ``wgmma``, bf16 at the
   shipped widths) and a SIMT one (int8 ``mma.sync``, float32 or bf16 at
-  the float32 kernels' widths); ``int8_kernel_name``
+  the widths of ``INT8_*``); ``int8_kernel_name``
   chooses. K11 has two more modes for
   a tensor-parallel shard, whose
   hidden holds d_ff / tp columns of a row that is quantized as a whole:
@@ -75,14 +76,20 @@ from .attention import SIMT_KEY_TILE, _flash_attention_tiled, chunked_attention
 HEAD_DIM = 128
 # the widths of the SIMT kernels, float32 (csrc/*_f32.cu) and bf16
 # (csrc/*_bf16.cu), their head dims in cuda.F32_HEAD_DIMS: TINY_CONFIG (d 32,
-# H 2 x D 16, d_ff 64), a float32 checkpoint, head dim 64, a tensor-parallel
-# shard (any H)
-F32_MAX_D_MODEL = 512  # a multiple of 32
-F32_MAX_D_FF = 2048  # a multiple of 32
+# H 2 x D 16, d_ff 64), a float32 checkpoint, head dims 48-112, a
+# tensor-parallel shard (any H), and any width a herro_tpu config.json asks
+# for up to these (csrc/f32.cuh d_model_ok, d_ff_ok)
+F32_MAX_D_MODEL = 1024  # a multiple of 32
+F32_MAX_D_FF = 4096  # a multiple of 32
 F32_MAX_ROWS = 63  # pileup rows the float32 entry takes (K5's range)
+# the narrower widths of the SIMT int8 kernels (csrc/*_q_simt.cu over
+# int8_simt.cuh: a LayerNorm row in registers up to d 512, K10's rope spans
+# laid out for head dims cuda.POW2_HEAD_DIMS)
+INT8_MAX_D_MODEL = 512  # a multiple of 32
+INT8_MAX_D_FF = 2048  # a multiple of 32
 # the d_model at which the SIMT K1/K8 and K3 take the narrow kernels
-# (csrc/narrow.cuh kWidth: one launch each, no scratch), above it the
-# tensor-core product (csrc/gemm_tc.cuh)
+# (csrc/narrow.cuh kWidth: one launch each, no scratch; K1/K8 at head dims
+# cuda.POW2_HEAD_DIMS), above it the tensor-core product (csrc/gemm_tc.cuh)
 NARROW_D_MODEL = 32
 
 
@@ -90,11 +97,17 @@ def _check_f32_widths(d: int | None, f: int | None = None, D: int | None = None,
                       R: int | None = None, kind: str = "float32",
                       hopper: str | None = None) -> None:
     """The widths the SIMT kernels take, each named in a ValueError before
-    any launch: the float32 ones (``kind``), the bf16 SIMT ones ("bf16
-    SIMT") and the SIMT int8 ones ("int8 SIMT") take the same. ``hopper``
-    (``bf16_kernel_name``) is the d_model the op's bf16 Hopper instance
-    takes ("" where the op reads none): the message then names what both
-    bf16 instances take."""
+    any launch: the float32 ones (``kind``) and the bf16 SIMT ones ("bf16
+    SIMT") take the same; the SIMT int8 ones ("int8 SIMT") narrower
+    (``INT8_*``). ``hopper`` (``bf16_kernel_name``) is the d_model the op's
+    bf16 Hopper instance takes ("" where the op reads none): the message
+    then names what both bf16 instances take."""
+    pow2 = f"{_cuda.POW2_HEAD_DIMS}"
+    if kind == "int8 SIMT":
+        max_d, max_f, head_dims, dims = INT8_MAX_D_MODEL, INT8_MAX_D_FF, _cuda.POW2_HEAD_DIMS, pow2
+    else:
+        max_d, max_f, head_dims = F32_MAX_D_MODEL, F32_MAX_D_FF, _cuda.F32_HEAD_DIMS
+        dims = "a multiple of 16 from 16 to 128"
 
     def need(ok: bool, width: str, simt: str, on_hopper: str, takes: str = "kernels take"):
         if hopper is None:
@@ -106,14 +119,16 @@ def _check_f32_widths(d: int | None, f: int | None = None, D: int | None = None,
     if R is not None:
         need(1 <= R <= F32_MAX_ROWS, f"R {R} pileup rows", f"1 to {F32_MAX_ROWS}", "29 to 32")
     if d is not None:
-        need(d % 32 == 0 and 32 <= d <= F32_MAX_D_MODEL, f"d_model {d}",
-             f"a multiple of 32 up to {F32_MAX_D_MODEL}", hopper)
+        need(d % 32 == 0 and 32 <= d <= max_d, f"d_model {d}",
+             f"a multiple of 32 up to {max_d}", hopper)
     if f is not None:
-        need(f % 32 == 0 and 32 <= f <= F32_MAX_D_FF, f"d_ff {f}",
-             f"a multiple of 32 up to {F32_MAX_D_FF}",
+        need(f % 32 == 0 and 32 <= f <= max_f, f"d_ff {f}",
+             f"a multiple of 32 up to {max_f}",
              f"a multiple of 128 at d_model {FFN_WIDTHS}", takes="kernel takes")
     if D is not None:
-        need(D in _cuda.F32_HEAD_DIMS, f"head dim {D}", f"{_cuda.F32_HEAD_DIMS}", f"{HEAD_DIM}")
+        need(D in head_dims, f"head dim {D}", dims, f"{HEAD_DIM}")
+        if d is not None and d <= NARROW_D_MODEL:  # the narrow K1/K8
+            need(D in _cuda.POW2_HEAD_DIMS, f"head dim {D} at d_model {d}", pow2, f"{HEAD_DIM}")
 
 
 _rope_cache: dict = {}
@@ -132,14 +147,15 @@ def layernorm(x, scale, bias, eps: float = 1e-6):
 
 def rope_tables(L: int, D: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin [L, D/2] float32 at absolute positions 0..L-1 with
-    freq_i = exp(-ln(10000) * i / (D/2)) (``_rope_tables_full``)."""
+    freq_i = exp(-ln(10000) * i / (D/2)) (``_rope_tables_full``). The
+    divisor is a tensor: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which at D/2 not a power of two (D 48-112)
+    moves freq_i by an ulp off the correctly rounded quotient that the CPU
+    and the kernels that build the tables (K8) take."""
     half = D // 2
     pos = torch.arange(L, dtype=torch.float32, device=device)[:, None]
-    freq = torch.exp(
-        -math.log(10000.0)
-        * torch.arange(half, dtype=torch.float32, device=device)[None, :]
-        / half
-    )
+    idx = torch.arange(half, dtype=torch.float32, device=device)[None, :]
+    freq = torch.exp(-math.log(10000.0) * idx / torch.full_like(idx, half))
     ang = pos * freq
     return torch.cos(ang), torch.sin(ang)
 
@@ -206,8 +222,8 @@ def bf16_kernel_name(op: str, d: int | None = None, f: int | None = None,
     """The kernel a bf16 op takes on the card, on its widths alone: the
     Hopper instance (TMA and ``wgmma``) where it was built for them, and
     otherwise the bf16 SIMT instance (``csrc/*_bf16.cu``), at the float32
-    kernels' widths (d_model a multiple of 32 up to 512, d_ff a multiple of
-    32 up to 2048, head dims ``cuda.F32_HEAD_DIMS``, R 1-63); outside those
+    kernels' widths (d_model a multiple of 32 up to 1024, d_ff a multiple of
+    32 up to 4096, head dims ``cuda.F32_HEAD_DIMS``, R 1-63); outside those
     a ValueError that names the width and both ranges, before any launch.
     The reference picks its Pallas kernels by backend and length alone,
     never by width (``herro_tpu/ops/fused.py:43-48``); this is the port's
@@ -891,8 +907,10 @@ def int8_kernel_name(dtype, d: int, f: int | None = None, D: int | None = None) 
     operands, bf16 at its widths; otherwise the SIMT one
     (``ln_qkv_rope_q_simt``, ``ln_ffn_q_simt``: int8 ``mma.sync``) for
     float32 or
-    bf16 at the float32 kernels' widths; outside those a ValueError that
-    names the dtype or the width. The reference picks its int8 kernels by
+    bf16 at d_model up to ``INT8_MAX_D_MODEL``, d_ff up to ``INT8_MAX_D_FF``
+    and head dims ``cuda.POW2_HEAD_DIMS`` (narrower than the float32
+    kernels'); outside those a ValueError that names int8, the dtype or
+    the width and the range, before any launch. The reference picks its int8 kernels by
     backend and length alone (``herro_tpu/ops/fused.py:480-486``,
     ``:797-804``); this is the port's choice of instance, on the arguments
     alone."""

@@ -473,15 +473,16 @@ class _OnCard(torch.Tensor):
 @pytest.mark.parametrize(
     "dtype,D,message",
     [(torch.float32, 128, "not on the card"), (torch.float32, 8, "head dim"),
-     (torch.float16, 128, "bfloat16"), (torch.bfloat16, 96, "head dim"),
-     (torch.bfloat16, 128, "not on the card"), (torch.bfloat16, 32, "not on the card")],
+     (torch.float16, 128, "bfloat16"), (torch.bfloat16, 24, "head dim"),
+     (torch.bfloat16, 128, "not on the card"), (torch.bfloat16, 32, "not on the card"),
+     (torch.bfloat16, 96, "not on the card")],
 )
 def test_attention_auto_never_gives_way_to_plain_on_the_card(dtype, D, message):
     """``auto`` on tensors that say they are CUDA tensors goes to the kernel's
     wrapper (bf16: the Hopper kernel at head dim 128 and the bf16 SIMT one
-    at 16-64, float32: the float32 one), which raises on what no kernel
-    takes (and here, for the shapes they take, on the lengths that are
-    plainly on the CPU); it never runs ``chunked`` there and launches
+    at 16-112, multiples of 16, float32: the float32 one), which raises on
+    what no kernel takes (and here, for the shapes they take, on the
+    lengths that are plainly on the CPU); it never runs ``chunked`` there and launches
     nothing."""
     # copies in torch's own (aligned) memory: the kernels take 32-byte aligned operands
     q, k, v, lengths = (_t(a, dtype).clone() for a in _qkv(53, L=64, lengths=(64, 50), D=D))

@@ -3,9 +3,10 @@ K2/K6/K7/K9 and K3 (``csrc/*_bf16.cu``).
 
 * ``bf16_kernel_name`` keeps each Hopper instance (TMA and ``wgmma``) at
   every bf16 width it was built for, sends TINY_CONFIG in bf16 (d 32, H 2 x
-  D 16, d_ff 64), its tensor-parallel shard, head dims 16, 32 and 64 and R
-  1-63 to the SIMT instances, and names what neither takes (d 544, d 1024,
-  d_ff 4096, D 96, D 256, R 64) in a ValueError.
+  D 16, d_ff 64), its tensor-parallel shard, head dims 16-112 (multiples of
+  16), d up to 1024, d_ff up to 4096 and R 1-63 to the SIMT instances, and
+  names what neither takes (d 1056, d 2048, d_ff 4128, D 24, D 136, D 256,
+  R 64) in a ValueError.
 * Each public op, handed bf16 tensors that say they are on the card, runs
   its wrapper's checks to the launch of the instance ``bf16_kernel_name``
   names (the launch itself recorded, not made); out of range it raises
@@ -157,6 +158,23 @@ SIMT_CASES = [
     ("ln_ffn", dict(d=32, f=32), "ln_ffn_bf16"),
     ("ln_ffn", dict(d=512, f=2016), "ln_ffn_bf16"),
     ("ln_ffn", dict(d=128, f=512), "ln_ffn_bf16"),
+    # the widths up to d 1024, d_ff 4096 and every head dim a multiple of 16
+    ("entry_embed", dict(d=768, R=31), "entry_embed_bf16"),
+    ("entry_embed", dict(d=1024, R=31), "entry_embed_bf16"),
+    ("ln_qkv_rope", dict(d=768, D=96), "ln_qkv_rope_bf16"),
+    ("ln_qkv_rope", dict(d=1024, D=128), "ln_qkv_rope_bf16"),
+    ("ln_qkv_rope", dict(d=512, D=48), "ln_qkv_rope_bf16"),
+    ("ln_qkv_rope", dict(d=640, D=80), "ln_qkv_rope_bf16"),
+    ("ln_qkv_rope", dict(d=896, D=112), "ln_qkv_rope_bf16"),
+    ("flash_outproj", dict(d=768, H=8, D=96, local_window=512), "flash_bf16"),
+    ("flash_outproj", dict(d=1024, H=8, D=128, local_window=40), "flash_bf16"),
+    ("flash_outproj", dict(d=768, H=8, D=96), "flash_bf16_full"),
+    ("flash_attention", dict(D=48), "flash_bf16_attention"),
+    ("flash_attention", dict(D=80), "flash_bf16_attention"),
+    ("flash_attention", dict(D=96), "flash_bf16_attention"),
+    ("flash_attention", dict(D=112), "flash_bf16_attention"),
+    ("ln_ffn", dict(d=768, f=3072), "ln_ffn_bf16"),
+    ("ln_ffn", dict(d=1024, f=4096), "ln_ffn_bf16"),
 ]
 
 
@@ -172,25 +190,25 @@ def test_widths_no_hopper_instance_takes_go_to_the_simt_instance(op, widths, nam
 
 # widths neither instance takes, and the ValueError that names them
 REFUSED = [
-    ("entry_embed", dict(d=544, R=31), r"d_model 544: the bf16 kernels take \(256, 384, 512\) "
-     r"on the Hopper instance and a multiple of 32 up to 512 on the SIMT one"),
-    ("entry_embed", dict(d=1024, R=31), r"d_model 1024"),
+    ("entry_embed", dict(d=1056, R=31), r"d_model 1056: the bf16 kernels take \(256, 384, 512\) "
+     r"on the Hopper instance and a multiple of 32 up to 1024 on the SIMT one"),
+    ("entry_embed", dict(d=2048, R=31), r"d_model 2048"),
     ("entry_embed", dict(d=32, R=64), r"R 64 pileup rows: the bf16 kernels take 29 to 32"),
-    ("ln_qkv_rope", dict(d=544, D=64), r"d_model 544"),
-    ("ln_qkv_rope", dict(d=1024, D=128), r"d_model 1024"),
-    ("ln_qkv_rope", dict(d=384, D=96), r"head dim 96: the bf16 kernels take 128 on the Hopper "
-     r"instance and \(16, 32, 64, 128\) on the SIMT one"),
+    ("ln_qkv_rope", dict(d=1056, D=64), r"d_model 1056"),
+    ("ln_qkv_rope", dict(d=2048, D=128), r"d_model 2048"),
+    ("ln_qkv_rope", dict(d=384, D=24), r"head dim 24: the bf16 kernels take 128 on the Hopper "
+     r"instance and a multiple of 16 from 16 to 128 on the SIMT one"),
     ("ln_qkv_rope", dict(d=512, D=256), r"head dim 256"),
-    ("flash_outproj", dict(d=1024, H=8, D=128), r"d_model 1024"),
-    ("flash_outproj", dict(d=544, H=2, D=16, local_window=40), r"d_model 544"),
-    ("flash_outproj", dict(d=384, H=4, D=96, local_window=512), r"head dim 96"),
+    ("flash_outproj", dict(d=2048, H=8, D=128), r"d_model 2048"),
+    ("flash_outproj", dict(d=1056, H=2, D=16, local_window=40), r"d_model 1056"),
+    ("flash_outproj", dict(d=384, H=4, D=24, local_window=512), r"head dim 24"),
     ("flash_outproj", dict(d=512, H=2, D=256), r"head dim 256"),
-    ("flash_attention", dict(D=96), r"head dim 96"),
+    ("flash_attention", dict(D=136), r"head dim 136"),
     ("flash_attention", dict(D=256), r"head dim 256"),
-    ("ln_ffn", dict(d=544, f=1024), r"d_model 544"),
-    ("ln_ffn", dict(d=1024, f=4096), r"d_model 1024"),
+    ("ln_ffn", dict(d=1056, f=1024), r"d_model 1056"),
+    ("ln_ffn", dict(d=2048, f=4096), r"d_model 2048"),
     # the Hopper K3 takes any multiple of 128 at its widths; d 32 is not one
-    ("ln_ffn", dict(d=32, f=4096), r"d_ff 4096: the bf16 kernels take a multiple of 128"),
+    ("ln_ffn", dict(d=32, f=4128), r"d_ff 4128: the bf16 kernels take a multiple of 128"),
     ("ln_ffn", dict(d=32, f=48), r"d_ff 48"),
 ]
 
@@ -243,7 +261,8 @@ def fake_launches(monkeypatch):
 # r10h64 and its tp 2 shard, r10 (the Hopper instances), d384x5L
 OP_WIDTHS = [("tiny", 32, 2, 16, 64), ("tiny-tp2", 32, 1, 16, 32), ("d64", 64, 2, 32, 128),
              ("r10h64", 512, 8, 64, 1024), ("r10h64-tp2", 512, 4, 64, 512),
-             ("r10", 512, 4, 128, 1024), ("d384", 384, 3, 128, 1280)]
+             ("r10", 512, 4, 128, 1024), ("d384", 384, 3, 128, 1280),
+             ("w768h96", 768, 8, 96, 3072), ("d1024", 1024, 8, 128, 4096)]
 
 
 @pytest.mark.parametrize("op", ["entry_embed", "ln_qkv_rope", "flash_outproj",
@@ -279,14 +298,15 @@ def test_public_ops_reach_the_instance_bf16_kernel_name_names(op, tag, d, H, D, 
         assert out.dtype == BF and out.shape == (64, d)
     assert fake_launches == [want]
     hopper = tag in ("r10", "d384") or (tag.startswith("r10h64")
-                                        and op in ("entry_embed", "ln_ffn"))
+                                        and op in ("entry_embed", "ln_ffn")) \
+        or (tag == "d1024" and op == "attention")  # K9 at D 128, any H
     assert hopper == ("bf16" not in want)
 
 
 # (op, operands out of range, the width named)
 def _refused_case(op, case):
-    d, H, D, f = {"d544": (544, 2, 16, 64), "d1024": (1024, 8, 128, 1024),
-                  "f4096": (32, 2, 16, 4096), "D96": (384, 4, 96, 512),
+    d, H, D, f = {"d1056": (1056, 2, 16, 64), "d2048": (2048, 8, 128, 1024),
+                  "f4128": (32, 2, 16, 4128), "D24": (384, 4, 24, 512),
                   "D256": (512, 2, 256, 512)}[case]
     if op == "entry_embed":
         return fused.entry_embed, _entry(6, d)
@@ -301,16 +321,16 @@ def _refused_case(op, case):
 
 
 REFUSALS = [(op, case) for op, cases in (
-    ("entry_embed", ("d544", "d1024")), ("ln_qkv_rope", ("d544", "d1024", "D96", "D256")),
-    ("flash_outproj", ("d544", "d1024", "D96", "D256")), ("attention", ("D96", "D256")),
-    ("ln_ffn", ("d544", "d1024", "f4096"))) for case in cases]
+    ("entry_embed", ("d1056", "d2048")), ("ln_qkv_rope", ("d1056", "d2048", "D24", "D256")),
+    ("flash_outproj", ("d1056", "d2048", "D24", "D256")), ("attention", ("D24", "D256")),
+    ("ln_ffn", ("d1056", "d2048", "f4128"))) for case in cases]
 
 
 @pytest.mark.parametrize("op,case", REFUSALS)
 def test_public_ops_name_a_width_no_instance_takes_before_any_launch(op, case, fake_launches):
     call, args = _refused_case(op, case)
-    width = {"d544": "d_model 544", "d1024": "d_model 1024", "f4096": "d_ff 4096",
-             "D96": "head dim 96", "D256": "head dim 256"}[case]
+    width = {"d1056": "d_model 1056", "d2048": "d_model 2048", "f4128": "d_ff 4128",
+             "D24": "head dim 24", "D256": "head dim 256"}[case]
     with pytest.raises(ValueError, match=width):
         call(*_on_card(args))
     assert fake_launches == []

@@ -56,8 +56,9 @@ BF16_MAX_SHARE = 2.0 ** -6
 L, LENGTHS = 320, (320, 250, 0)  # five 64-key tiles; a length-0 example
 BAND = 100  # across tiles, inside none
 # (d, H, D): TINY_CONFIG, head dim 32, the flagship at head dim 64 (r10h64),
-# model_r10_sim (r10)
-WIDTHS = {16: (32, 2, 16), 32: (64, 2, 32), 64: (512, 8, 64), 128: (512, 4, 128)}
+# model_r10_sim (r10); head dims 48, 80 and 112, and w768h96 (d 768, H 8 x 96)
+WIDTHS = {16: (32, 2, 16), 32: (64, 2, 32), 64: (512, 8, 64), 128: (512, 4, 128),
+          48: (96, 2, 48), 80: (160, 2, 80), 96: (768, 8, 96), 112: (224, 2, 112)}
 MODES = {"band": BAND, "full": None, "k9": None}
 
 
@@ -90,7 +91,7 @@ def one_product(a, b):
 
 
 def key_tile(dtype, D):
-    return 32 if dtype == torch.float32 and D == 128 else 64
+    return 32 if dtype == torch.float32 and D > 64 else 64
 
 
 def emulate(q, k, v, lengths, window, round_p=False, product=three_products, p_split="tf32"):

@@ -302,16 +302,20 @@ def _refusal_case(op, width):
 @pytest.mark.parametrize(
     "op,width,match",
     [("entry_embed", ("d", 48), r"d_model 48: the float32 kernels take a multiple of 32"),
-     ("entry_embed", ("d", 544), r"d_model 544"),
+     ("entry_embed", ("d", 1056), r"d_model 1056"),
      ("entry_embed", ("R", 64), r"R 64 pileup rows")]
     + [(op, w, m) for op in ("ln_qkv_rope", "ln_qkv_rope_split", "flash_outproj",
                              "flash_outproj_full")
-       for w, m in [((32, 8), r"head dim 8: the float32 kernels take \(16, 32, 64, 128\)"),
+       for w, m in [((32, 8), r"head dim 8: the float32 kernels take a multiple of 16 from "
+                               r"16 to 128"),
                     ((32, 256), r"head dim 256"), ((48, 16), r"d_model 48"),
-                    ((1024, 16), r"d_model 1024")]]
-    + [("flash_attention", 8, r"head dim 8"), ("flash_attention", 96, r"head dim 96")]
-    + [("ln_ffn", (32, 48), r"d_ff 48: the float32 kernel takes a multiple of 32 up to 2048"),
-       ("ln_ffn", (32, 4096), r"d_ff 4096"), ("ln_ffn", (40, 64), r"d_model 40")],
+                    ((1056, 16), r"d_model 1056")]]
+    + [(op, (32, 48), r"head dim 48 at d_model 32: the float32 kernels take "
+                      r"\(16, 32, 64, 128\)") for op in ("ln_qkv_rope", "ln_qkv_rope_split")]
+    + [("flash_attention", 8, r"head dim 8"), ("flash_attention", 24, r"head dim 24"),
+       ("flash_attention", 136, r"head dim 136")]
+    + [("ln_ffn", (32, 48), r"d_ff 48: the float32 kernel takes a multiple of 32 up to 4096"),
+       ("ln_ffn", (32, 4128), r"d_ff 4128"), ("ln_ffn", (40, 64), r"d_model 40")],
 )
 def test_float32_wrappers_name_widths_the_kernels_lack(op, width, match):
     """A float32 operand the float32 kernels do not take raises a ValueError
@@ -326,10 +330,13 @@ def test_float32_wrappers_name_widths_the_kernels_lack(op, width, match):
 
 @pytest.mark.parametrize(
     "op,width",
-    [("entry_embed", ("d", 32)), ("entry_embed", ("R", 1)), ("entry_embed", ("d", 512)),
+    [("entry_embed", ("d", 32)), ("entry_embed", ("R", 1)), ("entry_embed", ("d", 1024)),
      ("ln_qkv_rope", (32, 16)), ("ln_qkv_rope_split", (512, 128)),
+     ("ln_qkv_rope", (768, 96)), ("ln_qkv_rope_split", (1024, 48)),
      ("flash_outproj", (32, 16)), ("flash_outproj_full", (64, 64)),
-     ("flash_attention", 32), ("ln_ffn", (32, 64)), ("ln_ffn", (512, 2048))],
+     ("flash_outproj", (768, 96)), ("flash_outproj_full", (1024, 112)),
+     ("flash_attention", 32), ("flash_attention", 80), ("ln_ffn", (32, 64)),
+     ("ln_ffn", (1024, 4096))],
 )
 def test_float32_wrappers_take_their_widths_and_refuse_the_cpu(op, width):
     """At widths the float32 kernels take, the wrapper chooses the float32

@@ -133,6 +133,11 @@ def test_the_hopper_instances_keep_their_bf16_widths():
      (BF, 512, 4096, None, r"d_ff 4096"), (BF, 256, 16, None, r"d_ff 16"),
      (F32, 32, None, 8, r"head dim 8: the int8 SIMT kernels take \(16, 32, 64, 128\)"),
      (BF, 512, None, 256, r"head dim 256"), (torch.float16, 512, 1024, None, r"float16"),
+     # the widths the float32 and bf16 SIMT kernels take and int8 does not
+     (F32, 768, 3072, None, r"d_model 768: the int8 SIMT kernels take a multiple of 32 up to 512"),
+     (BF, 768, None, 96, r"d_model 768: the int8 SIMT kernels"),
+     (F32, 512, None, 96, r"head dim 96: the int8 SIMT kernels take \(16, 32, 64, 128\)"),
+     (BF, 512, 3072, None, r"d_ff 3072: the int8 SIMT kernel takes a multiple of 32 up to 2048"),
      (torch.float64, 32, None, 16, r"float64")],
 )
 def test_int8_kernel_name_names_what_no_instance_takes(dtype, d, f, D, match):
@@ -214,7 +219,7 @@ def test_simt_wrappers_never_run_on_cpu_tensors(wrapper, dtype, d, D, f):
 
 
 @pytest.mark.parametrize("wrapper", SIMT_WRAPPERS)
-@pytest.mark.parametrize("case", ["d48", "d544", "narrow", "wide", "float16"])
+@pytest.mark.parametrize("case", ["d48", "d544", "narrow", "wide", "float16", "d768", "D96"])
 def test_simt_wrappers_name_what_they_refuse(wrapper, case):
     """Outside their widths or dtypes the SIMT wrappers raise a ValueError
     that names it before they look at the device, and launch nothing."""
@@ -225,6 +230,10 @@ def test_simt_wrappers_name_what_they_refuse(wrapper, case):
         "narrow": (32, 8, 16, r"head dim 8" if qkv else r"d_ff 16"),
         "wide": (32, 256, 4096, r"head dim 256" if qkv else r"d_ff 4096"),
         "float16": (32, 16, 64, r"float16"),
+        # taken by the float32 kernels, not by int8
+        "d768": (768, 96, 3072, r"d_model 768: the int8 SIMT kernels"),
+        "D96": (512, 96, 3072, r"head dim 96: the int8 SIMT kernels" if qkv
+                else r"d_ff 3072: the int8 SIMT kernel"),
     }[case]
     args = _op_args(wrapper, F32, d, D, f, seed=6)
     if case == "float16":

@@ -14,11 +14,15 @@ Writes, beside this script:
   checkpoint above on them;
 * ``golden_r10_f32.npz`` — herro_tpu's ``info`` and ``logits`` of
   ``resources/model_r10_sim`` with ``dtype="float32"`` on the inputs of
-  ``tests/golden/logits_r10.npz``.
+  ``tests/golden/logits_r10.npz``;
+* ``golden_r10deep_f32.npz`` — the same of ``resources/model_r10_deep_sim``
+  (d 256, 8 layers, H 2 x 128), which no other golden holds: the card's bf16
+  forward through the Hopper instances is held to its classes.
 
 ``chip_smoke.py`` holds the port's float32 forwards on the card against
-these; ``tests/test_torch_float32.py`` rebuilds both with the JAX package and
-compares them with the files, so that they cannot go stale.
+these; ``tests/test_torch_float32.py`` (``tests/test_torch_checkpoints.py``
+for r10deep) rebuilds them with the JAX package and compares them with the
+files, so that they cannot go stale.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ TINY_CKPT = os.path.join(HERE, "tiny_seed5")
 TINY_GOLDEN = os.path.join(HERE, "golden_tiny_f32.npz")
 R10_GOLDEN = os.path.join(HERE, "golden_r10_f32.npz")
 R10_CKPT = os.path.join(ROOT, "resources", "model_r10_sim")
+R10DEEP_GOLDEN = os.path.join(HERE, "golden_r10deep_f32.npz")
+R10DEEP_CKPT = os.path.join(ROOT, "resources", "model_r10_deep_sim")
 R10_INPUTS = os.path.join(ROOT, "tests", "golden", "logits_r10.npz")
 B, L, S = 4, 1024, 128
 SEED = 5
@@ -102,13 +108,20 @@ def build_tiny() -> dict:
     return fx | jax_forward(jcfg, params, model_inputs(fx))
 
 
-def build_r10() -> dict:
-    """herro_tpu's forward of model_r10_sim in float32 on the golden inputs."""
+def build_r10(ckpt: str = R10_CKPT) -> dict:
+    """herro_tpu's forward of model_r10_sim (or ``ckpt``) in float32 on the
+    golden inputs."""
     from herro_tpu.models.checkpoint import load_model
 
-    jcfg, params = load_model(R10_CKPT)
+    jcfg, params = load_model(ckpt)
     jcfg = dataclasses.replace(jcfg, dtype="float32")
     return jax_forward(jcfg, params, model_inputs(np.load(R10_INPUTS)))
+
+
+def build_r10deep() -> dict:
+    """herro_tpu's forward of model_r10_deep_sim in float32 on the golden
+    inputs."""
+    return build_r10(R10DEEP_CKPT)
 
 
 def write_tiny_checkpoint(path: str = TINY_CKPT) -> None:
@@ -127,7 +140,8 @@ def main() -> None:
     write_tiny_checkpoint()
     np.savez_compressed(TINY_GOLDEN, **build_tiny())
     np.savez_compressed(R10_GOLDEN, **build_r10())
-    for path in (TINY_GOLDEN, R10_GOLDEN):
+    np.savez_compressed(R10DEEP_GOLDEN, **build_r10deep())
+    for path in (TINY_GOLDEN, R10_GOLDEN, R10DEEP_GOLDEN):
         print(path, os.path.getsize(path), "bytes")
 
 

@@ -7,7 +7,9 @@
     python3 tools/micro_kernels_torch.py --spread 0 --against chip_checkout/parent
     python3 tools/micro_kernels_torch.py --spread 0 --against chip_checkout/parent --sass
 
-Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
+Compiles every ``herro_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` (all
+at once, as the first kernel call builds them; each source's nvcc seconds from
+that common start, on a line of their own) and
 prints each entry function's (mangled) name, registers, spills and ptxas's
 performance advisories (C75xx, such as serialised ``wgmma``; ``--against`` another checkout's
 too, source by source, equal or not; with ``--sass`` each entry function's
@@ -37,33 +39,51 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
-def registers(kernels, csrc: str, names, sass: dict | None = None) -> dict[str, str]:
+def registers(kernels, csrc: str, names, sass: dict | None = None,
+              seconds: dict | None = None) -> dict[str, str]:
     """Each source's registers, spills and ptxas's advisories, one line a
-    source of ``csrc`` (``<name>.cu``), every nvcc started at once; with
-    ``sass`` (a dict) each source's functions' SASS into it (:func:`functions`)."""
+    source of ``csrc`` (``<name>.cu``), every nvcc started at once, as the
+    first kernel call builds them; with ``sass`` (a dict) each source's
+    functions' SASS into it (:func:`functions`); with ``seconds`` (a dict)
+    each source's nvcc wall seconds, from the common start to its exit."""
     nvcc = kernels._nvcc()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
+        procs, done = {}, {}
+        t0 = time.perf_counter()
         for name in names:
             procs[name] = subprocess.Popen(
                 [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                  os.path.join(tmp, f"{name}.so"), os.path.join(csrc, f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
+
+        def wait(name):  # each nvcc's output and the moment it exits
+            done[name] = procs[name].communicate()[1], time.perf_counter() - t0
+
+        threads = [threading.Thread(target=wait, args=(n,)) for n in procs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
         for name, proc in procs.items():
-            _, err = proc.communicate()
+            err, took = done[name]
+            if seconds is not None:
+                seconds[name] = took
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{err[-4000:]}")
             # each entry function's (mangled) name, its registers and spills,
@@ -135,14 +155,18 @@ def print_registers(kernels, against: str | None = None, sass: bool = False) -> 
     checkout's root) that tree's line for each of its sources too, and
     whether the two are equal (and with ``sass`` each function's SASS)."""
     my_sass, their_sass = ({}, {}) if sass and against else (None, None)
-    mine = registers(kernels, kernels.CSRC, kernels.KERNELS, my_sass)
+    my_s, their_s = {}, {}
+    mine = registers(kernels, kernels.CSRC, kernels.KERNELS, my_sass, my_s)
     for name, line in mine.items():
         print(name, line, flush=True)
+    print("nvcc seconds:", json.dumps({n: round(t, 1) for n, t in my_s.items()}), flush=True)
     if against is None:
         return
     csrc = os.path.join(against, "herro_tpu_torch", "csrc")
     theirs = registers(kernels, csrc, sorted(
-        f[:-3] for f in os.listdir(csrc) if f.endswith(".cu")), their_sass)
+        f[:-3] for f in os.listdir(csrc) if f.endswith(".cu")), their_sass, their_s)
+    print(f"{against}: nvcc seconds:", json.dumps({n: round(t, 1) for n, t in their_s.items()}),
+          flush=True)
     for name, line in theirs.items():
         print(f"{against}: {name} {line}", flush=True)
         print(f"{name}: {'equal' if mine.get(name) == line else 'DIFFERS'}", flush=True)
